@@ -4,7 +4,8 @@ Every ray is tested against every triangle's Baldwin-Weber rows
 (scene/geometry.py). The work is done by the dense kernels of
 ops/dense_trace.py (hand-written CUDA on the card, their plain versions on
 the CPU); this module only shapes the calls. Scenes above the dense tier's
-1024 triangles need the walk tier, which is not ported yet.
+1024 triangles carry walk tables (`geom.walk`), and their rays go to the
+tile walk of accel/walk.py instead.
 """
 from __future__ import annotations
 
@@ -33,6 +34,9 @@ def intersect_rays(geom, o, d, tnear=None, tfar=None) -> RayHit:
     if tfar is None:
         tfar = torch.full((n,), float("inf"), dtype=torch.float32,
                           device=o.device)
+    if getattr(geom, "walk", None) is not None:
+        from .walk import _walk_impl
+        return _walk_impl(geom.walk, o, d, tnear, tfar, False)
     t, idx, u, v = dense_closest(geom.inter_rows, o.contiguous(),
                                  d.contiguous(), tnear, tfar)
     return RayHit(t=t, tri=idx, u=u, v=v, hit=torch.isfinite(t))
@@ -40,6 +44,9 @@ def intersect_rays(geom, o, d, tnear=None, tfar=None) -> RayHit:
 
 def occluded_rays(geom, o, d, tnear, tfar):
     """Any-hit (shadow ray) test; True = blocked."""
+    if getattr(geom, "walk", None) is not None:
+        from .walk import _walk_impl
+        return _walk_impl(geom.walk, o, d, tnear, tfar, True)
     return dense_anyhit(geom.inter_rows, o.contiguous(), d.contiguous(),
                         tnear, tfar)
 
@@ -49,7 +56,8 @@ def visible(geom, p0, p1, mask=None):
     (tnear = EPSILON, tfar slightly short of the target).
 
     mask [n] bool (optional): lanes whose result the caller will not use get
-    tfar = 0, an inert ray that cannot hit anything (the kernel skips it).
+    tfar = 0, an inert ray that cannot hit anything (the kernel skips it,
+    and on the walk it widens no tile's cluster union).
     Masked lanes return True (unoccluded); callers gate on their own mask."""
     delta = p1 - p0
     dist = length(delta)

@@ -1,0 +1,327 @@
+"""Tile-walk intersector for large scenes; port of the host and XLA side of
+rustlight_tpu/accel/pallas_walk.py.
+
+Host build: the SAH BVH's preorder primitive array is cut into treelets of
+at most K = 384 triangles (`_treelet_cut`), neighbours are re-packed greedily
+up to K per cluster, and each cluster gets the tight bounds of its
+triangles (`build_walk_tables`). The port keeps one table layout for every
+cluster count: rows [Cp*K, 3, 4] f32 (cluster-major, each triangle as the
+dense kernels' rows), ids [Cp*K] int32 (-1 in pad slots), bounds lo/hi
+[3, Cp] f32, with Cp the real count padded to a multiple of 128.
+`walk_tables_from_numpy` turns the JAX package's tables (its resident or
+its HBM layout) into this one.
+
+Per wavefront (`_walk_impl`): NaN and negative ranges are sanitized, the
+rays are sorted stably by a coherence key, padded to whole RAY_TILE-ray
+tiles, walked by the kernels of ops/walk_trace.py (CUDA on the card, their
+plain versions on the CPU), and put back in lane order. The key is chosen
+per wavefront as the reference does: the incidence key for spread-origin
+wavefronts, the morton key for point-origin ones; in eager torch that
+choice costs one host read per call.
+
+Scenes past 2^14 clusters need the two-level walk (K5), which is not
+ported yet, and raise.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from .. import EPSILON
+from ..ops.walk_trace import (K, RAY_TILE, _ID_BITS, _slab_inv, walk_anyhit,
+                              walk_closest)
+from .bvh import build_bvh
+from .dense import RayHit
+
+_BIG = 1e30                        # bounds of pad clusters: distant points
+MAX_CLUSTERS = 1 << _ID_BITS       # packed entries carry the cluster id
+
+
+class WalkTables(NamedTuple):
+    n_tris: int
+    n_clusters: int   # Cp: the real clusters padded to a multiple of 128
+    n_real: int       # real clusters (treelets), the first n_real of Cp
+    rows: Any         # [Cp*K, 3, 4] f32 Baldwin-Weber rows, cluster-major
+    ids: Any          # [Cp*K] int32 triangle ids, -1 in pad slots
+    lo: Any           # [3, Cp] f32 cluster bounds (pads: _BIG)
+    hi: Any           # [3, Cp] f32
+    world_lo: Any     # [3] f32 scene bounds (the morton grid of the sort key)
+    world_hi: Any     # [3] f32
+
+
+def _check_clusters(cp: int) -> None:
+    if cp > MAX_CLUSTERS:
+        raise NotImplementedError(
+            f"{cp} walk clusters exceed the packed-id budget of "
+            f"{MAX_CLUSTERS}: such scenes need the two-level walk (K5, "
+            "rustlight_tpu/accel/pallas_walk.py:_closest_kernel_hbm_hier), "
+            "which is not ported yet")
+
+
+def _treelet_cut(nodes: np.ndarray, max_tris: int):
+    """Cut the skip-link preorder BVH into maximal subtrees of <= max_tris
+    primitives. Returns [(prim_start, prim_count)] segments in preorder,
+    which tile the preorder primitive array contiguously."""
+    ints = nodes[:, 6:9].copy().view(np.int32)
+    skip, start, cnt = ints[:, 0], ints[:, 1], ints[:, 2]
+    m = nodes.shape[0]
+    sub_cnt = np.zeros(m, np.int64)
+    sub_start = np.zeros(m, np.int64)
+    for i in range(m - 1, -1, -1):
+        if cnt[i] > 0:                                   # leaf
+            sub_cnt[i] = cnt[i]
+            sub_start[i] = start[i]
+        else:                                            # left = i + 1,
+            l = i + 1                                    # right = skip(left)
+            r = skip[l]
+            sub_cnt[i] = sub_cnt[l] + sub_cnt[r]
+            sub_start[i] = sub_start[l]
+    out = []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        if cnt[i] > 0 or sub_cnt[i] <= max_tris:
+            out.append((int(sub_start[i]), int(sub_cnt[i])))
+        else:
+            l = i + 1
+            stack.append(skip[l])                        # right after left
+            stack.append(l)
+    return out
+
+
+def build_walk_tables(geom) -> WalkTables:
+    """Host build over numpy geometry tables: the treelets of a binned SAH
+    BVH (max_leaf = 8) greedily re-packed up to K per cluster, with tight
+    per-cluster bounds."""
+    bvh = build_bvh(geom, max_leaf=8)
+    order = np.asarray(bvh.prim_index)                   # SAH preorder
+    t = order.shape[0]
+    nodes = np.stack([bvh.bbox_lo, bvh.bbox_hi], axis=1).reshape(-1, 6)
+    ints = np.stack([bvh.skip, bvh.prim_start, bvh.prim_count], axis=1)
+    nodes = np.concatenate([nodes.astype(np.float32),
+                            ints.astype(np.int32).view(np.float32)], axis=1)
+    segs = _treelet_cut(nodes, K)
+    all_rows = np.asarray(geom.inter_rows[: geom.n_tris])[order]
+    v0 = np.asarray(geom.v0[: geom.n_tris])[order]
+    p1 = v0 + np.asarray(geom.e1[: geom.n_tris])[order]
+    p2 = v0 + np.asarray(geom.e2[: geom.n_tris])[order]
+    tri_lo = np.minimum(np.minimum(v0, p1), p2)          # [T, 3]
+    tri_hi = np.maximum(np.maximum(v0, p1), p2)
+    # greedy consecutive re-pack: segments tile the prim array in order, so
+    # merged neighbours keep their ranges contiguous
+    cuts = []
+    cs, cn = segs[0]
+    for s, n in segs[1:]:
+        if cn + n <= K:
+            cn += n
+        else:
+            cuts.append((cs, cn))
+            cs, cn = s, n
+    cuts.append((cs, cn))
+
+    c = len(cuts)
+    cp = ((c + 127) // 128) * 128
+    _check_clusters(cp)
+    starts = np.fromiter((s for s, _ in cuts), np.int64, c)
+    counts = np.fromiter((n for _, n in cuts), np.int64, c)
+    cluster_of = np.repeat(np.arange(c, dtype=np.int64), counts)
+    dest = cluster_of * K + (np.arange(t, dtype=np.int64)
+                             - np.repeat(starts, counts))
+    rows = np.zeros((cp * K, 3, 4), np.float32)
+    rows[dest] = all_rows
+    ids = np.full(cp * K, -1, np.int32)
+    ids[dest] = order
+    lo = np.full((3, cp), _BIG, np.float32)
+    hi = np.full((3, cp), _BIG, np.float32)
+    lo[:, :c] = np.minimum.reduceat(tri_lo, starts, axis=0).T
+    hi[:, :c] = np.maximum.reduceat(tri_hi, starts, axis=0).T
+    return WalkTables(n_tris=t, n_clusters=cp, n_real=c, rows=rows, ids=ids,
+                      lo=lo, hi=hi,
+                      world_lo=tri_lo.min(0).astype(np.float32),
+                      world_hi=tri_hi.max(0).astype(np.float32))
+
+
+def walk_tables_from_numpy(wt) -> WalkTables:
+    """This package's numpy WalkTables from the JAX package's (read by
+    attribute): its resident layout, rows [4, C, 3K] + ids [C, K], or its
+    HBM layout, rows [C, 8, 3K] with the ids bitcast into component row 4.
+    This package's own tables pass through."""
+    if isinstance(wt, WalkTables):
+        return wt
+    cp = int(wt.n_clusters)
+    _check_clusters(cp)
+    if wt.resident:
+        packed = np.asarray(wt.rows)                     # [4, C, 3K]
+        ids = np.asarray(wt.ids, np.int32).reshape(-1)
+    else:
+        blk = np.asarray(wt.rows)                        # [C, 8, 3K]
+        packed = blk[:, 0:4, :].transpose(1, 0, 2)
+        ids = np.ascontiguousarray(blk[:, 4, :K]).view(np.int32).reshape(-1)
+    # packed[j, c, b*K + k] is component j of row b of triangle k of c
+    rows = packed.reshape(4, cp, 3, K).transpose(1, 3, 2, 0)
+    rows = np.ascontiguousarray(rows.reshape(cp * K, 3, 4), np.float32)
+    return WalkTables(
+        n_tris=int(wt.n_tris), n_clusters=cp, n_real=int(wt.n_real),
+        rows=rows, ids=ids,
+        lo=np.asarray(wt.lo, np.float32), hi=np.asarray(wt.hi, np.float32),
+        world_lo=np.asarray(wt.world_lo, np.float32),
+        world_hi=np.asarray(wt.world_hi, np.float32))
+
+
+def walk_tables_to(wt, device) -> WalkTables:
+    """Upload numpy walk tables (this package's or the JAX package's)."""
+    wt = walk_tables_from_numpy(wt)
+    arrays = {f: torch.as_tensor(np.ascontiguousarray(getattr(wt, f)),
+                                 device=device)
+              for f in ("rows", "ids", "lo", "hi", "world_lo", "world_hi")}
+    return WalkTables(n_tris=int(wt.n_tris), n_clusters=int(wt.n_clusters),
+                      n_real=int(wt.n_real), **arrays)
+
+
+# ------------------------------------------------------------- coherence keys
+
+def _octant(d):
+    return ((d[:, 0] > 0).int() * 4 + (d[:, 1] > 0).int() * 2
+            + (d[:, 2] > 0).int())
+
+
+def _morton(q, bits: int):
+    """Interleave the low `bits` bits of q [n, 3] int32, x lowest."""
+    m = torch.zeros_like(q[:, 0])
+    for b in range(bits):
+        for ax in range(3):
+            m = m | (((q[:, ax] >> b) & 1) << (3 * b + ax))
+    return m
+
+
+def _quantize(x, cells: int):
+    """Truncate x [n, 3] to a cell index in [0, cells - 1]."""
+    return torch.clamp(x, 0.0, cells - 1.0).int()
+
+
+def _sort_key(wt, o, d):
+    """Morton coherence key as a (major, minor) int32 pair: major = direction
+    octant | 5-bit/axis origin morton, minor = 5-bit/axis |d| morton."""
+    ext = torch.clamp(wt.world_hi - wt.world_lo, min=1e-9)
+    m = _morton(_quantize((o - wt.world_lo) / ext * 32.0, 32), 5)
+    dm = _morton(_quantize(torch.abs(d) * 32.0, 32), 5)
+    return (_octant(d) << 15) | m, dm
+
+
+def _incidence_key(wt, o, d, tnear, tfar):
+    """Incidence coherence key as a (major, minor) int32 pair: a slab pass
+    gives each ray its overlapped real clusters; major = direction octant |
+    6-bit/axis morton of the centroid of their centres, minor = their count
+    (capped at 63). Rays are chunked so the [chunk, C] slab stays near
+    64 MB."""
+    c = int(wt.n_real)
+    lo, hi = wt.lo[:, :c], wt.hi[:, :c]
+    ctr = 0.5 * (lo + hi)                                # [3, C]
+    wlo = lo.amin(dim=1)
+    span = torch.clamp(hi.amax(dim=1) - wlo, min=1e-9)
+    n = o.shape[0]
+    chunk = max(512, min(65536, (1 << 26) // max(4 * c, 1)))
+    cms, cnts = [], []
+    for s in range(0, n, chunk):
+        o_c, tn_c, tf_c = o[s:s + chunk], tnear[s:s + chunk], tfar[s:s + chunk]
+        inv = _slab_inv(d[s:s + chunk])
+        tmin = tmax = None
+        for ax in range(3):
+            t0 = (lo[ax] - o_c[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+            t1 = (hi[ax] - o_c[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+            lo_t, hi_t = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            tmin = lo_t if tmin is None else torch.maximum(tmin, lo_t)
+            tmax = hi_t if tmax is None else torch.minimum(tmax, hi_t)
+        ov = ((tmax >= torch.maximum(tmin, torch.clamp(tn_c, min=0.0)[:, None]))
+              & (tmin <= tf_c[:, None]) & (tf_c > 0.0)[:, None])
+        ovf = ov.float()
+        cnt = ovf.sum(dim=1)
+        cen = (ovf @ ctr.T) / torch.clamp(cnt, min=1.0)[:, None]
+        cms.append(_morton(_quantize((cen - wlo) / span * 64.0, 64), 6))
+        cnts.append(torch.clamp(cnt, max=63.0).int())
+    return (_octant(d) << 18) | torch.cat(cms), torch.cat(cnts)
+
+
+# ----------------------------------------------------------------- the walk
+
+def _prepare(wt, o, d, tnear, tfar, sort_rays: bool = True):
+    """Sanitize, coherence-sort and pad a wavefront for the walk kernels.
+
+    Returns (o, d, tnear, tfar, order): contiguous [n_pad] rays in the
+    order the kernels take them, and the lane of each sorted ray (None when
+    unsorted)."""
+    n = o.shape[0]
+    # dead lanes can carry NaN rays or ranges: NaN/negative tfar -> 0 (an
+    # inert ray), NaN tnear -> +inf
+    tfar = torch.where(tfar > 0.0, tfar, 0.0)
+    tnear = torch.where(tnear >= 0.0, tnear, float("inf"))
+    order = None
+    if sort_rays and n >= 2 * RAY_TILE:
+        o_safe = torch.where(torch.isfinite(o), o, 0.0)
+        d_safe = torch.where(torch.isfinite(d), d, 0.0)
+        live = tfar > 0.0
+        # dead lanes take the first live origin (lane 0 may be inert)
+        ref_o = o_safe[torch.argmax(live.int())]
+        o_live = torch.where(live[:, None], o_safe, ref_o)
+        spread = torch.amax(o_live.amax(dim=0) - o_live.amin(dim=0))
+        ext = torch.amax(wt.world_hi - wt.world_lo)
+        # point-origin wavefronts (camera rays) take the morton key
+        if bool(spread > 1e-5 * ext):
+            kmaj, kmin = _incidence_key(wt, o_safe, d_safe, tnear, tfar)
+        else:
+            kmaj, kmin = _sort_key(wt, o_safe, d_safe)
+        key = (kmaj.long() << 32) | kmin.long()
+        order = torch.sort(key, stable=True).indices
+        o, d, tnear, tfar = o[order], d[order], tnear[order], tfar[order]
+    pad = (-n) % RAY_TILE
+    if pad:
+        dev = o.device
+        o = torch.cat([o, torch.zeros((pad, 3), device=dev)])
+        d = torch.cat([d, torch.ones((pad, 3), device=dev)])
+        tnear = torch.cat([tnear, torch.full((pad,), float("inf"), device=dev)])
+        tfar = torch.cat([tfar, torch.zeros(pad, device=dev)])
+    return (o.contiguous(), d.contiguous(), tnear.contiguous(),
+            tfar.contiguous(), order)
+
+
+def _unsort(x, order, n):
+    x = x[:n]
+    if order is None:
+        return x
+    out = torch.empty_like(x)
+    out[order] = x
+    return out
+
+
+def _walk_impl(wt, o, d, tnear, tfar, any_hit: bool, sort_rays: bool = True):
+    """Closest hit (RayHit) or occlusion ([n] bool) of a wavefront over
+    device walk tables."""
+    n = o.shape[0]
+    o, d, tnear, tfar, order = _prepare(wt, o, d, tnear, tfar, sort_rays)
+    if any_hit:
+        return _unsort(walk_anyhit(wt, o, d, tnear, tfar), order, n)
+    t, tri, u, v = (_unsort(x, order, n)
+                    for x in walk_closest(wt, o, d, tnear, tfar))
+    return RayHit(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
+
+
+def _default_range(o, tnear, tfar):
+    n = o.shape[0]
+    if tnear is None:
+        tnear = torch.full((n,), EPSILON, dtype=torch.float32, device=o.device)
+    if tfar is None:
+        tfar = torch.full((n,), float("inf"), dtype=torch.float32,
+                          device=o.device)
+    return tnear, tfar
+
+
+def intersect_walk(wt, o, d, tnear=None, tfar=None) -> RayHit:
+    """Closest hit of rays (o, d) [n, 3] over device walk tables."""
+    return _walk_impl(wt, o, d, *_default_range(o, tnear, tfar), False)
+
+
+def occluded_walk(wt, o, d, tnear=None, tfar=None):
+    """Any hit of rays (o, d) over device walk tables; True = blocked."""
+    return _walk_impl(wt, o, d, *_default_range(o, tnear, tfar), True)

@@ -4,13 +4,10 @@
 // (closest hit) and :_anyhit_kernel (any hit), and their XLA form
 // rustlight_tpu/accel/dense.py:_intersect_impl.
 //
-// Each triangle is three Baldwin-Weber rows [N4 | U4 | V4] (rows [T, 3, 4]
-// f32, 48 bytes a triangle). For a ray (o, d) with o4 = [o, 1], d4 = [d, 0]:
-//   No = o4.N, Nd = d4.N, t = -No / Nd, u = o4.U + t * d4.U, v likewise;
-// the hit is valid when |Nd| > 1e-20, tnear < t < tfar, u >= 0, v >= 0 and
-// u + v <= 1. Closest hit keeps the smallest t, the lowest index on a tie
-// (strict less over ascending triangles), and reports t = inf, idx = -1 on
-// a miss. Any hit stops at the first valid triangle.
+// The ray-triangle test (tri_test.cuh) is the one the walk kernels use.
+// Closest hit keeps the smallest t, the lowest index on a tie (strict less
+// over ascending triangles), and reports t = inf, idx = -1 on a miss. Any
+// hit stops at the first valid triangle.
 //
 // Design: one thread per ray; the block stages the rows in shared memory,
 // TRI_CHUNK triangles at a time, and every thread loops over them in order.
@@ -21,59 +18,22 @@
 // (tfar = 0) the integrator hands in for dead paths, cannot hit and skip
 // the loop; a block whose rays are all inert skips the staging too.
 //
-// Arithmetic mirrors the reference's _dot4 order exactly,
-// ((x0*r0 + x1*r1) + x2*r2) + x3*r3, with __fmul_rn/__fadd_rn so that no
-// FMA contraction happens, and IEEE division: the results are bit-identical
-// to the plain PyTorch version in rustlight_tpu_torch/ops/dense_trace.py.
-//
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "tri_test.cuh"
+
 namespace {
+
+using rl::Ray;
+using rl::load_ray;
+using rl::test_tri;
 
 constexpr int BLOCK = 256;
 constexpr int TRI_CHUNK = 512;  // 512 * 48 B = 24 KB of shared memory
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, tnear, tfar;
-};
-
-__device__ __forceinline__ float dot4_o(const float4 r, const Ray& ray) {
-  float s = __fadd_rn(__fmul_rn(ray.ox, r.x), __fmul_rn(ray.oy, r.y));
-  s = __fadd_rn(s, __fmul_rn(ray.oz, r.z));
-  return __fadd_rn(s, __fmul_rn(1.0f, r.w));
-}
-
-__device__ __forceinline__ float dot4_d(const float4 r, const Ray& ray) {
-  float s = __fadd_rn(__fmul_rn(ray.dx, r.x), __fmul_rn(ray.dy, r.y));
-  s = __fadd_rn(s, __fmul_rn(ray.dz, r.z));
-  return __fadd_rn(s, __fmul_rn(0.0f, r.w));
-}
-
-// The Baldwin-Weber test of one triangle; returns whether it is a valid hit.
-__device__ __forceinline__ bool test_tri(const float4* rows, const Ray& ray,
-                                         float& t, float& u, float& v) {
-  const float nd = dot4_d(rows[0], ray);
-  if (!(fabsf(nd) > 1e-20f)) return false;
-  t = __fdiv_rn(-dot4_o(rows[0], ray), nd);
-  if (!(t > ray.tnear && t < ray.tfar)) return false;
-  u = __fadd_rn(dot4_o(rows[1], ray), __fmul_rn(t, dot4_d(rows[1], ray)));
-  v = __fadd_rn(dot4_o(rows[2], ray), __fmul_rn(t, dot4_d(rows[2], ray)));
-  return u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f;
-}
-
-__device__ __forceinline__ Ray load_ray(int i, const float* o, const float* d,
-                                        const float* tnear, const float* tfar) {
-  Ray r;
-  r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
-  r.dx = d[3 * i]; r.dy = d[3 * i + 1]; r.dz = d[3 * i + 2];
-  r.tnear = tnear[i];
-  r.tfar = tfar[i];
-  return r;
-}
 
 __global__ void __launch_bounds__(BLOCK)
 dense_closest_kernel(const float4* __restrict__ rows, int n_tris,
@@ -102,7 +62,7 @@ dense_closest_kernel(const float4* __restrict__ rows, int n_tris,
       if (!live) continue;
       for (int j = 0; j < cnt; ++j) {
         float t, u, v;
-        if (test_tri(&s_rows[3 * j], ray, t, u, v) && t < best_t) {
+        if (test_tri(&s_rows[3 * j], ray, ray.tfar, t, u, v) && t < best_t) {
           best_t = t;
           best_i = base + j;
           best_u = u;
@@ -145,7 +105,7 @@ dense_anyhit_kernel(const float4* __restrict__ rows, int n_tris,
     if (live && !occ) {
       for (int j = 0; j < cnt; ++j) {
         float t, u, v;
-        if (test_tri(&s_rows[3 * j], ray, t, u, v)) {
+        if (test_tri(&s_rows[3 * j], ray, ray.tfar, t, u, v)) {
           occ = true;
           break;
         }

@@ -77,10 +77,19 @@ class IntegratorPathTracing:
         self.strategy = strategy
         self.single_scattering = single_scattering
         # visibility-history NEE Russian roulette: "default" is the
-        # reference's tier-aware choice, off on the dense tier (the only
-        # tier ported so far); a float sets the survival probability
-        self.nee_rr = None if nee_rr == "default" else nee_rr
+        # reference's tier-aware choice, resolved per scene (_nee_rr_for);
+        # a float sets the survival probability, None turns it off
+        self.nee_rr = nee_rr
         self.hard_cap = hard_cap if max_depth is None else min(hard_cap, max_depth)
+
+    def _nee_rr_for(self, scene):
+        """Effective NEE-RR survival probability for this scene (None =
+        off): by default 0.25 on walk scenes, where the skipped shadow rays
+        vacate walk tiles, and off on the dense tier, which traces every
+        lane regardless."""
+        if self.nee_rr == "default":
+            return 0.25 if scene.geom.walk is not None else None
+        return self.nee_rr
 
     def compute_block(self, scene, pix, stream, spp: int):
         """All `spp` samples of every pixel in one persistent wavefront.
@@ -101,17 +110,18 @@ class IntegratorPathTracing:
             prev_occ=torch.zeros(n, dtype=torch.bool, device=dev),
         )
         pixf = pix.to(torch.float32)
+        nee_rr = self._nee_rr_for(scene)
         it_cap = spp * self.hard_cap + 4
         it = 0
         while it < it_cap:
             if not bool(torch.any(s.alive | (s.done < spp))):
                 break
             for _ in range(min(CHECK_EVERY, it_cap - it)):
-                s = self._step(scene, pixf, s, spp)
+                s = self._step(scene, pixf, s, spp, nee_rr)
             it += min(CHECK_EVERY, it_cap - it)
         return s.accum
 
-    def _step(self, scene, pixf, s: _PersistentState, spp: int):
+    def _step(self, scene, pixf, s: _PersistentState, spp: int, nee_rr):
         n = pixf.shape[0]
         use_nee = self.strategy in (STRATEGY_ALL, STRATEGY_EMITTER)
         mis_on = self.strategy == STRATEGY_ALL
@@ -173,9 +183,9 @@ class IntegratorPathTracing:
             pre_ok = (can_expand & (~smooth) & ls.valid
                       & ((depth + 1) >= self.min_depth))
             nee_scale = None
-            if self.nee_rr is not None:
+            if nee_rr is not None:
                 u_nrr, stream = stream_next(stream, (n,))
-                p_keep = torch.where(prev_occ, float(self.nee_rr), 1.0)
+                p_keep = torch.where(prev_occ, float(nee_rr), 1.0)
                 pre_ok = pre_ok & (u_nrr < p_keep)
                 nee_scale = (1.0 / p_keep)[:, None]
             # lanes that cannot contribute shoot an inert (tfar = 0) ray

@@ -1,41 +1,30 @@
-"""Dense closest-hit and any-hit ray-triangle kernels: wrappers, build and
-plain PyTorch versions.
+"""Dense closest-hit and any-hit ray-triangle kernels: wrappers and plain
+PyTorch versions.
 
 The CUDA kernels (csrc/dense_trace.cu) replace the TPU kernels
 rustlight_tpu/ops/pallas_trace.py:_trace_kernel and :_anyhit_kernel. They are
-compiled with nvcc for sm_90a into a shared library with a plain C interface
-at first use (build/kernels/ under the checkout, keyed by the source's hash)
-and called through ctypes on PyTorch's current stream.
+built by ops/native.py (nvcc for sm_90a, at first use) and called through
+ctypes on PyTorch's current stream.
 
 `dense_closest_ref`/`dense_anyhit_ref` do the same arithmetic on [rays, T]
 tensors, chunked over rays. The wrappers use them only for tensors on the
 CPU; a CUDA tensor launches the kernel or raises.
 
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
-`counting_rays()` sums, on the device, the lanes handed to either kernel with
-tfar > 0 (the rays actually traced).
+adds the lanes it was handed with tfar > 0 to `counting_rays()`.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import List, Tuple
+from typing import Tuple
 
 import torch
 
+from .native import count_rays, counting_rays, load_cuda  # noqa: F401
+
 LAUNCHES = {"dense_closest": 0, "dense_anyhit": 0}
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "dense_trace.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _LIB = None
-_RAY_COUNTERS: List[torch.Tensor] = []
 _REF_CHUNK = 8192   # rays per chunk of the plain versions' [rays, T] tensors
 
 
@@ -44,57 +33,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-@contextlib.contextmanager
-def counting_rays(device):
-    """Yield an int64 device scalar that sums, while the context is open,
-    the lanes with tfar > 0 handed to either dense kernel."""
-    acc = torch.zeros((), dtype=torch.int64, device=device)
-    _RAY_COUNTERS.append(acc)
-    try:
-        yield acc
-    finally:
-        _RAY_COUNTERS.remove(acc)
-
-
-def _count_rays(tfar) -> None:
-    for acc in _RAY_COUNTERS:
-        acc += (tfar > 0.0).sum()
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/dense_trace.cu for sm_90a unless this source's build
-    exists; returns the library path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libdense_trace_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
-    return out
-
-
 def _load():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = load_cuda()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rl_dense_closest.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p]
         lib.rl_dense_closest.restype = i
@@ -191,7 +133,7 @@ def dense_closest(rows, o, d, tnear, tfar):
     """Closest hit of rays (o, d) [n, 3] within (tnear, tfar) [n] against
     Baldwin-Weber rows [T, 3, 4]: returns (t, idx, u, v), each [n]."""
     _check(rows, o, d, tnear, tfar)
-    _count_rays(tfar)
+    count_rays(tfar)
     if o.device.type == "cpu":
         return dense_closest_ref(rows, o, d, tnear, tfar)
     n = o.shape[0]
@@ -215,7 +157,7 @@ def dense_closest(rows, o, d, tnear, tfar):
 def dense_anyhit(rows, o, d, tnear, tfar) -> torch.Tensor:
     """Any hit of rays (o, d) within (tnear, tfar): True = occluded."""
     _check(rows, o, d, tnear, tfar)
-    _count_rays(tfar)
+    count_rays(tfar)
     if o.device.type == "cpu":
         return dense_anyhit_ref(rows, o, d, tnear, tfar)
     n = o.shape[0]

@@ -1,0 +1,127 @@
+"""Build and load the port's native code, and count the rays its kernels trace.
+
+CUDA: every `csrc/*.cu` is compiled for sm_90a by its own nvcc process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ctypes. Host C++ (the BVH builder) is
+compiled with g++. Both land in build/kernels/ under the checkout, keyed by
+the hash of their sources and flags, at first use; a failed compile raises.
+
+`counting_rays()` sums, on the device, the lanes with tfar > 0 handed to any
+trace kernel of ops/ (the rays actually traced).
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import List, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC"]
+_GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
+_CUDA_LIB = None
+_RAY_COUNTERS: List[torch.Tensor] = []
+
+
+@contextlib.contextmanager
+def counting_rays(device):
+    """Yield an int64 device scalar that sums, while the context is open,
+    the lanes with tfar > 0 handed to any trace kernel."""
+    acc = torch.zeros((), dtype=torch.int64, device=device)
+    _RAY_COUNTERS.append(acc)
+    try:
+        yield acc
+    finally:
+        _RAY_COUNTERS.remove(acc)
+
+
+def count_rays(tfar) -> None:
+    for acc in _RAY_COUNTERS:
+        acc += (tfar > 0.0).sum()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _tag(paths: Sequence[Path], flags: Sequence[str]) -> str:
+    h = hashlib.sha1(" ".join(flags).encode())
+    for p in paths:
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def _run(cmd) -> str:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{cmd[0]} failed ({res.returncode}):\n{res.stderr}")
+    return res.stderr
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu for sm_90a into one library unless this set of
+    sources has been built; returns the library path."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    tag = _tag(srcs + sorted(CSRC.glob("*.cuh")), _NVCC_FLAGS)
+    out = BUILD_DIR / f"libkernels_{tag}.so"
+    if out.exists():
+        return out
+    work = BUILD_DIR / f"obj_{tag}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [work / (s.stem + ".o") for s in srcs]
+    procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                               "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    logs, failed = [], []
+    for src, p in zip(srcs, procs):
+        _, err = p.communicate()
+        logs.append(err.strip())
+        if p.returncode != 0:
+            failed.append(f"{src.name} ({p.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    logs.append(_run([nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]).strip())
+    if verbose:
+        print("\n".join(x for x in logs if x))
+    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def load_cuda() -> ctypes.CDLL:
+    global _CUDA_LIB
+    if _CUDA_LIB is None:
+        _CUDA_LIB = ctypes.CDLL(str(build()))
+    return _CUDA_LIB
+
+
+def build_host(src: Path) -> Path:
+    """Compile one host C++ source into a shared library with g++ unless
+    this source has been built; returns the library path."""
+    out = BUILD_DIR / f"lib{src.stem}_{_tag([src], _GXX_FLAGS)}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    _run(["g++", *_GXX_FLAGS, "-o", str(tmp), str(src)])
+    os.replace(tmp, out)
+    return out

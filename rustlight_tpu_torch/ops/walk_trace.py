@@ -1,0 +1,299 @@
+"""Tile-walk closest-hit and any-hit kernels: wrappers and plain PyTorch
+versions.
+
+The CUDA kernels (csrc/walk_trace.cu) replace the TPU kernels
+rustlight_tpu/accel/pallas_walk.py:_closest_kernel/_anyhit_kernel (K3) and
+:_closest_kernel_hbm/_anyhit_kernel_hbm (K4): one kernel pair stands for
+both, since the card has no VMEM/HBM split. They are built by ops/native.py
+and called through ctypes on PyTorch's current stream.
+
+Both walk 64-ray tiles in the order they are given (the caller sorts and
+pads, accel/walk.py:_walk_impl) over walk tables (accel/walk.py:
+WalkTables, read by attribute): per tile, packed cluster entries from a slab
+pass, pops front to back, two visits per termination check. The plain
+versions run that walk for all tiles at once in batched torch ops, with the
+same arithmetic, so the kernels are bit-identical to them; they also return
+the number of cluster visits. The wrappers use them only for tensors on the
+CPU; a CUDA tensor launches the kernel or raises.
+
+Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
+adds the lanes it was handed with tfar > 0 to `counting_rays()`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from .native import count_rays, load_cuda
+
+# triangles per cluster, rays per tile, and cluster-id bits of a packed
+# entry: the reference's K, RAY_TILE and _ID_BITS (pallas_walk.py)
+K = 384
+RAY_TILE = 64
+_ID_BITS = 14
+_ID_MASK = (1 << _ID_BITS) - 1
+_INF_BITS = 0x7F800000
+
+LAUNCHES = {"walk_closest": 0, "walk_anyhit": 0}
+
+_LIB = None
+_REF_ELEMS = 1 << 24   # elements per [tiles, 64, max(Cp, K)] plain tensor
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _load():
+    global _LIB
+    if _LIB is None:
+        lib = load_cuda()
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rl_walk_closest.argtypes = [p, p, i, i, p, p, p, p, p, p, i,
+                                        p, p, p, p, p]
+        lib.rl_walk_closest.restype = i
+        lib.rl_walk_anyhit.argtypes = [p, p, i, i, p, p, p, p, p, i, p, p]
+        lib.rl_walk_anyhit.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _check(wt, o, d, tnear, tfar) -> None:
+    cp = int(wt.n_clusters)
+    if not 0 < int(wt.n_real) <= cp <= 1 << _ID_BITS:
+        raise ValueError(f"walk tables with {wt.n_real} real of {cp} clusters"
+                         f" (the packed entries take at most 2^{_ID_BITS})")
+    n = o.shape[0]
+    if n % RAY_TILE:
+        raise ValueError(f"{n} rays: the walk takes whole {RAY_TILE}-ray tiles")
+    dev = o.device
+    for name, x, shape, dtype in (
+            ("lo", wt.lo, (3, cp), torch.float32),
+            ("hi", wt.hi, (3, cp), torch.float32),
+            ("rows", wt.rows, (cp * K, 3, 4), torch.float32),
+            ("ids", wt.ids, (cp * K,), torch.int32),
+            ("o", o, (n, 3), torch.float32), ("d", d, (n, 3), torch.float32),
+            ("tnear", tnear, (n,), torch.float32),
+            ("tfar", tfar, (n,), torch.float32)):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, o on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and wt.rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned")
+
+
+# ------------------------------------------------------------ plain versions
+
+def _slab_inv(d):
+    return 1.0 / torch.where(d.abs() > 1e-12, d,
+                             torch.where(d >= 0.0, 1e-12, -1e-12))
+
+
+def _tile_entries(wt, o, d, tnear, tfar):
+    """Packed entries [G, Cp] int32 of G tiles (o, d [G, R, 3]; tnear, tfar
+    [G, R]): the bits of min over the tile's rays of the slab entry, the
+    cluster id in the low _ID_BITS, _INF_BITS where no ray enters."""
+    inv = _slab_inv(d)
+    cp = wt.lo.shape[1]
+    tmin = tmax = None
+    for ax in range(3):
+        t0 = (wt.lo[ax] - o[..., ax:ax + 1]) * inv[..., ax:ax + 1]
+        t1 = (wt.hi[ax] - o[..., ax:ax + 1]) * inv[..., ax:ax + 1]
+        lo_t, hi_t = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tmin = lo_t if tmin is None else torch.maximum(tmin, lo_t)
+        tmax = hi_t if tmax is None else torch.minimum(tmax, hi_t)
+    entry = torch.maximum(tmin, tnear[..., None])
+    ok = (tmax >= entry) & (entry < tfar[..., None])
+    ent = torch.where(ok, entry, float("inf")).amin(dim=1)          # [G, Cp]
+    cid = torch.arange(cp, dtype=torch.int32, device=o.device)
+    fin = (cid < int(wt.n_real)) & torch.isfinite(ent)
+    # + 0 maps a -0 entry to +0, so its bits sort as the smallest
+    z = torch.clamp(torch.where(fin, ent, 0.0), min=0.0) + 0.0
+    packed = (z.view(torch.int32) & ~_ID_MASK) | cid
+    return torch.where(fin, packed, _INF_BITS)
+
+
+def _pop_min(ent):
+    """Pops each row's smallest entry: (bits [G], cluster [G] int64,
+    entries); all-popped rows give cluster 0, as the reference's pop does."""
+    bmin = ent.amin(dim=1)
+    ent = torch.where(ent == bmin[:, None], _INF_BITS, ent)
+    csel = torch.clamp(bmin & _ID_MASK, max=ent.shape[1] - 1).long()
+    return bmin, csel, ent
+
+
+def _dot4(x4, r):
+    """x4 [G, R, 4] . r [G, K, 4] -> [G, R, K] in the reference's _dot4
+    order, ((x0*r0 + x1*r1) + x2*r2) + x3*r3."""
+    return (x4[..., 0:1] * r[:, None, :, 0] + x4[..., 1:2] * r[:, None, :, 1]
+            + x4[..., 2:3] * r[:, None, :, 2] + x4[..., 3:4] * r[:, None, :, 3])
+
+
+def _test_clusters(rows, o, d, tnear, tcap):
+    """Rays [G, R] against each tile's cluster rows [G, K, 3, 4]:
+    (t, u, v, valid), each [G, R, K]."""
+    one = torch.ones_like(o[..., :1])
+    o4 = torch.cat([o, one], dim=-1)
+    d4 = torch.cat([d, torch.zeros_like(one)], dim=-1)
+    nd = _dot4(d4, rows[:, :, 0])
+    live = nd.abs() > 1e-20
+    t = -_dot4(o4, rows[:, :, 0]) / torch.where(live, nd, 1.0)
+    u = _dot4(o4, rows[:, :, 1]) + t * _dot4(d4, rows[:, :, 1])
+    v = _dot4(o4, rows[:, :, 2]) + t * _dot4(d4, rows[:, :, 2])
+    valid = (live & (t > tnear[..., None]) & (t < tcap[..., None])
+             & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0))
+    return t, u, v, valid
+
+
+def _walk_ref(wt, o, d, tnear, tfar, any_hit: bool):
+    """The tile walk of the kernels for every tile at once, chunked over
+    tiles. Returns ((t, tri, u, v) or (occ,), cluster visits per tile)."""
+    n = o.shape[0]
+    cp = int(wt.n_clusters)
+    rows = wt.rows.view(cp, K, 3, 4)
+    ids = wt.ids.view(cp, K)
+    per = max(1, _REF_ELEMS // (RAY_TILE * max(cp, K))) * RAY_TILE
+    parts = [_walk_chunk(wt, rows, ids, *(x[s:s + per].reshape(
+        -1, RAY_TILE, *x.shape[1:]) for x in (o, d, tnear, tfar)), any_hit)
+             for s in range(0, max(n, 1), per)]
+    outs = tuple(torch.cat(xs).reshape(-1) for xs in zip(*(p[0] for p in parts)))
+    return outs, torch.cat([p[1] for p in parts])
+
+
+def _sortable_max(x):
+    """max over the last dim of a non-negative f32 tensor, as int32 bits."""
+    return x.view(torch.int32).amax(dim=-1)
+
+
+def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
+    g = o.shape[0]
+    cp = rows.shape[0]
+    ent = _tile_entries(wt, o, d, tnear, tfar)
+    emin, csel, ent = _pop_min(ent)
+    kiota = torch.arange(K, device=o.device)
+    if any_hit:
+        occ = torch.zeros(tfar.shape, dtype=torch.bool, device=o.device)
+        thresh = _sortable_max(tfar)
+    else:
+        best_t = tfar.clone()
+        best_i = torch.full(tfar.shape, -1, dtype=torch.int32, device=o.device)
+        best_u = torch.zeros_like(tfar)
+        best_v = torch.zeros_like(tfar)
+        thresh = _sortable_max(best_t)
+    nv = torch.zeros(g, dtype=torch.int64, device=o.device)   # visit pairs
+    while True:
+        act = torch.nonzero(((emin & ~_ID_MASK) < thresh) & (nv < cp))[:, 0]
+        if act.numel() == 0:
+            break
+        a_o, a_d, a_tn, a_tf = o[act], d[act], tnear[act], tfar[act]
+        a_ent, a_emin, a_csel = ent[act], emin[act], csel[act]
+        if any_hit:
+            a_occ = occ[act]
+        else:
+            bt, bi, bu, bv = best_t[act], best_i[act], best_u[act], best_v[act]
+        for _ in range(2):
+            if any_hit:
+                valid = _test_clusters(rows[a_csel], a_o, a_d, a_tn, a_tf)[3]
+                a_occ = a_occ | valid.any(dim=-1)
+            else:
+                t, u, v, valid = _test_clusters(rows[a_csel], a_o, a_d, a_tn,
+                                                bt)
+                tm = torch.where(valid, t, float("inf"))
+                ct = tm.amin(dim=-1)
+                j = torch.where(tm == ct[..., None], kiota, K).amin(dim=-1)
+                j = torch.clamp(j, max=K - 1)
+                better = ct < bt
+                tri = ids[a_csel[:, None], j]
+                bt = torch.where(better, ct, bt)
+                bi = torch.where(better, tri, bi)
+                # + 0 maps a -0 barycentric to +0, as the kernel's output does
+                uj = u.gather(-1, j[..., None])[..., 0] + 0.0
+                vj = v.gather(-1, j[..., None])[..., 0] + 0.0
+                bu = torch.where(better, uj, bu)
+                bv = torch.where(better, vj, bv)
+            a_emin, a_csel, a_ent = _pop_min(a_ent)
+        ent[act], emin[act], csel[act] = a_ent, a_emin, a_csel
+        nv[act] += 1
+        if any_hit:
+            occ[act] = a_occ
+            thresh[act] = _sortable_max(torch.where(a_occ, 0.0, a_tf))
+        else:
+            best_t[act], best_i[act], best_u[act], best_v[act] = bt, bi, bu, bv
+            thresh[act] = _sortable_max(bt)
+    if any_hit:
+        return (occ,), 2 * nv
+    hit = best_i >= 0
+    return (torch.where(hit, best_t, float("inf")), best_i, best_u,
+            best_v), 2 * nv
+
+
+def walk_closest_ref(wt, o, d, tnear, tfar):
+    """Plain version of the closest-hit walk: (t, tri, u, v, visits); t = inf
+    and tri = -1 (u = v = 0) on a miss."""
+    (t, tri, u, v), visits = _walk_ref(wt, o, d, tnear, tfar, False)
+    return t, tri, u, v, int(visits.sum())
+
+
+def walk_anyhit_ref(wt, o, d, tnear, tfar):
+    """Plain version of the any-hit walk: (occ, visits)."""
+    (occ,), visits = _walk_ref(wt, o, d, tnear, tfar, True)
+    return occ, int(visits.sum())
+
+
+# ------------------------------------------------------------------ wrappers
+
+def walk_closest(wt, o, d, tnear, tfar) -> Tuple[torch.Tensor, ...]:
+    """Closest hit of whole 64-ray tiles (o, d [n, 3], tnear, tfar [n]) over
+    walk tables `wt`: (t, tri, u, v), each [n]."""
+    _check(wt, o, d, tnear, tfar)
+    count_rays(tfar)
+    if o.device.type == "cpu":
+        return walk_closest_ref(wt, o, d, tnear, tfar)[:4]
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    tri = torch.empty(n, dtype=torch.int32, device=o.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    if n:
+        with torch.cuda.device(o.device):
+            err = _load().rl_walk_closest(
+                wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
+                int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
+                o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(),
+                n, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"walk_closest launch failed: CUDA error {err}")
+        LAUNCHES["walk_closest"] += 1
+    return t, tri, u, v
+
+
+def walk_anyhit(wt, o, d, tnear, tfar) -> torch.Tensor:
+    """Any hit of whole 64-ray tiles over walk tables: True = occluded."""
+    _check(wt, o, d, tnear, tfar)
+    count_rays(tfar)
+    if o.device.type == "cpu":
+        return walk_anyhit_ref(wt, o, d, tnear, tfar)[0]
+    n = o.shape[0]
+    occ = torch.empty(n, dtype=torch.bool, device=o.device)
+    if n:
+        with torch.cuda.device(o.device):
+            err = _load().rl_walk_anyhit(
+                wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
+                int(wt.n_real), wt.rows.data_ptr(), o.data_ptr(),
+                d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n,
+                occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"walk_anyhit launch failed: CUDA error {err}")
+        LAUNCHES["walk_anyhit"] += 1
+    return occ

@@ -1,11 +1,12 @@
-"""Triangle meshes and their flattened tables; port of the dense tier of
+"""Triangle meshes and their flattened tables; port of
 rustlight_tpu/scene/geometry.py.
 
 Host side: `TriMesh` (indexed triangles + material/emission). Tables: one
 flat SoA over all scene triangles, padded to a multiple of TRI_PAD, with the
 precomputed Baldwin-Weber rows the dense intersector tests against
-(accel/dense.py). Scenes above CLUSTER_THRESHOLD triangles need the walk
-tier, which is not ported yet.
+(accel/dense.py). Scenes above CLUSTER_THRESHOLD triangles also carry the
+tile walk's tables (accel/walk.py), built from one SAH BVH; the reference's
+XLA clustered tables are not ported.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..accel.walk import build_walk_tables, walk_tables_to
 
 TRI_PAD = 8
 CLUSTER_THRESHOLD = 1024
@@ -77,6 +80,7 @@ class GeometryTables(NamedTuple):
     mesh_id: Any     # [T] int32
     emitter_id: Any  # [T] int32, -1 if not emissive
     has_normals: Any  # [T] bool
+    walk: Any = None  # accel/walk.py WalkTables above CLUSTER_THRESHOLD
 
 
 def _baldwin_weber_rows(v0, e1, e2, n):
@@ -103,10 +107,6 @@ def build_geometry_tables(meshes: List[TriMesh],
 
     mesh_emitter_id[i] = emitter index for mesh i, or -1."""
     n_tris = sum(m.n_triangles for m in meshes)
-    if n_tris > CLUSTER_THRESHOLD:
-        raise NotImplementedError(
-            f"{n_tris} triangles: scenes above {CLUSTER_THRESHOLD} need the "
-            "walk tier, which is not ported yet")
     cols = {k: [] for k in ("v0", "e1", "e2", "ng", "rows", "vn", "vuv",
                             "area", "mat", "mid", "eid", "hasn")}
     for mi, m in enumerate(meshes):
@@ -147,7 +147,7 @@ def build_geometry_tables(meshes: List[TriMesh],
             [x, np.full((pad,) + x.shape[1:], fill, x.dtype)], axis=0)
 
     # degenerate pad triangles: n = 0 rows make Nd == 0, so they never hit
-    return GeometryTables(
+    gt = GeometryTables(
         n_tris=n_tris, n_pad=t_pad,
         v0=padz(c["v0"]), e1=padz(c["e1"]), e2=padz(c["e2"]),
         n_g=padz(c["ng"]), inter_rows=padz(c["rows"]),
@@ -155,17 +155,27 @@ def build_geometry_tables(meshes: List[TriMesh],
         mat_id=padz(c["mat"]), mesh_id=padz(c["mid"], -1),
         emitter_id=padz(c["eid"], -1), has_normals=padz(c["hasn"], False),
     )
+    if n_tris > CLUSTER_THRESHOLD:
+        gt = gt._replace(walk=build_walk_tables(gt))
+    return gt
 
 
 def geometry_to(geom, device) -> GeometryTables:
     """Upload numpy geometry tables (this module's or the JAX package's,
-    read by attribute) to `device`."""
-    if geom.n_tris > CLUSTER_THRESHOLD:
-        raise NotImplementedError("the walk tier is not ported yet")
+    read by attribute) to `device`; the JAX package's walk tables are
+    converted to this package's layout and its clustered tables ignored."""
+    walk = getattr(geom, "walk", None)
+    if walk is None and geom.n_tris > CLUSTER_THRESHOLD:
+        raise NotImplementedError(
+            f"{geom.n_tris} triangles and no walk tables: only the tile "
+            "walk is ported for scenes of this size")
     cols = {f: torch.as_tensor(np.ascontiguousarray(getattr(geom, f)),
                                device=device)
-            for f in GeometryTables._fields if f not in ("n_tris", "n_pad")}
-    return GeometryTables(n_tris=int(geom.n_tris), n_pad=int(geom.n_pad), **cols)
+            for f in GeometryTables._fields
+            if f not in ("n_tris", "n_pad", "walk")}
+    return GeometryTables(
+        n_tris=int(geom.n_tris), n_pad=int(geom.n_pad),
+        walk=None if walk is None else walk_tables_to(walk, device), **cols)
 
 
 def scene_bounds(meshes: List[TriMesh]):
@@ -182,4 +192,36 @@ def make_quad(p0, p1, p2, p3, material=0, emission=(0, 0, 0), name="") -> TriMes
     idx = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
     uv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
     return TriMesh(verts, idx, uvs=uv, material=material,
+                   emission=np.asarray(emission, np.float32), name=name)
+
+
+def make_sphere(center, radius, material=0, emission=(0, 0, 0),
+                n_theta=32, n_phi=32, name="") -> TriMesh:
+    """Tessellated UV sphere (the reference tessellates spheres 32x32)."""
+    center = np.asarray(center, np.float32)
+    thetas = np.linspace(0, np.pi, n_theta + 1)
+    phis = np.linspace(0, 2 * np.pi, n_phi + 1)
+    verts, norms, uvs = [], [], []
+    for it, th in enumerate(thetas):
+        for ip, ph in enumerate(phis):
+            n = np.array([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                          np.cos(th)], np.float32)
+            verts.append(center + radius * n)
+            norms.append(n)
+            uvs.append([ip / n_phi, it / n_theta])
+    idx = []
+    stride = n_phi + 1
+    for it in range(n_theta):
+        for ip in range(n_phi):
+            a = it * stride + ip
+            b = a + 1
+            c = a + stride
+            d = c + 1
+            if it > 0:
+                idx.append([a, c, b])
+            if it < n_theta - 1:
+                idx.append([b, c, d])
+    return TriMesh(np.asarray(verts, np.float32), np.asarray(idx, np.int32),
+                   normals=np.asarray(norms, np.float32),
+                   uvs=np.asarray(uvs, np.float32), material=material,
                    emission=np.asarray(emission, np.float32), name=name)

@@ -82,7 +82,9 @@ def from_numpy_scene(host_sd, device) -> SceneData:
     """Upload a compiled numpy scene to `device`.
 
     `host_sd` is this package's host SceneData or the JAX package's
-    `sd.host.data`; it is read by attribute only."""
+    `sd.host.data`; it is read by attribute only. Walk tables come along
+    (the JAX package's converted to this package's layout); the JAX
+    package's clustered tables are ignored."""
     if getattr(host_sd, "volume", None) is not None:
         raise NotImplementedError("participating media are not ported yet")
     if getattr(host_sd, "ats", None) is not None:

@@ -214,7 +214,8 @@ def test_offset_ray_origin():
 
 def test_unported_features_raise():
     from rustlight_tpu.bsdfs import phong
-    from rustlight_tpu_torch.scene.geometry import TriMesh, build_geometry_tables
+    from rustlight_tpu_torch.scene.geometry import (
+        TriMesh, build_geometry_tables, geometry_to)
     jsd = jax_cornell_box(8, 8, mat_overrides={"blocks": phong()}).compile()
     with pytest.raises(NotImplementedError):
         tscene.from_numpy_scene(jsd.host.data, "cpu")
@@ -223,7 +224,11 @@ def test_unported_features_raise():
     sc.volume = make_volume((0.01, 0.01, 0.01))
     with pytest.raises(NotImplementedError):
         tscene.from_numpy_scene(sc.compile().host.data, "cpu")
-    verts = np.zeros((3 * 1025, 3), np.float32)
+    # above the dense tier, only the tile walk is ported: tables without
+    # walk tables (the reference's clustered-only fallback) are refused
+    verts = np.random.default_rng(0).uniform(0, 1, (3 * 1025, 3))
+    geom = build_geometry_tables(
+        [TriMesh(verts, np.arange(3 * 1025).reshape(1025, 3))], [-1])
+    assert geom.walk is not None
     with pytest.raises(NotImplementedError):
-        build_geometry_tables(
-            [TriMesh(verts, np.arange(3 * 1025).reshape(1025, 3))], [-1])
+        geometry_to(geom._replace(walk=None), "cpu")
