@@ -35,7 +35,32 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      once through the walk and once through the dense kernels over all
      131k triangles: 99.9% of pixels within 1e-3 (relative), means within
      1e-4 (relative);
-  8. profile, grid122k: torch.profiler over one warm 2 spp render.
+  8. profile, grid122k and grid516k: torch.profiler over one warm 2 spp
+     render each;
+  9-12, for each AO row: grid4p9M, the scene of bench.py:187-223
+     (sphere_grid_mesh(4_200_000, n_theta=18): 8,000 spheres, 4,896,000
+     triangles, 16,000 walk clusters, so the one-level walk, as in the
+     reference), and grid5p7M, the next grid of that family (9,261
+     spheres, 5,667,732 triangles, 18,700 clusters in 147 supers: past
+     2^14, so the two-level walk, K5):
+  9. walk-hier kernels (K5, on both rows: grid4p9M's tables are handed to
+     the two-level kernels directly): the two wavefronts the AO integrator
+     hands the walk in one 256^2 sample (its camera rays, its occlusion
+     rays with tfar = 2 and dead lanes as it leaves them) go through the
+     walk's sort, then the two-level kernels and their plain versions see
+     the same tiles, all of them: ids equal except near-ties,
+     t/u/v within 1e-6, occlusion equal, no inert lane hits; kernel times
+     and those of the walk with its sort, forced onto the two-level route,
+     are medians of 10 on the whole wavefront, plain times one run on the
+     whole wavefront (the comparison's) and medians of 3 on every 8th tile;
+ 10. main path, AO: render(scene, IntegratorAO(max_distance=2), 4 spp),
+     warm-up seed 0, timed seed 1 (bench.py:209-214); the image must be
+     finite, the ray count 2 x 256^2 x 4 = 524,288, and the row's walk
+     kernels the only trace kernels launched;
+ 11. oracle, AO: the same scene at 64^2, 2 spp, seed 0, once through the
+     walk and once through the dense kernels over every triangle: 99.9% of
+     pixels equal, means within 1e-3 (relative);
+ 12. profile, AO: torch.profiler over one warm 1 spp render.
 
 Before the last line: the card line from nvidia-smi and a JSON line with
 each kernel's launches, error, times and bound. The last line is the JSON
@@ -76,8 +101,19 @@ ORACLE_PIX_FRAC, ORACLE_PIX_RTOL, ORACLE_MEAN_RTOL = 0.999, 1e-3, 1e-4
 PEAK_F32_OPS, PEAK_BYTES_S = 67e12, 3.35e12
 OPS_PER_TEST = 25
 RAY_IN_BYTES = 32          # o, d, tnear, tfar
+# the AO rows: bench.py's 4.9M-triangle row (bench.py:140, :187-223), and
+# the next sphere grid of its family, the first past 2^14 clusters
+AO_ROWS = (("grid4p9M", 4_200_000), ("grid5p7M", 5_000_000))
+AO_THETA = 18
+AO_RES, AO_SPP, AO_DIST = 256, 4, 2.0      # 2 x 65,536 rays a sample
+AO_ORACLE_RES, AO_ORACLE_SPP = 64, 2
+AO_ORACLE_PIX_FRAC, AO_ORACLE_MEAN_RTOL = 0.999, 1e-3
+HIER_SAMPLE = 8            # plain versions timed on every 8th tile
+# a visit reads its cluster's rows (384 x 48 B) and ids (384 x 4 B)
+HIER_VISIT_BYTES = 384 * 48 + 384 * 4
 KERNEL_SOURCES = {"dense": "rustlight_tpu_torch/csrc/dense_trace.cu",
-                  "walk": "rustlight_tpu_torch/csrc/walk_trace.cu"}
+                  "walk": "rustlight_tpu_torch/csrc/walk_trace.cu",
+                  "walk_hier": "rustlight_tpu_torch/csrc/walk_hier.cu"}
 WALK_REPLACES = ("rustlight_tpu/accel/pallas_walk.py:{} (K3), "
                  "rustlight_tpu/accel/pallas_walk.py:{} (K4)")
 
@@ -137,8 +173,9 @@ def _near_tie(rows, o, d, tnear, tfar, lanes) -> bool:
     TIE_RTOL of each other (the plain version's arithmetic)."""
     import torch
     from rustlight_tpu_torch.ops.dense_trace import _chunk_test
-    for s in range(0, lanes.numel(), 64):   # [64, T] tensors at a time
-        k = lanes[s:s + 64]
+    step = max(1, min(64, (1 << 26) // rows.shape[0]))  # [step, T] at a time
+    for s in range(0, lanes.numel(), step):
+        k = lanes[s:s + step]
         t, _, _, valid = _chunk_test(rows, o[k], d[k], tnear[k], tfar[k])
         t2 = torch.topk(torch.where(valid, t, float("inf")), 2, dim=1,
                         largest=False).values
@@ -265,23 +302,26 @@ def profile_render(label, sd, integ, spp, names, top=12):
     return busy_us / 1e6 / wall, ours_us / max(busy_us, 1e-9)
 
 
-def _reset_launches():
+def _launch_modules():
     from rustlight_tpu_torch.ops import dense_trace as dt
+    from rustlight_tpu_torch.ops import walk_hier as wh
     from rustlight_tpu_torch.ops import walk_trace as wk
-    dt.reset_launches()
-    wk.reset_launches()
+    return dt, wk, wh
+
+
+def _reset_launches():
+    for m in _launch_modules():
+        m.reset_launches()
 
 
 def _launches():
-    from rustlight_tpu_torch.ops import dense_trace as dt
-    from rustlight_tpu_torch.ops import walk_trace as wk
-    return {**dt.LAUNCHES, **wk.LAUNCHES}
+    return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
 
 
-def timed_render(label, sd, integ, spp):
-    """Warm-up render, then a timed one with launch counts reset just
-    before and read just after. Returns (image, wall s, warm-up s, rays,
-    launches)."""
+def timed_render(label, sd, integ, spp, seed=0):
+    """Warm-up render (seed 0), then a timed one (`seed`) with launch counts
+    reset just before and read just after. Returns (image, wall s, warm-up
+    s, rays, launches)."""
     import torch
     from rustlight_tpu_torch.integrators import render
     from rustlight_tpu_torch.ops.native import counting_rays
@@ -291,7 +331,7 @@ def timed_render(label, sd, integ, spp):
     _reset_launches()
     with counting_rays(sd.device) as rays:
         t0 = time.time()
-        film = render(sd, integ, spp=spp, seed=0)
+        film = render(sd, integ, spp=spp, seed=seed)
         torch.cuda.synchronize()
         wall = time.time() - t0
         n_rays = int(rays)
@@ -391,37 +431,219 @@ def check_walk(label, sd, rng):
     return out
 
 
-def oracle_check(dev):
-    """The walk render against the dense kernels over every triangle."""
-    from rustlight_tpu_torch.integrators import IntegratorPathTracing, render
-    from rustlight_tpu_torch.models import sphere_grid
-    sd = sphere_grid(GRID_ROWS[0][1], ORACLE_RES, ORACLE_RES).compile(
-        device=dev)
+def oracle_check(label, sd, integ, spp, walk_kernels, pix_frac, pix_rtol,
+                 mean_rtol):
+    """The walk render against the dense kernels over every triangle: at
+    least pix_frac of the pixels within pix_rtol (0: equal), the means
+    within mean_rtol (both relative). Each render must launch exactly its
+    kernels: walk_kernels, or the dense pair."""
+    from rustlight_tpu_torch.integrators import render
     brute = sd._replace(geom=sd.geom._replace(walk=None))
-    integ = IntegratorPathTracing(max_depth=GRID_DEPTH, nee_rr=ORACLE_NEE_RR)
     imgs = {}
-    for name, scene in (("walk", sd), ("dense", brute)):
+    for name, scene, kernels in (("walk", sd, walk_kernels),
+                                 ("dense", brute, ("dense_closest",
+                                                   "dense_anyhit"))):
         _reset_launches()
         t0 = time.time()
-        imgs[name] = render(scene, integ, spp=ORACLE_SPP, seed=0)["primal"]
+        imgs[name] = render(scene, integ, spp=spp, seed=0)["primal"]
         secs = time.time() - t0
         launched = {k: v for k, v in _launches().items() if v}
-        if not all(k.startswith(name) for k in launched) or not launched:
+        if set(launched) != set(kernels):
             raise AssertionError(f"oracle: the {name} render launched "
                                  f"{launched}")
-        phase("oracle", f"{name}: {secs:.3f}s, launches {launched}")
+        phase("oracle", f"{label} {name}: {secs:.3f}s, launches {launched}")
     a, b = imgs["walk"], imgs["dense"]
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-4)
-    frac = float((rel.max(-1) <= ORACLE_PIX_RTOL).mean())
+    frac = float((rel.max(-1) <= pix_rtol).mean())
     mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
-    phase("oracle", f"sphere_grid({GRID_ROWS[0][1]}) {ORACLE_RES}^2 "
-          f"{ORACLE_SPP} spp: walk mean {a.mean():.7f}, dense mean "
-          f"{b.mean():.7f}, {100 * frac:.3f}% of pixels within "
-          f"{ORACLE_PIX_RTOL}, means differ by {mean_rel:.3g} (relative)")
+    w, h = sd.camera.width, sd.camera.height
+    phase("oracle", f"{label} {w}x{h} {spp} spp: walk mean {a.mean():.7f}, "
+          f"dense mean {b.mean():.7f}, {100 * frac:.3f}% of pixels within "
+          f"{pix_rtol}, means differ by {mean_rel:.3g} (relative)")
     if not (np.all(np.isfinite(a)) and b.mean() > 0):
-        raise AssertionError("oracle: bad images")
-    if frac < ORACLE_PIX_FRAC or mean_rel > ORACLE_MEAN_RTOL:
-        raise AssertionError("oracle: walk and dense renders disagree")
+        raise AssertionError(f"oracle {label}: bad images")
+    if frac < pix_frac or mean_rel > mean_rtol:
+        raise AssertionError(f"oracle {label}: walk and dense renders "
+                             "disagree")
+
+
+def ao_scene(dev, n_tris):
+    """An AO row's scene as bench.py:198-207 builds grid4p9M: a grid of UV
+    spheres of 612 triangles (sphere_grid_mesh(n_tris, n_theta=18), diffuse
+    0.65, 0.6, 0.55), no emitter, the camera at (ext/2, ext/2, -0.35 ext)
+    looking at the centre, fov 55, AO_RES^2. Returns (scene, build s,
+    camera(res) -> the same camera at res^2)."""
+    import torch
+    from rustlight_tpu_torch.bsdfs import diffuse
+    from rustlight_tpu_torch.models.presets import sphere_grid_mesh
+    from rustlight_tpu_torch.scene import Scene, look_at, make_camera
+    from rustlight_tpu_torch.scene.camera import camera_to
+    t0 = time.time()
+    sc = Scene()
+    m = sc.add_material(diffuse((0.65, 0.6, 0.55)))
+    mesh, gs = sphere_grid_mesh(n_tris, n_theta=AO_THETA, material=m)
+    sc.add_mesh(mesh)
+    ext = gs * 3.0
+    to_world = look_at((ext / 2, ext / 2, -0.35 * ext),
+                       (ext / 2, ext / 2, ext / 2), (0, 1, 0))
+
+    def camera(res):
+        return camera_to(make_camera(res, res, fov=55.0, to_world=to_world),
+                         dev)
+
+    sc.camera = make_camera(AO_RES, AO_RES, fov=55.0, to_world=to_world)
+    sd = sc.compile(device=dev)
+    torch.cuda.synchronize()
+    return sd, time.time() - t0, camera
+
+
+def ao_wavefronts(sd):
+    """The two wavefronts the AO integrator hands the walk in one sample
+    (seed 0, sample 0): its camera rays and its occlusion rays, taken from
+    its calls to the walk."""
+    import torch
+    from rustlight_tpu_torch.accel import walk
+    from rustlight_tpu_torch.integrators import IntegratorAO
+    from rustlight_tpu_torch.integrators.common import _pixel_grid
+    from rustlight_tpu_torch.utils.rng import make_stream, stream_fold
+    seen = {}
+    impl = walk._walk_impl
+
+    def spy(wt, o, d, tnear, tfar, any_hit, *args, **kw):
+        seen["ao" if any_hit else "camera"] = [
+            x.contiguous().clone() for x in (o, d, tnear, tfar)]
+        return impl(wt, o, d, tnear, tfar, any_hit, *args, **kw)
+
+    walk._walk_impl = spy
+    try:
+        w, h = sd.camera.width, sd.camera.height
+        pix = torch.as_tensor(_pixel_grid(w, h), device=sd.device)
+        IntegratorAO(max_distance=AO_DIST).compute_pixel(
+            sd, pix, stream_fold(make_stream(0, sd.device), 0))
+    finally:
+        walk._walk_impl = impl
+    return seen
+
+
+def _spread(x):
+    """(mean, 99th percentile, max) of a per-tile count."""
+    import torch
+    x = x.double()
+    return float(x.mean()), float(torch.quantile(x, 0.99)), int(x.max())
+
+
+def check_hier(label, sd):
+    """Two-level walk kernels against their plain versions on the AO
+    integrator's two wavefronts, sorted by the walk: every tile is compared
+    (the plain versions also count the supers opened and clusters visited
+    per tile, for the bound), and the plain versions are timed on every
+    HIER_SAMPLE-th tile. Returns one record per wavefront."""
+    import torch
+    from rustlight_tpu_torch.accel import walk
+    from rustlight_tpu_torch.ops import walk_hier as wh
+    from rustlight_tpu_torch.ops.walk_trace import RAY_TILE
+    wt = sd.geom.walk
+    out = []
+    for name, rays in ao_wavefronts(sd).items():
+        srt = walk._prepare(wt, *rays)[:4]
+        n = srt[0].shape[0]
+        tiles = n // RAY_TILE
+        closest_k = wh.walk_hier_closest(wt, *srt)
+        occ_k = wh.walk_hier_anyhit(wt, *srt)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        closest_p, opened_c, visits_c = wh._walk_hier_ref(wt, *srt, False)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        (occ_p,), opened_a, visits_a = wh._walk_hier_ref(wt, *srt, True)
+        torch.cuda.synchronize()
+        plain_ms = {"closest": (t1 - t0) * 1e3,
+                    "anyhit": (time.time() - t1) * 1e3}
+        tag = f"{label}/{name}"
+        err_c, err_a, ties = _compare(tag, sd.geom.inter_rows, srt, closest_k,
+                                      closest_p, occ_k, occ_p)
+        lanes = (torch.arange(0, tiles, HIER_SAMPLE, device=srt[0].device)
+                 [:, None] * RAY_TILE
+                 + torch.arange(RAY_TILE, device=srt[0].device)).reshape(-1)
+        sub = [x[lanes].contiguous() for x in srt]
+        rec = {"table": label, "wavefront": name, "cp": wt.n_clusters,
+               "n_real": wt.n_real, "n_sup": wt.n_sup, "rays": n,
+               "tie_ids": ties,
+               "hits": int(torch.isfinite(closest_k[0]).sum()),
+               "occluded": int(occ_k.sum())}
+        for kind, opened, visits, err, kfn, pfn, any_hit, out_b in (
+                ("closest", opened_c, visits_c, err_c, wh.walk_hier_closest,
+                 wh.walk_hier_closest_ref, False, 16),
+                ("anyhit", opened_a, visits_a, err_a, wh.walk_hier_anyhit,
+                 wh.walk_hier_anyhit_ref, True, 1)):
+            nv = int(visits.sum())
+            bound, by = _bound_ms(nv * RAY_TILE * wh.K,
+                                  nv * HIER_VISIT_BYTES
+                                  + n * (RAY_IN_BYTES + out_b))
+            rec[kind] = {
+                "supers_per_tile": _spread(opened),
+                "visits_per_tile": _spread(visits),
+                "max_abs_err": err,
+                "ms": _median_ms(lambda f=kfn: f(wt, *srt)),
+                "walk_ms": _median_ms(lambda a=any_hit: walk._walk_impl(
+                    wt, *rays, a, hier=True)),
+                "plain_ms": plain_ms[kind],
+                "plain_sample_ms": _median_ms(lambda f=pfn: f(wt, *sub),
+                                              runs=PLAIN_RUNS),
+                "plain_tiles": lanes.numel() // RAY_TILE,
+                "bound_ms": bound, "bound_by": by}
+        phase("walk-hier", f"{tag}: Cp {wt.n_clusters} ({wt.n_real} real, "
+              f"{wt.n_sup} supers of {wt.n_sup_pad}), {n} rays, "
+              f"{rec['hits']} hits, {rec['occluded']} occluded, {ties} tie "
+              "ids; " + "; ".join(
+                  f"{k}: supers/tile {'%.2f, p99 %.0f, max %d' % rec[k]['supers_per_tile']}, "
+                  f"visits/tile {'%.2f, p99 %.0f, max %d' % rec[k]['visits_per_tile']}, "
+                  f"kernel {rec[k]['ms']:.4f} ms, walk+sort "
+                  f"{rec[k]['walk_ms']:.4f} ms, plain {rec[k]['plain_ms']:.2f}"
+                  f" ms (every tile), {rec[k]['plain_sample_ms']:.2f} ms "
+                  f"({rec[k]['plain_tiles']} tiles), bound "
+                  f"{rec[k]['bound_ms']:.4f} ms ({rec[k]['bound_by']}), err "
+                  f"{rec[k]['max_abs_err']:.3g}" for k in ("closest", "anyhit")))
+        out.append(rec)
+    return out
+
+
+def ao_row(dev, label, n_tris):
+    """Phases 9-12 on one AO row. The two-level kernels are checked on
+    every row; the render takes the reference's route: the two-level walk
+    past FLAT_MAX_CLUSTERS clusters. Returns (walk-hier records, the AO
+    render's launches)."""
+    from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS
+    from rustlight_tpu_torch.integrators import IntegratorAO
+    sd, build_s, camera = ao_scene(dev, n_tris)
+    w = sd.geom.walk
+    hier = w.n_clusters > FLAT_MAX_CLUSTERS
+    kernels = (("walk_hier_closest", "walk_hier_anyhit") if hier
+               else ("walk_closest", "walk_anyhit"))
+    phase("main", f"{label} sphere_grid_mesh({n_tris}, n_theta={AO_THETA}): "
+          f"{sd.geom.n_tris} triangles, Cp {w.n_clusters} ({w.n_real} real),"
+          f" n_sup {w.n_sup} (padded {w.n_sup_pad}), scene build "
+          f"{build_s:.3f}s; route {'/'.join(kernels)}")
+    recs = check_hier(label, sd)
+    integ = IntegratorAO(max_distance=AO_DIST)
+    img, wall, warm, n_rays, launches = timed_render(label, sd, integ,
+                                                     AO_SPP, seed=1)
+    expect = 2 * AO_RES * AO_RES * AO_SPP
+    if n_rays != expect:
+        raise AssertionError(f"{label}: {n_rays} rays traced, {expect} "
+                             "expected")
+    if min(launches[k] for k in kernels) <= 0 or any(
+            v for k, v in launches.items() if k not in kernels):
+        raise AssertionError(f"{label}: launches {launches}")
+    phase("main", f"{label} AO {AO_RES}x{AO_RES} {AO_SPP} spp, max distance "
+          f"{AO_DIST}: warm-up {warm:.3f}s, timed (seed 1) {wall:.3f}s, "
+          f"{n_rays} rays, {n_rays / wall / 1e6:.3f} Mrays/s, mean_ao "
+          f"{img.mean():.5f}, launches {launches}")
+    small = sd._replace(camera=camera(AO_ORACLE_RES))
+    oracle_check(label, small, integ, AO_ORACLE_SPP, kernels,
+                 AO_ORACLE_PIX_FRAC, 0.0, AO_ORACLE_MEAN_RTOL)
+    profile_render(label, sd, integ, 1, ("walk_hier",) if hier else ("walk_",))
+    return recs, launches
 
 
 def main() -> int:
@@ -507,9 +729,25 @@ def main() -> int:
               f"{GRID_SPP} spp depth {GRID_DEPTH}: warm-up {warm:.3f}s, "
               f"timed {wall:.3f}s, {n_rays} rays, {n_rays / wall / 1e6:.3f} "
               f"Mrays/s, mean {img.mean():.6f}, launches {launches}")
-    oracle_check(dev)
-    gsd = grids[GRID_ROWS[0][0]][0]
-    profile_render(GRID_ROWS[0][0], gsd, integ, 2, ("walk_",))
+    osd = sphere_grid(GRID_ROWS[0][1], ORACLE_RES, ORACLE_RES).compile(
+        device=dev)
+    oracle_check(f"sphere_grid({GRID_ROWS[0][1]})", osd,
+                 IntegratorPathTracing(max_depth=GRID_DEPTH,
+                                       nee_rr=ORACLE_NEE_RR),
+                 ORACLE_SPP, ("walk_closest", "walk_anyhit"),
+                 ORACLE_PIX_FRAC, ORACLE_PIX_RTOL, ORACLE_MEAN_RTOL)
+    del osd
+    for label, (gsd, _, _) in grids.items():
+        profile_render(label, gsd, integ, 2, ("walk_",))
+    del grids, gsd
+    hier_recs, ao_launches = [], {}
+    for label, n_tris in AO_ROWS:
+        recs, launches = ao_row(dev, label, n_tris)
+        hier_recs += recs
+        for k, v in launches.items():
+            ao_launches[k] = ao_launches.get(k, 0) + v
+    for k in walk_launches:
+        walk_launches[k] += ao_launches[k]
 
     def pick(kind):
         """The K3-size spread wavefront stands for a walk kernel; every
@@ -543,6 +781,24 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None, "cases": cases})
+    from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS
+    for name, line, kind, wave in (
+            ("walk_hier_closest", 1311, "closest", "camera"),
+            ("walk_hier_anyhit", 1411, "anyhit", "ao")):
+        # the wavefront of the row whose render takes the two-level walk
+        rec = next(r for r in hier_recs if r["wavefront"] == wave
+                   and r["cp"] > FLAT_MAX_CLUSTERS)[kind]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": KERNEL_SOURCES["walk_hier"],
+            "replaces": f"rustlight_tpu/accel/pallas_walk.py:{line} (K5)",
+            "launches": ao_launches[name],
+            "max_abs_err": max(r[kind]["max_abs_err"] for r in hier_recs),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,
+            "cases": [{"table": r["table"], "wavefront": r["wavefront"],
+                       "cp": r["cp"], **r[kind]} for r in hier_recs]})
     phase("done", f"all phases passed in {time.time() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

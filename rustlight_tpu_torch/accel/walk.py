@@ -7,9 +7,11 @@ up to K per cluster, and each cluster gets the tight bounds of its
 triangles (`build_walk_tables`). The port keeps one table layout for every
 cluster count: rows [Cp*K, 3, 4] f32 (cluster-major, each triangle as the
 dense kernels' rows), ids [Cp*K] int32 (-1 in pad slots), bounds lo/hi
-[3, Cp] f32, with Cp the real count padded to a multiple of 128.
-`walk_tables_from_numpy` turns the JAX package's tables (its resident or
-its HBM layout) into this one.
+[3, Cp] f32, with Cp the real count padded to a multiple of 128. The
+two-level walk's super tables group SUP = 128 consecutive clusters: slo/shi
+[3, Sp] f32, the union of each super's real clusters, n_sup real supers
+padded to Sp, a multiple of 128. `walk_tables_from_numpy` turns the JAX
+package's tables (its resident or its HBM layout) into this one.
 
 Per wavefront (`_walk_impl`): NaN and negative ranges are sanitized, the
 rays are sorted stably by a coherence key, padded to whole RAY_TILE-ray
@@ -17,10 +19,14 @@ tiles, walked by the kernels of ops/walk_trace.py (CUDA on the card, their
 plain versions on the CPU), and put back in lane order. The key is chosen
 per wavefront as the reference does: the incidence key for spread-origin
 wavefronts, the morton key for point-origin ones; in eager torch that
-choice costs one host read per call.
+choice costs one host read per call. Past _INC_SORT_MAX_C clusters every
+wavefront takes the morton key (the incidence key's slab pass is linear in
+the cluster count), with no host read.
 
-Scenes past 2^14 clusters need the two-level walk (K5), which is not
-ported yet, and raise.
+Tables of up to 2^14 clusters take the one-level walk (K3/K4,
+ops/walk_trace.py); larger ones, up to MAX_CLUSTERS = 2^17, the two-level
+walk (K5, ops/walk_hier.py), as the reference chooses. Past that, building
+raises.
 """
 from __future__ import annotations
 
@@ -30,23 +36,34 @@ import numpy as np
 import torch
 
 from .. import EPSILON
+from ..ops.walk_hier import (MAX_CLUSTERS, SUP, walk_hier_anyhit,
+                             walk_hier_closest)
 from ..ops.walk_trace import (K, RAY_TILE, _ID_BITS, _slab_inv, walk_anyhit,
                               walk_closest)
 from .bvh import build_bvh
 from .dense import RayHit
 
 _BIG = 1e30                        # bounds of pad clusters: distant points
-MAX_CLUSTERS = 1 << _ID_BITS       # packed entries carry the cluster id
+# tables past this many clusters take the two-level walk: the one-level
+# walk's packed entries carry the cluster id in _ID_BITS mantissa bits
+FLAT_MAX_CLUSTERS = 1 << _ID_BITS
+# the incidence key's [N, C] slab pass is linear in C; past this many
+# clusters every wavefront takes the morton key (pallas_walk.py:102)
+_INC_SORT_MAX_C = 32768
 
 
 class WalkTables(NamedTuple):
     n_tris: int
     n_clusters: int   # Cp: the real clusters padded to a multiple of 128
     n_real: int       # real clusters (treelets), the first n_real of Cp
+    n_sup: int        # real supers: ceil(n_real / SUP)
+    n_sup_pad: int    # Sp: the super count padded to a multiple of 128
     rows: Any         # [Cp*K, 3, 4] f32 Baldwin-Weber rows, cluster-major
     ids: Any          # [Cp*K] int32 triangle ids, -1 in pad slots
     lo: Any           # [3, Cp] f32 cluster bounds (pads: _BIG)
     hi: Any           # [3, Cp] f32
+    slo: Any          # [3, Sp] f32 super bounds: union of real children
+    shi: Any          # [3, Sp] f32 (pads: _BIG)
     world_lo: Any     # [3] f32 scene bounds (the morton grid of the sort key)
     world_hi: Any     # [3] f32
 
@@ -54,10 +71,26 @@ class WalkTables(NamedTuple):
 def _check_clusters(cp: int) -> None:
     if cp > MAX_CLUSTERS:
         raise NotImplementedError(
-            f"{cp} walk clusters exceed the packed-id budget of "
-            f"{MAX_CLUSTERS}: such scenes need the two-level walk (K5, "
-            "rustlight_tpu/accel/pallas_walk.py:_closest_kernel_hbm_hier), "
-            "which is not ported yet")
+            f"{cp} walk clusters exceed the ceiling of {MAX_CLUSTERS} of "
+            "the two-level walk (K5), as in the reference")
+
+
+def _super_tables(lo, hi, c: int):
+    """Super tables of cluster bounds lo/hi [3, Cp] with c real clusters, as
+    the reference builds them (pallas_walk.py:274-285): (n_sup, Sp, slo,
+    shi), each super the union of its real children; pad supers stay
+    _BIG."""
+    cp = lo.shape[1]
+    # Cp pads c to a multiple of 128 = SUP, so every one of its Cp / SUP
+    # supers holds a real cluster: they are the n_sup real ones
+    ns = cp // SUP
+    sp = ((ns + 127) // 128) * 128
+    slo = np.full((3, sp), _BIG, np.float32)
+    shi = np.full((3, sp), _BIG, np.float32)
+    slo[:, :ns] = lo.reshape(3, ns, SUP).min(2)          # _BIG pads inert
+    hi_m = np.where(np.arange(cp)[None, :] < c, hi, -_BIG)
+    shi[:, :ns] = hi_m.reshape(3, ns, SUP).max(2)
+    return ns, sp, slo, shi
 
 
 def _treelet_cut(nodes: np.ndarray, max_tris: int):
@@ -137,8 +170,10 @@ def build_walk_tables(geom) -> WalkTables:
     hi = np.full((3, cp), _BIG, np.float32)
     lo[:, :c] = np.minimum.reduceat(tri_lo, starts, axis=0).T
     hi[:, :c] = np.maximum.reduceat(tri_hi, starts, axis=0).T
-    return WalkTables(n_tris=t, n_clusters=cp, n_real=c, rows=rows, ids=ids,
-                      lo=lo, hi=hi,
+    ns, sp, slo, shi = _super_tables(lo, hi, c)
+    return WalkTables(n_tris=t, n_clusters=cp, n_real=c, n_sup=ns,
+                      n_sup_pad=sp, rows=rows, ids=ids, lo=lo, hi=hi,
+                      slo=slo, shi=shi,
                       world_lo=tri_lo.min(0).astype(np.float32),
                       world_hi=tri_hi.max(0).astype(np.float32))
 
@@ -164,8 +199,9 @@ def walk_tables_from_numpy(wt) -> WalkTables:
     rows = np.ascontiguousarray(rows.reshape(cp * K, 3, 4), np.float32)
     return WalkTables(
         n_tris=int(wt.n_tris), n_clusters=cp, n_real=int(wt.n_real),
-        rows=rows, ids=ids,
+        n_sup=int(wt.n_sup), n_sup_pad=int(wt.n_sup_pad), rows=rows, ids=ids,
         lo=np.asarray(wt.lo, np.float32), hi=np.asarray(wt.hi, np.float32),
+        slo=np.asarray(wt.slo, np.float32), shi=np.asarray(wt.shi, np.float32),
         world_lo=np.asarray(wt.world_lo, np.float32),
         world_hi=np.asarray(wt.world_hi, np.float32))
 
@@ -175,9 +211,11 @@ def walk_tables_to(wt, device) -> WalkTables:
     wt = walk_tables_from_numpy(wt)
     arrays = {f: torch.as_tensor(np.ascontiguousarray(getattr(wt, f)),
                                  device=device)
-              for f in ("rows", "ids", "lo", "hi", "world_lo", "world_hi")}
+              for f in ("rows", "ids", "lo", "hi", "slo", "shi", "world_lo",
+                        "world_hi")}
     return WalkTables(n_tris=int(wt.n_tris), n_clusters=int(wt.n_clusters),
-                      n_real=int(wt.n_real), **arrays)
+                      n_real=int(wt.n_real), n_sup=int(wt.n_sup),
+                      n_sup_pad=int(wt.n_sup_pad), **arrays)
 
 
 # ------------------------------------------------------------- coherence keys
@@ -246,6 +284,15 @@ def _incidence_key(wt, o, d, tnear, tfar):
 
 # ----------------------------------------------------------------- the walk
 
+def _origin_spread(o, tfar):
+    """Largest extent of the live lanes' origins; dead lanes take the first
+    live origin (lane 0 may be inert)."""
+    live = tfar > 0.0
+    ref_o = o[torch.argmax(live.int())]
+    o_live = torch.where(live[:, None], o, ref_o)
+    return torch.amax(o_live.amax(dim=0) - o_live.amin(dim=0))
+
+
 def _prepare(wt, o, d, tnear, tfar, sort_rays: bool = True):
     """Sanitize, coherence-sort and pad a wavefront for the walk kernels.
 
@@ -261,14 +308,10 @@ def _prepare(wt, o, d, tnear, tfar, sort_rays: bool = True):
     if sort_rays and n >= 2 * RAY_TILE:
         o_safe = torch.where(torch.isfinite(o), o, 0.0)
         d_safe = torch.where(torch.isfinite(d), d, 0.0)
-        live = tfar > 0.0
-        # dead lanes take the first live origin (lane 0 may be inert)
-        ref_o = o_safe[torch.argmax(live.int())]
-        o_live = torch.where(live[:, None], o_safe, ref_o)
-        spread = torch.amax(o_live.amax(dim=0) - o_live.amin(dim=0))
-        ext = torch.amax(wt.world_hi - wt.world_lo)
         # point-origin wavefronts (camera rays) take the morton key
-        if bool(spread > 1e-5 * ext):
+        if (int(wt.n_clusters) <= _INC_SORT_MAX_C
+                and bool(_origin_spread(o_safe, tfar)
+                         > 1e-5 * torch.amax(wt.world_hi - wt.world_lo))):
             kmaj, kmin = _incidence_key(wt, o_safe, d_safe, tnear, tfar)
         else:
             kmaj, kmin = _sort_key(wt, o_safe, d_safe)
@@ -295,15 +338,21 @@ def _unsort(x, order, n):
     return out
 
 
-def _walk_impl(wt, o, d, tnear, tfar, any_hit: bool, sort_rays: bool = True):
+def _walk_impl(wt, o, d, tnear, tfar, any_hit: bool, sort_rays: bool = True,
+               hier: bool = None):
     """Closest hit (RayHit) or occlusion ([n] bool) of a wavefront over
-    device walk tables."""
+    device walk tables. `hier` picks the two-level walk; by default it is
+    taken past FLAT_MAX_CLUSTERS clusters."""
     n = o.shape[0]
+    if hier is None:
+        hier = int(wt.n_clusters) > FLAT_MAX_CLUSTERS
+    closest, anyhit = ((walk_hier_closest, walk_hier_anyhit) if hier
+                       else (walk_closest, walk_anyhit))
     o, d, tnear, tfar, order = _prepare(wt, o, d, tnear, tfar, sort_rays)
     if any_hit:
-        return _unsort(walk_anyhit(wt, o, d, tnear, tfar), order, n)
+        return _unsort(anyhit(wt, o, d, tnear, tfar), order, n)
     t, tri, u, v = (_unsort(x, order, n)
-                    for x in walk_closest(wt, o, d, tnear, tfar))
+                    for x in closest(wt, o, d, tnear, tfar))
     return RayHit(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
 
 

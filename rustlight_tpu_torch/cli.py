@@ -1,13 +1,15 @@
 """Command-line renderer: the ported subset of rustlight_tpu/cli.py.
 
 Usage: python -m rustlight_tpu_torch.cli cbox -n 64 -o out.pfm path -m 6
+       python -m rustlight_tpu_torch.cli cbox -n 4 -o ao.pfm ao -d 2
 
 Flags keep the reference CLI's names. Ported so far: the built-in `cbox`
 scene, the `path` integrator with -m/-n/-r/-x/-s (strategies all, bsdf,
-emitter), -n/--nbsamples, -o/--output (.pfm), -s/--scale-image and
--r/--random-number-generator independent[:seed]. `--device` names the torch
-device to render on. Every other scene or integrator exits with "not ported
-yet".
+emitter), the `ao` integrator with -d/--distance (`inf` for no limit) and
+-c/--normal-correction, -n/--nbsamples, -o/--output (.pfm),
+-s/--scale-image and -r/--random-number-generator independent[:seed].
+`--device` names the torch device to render on. Every other scene or
+integrator exits with "not ported yet".
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import sys
 import time
 
 # integrator subcommands of the reference CLI that have no port yet
-_NOT_PORTED = ("ao", "direct", "light-tracing", "light", "vpl",
+_NOT_PORTED = ("direct", "light-tracing", "light", "vpl",
                "vol-primitivies", "vol-primitives", "plane-single",
                "uncorrelated-plane-single", "point-normal", "gradient-path",
                "gradient-path-explicit", "pssmlt", "erpt", "smcmc", "avg")
@@ -48,15 +50,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-x", "--single-scattering", action="store_true")
     p.add_argument("-s", "--strategy", default="all",
                    choices=["all", "bsdf", "emitter"])
+    p = sub.add_parser("ao")
+    p.add_argument("-d", "--distance", default="1.0")
+    p.add_argument("-c", "--normal-correction", action="store_true")
     for name in _NOT_PORTED:
         q = sub.add_parser(name)
         q.add_argument("rest", nargs=argparse.REMAINDER)
     return ap
 
 
+def build_integrator(args):
+    from .integrators import IntegratorAO, IntegratorPathTracing
+    if args.command == "ao":
+        return IntegratorAO(max_distance=_inf_or(args.distance, float),
+                            normal_correction=args.normal_correction)
+    return IntegratorPathTracing(
+        min_depth=_inf_or(args.min_depth), max_depth=_inf_or(args.max_depth),
+        rr_depth=_inf_or(args.rr_depth), strategy=args.strategy,
+        single_scattering=args.single_scattering)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command != "path":
+    if args.command not in ("path", "ao"):
         raise SystemExit(f"integrator {args.command!r} is not ported yet")
     if args.scene != "cbox":
         raise SystemExit(f"scene {args.scene!r} is not ported yet")
@@ -65,7 +81,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"sampler {rng!r} is not ported yet")
     seed = int(rng.split(":")[1]) if ":" in rng else 0
 
-    from .integrators import IntegratorPathTracing, render
+    from .integrators import render
     from .models import cornell_box
 
     t0 = time.time()
@@ -76,10 +92,7 @@ def main(argv=None) -> int:
     scene.camera = cam._replace(width=int(cam.width * args.scale_image),
                                 height=int(cam.height * args.scale_image))
     sd = scene.compile(device=args.device)
-    integ = IntegratorPathTracing(
-        min_depth=_inf_or(args.min_depth), max_depth=_inf_or(args.max_depth),
-        rr_depth=_inf_or(args.rr_depth), strategy=args.strategy,
-        single_scattering=args.single_scattering)
+    integ = build_integrator(args)
     t1 = time.time()
     film = render(sd, integ, args.nbsamples, seed=seed)
     t2 = time.time()

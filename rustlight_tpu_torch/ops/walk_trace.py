@@ -66,6 +66,13 @@ def _check(wt, o, d, tnear, tfar) -> None:
     if not 0 < int(wt.n_real) <= cp <= 1 << _ID_BITS:
         raise ValueError(f"walk tables with {wt.n_real} real of {cp} clusters"
                          f" (the packed entries take at most 2^{_ID_BITS})")
+    _check_arrays(wt, o, d, tnear, tfar)
+
+
+def _check_arrays(wt, o, d, tnear, tfar, extra=()) -> None:
+    """Shapes, types, devices and layout of the walk's tables and rays, and
+    of `extra` (name, tensor, shape, dtype) entries."""
+    cp = int(wt.n_clusters)
     n = o.shape[0]
     if n % RAY_TILE:
         raise ValueError(f"{n} rays: the walk takes whole {RAY_TILE}-ray tiles")
@@ -77,7 +84,7 @@ def _check(wt, o, d, tnear, tfar) -> None:
             ("ids", wt.ids, (cp * K,), torch.int32),
             ("o", o, (n, 3), torch.float32), ("d", d, (n, 3), torch.float32),
             ("tnear", tnear, (n,), torch.float32),
-            ("tfar", tfar, (n,), torch.float32)):
+            ("tfar", tfar, (n,), torch.float32), *extra):
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
         if x.dtype != dtype:
@@ -99,36 +106,50 @@ def _slab_inv(d):
                              torch.where(d >= 0.0, 1e-12, -1e-12))
 
 
-def _tile_entries(wt, o, d, tnear, tfar):
-    """Packed entries [G, Cp] int32 of G tiles (o, d [G, R, 3]; tnear, tfar
-    [G, R]): the bits of min over the tile's rays of the slab entry, the
-    cluster id in the low _ID_BITS, _INF_BITS where no ray enters."""
-    inv = _slab_inv(d)
-    cp = wt.lo.shape[1]
+def _min_entry(lo, hi, o, inv, tnear, cap):
+    """Min over each tile's rays of the slab entry into boxes lo/hi ([3, C],
+    or [3, G, 1, C] per tile) for rays o, inv [G, R, 3], tnear, cap [G, R],
+    counted where tmax >= entry and entry < cap: [G, C], inf for no entry."""
     tmin = tmax = None
     for ax in range(3):
-        t0 = (wt.lo[ax] - o[..., ax:ax + 1]) * inv[..., ax:ax + 1]
-        t1 = (wt.hi[ax] - o[..., ax:ax + 1]) * inv[..., ax:ax + 1]
+        t0 = (lo[ax] - o[..., ax:ax + 1]) * inv[..., ax:ax + 1]
+        t1 = (hi[ax] - o[..., ax:ax + 1]) * inv[..., ax:ax + 1]
         lo_t, hi_t = torch.minimum(t0, t1), torch.maximum(t0, t1)
         tmin = lo_t if tmin is None else torch.maximum(tmin, lo_t)
         tmax = hi_t if tmax is None else torch.minimum(tmax, hi_t)
     entry = torch.maximum(tmin, tnear[..., None])
-    ok = (tmax >= entry) & (entry < tfar[..., None])
-    ent = torch.where(ok, entry, float("inf")).amin(dim=1)          # [G, Cp]
-    cid = torch.arange(cp, dtype=torch.int32, device=o.device)
-    fin = (cid < int(wt.n_real)) & torch.isfinite(ent)
+    ok = (tmax >= entry) & (entry < cap[..., None])
+    return torch.where(ok, entry, float("inf")).amin(dim=1)
+
+
+def _pack_entries(ent, real, mask: int):
+    """Entries [G, C] packed with the column index in the low bits of
+    `mask`; _INF_BITS where not finite or not `real` [C] or [G, C]."""
+    cid = torch.arange(ent.shape[1], dtype=torch.int32, device=ent.device)
+    fin = real & torch.isfinite(ent)
     # + 0 maps a -0 entry to +0, so its bits sort as the smallest
     z = torch.clamp(torch.where(fin, ent, 0.0), min=0.0) + 0.0
-    packed = (z.view(torch.int32) & ~_ID_MASK) | cid
+    packed = (z.view(torch.int32) & ~mask) | cid
     return torch.where(fin, packed, _INF_BITS)
 
 
-def _pop_min(ent):
-    """Pops each row's smallest entry: (bits [G], cluster [G] int64,
-    entries); all-popped rows give cluster 0, as the reference's pop does."""
+def _tile_entries(lo, hi, n_real, o, d, tnear, tfar):
+    """Packed entries [G, C] int32 of G tiles (o, d [G, R, 3]; tnear, tfar
+    [G, R]) into the boxes lo/hi [3, C], the first n_real real: the bits of
+    min over the tile's rays of the slab entry, the box id in the low
+    _ID_BITS, _INF_BITS where no ray enters."""
+    ent = _min_entry(lo, hi, o, _slab_inv(d), tnear, tfar)          # [G, C]
+    cid = torch.arange(ent.shape[1], device=o.device)
+    return _pack_entries(ent, cid < int(n_real), _ID_MASK)
+
+
+def _pop_min(ent, mask: int = _ID_MASK):
+    """Pops each row's smallest entry: (bits [G], id [G] int64, entries),
+    the id being the bits under `mask` clamped to the last column;
+    all-popped rows give id 0, as the reference's pop does."""
     bmin = ent.amin(dim=1)
     ent = torch.where(ent == bmin[:, None], _INF_BITS, ent)
-    csel = torch.clamp(bmin & _ID_MASK, max=ent.shape[1] - 1).long()
+    csel = torch.clamp(bmin & mask, max=ent.shape[1] - 1).long()
     return bmin, csel, ent
 
 
@@ -155,19 +176,52 @@ def _test_clusters(rows, o, d, tnear, tcap):
     return t, u, v, valid
 
 
+def _visit_closest(rows, ids, csel, o, d, tnear, best):
+    """One closest-hit visit of cluster csel [A] by A tiles: best = (t, tri,
+    u, v) [A, R], updated where a hit is strictly nearer; the lowest column
+    wins inside the cluster."""
+    bt, bi, bu, bv = best
+    t, u, v, valid = _test_clusters(rows[csel], o, d, tnear, bt)
+    tm = torch.where(valid, t, float("inf"))
+    ct = tm.amin(dim=-1)
+    kiota = torch.arange(K, device=o.device)
+    j = torch.where(tm == ct[..., None], kiota, K).amin(dim=-1)
+    j = torch.clamp(j, max=K - 1)
+    better = ct < bt
+    tri = ids[csel[:, None], j]
+    # + 0 maps a -0 barycentric to +0, as the kernel's output does
+    uj = u.gather(-1, j[..., None])[..., 0] + 0.0
+    vj = v.gather(-1, j[..., None])[..., 0] + 0.0
+    return (torch.where(better, ct, bt), torch.where(better, tri, bi),
+            torch.where(better, uj, bu), torch.where(better, vj, bv))
+
+
+def _visit_anyhit(rows, csel, o, d, tnear, tfar, occ):
+    """One any-hit visit of cluster csel [A]: occ [A, R] | a hit in range."""
+    return occ | _test_clusters(rows[csel], o, d, tnear, tfar)[3].any(dim=-1)
+
+
+def _tiled(fn, width, o, d, tnear, tfar):
+    """fn(o, d, tnear, tfar) on [G, RAY_TILE, ...] tiles, G chosen so that a
+    [G, RAY_TILE, width] tensor stays near _REF_ELEMS elements; returns
+    fn's (outputs, *per-tile counts), concatenated over the chunks."""
+    n = o.shape[0]
+    per = max(1, _REF_ELEMS // (RAY_TILE * width)) * RAY_TILE
+    parts = [fn(*(x[s:s + per].reshape(-1, RAY_TILE, *x.shape[1:])
+                  for x in (o, d, tnear, tfar)))
+             for s in range(0, max(n, 1), per)]
+    outs = tuple(torch.cat(xs).reshape(-1) for xs in zip(*(p[0] for p in parts)))
+    return (outs, *(torch.cat(c) for c in zip(*(p[1:] for p in parts))))
+
+
 def _walk_ref(wt, o, d, tnear, tfar, any_hit: bool):
     """The tile walk of the kernels for every tile at once, chunked over
     tiles. Returns ((t, tri, u, v) or (occ,), cluster visits per tile)."""
-    n = o.shape[0]
     cp = int(wt.n_clusters)
     rows = wt.rows.view(cp, K, 3, 4)
     ids = wt.ids.view(cp, K)
-    per = max(1, _REF_ELEMS // (RAY_TILE * max(cp, K))) * RAY_TILE
-    parts = [_walk_chunk(wt, rows, ids, *(x[s:s + per].reshape(
-        -1, RAY_TILE, *x.shape[1:]) for x in (o, d, tnear, tfar)), any_hit)
-             for s in range(0, max(n, 1), per)]
-    outs = tuple(torch.cat(xs).reshape(-1) for xs in zip(*(p[0] for p in parts)))
-    return outs, torch.cat([p[1] for p in parts])
+    return _tiled(lambda *r: _walk_chunk(wt, rows, ids, *r, any_hit),
+                  max(cp, K), o, d, tnear, tfar)
 
 
 def _sortable_max(x):
@@ -178,9 +232,8 @@ def _sortable_max(x):
 def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
     g = o.shape[0]
     cp = rows.shape[0]
-    ent = _tile_entries(wt, o, d, tnear, tfar)
+    ent = _tile_entries(wt.lo, wt.hi, wt.n_real, o, d, tnear, tfar)
     emin, csel, ent = _pop_min(ent)
-    kiota = torch.arange(K, device=o.device)
     if any_hit:
         occ = torch.zeros(tfar.shape, dtype=torch.bool, device=o.device)
         thresh = _sortable_max(tfar)
@@ -203,24 +256,11 @@ def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
             bt, bi, bu, bv = best_t[act], best_i[act], best_u[act], best_v[act]
         for _ in range(2):
             if any_hit:
-                valid = _test_clusters(rows[a_csel], a_o, a_d, a_tn, a_tf)[3]
-                a_occ = a_occ | valid.any(dim=-1)
+                a_occ = _visit_anyhit(rows, a_csel, a_o, a_d, a_tn, a_tf,
+                                      a_occ)
             else:
-                t, u, v, valid = _test_clusters(rows[a_csel], a_o, a_d, a_tn,
-                                                bt)
-                tm = torch.where(valid, t, float("inf"))
-                ct = tm.amin(dim=-1)
-                j = torch.where(tm == ct[..., None], kiota, K).amin(dim=-1)
-                j = torch.clamp(j, max=K - 1)
-                better = ct < bt
-                tri = ids[a_csel[:, None], j]
-                bt = torch.where(better, ct, bt)
-                bi = torch.where(better, tri, bi)
-                # + 0 maps a -0 barycentric to +0, as the kernel's output does
-                uj = u.gather(-1, j[..., None])[..., 0] + 0.0
-                vj = v.gather(-1, j[..., None])[..., 0] + 0.0
-                bu = torch.where(better, uj, bu)
-                bv = torch.where(better, vj, bv)
+                bt, bi, bu, bv = _visit_closest(rows, ids, a_csel, a_o, a_d,
+                                                a_tn, (bt, bi, bu, bv))
             a_emin, a_csel, a_ent = _pop_min(a_ent)
         ent[act], emin[act], csel[act] = a_ent, a_emin, a_csel
         nv[act] += 1

@@ -126,7 +126,7 @@ def test_cli_renders_a_pfm(tmp_path):
     np.testing.assert_array_equal(read_pfm(tmp_path / "again.pfm"), img)
 
 
-@pytest.mark.parametrize("argv", [["veach_mis", "path"], ["cbox", "ao"],
+@pytest.mark.parametrize("argv", [["veach_mis", "path"], ["cbox", "direct"],
                                   ["cbox", "-r", "stratified", "path"]])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported yet"):

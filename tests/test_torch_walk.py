@@ -286,8 +286,8 @@ def test_walk_inputs_are_checked(soup):
 
 
 def test_scenes_past_the_packed_budget_raise(soup, monkeypatch):
-    """Past 2^14 clusters the two-level walk (K5) is needed, which is not
-    ported: building or converting such tables raises."""
+    """Past MAX_CLUSTERS (2^17, the two-level walk's ceiling, as in the
+    reference) building or converting tables raises."""
     jgeom, tgeom, _ = soup
     monkeypatch.setattr(tw, "MAX_CLUSTERS", 64)
     with pytest.raises(NotImplementedError, match="K5"):
