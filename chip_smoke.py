@@ -26,7 +26,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      and empty lanes) go through the walk's sort, then the kernels and
      their plain versions see the same tiles: ids equal except near-ties,
      t/u/v within 1e-6, occlusion equal, no inert lane hits; times are
-     medians of 10 (kernel, and the walk with its sort) and of 3 (plain);
+     medians of 10 (kernel, and the walk with its sort), plain one run;
   6. main path, grids: render(sphere_grid(n, 256, 256), path tracer depth
      5, 8 spp) for n = 122,000 and 516,000 (bench.py:132-139), warm-up
      then timed with launch counts reset just before; the image must be
@@ -52,7 +52,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      t/u/v within 1e-6, occlusion equal, no inert lane hits; kernel times
      and those of the walk with its sort, forced onto the two-level route,
      are medians of 10 on the whole wavefront, plain times one run on the
-     whole wavefront (the comparison's) and medians of 3 on every 8th tile;
+     whole wavefront (the comparison's) and one more on every 8th tile;
  10. main path, AO: render(scene, IntegratorAO(max_distance=2), 4 spp),
      warm-up seed 0, timed seed 1 (bench.py:209-214); the image must be
      finite, the ray count 2 x 256^2 x 4 = 524,288, and the row's walk
@@ -60,7 +60,31 @@ checkout; imports nothing of JAX. Phases, one line each or more:
  11. oracle, AO: the same scene at 64^2, 2 spp, seed 0, once through the
      walk and once through the dense kernels over every triangle: 99.9% of
      pixels equal, means within 1e-3 (relative);
- 12. profile, AO: torch.profiler over one warm 1 spp render.
+ 12. profile, AO: torch.profiler over one warm 1 spp render;
+ 13. schedule kernels: on grid122k's tables and the two wavefronts of phase
+     5, after the walk's sort: the sub-tiled walk (K6) at sub = 2, 4, 8, the
+     sparse-visit walk (K7), the wide pop of K3/K4 with its heaps in shared
+     and in device memory, and the pair walk (K8) at km = 8 and 2 (2 makes
+     most rays re-trace), each against its plain version under phase 5's
+     rules and against K3's result on the same rays (K7 with the share of
+     visits that took the sparse branch and the rays flagged a visit);
+     kernel and whole-call times are medians of 10 beside K3's, plain times
+     one run. The wide pop
+     the same way on grid5p7M's tables and the two AO wavefronts of phase 9
+     (every tile), beside K5's times. (Run while each scene is alive: the
+     grid122k part after phase 8, the grid5p7M part after phase 12.)
+ 14. main path, schedules: the grid122k render of phase 6 once more for each
+     of WalkOptions(sub=2), (sparse=True), (pair=True), the scene uploaded
+     with that option from the host tables built once: finite image; that
+     schedule's kernels launched and no other trace kernel (pair: also the
+     tile walk of its fallback); against phase 6's image of the same seed
+     99.9% of pixels within 1e-3 (relative), means within 1e-4; a profile
+     of a warm 2 spp render each, and the default schedule timed once more;
+ 15. main path, wide: the grid5p7M AO render of phase 10 with
+     WalkOptions(hier=False): 524,288 rays, the wide kernels the only trace
+     kernels, 99.9% of pixels equal to phase 10's image, means within 1e-3;
+ 16. sort key: the grid4p9M AO render with WalkOptions(inc_sort=False)
+     beside phase 10's, images held equal as in 15.
 
 Before the last line: the card line from nvidia-smi and a JSON line with
 each kernel's launches, error, times and bound. The last line is the JSON
@@ -83,7 +107,7 @@ DEVICE = "cuda"
 N_RAYS = 262_144
 CBOX_RES, CBOX_SPP, CBOX_DEPTH = 512, 128, 6
 TIMING_RUNS = 10
-PLAIN_RUNS = 3
+PLAIN_RUNS = 1
 # ids may differ only where the two nearest valid t are this close (relative)
 TIE_RTOL = 1e-6
 # t, u, v tolerance kernel vs plain version: both run the same IEEE f32
@@ -113,7 +137,14 @@ HIER_SAMPLE = 8            # plain versions timed on every 8th tile
 HIER_VISIT_BYTES = 384 * 48 + 384 * 4
 KERNEL_SOURCES = {"dense": "rustlight_tpu_torch/csrc/dense_trace.cu",
                   "walk": "rustlight_tpu_torch/csrc/walk_trace.cu",
-                  "walk_hier": "rustlight_tpu_torch/csrc/walk_hier.cu"}
+                  "walk_hier": "rustlight_tpu_torch/csrc/walk_hier.cu",
+                  "walk_sub": "rustlight_tpu_torch/csrc/walk_sub.cu",
+                  "walk_sparse": "rustlight_tpu_torch/csrc/walk_sparse.cu",
+                  "pair": "rustlight_tpu_torch/csrc/pair_trace.cu"}
+# the schedule renders of phase 14 and the shortlist lengths of phase 13
+SCHED_PIX_FRAC, SCHED_PIX_RTOL, SCHED_MEAN_RTOL = 0.999, 1e-3, 1e-4
+PAIR_KMS = (8, 2)
+PAIR_IN_BYTES = RAY_IN_BYTES + 4   # a pair: its ray and its cluster id
 WALK_REPLACES = ("rustlight_tpu/accel/pallas_walk.py:{} (K3), "
                  "rustlight_tpu/accel/pallas_walk.py:{} (K4)")
 
@@ -304,9 +335,12 @@ def profile_render(label, sd, integ, spp, names, top=12):
 
 def _launch_modules():
     from rustlight_tpu_torch.ops import dense_trace as dt
+    from rustlight_tpu_torch.ops import pair_trace as pt
     from rustlight_tpu_torch.ops import walk_hier as wh
+    from rustlight_tpu_torch.ops import walk_sparse as ws
+    from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
-    return dt, wk, wh
+    return dt, wk, wh, wsub, ws, pt
 
 
 def _reset_launches():
@@ -376,7 +410,8 @@ def _wavefronts(sd, rng):
 
 def check_walk(label, sd, rng):
     """Walk kernels against their plain versions on the scene's two
-    wavefronts, sorted by the walk; returns one record per wavefront."""
+    wavefronts, sorted by the walk; returns one record per wavefront, and
+    the wavefronts."""
     import torch
     from rustlight_tpu_torch.accel import walk
     from rustlight_tpu_torch.ops import walk_trace as wk
@@ -384,7 +419,8 @@ def check_walk(label, sd, rng):
     table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
              + wt.hi.numel()) * 4
     out = []
-    for name, rays in _wavefronts(sd, rng).items():
+    waves = _wavefronts(sd, rng)
+    for name, rays in waves.items():
         srt = walk._prepare(wt, *rays)[:4]
         closest_k = wk.walk_closest(wt, *srt)
         closest_p, tile_c = wk._walk_ref(wt, *srt, False)
@@ -428,7 +464,303 @@ def check_walk(label, sd, rng):
                   f"{rec[k]['bound_ms']:.4f} ms ({rec[k]['bound_by']}), err "
                   f"{rec[k]['max_abs_err']:.3g}" for k in ("closest", "anyhit")))
         out.append(rec)
+    return out, waves
+
+
+def _timed(fn):
+    """One synchronised run: (result, ms)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3
+
+
+def _sched_line(tag, name, rec):
+    phase("sched", f"{tag} {name}: " + "; ".join(
+        f"{k}: {rec[k]['note']}, kernel {rec[k]['ms']:.4f} ms (K3/K5 "
+        f"{rec[k]['base_ms']:.4f}), whole call {rec[k]['walk_ms']:.4f} ms, "
+        f"plain {rec[k]['plain_ms']:.1f} ms, bound {rec[k]['bound_ms']:.4f} ms"
+        f" ({rec[k]['bound_by']}), err {rec[k]['max_abs_err']:.3g}"
+        for k in ("closest", "anyhit")))
+
+
+def check_schedules(label, sd, waves):
+    """Phase 13 on a resident table: K6 (sub 2, 4, 8), K7, the wide pop (both
+    heaps) and K8 (km 8, 2) against their plain versions and against K3's
+    result on the scene's two wavefronts. Returns {schedule: [a record per
+    wavefront]}."""
+    import torch
+    from rustlight_tpu_torch.accel import pair_walk as pw
+    from rustlight_tpu_torch.accel import walk
+    from rustlight_tpu_torch.ops import pair_trace as pt
+    from rustlight_tpu_torch.ops import walk_sparse as ws
+    from rustlight_tpu_torch.ops import walk_sub as wsub
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    wt = sd.geom.walk
+    rows = sd.geom.inter_rows
+    table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
+             + wt.hi.numel()) * 4
+    R, K = wk.RAY_TILE, wk.K
+    # schedule -> (closest kernel, any-hit kernel, plain(any_hit) -> (outs,
+    # tests, note), _walk_impl options)
+    def tile_sched(closest, anyhit, ref, tests_note, **opt):
+        return closest, anyhit, ref, tests_note, opt
+
+    def plain_counts(any_hit, srt, **kw):
+        outs, *counts = wk._walk_ref(wt, *srt, any_hit, **kw)
+        return outs, [int(c.sum()) for c in counts]
+
+    scheds = {}
+    for sub in wsub.SUBS:
+        scheds[f"sub{sub}"] = tile_sched(
+            lambda *a, s=sub: wsub.walk_sub_closest(*a, s),
+            lambda *a, s=sub: wsub.walk_sub_anyhit(*a, s),
+            lambda any_hit, srt, s=sub: plain_counts(any_hit, srt,
+                                                     tile=R // s),
+            lambda c, tiles, s=sub: (
+                c[0] * (R // s) * K,
+                f"{c[0] / tiles:.2f} group visits/tile of {R // s} rays"),
+            sub=sub)
+    scheds["sparse"] = tile_sched(
+        ws.walk_sparse_closest, ws.walk_sparse_anyhit,
+        lambda any_hit, srt: plain_counts(any_hit, srt,
+                                          sparse_cap=ws.SPARSE_CAP),
+        lambda c, tiles: (
+            c[2] * K,
+            f"{c[0] / tiles:.2f} visits/tile, {100 * c[1] / max(c[0], 1):.1f}%"
+            f" sparse, {c[3] / max(c[0], 1):.2f} rays flagged and "
+            f"{c[2] / max(c[0], 1):.2f} tested a visit"),
+        sparse=True)
+    for heap in ("shared", "global"):
+        scheds[f"wide/{heap}"] = tile_sched(
+            lambda *a, h=heap: wk.walk_closest(*a, wide=True, heap=h),
+            lambda *a, h=heap: wk.walk_anyhit(*a, wide=True, heap=h),
+            lambda any_hit, srt: plain_counts(any_hit, srt, wide=True),
+            lambda c, tiles: (c[0] * R * K, f"{c[0] / tiles:.2f} visits/tile"),
+            wide=True)
+    out = {name: [] for name in scheds}
+    for km in PAIR_KMS:
+        out[f"pair{km}"] = []
+    for wname, rays in waves.items():
+        tag = f"{label}/{wname}"
+        srt = walk._prepare(wt, *rays)[:4]
+        n = srt[0].shape[0]
+        tiles = n // R
+        k3 = (wk.walk_closest(wt, *srt), wk.walk_anyhit(wt, *srt))
+        base_ms = {"closest": _median_ms(lambda: wk.walk_closest(wt, *srt)),
+                   "anyhit": _median_ms(lambda: wk.walk_anyhit(wt, *srt))}
+        base_walk = {a: _median_ms(lambda a=a: walk._walk_impl(wt, *rays, a))
+                     for a in (False, True)}
+        phase("sched", f"{tag}: K3 kernel {base_ms['closest']:.4f} / "
+              f"{base_ms['anyhit']:.4f} ms, _walk_impl {base_walk[False]:.4f}"
+              f" / {base_walk[True]:.4f} ms")
+        for name, (closest, anyhit, ref, tests_note, opt) in scheds.items():
+            got = (closest(wt, *srt), anyhit(wt, *srt))
+            (pc, cc), pms_c = _timed(lambda: ref(False, srt))
+            (pa, ca), pms_a = _timed(lambda: ref(True, srt))
+            err_c, err_a, ties = _compare(f"{tag} {name}", rows, srt, got[0],
+                                          pc, got[1], pa[0])
+            _compare(f"{tag} {name} vs K3", rows, srt, got[0], k3[0], got[1],
+                     k3[1])
+            rec = {"table": label, "wavefront": wname, "schedule": name,
+                   "cp": wt.n_clusters, "rays": n, "tie_ids": ties}
+            for kind, counts, err, fn, any_hit, out_b, pms in (
+                    ("closest", cc, err_c, closest, False, 16, pms_c),
+                    ("anyhit", ca, err_a, anyhit, True, 1, pms_a)):
+                tests, note = tests_note(counts, tiles)
+                bound, by = _bound_ms(tests, n * (RAY_IN_BYTES + out_b) + table)
+                rec[kind] = {
+                    "note": note, "tests": tests, "max_abs_err": err,
+                    "ms": _median_ms(lambda f=fn: f(wt, *srt)),
+                    "base_ms": base_ms[kind],
+                    "walk_ms": _median_ms(lambda a=any_hit: walk._walk_impl(
+                        wt, *rays, a, **opt)),
+                    "base_walk_ms": base_walk[any_hit],
+                    "plain_ms": pms, "bound_ms": bound, "bound_by": by}
+            _sched_line(tag, name, rec)
+            out[name].append(rec)
+        # K8: the pairs of the morton-sorted wavefront, then the whole walk
+        msrt = walk._prepare(wt, *rays, inc_sort=False)[:4]
+        lane_k3 = (walk._walk_impl(wt, *rays, False)[:4],
+                   walk._walk_impl(wt, *rays, True))
+        for km in PAIR_KMS:
+            pairs, cutoff = pw._make_pairs(wt, *msrt, km)
+            m = pairs[0].shape[0]
+            got = (pt.pair_closest(wt, *pairs), pt.pair_anyhit(wt, *pairs))
+            (pc, pms_c) = _timed(lambda: pt.pair_closest_ref(wt, *pairs))
+            (pa, pms_a) = _timed(lambda: pt.pair_anyhit_ref(wt, *pairs))
+            err_c, err_a, ties = _compare(f"{tag} pair{km}", rows, pairs[:4],
+                                          got[0], pc[:4], got[1], pa[0])
+            whole = (pw._pairs_impl(wt, *rays, False, km)[:4],
+                     pw._pairs_impl(wt, *rays, True, km))
+            _compare(f"{tag} pair{km} vs K3", rows, rays, whole[0],
+                     lane_k3[0], whole[1], lane_k3[1])
+            live = pc[4]
+            over = float(torch.isfinite(cutoff).float().mean())
+            rec = {"table": label, "wavefront": wname,
+                   "schedule": f"pair{km}", "cp": wt.n_clusters, "rays": n,
+                   "tie_ids": ties}
+            for kind, err, fn, any_hit, out_b, pms in (
+                    ("closest", err_c, pt.pair_closest, False, 16, pms_c),
+                    ("anyhit", err_a, pt.pair_anyhit, True, 1, pms_a)):
+                bound, by = _bound_ms(live * K,
+                                      m * (PAIR_IN_BYTES + out_b) + table)
+                rec[kind] = {
+                    "note": f"{live} live of {m} pairs, {100 * over:.1f}% of "
+                            "rays overflow",
+                    "tests": live * K, "max_abs_err": err,
+                    "ms": _median_ms(lambda f=fn: f(wt, *pairs)),
+                    "base_ms": base_ms[kind],
+                    "walk_ms": _median_ms(lambda a=any_hit: pw._pairs_impl(
+                        wt, *rays, a, km)),
+                    "base_walk_ms": base_walk[any_hit],
+                    "plain_ms": pms, "bound_ms": bound, "bound_by": by}
+            _sched_line(tag, f"pair km={km}", rec)
+            out[f"pair{km}"].append(rec)
     return out
+
+
+def check_wide(label, sd, waves):
+    """Phase 13 on a table past 2^14 clusters: the wide pop with both heaps
+    against its plain version on every tile of the AO integrator's two
+    wavefronts, and against K5's result; beside K5's times. Returns a
+    record per heap and wavefront."""
+    from rustlight_tpu_torch.accel import walk
+    from rustlight_tpu_torch.ops import walk_hier as wh
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    wt = sd.geom.walk
+    rows = sd.geom.inter_rows
+    R, K = wk.RAY_TILE, wk.K
+    out = []
+    for wname, rays in waves.items():
+        tag = f"{label}/{wname}"
+        srt = walk._prepare(wt, *rays)[:4]
+        n = srt[0].shape[0]
+        k5 = (wh.walk_hier_closest(wt, *srt), wh.walk_hier_anyhit(wt, *srt))
+        base_ms = {"closest": _median_ms(lambda: wh.walk_hier_closest(wt, *srt)),
+                   "anyhit": _median_ms(lambda: wh.walk_hier_anyhit(wt, *srt))}
+        ((pc, vc), pms_c) = _timed(lambda: wk._walk_ref(wt, *srt, False, True))
+        (((pa,), va), pms_a) = _timed(lambda: wk._walk_ref(wt, *srt, True, True))
+        for heap in ("shared", "global"):
+            closest = lambda *a, h=heap: wk.walk_closest(*a, wide=True, heap=h)
+            anyhit = lambda *a, h=heap: wk.walk_anyhit(*a, wide=True, heap=h)
+            got = (closest(wt, *srt), anyhit(wt, *srt))
+            err_c, err_a, ties = _compare(f"{tag} wide/{heap}", rows, srt,
+                                          got[0], pc, got[1], pa)
+            _compare(f"{tag} wide/{heap} vs K5", rows, srt, got[0], k5[0],
+                     got[1], k5[1])
+            rec = {"table": label, "wavefront": wname,
+                   "schedule": f"wide/{heap}", "cp": wt.n_clusters, "rays": n,
+                   "tie_ids": ties}
+            for kind, visits, err, fn, any_hit, out_b, pms in (
+                    ("closest", vc, err_c, closest, False, 16, pms_c),
+                    ("anyhit", va, err_a, anyhit, True, 1, pms_a)):
+                nv = int(visits.sum())
+                bound, by = _bound_ms(nv * R * K, nv * HIER_VISIT_BYTES
+                                      + n * (RAY_IN_BYTES + out_b))
+                rec[kind] = {
+                    "note": "visits/tile %.2f, p99 %.0f, max %d"
+                            % _spread(visits),
+                    "tests": nv * R * K, "max_abs_err": err,
+                    "ms": _median_ms(lambda f=fn: f(wt, *srt)),
+                    "base_ms": base_ms[kind],
+                    "walk_ms": _median_ms(lambda a=any_hit: walk._walk_impl(
+                        wt, *rays, a, hier=False)),
+                    "plain_ms": pms, "bound_ms": bound, "bound_by": by}
+            _sched_line(tag, f"wide/{heap}", rec)
+            out.append(rec)
+    return out
+
+
+def _case(rec, kind):
+    """A schedule record's entry in a kernel's `cases` (kept short: the
+    whole record is in the phase's own line)."""
+    return {"table": rec["table"], "wavefront": rec["wavefront"],
+            "schedule": rec["schedule"],
+            **{k: rec[kind][k] for k in ("ms", "bound_ms", "max_abs_err")}}
+
+
+def _images_agree(label, img, ref, pix_frac, pix_rtol, mean_rtol):
+    """At least pix_frac of the pixels within pix_rtol (0: equal) of ref, the
+    means within mean_rtol (both relative)."""
+    rel = np.abs(img - ref) / np.maximum(np.abs(ref), 1e-4)
+    frac = float((rel.max(-1) <= pix_rtol).mean())
+    mean_rel = abs(float(img.mean()) - float(ref.mean())) / float(ref.mean())
+    phase("main", f"{label}: {100 * frac:.3f}% of pixels within {pix_rtol} of"
+          f" the default schedule's, means differ by {mean_rel:.3g}")
+    if frac < pix_frac or mean_rel > mean_rtol:
+        raise AssertionError(f"{label}: image differs from the default's")
+
+
+def _only(label, launches, kernels):
+    """Fails unless exactly `kernels` launched."""
+    if min(launches[k] for k in kernels) <= 0 or any(
+            v for k, v in launches.items() if k not in kernels):
+        raise AssertionError(f"{label}: launches {launches}")
+
+
+def schedule_renders(label, gsd, integ, ref_img, ref_rays, ref_wall):
+    """Phase 14: the grid render once per schedule, against the default
+    schedule's image of the same seed (ref_rays rays in ref_wall s; a pair
+    render counts its re-traced rays twice, so every rate here is over
+    ref_rays). Returns the launches summed."""
+    from rustlight_tpu_torch.accel.walk import WalkOptions
+    from rustlight_tpu_torch.scene.scene import from_numpy_scene
+    total = {}
+    for name, options, kernels in (
+            ("sub=2", WalkOptions(sub=2),
+             ("walk_sub_closest", "walk_sub_anyhit")),
+            ("sparse", WalkOptions(sparse=True),
+             ("walk_sparse_closest", "walk_sparse_anyhit")),
+            ("pair", WalkOptions(pair=True),
+             ("pair_closest", "pair_anyhit", "walk_closest", "walk_anyhit"))):
+        sd = from_numpy_scene(gsd.host, gsd.device, walk_options=options)
+        tag = f"{label} {name}"
+        img, wall, warm, n_rays, launches = timed_render(tag, sd, integ,
+                                                         GRID_SPP)
+        _only(tag, launches, kernels)
+        phase("main", f"{tag}: warm-up {warm:.3f}s, timed {wall:.3f}s "
+              f"(default schedule {ref_wall:.3f}s), {n_rays} rays counted, "
+              f"{ref_rays / wall / 1e6:.3f} Mrays/s (default "
+              f"{ref_rays / ref_wall / 1e6:.3f}), mean {img.mean():.6f}, "
+              f"launches { {k: v for k, v in launches.items() if v} }")
+        _images_agree(tag, img, ref_img, SCHED_PIX_FRAC, SCHED_PIX_RTOL,
+                      SCHED_MEAN_RTOL)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        profile_render(tag, sd, integ, 2, ("walk_", "pair_"))
+    # the default schedule once more: host time drifts within a run
+    _, wall, _, _, _ = timed_render(label, gsd, integ, GRID_SPP)
+    phase("main", f"{label} default schedule again: timed {wall:.3f}s, "
+          f"{ref_rays / wall / 1e6:.3f} Mrays/s (phase 6: {ref_wall:.3f}s)")
+    return total
+
+
+def ao_option_render(label, sd, options, kernels, ref_img, ref_wall):
+    """Phases 15 and 16: the AO render of phase 10 with other walk options,
+    its image held to phase 10's. Returns the launches."""
+    from rustlight_tpu_torch.integrators import IntegratorAO
+    from rustlight_tpu_torch.scene.scene import from_numpy_scene
+    osd = from_numpy_scene(sd.host, sd.device, walk_options=options)
+    img, wall, warm, n_rays, launches = timed_render(
+        label, osd, IntegratorAO(max_distance=AO_DIST), AO_SPP, seed=1)
+    expect = 2 * AO_RES * AO_RES * AO_SPP
+    if n_rays != expect:
+        raise AssertionError(f"{label}: {n_rays} rays traced, {expect} "
+                             "expected")
+    _only(label, launches, kernels)
+    phase("main", f"{label}: warm-up {warm:.3f}s, timed (seed 1) {wall:.3f}s "
+          f"(default {ref_wall:.3f}s), {n_rays} rays, "
+          f"{n_rays / wall / 1e6:.3f} Mrays/s (default "
+          f"{n_rays / ref_wall / 1e6:.3f}), mean_ao {img.mean():.5f}, "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    _images_agree(label, img, ref_img, AO_ORACLE_PIX_FRAC, 0.0,
+                  AO_ORACLE_MEAN_RTOL)
+    profile_render(label, osd, IntegratorAO(max_distance=AO_DIST), 1,
+                   ("walk_",))
+    return launches
 
 
 def oracle_check(label, sd, integ, spp, walk_kernels, pix_frac, pix_rtol,
@@ -609,11 +941,13 @@ def check_hier(label, sd):
 
 
 def ao_row(dev, label, n_tris):
-    """Phases 9-12 on one AO row. The two-level kernels are checked on
-    every row; the render takes the reference's route: the two-level walk
-    past FLAT_MAX_CLUSTERS clusters. Returns (walk-hier records, the AO
-    render's launches)."""
-    from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS
+    """Phases 9-12 on one AO row, then phases 13 (the wide pop) and 15 on
+    the row past FLAT_MAX_CLUSTERS clusters and phase 16 on the other. The
+    two-level kernels are checked on every row; the render takes the
+    reference's route: the two-level walk past FLAT_MAX_CLUSTERS clusters.
+    Returns (walk-hier records, wide records, the launches of the row's
+    main-path renders summed)."""
+    from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS, WalkOptions
     from rustlight_tpu_torch.integrators import IntegratorAO
     sd, build_s, camera = ao_scene(dev, n_tris)
     w = sd.geom.walk
@@ -632,9 +966,7 @@ def ao_row(dev, label, n_tris):
     if n_rays != expect:
         raise AssertionError(f"{label}: {n_rays} rays traced, {expect} "
                              "expected")
-    if min(launches[k] for k in kernels) <= 0 or any(
-            v for k, v in launches.items() if k not in kernels):
-        raise AssertionError(f"{label}: launches {launches}")
+    _only(label, launches, kernels)
     phase("main", f"{label} AO {AO_RES}x{AO_RES} {AO_SPP} spp, max distance "
           f"{AO_DIST}: warm-up {warm:.3f}s, timed (seed 1) {wall:.3f}s, "
           f"{n_rays} rays, {n_rays / wall / 1e6:.3f} Mrays/s, mean_ao "
@@ -643,7 +975,17 @@ def ao_row(dev, label, n_tris):
     oracle_check(label, small, integ, AO_ORACLE_SPP, kernels,
                  AO_ORACLE_PIX_FRAC, 0.0, AO_ORACLE_MEAN_RTOL)
     profile_render(label, sd, integ, 1, ("walk_hier",) if hier else ("walk_",))
-    return recs, launches
+    wide_recs = []
+    if hier:
+        wide_recs = check_wide(label, sd, ao_wavefronts(sd))
+        extra = ao_option_render(
+            f"{label} AO hier=False (wide pop)", sd, WalkOptions(hier=False),
+            ("walk_closest_wide", "walk_anyhit_wide"), img, wall)
+    else:
+        extra = ao_option_render(
+            f"{label} AO inc_sort=False", sd, WalkOptions(inc_sort=False),
+            kernels, img, wall)
+    return recs, wide_recs, {k: launches[k] + extra[k] for k in launches}
 
 
 def main() -> int:
@@ -710,12 +1052,16 @@ def main() -> int:
         gsd = sphere_grid(n_tris, GRID_RES, GRID_RES).compile(device=dev)
         torch.cuda.synchronize()
         grids[label] = (gsd, n_tris, time.time() - t0)
-        walk_recs += check_walk(label, gsd, rng)
+        recs, waves = check_walk(label, gsd, rng)
+        grids[label] += (waves,)
+        walk_recs += recs
     walk_launches = {"walk_closest": 0, "walk_anyhit": 0}
+    grid_renders = {}
     integ = IntegratorPathTracing(max_depth=GRID_DEPTH)
-    for label, (gsd, n_tris, build_s) in grids.items():
+    for label, (gsd, n_tris, build_s, _) in grids.items():
         img, wall, warm, n_rays, launches = timed_render(label, gsd, integ,
                                                          GRID_SPP)
+        grid_renders[label] = (img, n_rays, wall)
         if min(launches["walk_closest"], launches["walk_anyhit"]) <= 0:
             raise AssertionError(f"{label}: the walk kernels never launched")
         if launches["dense_closest"] or launches["dense_anyhit"]:
@@ -737,17 +1083,23 @@ def main() -> int:
                  ORACLE_SPP, ("walk_closest", "walk_anyhit"),
                  ORACLE_PIX_FRAC, ORACLE_PIX_RTOL, ORACLE_MEAN_RTOL)
     del osd
-    for label, (gsd, _, _) in grids.items():
+    for label, (gsd, _, _, _) in grids.items():
         profile_render(label, gsd, integ, 2, ("walk_",))
-    del grids, gsd
-    hier_recs, ao_launches = [], {}
+    label = GRID_ROWS[0][0]
+    gsd, _, _, waves = grids[label]
+    sched_recs = check_schedules(label, gsd, waves)
+    sched_launches = schedule_renders(label, gsd, integ, *grid_renders[label])
+    del grids, gsd, waves, grid_renders
+    hier_recs, wide_recs, ao_launches = [], [], {}
     for label, n_tris in AO_ROWS:
-        recs, launches = ao_row(dev, label, n_tris)
+        recs, wrecs, launches = ao_row(dev, label, n_tris)
         hier_recs += recs
+        wide_recs += wrecs
         for k, v in launches.items():
             ao_launches[k] = ao_launches.get(k, 0) + v
     for k in walk_launches:
-        walk_launches[k] += ao_launches[k]
+        # the pair renders' fallback launches the tile walk too
+        walk_launches[k] += ao_launches[k] + sched_launches[k]
 
     def pick(kind):
         """The K3-size spread wavefront stands for a walk kernel; every
@@ -799,6 +1151,64 @@ def main() -> int:
             "library_ms": None,
             "cases": [{"table": r["table"], "wavefront": r["wavefront"],
                        "cp": r["cp"], **r[kind]} for r in hier_recs]})
+    pw_file = "rustlight_tpu/accel/pallas_walk.py"
+    for name, lines, kind, sched, source, launches in (
+            ("walk_sub_closest", "765 (K6)", "closest", "sub2", "walk_sub",
+             sched_launches),
+            ("walk_sub_anyhit", "832 (K6)", "anyhit", "sub2", "walk_sub",
+             sched_launches),
+            ("walk_sparse_closest", "946 (K7)", "closest", "sparse",
+             "walk_sparse", sched_launches),
+            ("walk_sparse_anyhit", "1072 (K7)", "anyhit", "sparse",
+             "walk_sparse", sched_launches)):
+        # the spread wavefront of the schedule the main path runs; every
+        # schedule of the source and wavefront is in `cases`
+        cases = [_case(r, kind) for key, rs in sched_recs.items()
+                 if key.startswith(sched[:3]) for r in rs]
+        rec = next(r for r in sched_recs[sched]
+                   if r["wavefront"] == "spread")[kind]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[source],
+            "replaces": f"{pw_file}:{lines}", "launches": launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "cases": cases})
+    for name, line, kind in (("pair_closest", 108, "closest"),
+                             ("pair_anyhit", 155, "anyhit")):
+        cases = [_case(r, kind) for km in PAIR_KMS for r in sched_recs[f"pair{km}"]]
+        rec = next(r for r in sched_recs[f"pair{PAIR_KMS[0]}"]
+                   if r["wavefront"] == "spread")[kind]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES["pair"],
+            "replaces": f"rustlight_tpu/accel/pair_walk.py:{line} (K8)",
+            "launches": sched_launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "cases": cases})
+    for name, lines, kind, wave in (
+            ("walk_closest_wide", (636, 1139), "closest", "camera"),
+            ("walk_anyhit_wide", (703, 1219), "anyhit", "ao")):
+        # the wavefront of the row whose render takes the wide pop, heaps
+        # in device memory as that render keeps them
+        all_recs = wide_recs + sched_recs["wide/shared"] + sched_recs[
+            "wide/global"]
+        cases = [_case(r, kind) for r in all_recs]
+        rec = next(r for r in wide_recs if r["wavefront"] == wave
+                   and r["schedule"] == "wide/global")[kind]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES["walk"],
+            "replaces": WALK_REPLACES.format(*lines) + ", wide=True",
+            "launches": ao_launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "cases": cases})
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"kernel {k['name']} never launched on a "
+                                 "main path")
     phase("done", f"all phases passed in {time.time() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

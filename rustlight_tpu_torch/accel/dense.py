@@ -5,7 +5,8 @@ Every ray is tested against every triangle's Baldwin-Weber rows
 ops/dense_trace.py (hand-written CUDA on the card, their plain versions on
 the CPU); this module only shapes the calls. Scenes above the dense tier's
 1024 triangles carry walk tables (`geom.walk`), and their rays go to the
-tile walk of accel/walk.py instead.
+tile walk of accel/walk.py instead, or, for tables whose option is `pair`,
+to the pair walk of accel/pair_walk.py.
 """
 from __future__ import annotations
 
@@ -35,6 +36,9 @@ def intersect_rays(geom, o, d, tnear=None, tfar=None) -> RayHit:
         tfar = torch.full((n,), float("inf"), dtype=torch.float32,
                           device=o.device)
     if getattr(geom, "walk", None) is not None:
+        if geom.walk.options.pair:
+            from .pair_walk import _pairs_impl
+            return _pairs_impl(geom.walk, o, d, tnear, tfar, False)
         from .walk import _walk_impl
         return _walk_impl(geom.walk, o, d, tnear, tfar, False)
     t, idx, u, v = dense_closest(geom.inter_rows, o.contiguous(),
@@ -45,6 +49,9 @@ def intersect_rays(geom, o, d, tnear=None, tfar=None) -> RayHit:
 def occluded_rays(geom, o, d, tnear, tfar):
     """Any-hit (shadow ray) test; True = blocked."""
     if getattr(geom, "walk", None) is not None:
+        if geom.walk.options.pair:
+            from .pair_walk import _pairs_impl
+            return _pairs_impl(geom.walk, o, d, tnear, tfar, True)
         from .walk import _walk_impl
         return _walk_impl(geom.walk, o, d, tnear, tfar, True)
     return dense_anyhit(geom.inter_rows, o.contiguous(), d.contiguous(),

@@ -27,6 +27,17 @@ Tables of up to 2^14 clusters take the one-level walk (K3/K4,
 ops/walk_trace.py); larger ones, up to MAX_CLUSTERS = 2^17, the two-level
 walk (K5, ops/walk_hier.py), as the reference chooses. Past that, building
 raises.
+
+The walk's other schedules are asked for explicitly, through `WalkOptions`
+on the tables (set by Scene.compile(walk_options=...)) or the same names as
+keyword arguments of `_walk_impl`: `hier=False` sends tables past 2^14
+clusters through the wide pop of the one-level walk; `sub` in (2, 4, 8)
+takes the sub-tiled walk (K6, ops/walk_sub.py); `sparse` the sparse-visit
+walk (K7, ops/walk_sparse.py); `pair` the pair walk (K8,
+accel/pair_walk.py, dispatched by accel/dense.py); `compact_inert` and
+`inc_sort` change the sort key. Where the reference silently drops an
+option that cannot apply, `_walk_impl` raises ValueError: an explicit
+request never runs another kernel.
 """
 from __future__ import annotations
 
@@ -38,6 +49,9 @@ import torch
 from .. import EPSILON
 from ..ops.walk_hier import (MAX_CLUSTERS, SUP, walk_hier_anyhit,
                              walk_hier_closest)
+from ..ops.walk_sparse import walk_sparse_anyhit, walk_sparse_closest
+from ..ops.walk_sub import (MAX_VMEM_CLUSTERS, SUBS, walk_sub_anyhit,
+                            walk_sub_closest)
 from ..ops.walk_trace import (K, RAY_TILE, _ID_BITS, _slab_inv, walk_anyhit,
                               walk_closest)
 from .bvh import build_bvh
@@ -50,6 +64,19 @@ FLAT_MAX_CLUSTERS = 1 << _ID_BITS
 # the incidence key's [N, C] slab pass is linear in C; past this many
 # clusters every wavefront takes the morton key (pallas_walk.py:102)
 _INC_SORT_MAX_C = 32768
+
+
+class WalkOptions(NamedTuple):
+    """The walk's schedule, with the reference's names and defaults (there
+    environment variables read at import, pallas_walk.py:83-106, :475)."""
+    sub: int = 1                  # > 1: the sub-tiled walk, K6
+    sparse: bool = False          # the sparse-visit walk, K7
+    pair: bool = False            # the pair walk, K8
+    km: int = 8                   # the pair walk's shortlist length
+    wide: bool = None             # None: past 2^14 clusters unless hier
+    hier: bool = None             # None: past 2^14 clusters
+    compact_inert: bool = False   # the morton key sorts inert lanes last
+    inc_sort: bool = True         # spread-origin wavefronts: incidence key
 
 
 class WalkTables(NamedTuple):
@@ -66,6 +93,7 @@ class WalkTables(NamedTuple):
     shi: Any          # [3, Sp] f32 (pads: _BIG)
     world_lo: Any     # [3] f32 scene bounds (the morton grid of the sort key)
     world_hi: Any     # [3] f32
+    options: WalkOptions = WalkOptions()
 
 
 def _check_clusters(cp: int) -> None:
@@ -206,16 +234,20 @@ def walk_tables_from_numpy(wt) -> WalkTables:
         world_hi=np.asarray(wt.world_hi, np.float32))
 
 
-def walk_tables_to(wt, device) -> WalkTables:
-    """Upload numpy walk tables (this package's or the JAX package's)."""
+def walk_tables_to(wt, device, walk_options: WalkOptions = None) -> WalkTables:
+    """Upload numpy walk tables (this package's or the JAX package's);
+    `walk_options` replaces the tables' schedule options."""
     wt = walk_tables_from_numpy(wt)
+    if walk_options is None:
+        walk_options = wt.options
     arrays = {f: torch.as_tensor(np.ascontiguousarray(getattr(wt, f)),
                                  device=device)
               for f in ("rows", "ids", "lo", "hi", "slo", "shi", "world_lo",
                         "world_hi")}
     return WalkTables(n_tris=int(wt.n_tris), n_clusters=int(wt.n_clusters),
                       n_real=int(wt.n_real), n_sup=int(wt.n_sup),
-                      n_sup_pad=int(wt.n_sup_pad), **arrays)
+                      n_sup_pad=int(wt.n_sup_pad),
+                      options=WalkOptions(*walk_options), **arrays)
 
 
 # ------------------------------------------------------------- coherence keys
@@ -239,13 +271,18 @@ def _quantize(x, cells: int):
     return torch.clamp(x, 0.0, cells - 1.0).int()
 
 
-def _sort_key(wt, o, d):
+def _sort_key(wt, o, d, tfar=None):
     """Morton coherence key as a (major, minor) int32 pair: major = direction
-    octant | 5-bit/axis origin morton, minor = 5-bit/axis |d| morton."""
+    octant | 5-bit/axis origin morton, minor = 5-bit/axis |d| morton. With
+    `tfar`, inert lanes (tfar <= 0) take the bit above the octant, so they
+    sort after every live lane."""
+    octant = _octant(d)
+    if tfar is not None:
+        octant = octant | ((tfar <= 0.0).int() << 3)
     ext = torch.clamp(wt.world_hi - wt.world_lo, min=1e-9)
     m = _morton(_quantize((o - wt.world_lo) / ext * 32.0, 32), 5)
     dm = _morton(_quantize(torch.abs(d) * 32.0, 32), 5)
-    return (_octant(d) << 15) | m, dm
+    return (octant << 15) | m, dm
 
 
 def _incidence_key(wt, o, d, tnear, tfar):
@@ -293,8 +330,13 @@ def _origin_spread(o, tfar):
     return torch.amax(o_live.amax(dim=0) - o_live.amin(dim=0))
 
 
-def _prepare(wt, o, d, tnear, tfar, sort_rays: bool = True):
+def _prepare(wt, o, d, tnear, tfar, sort_rays: bool = True,
+             compact_inert: bool = False, inc_sort: bool = True):
     """Sanitize, coherence-sort and pad a wavefront for the walk kernels.
+    `inc_sort=False` gives every wavefront the morton key, with no host
+    read; `compact_inert` hands that key the inert lanes. As in the
+    reference (pallas_walk.py:1542-1546), the incidence key ignores
+    compact_inert.
 
     Returns (o, d, tnear, tfar, order): contiguous [n_pad] rays in the
     order the kernels take them, and the lane of each sorted ray (None when
@@ -309,12 +351,13 @@ def _prepare(wt, o, d, tnear, tfar, sort_rays: bool = True):
         o_safe = torch.where(torch.isfinite(o), o, 0.0)
         d_safe = torch.where(torch.isfinite(d), d, 0.0)
         # point-origin wavefronts (camera rays) take the morton key
-        if (int(wt.n_clusters) <= _INC_SORT_MAX_C
+        if (inc_sort and int(wt.n_clusters) <= _INC_SORT_MAX_C
                 and bool(_origin_spread(o_safe, tfar)
                          > 1e-5 * torch.amax(wt.world_hi - wt.world_lo))):
             kmaj, kmin = _incidence_key(wt, o_safe, d_safe, tnear, tfar)
         else:
-            kmaj, kmin = _sort_key(wt, o_safe, d_safe)
+            kmaj, kmin = _sort_key(wt, o_safe, d_safe,
+                                   tfar if compact_inert else None)
         key = (kmaj.long() << 32) | kmin.long()
         order = torch.sort(key, stable=True).indices
         o, d, tnear, tfar = o[order], d[order], tnear[order], tfar[order]
@@ -338,17 +381,73 @@ def _unsort(x, order, n):
     return out
 
 
+def _resolve(wt, hier, wide, sub, sparse):
+    """The kernels' schedule for tables `wt`: (hier, wide, sub, sparse),
+    resolved in the reference's order (pallas_walk.py:1499-1510,
+    :1613-1654). None takes the tables' option. An option that cannot
+    apply raises ValueError where the reference drops it."""
+    opt = wt.options
+    hier = opt.hier if hier is None else hier
+    wide = opt.wide if wide is None else wide
+    sub = opt.sub if sub is None else int(sub)
+    sparse = bool(opt.sparse if sparse is None else sparse)
+    cp = int(wt.n_clusters)
+    if hier is None and wide is None:
+        hier = cp > FLAT_MAX_CLUSTERS
+    hier = bool(hier)
+    if wide is None:
+        wide = cp > FLAT_MAX_CLUSTERS and not hier
+    if hier and wide:
+        raise ValueError("walk: hier and wide are two routes; ask for one")
+    if not wide and not hier and cp > FLAT_MAX_CLUSTERS:
+        raise ValueError(f"walk: {cp} clusters exceed the packed entries' "
+                         f"2^{_ID_BITS}; take wide=True or hier=True (or "
+                         "leave both None)")
+    for name, on in (("sub", sub > 1), ("sparse", sparse)):
+        if not on:
+            continue
+        if hier or wide:
+            raise ValueError(f"walk: {name} goes with the packed one-level "
+                             f"walk, not with {'hier' if hier else 'wide'}")
+        if cp > MAX_VMEM_CLUSTERS:
+            raise ValueError(
+                f"walk: {name} takes tables of at most {MAX_VMEM_CLUSTERS} "
+                f"clusters (the reference's resident tables), not {cp}")
+    if sub < 1 or (sub > 1 and sub not in SUBS):
+        raise ValueError(f"walk: sub must be 1 or one of {SUBS} (whole "
+                         f"8-ray rows of a {RAY_TILE}-ray tile), got {sub}")
+    if sparse and sub > 1:
+        raise ValueError("walk: sparse and sub > 1 are two schedules; ask "
+                         "for one")
+    return hier, bool(wide), sub, sparse
+
+
 def _walk_impl(wt, o, d, tnear, tfar, any_hit: bool, sort_rays: bool = True,
-               hier: bool = None):
+               hier: bool = None, wide: bool = None, sub: int = None,
+               sparse: bool = None, compact_inert: bool = None,
+               inc_sort: bool = None):
     """Closest hit (RayHit) or occlusion ([n] bool) of a wavefront over
-    device walk tables. `hier` picks the two-level walk; by default it is
-    taken past FLAT_MAX_CLUSTERS clusters."""
+    device walk tables. The keyword options pick the schedule and the sort
+    key; None takes the tables' option (wt.options), whose defaults are the
+    two-level walk past FLAT_MAX_CLUSTERS clusters and the packed
+    one-level walk below."""
     n = o.shape[0]
-    if hier is None:
-        hier = int(wt.n_clusters) > FLAT_MAX_CLUSTERS
-    closest, anyhit = ((walk_hier_closest, walk_hier_anyhit) if hier
-                       else (walk_closest, walk_anyhit))
-    o, d, tnear, tfar, order = _prepare(wt, o, d, tnear, tfar, sort_rays)
+    hier, wide, sub, sparse = _resolve(wt, hier, wide, sub, sparse)
+    opt = wt.options
+    if hier:
+        closest, anyhit = walk_hier_closest, walk_hier_anyhit
+    elif sub > 1:
+        closest = lambda *a: walk_sub_closest(*a, sub)
+        anyhit = lambda *a: walk_sub_anyhit(*a, sub)
+    elif sparse:
+        closest, anyhit = walk_sparse_closest, walk_sparse_anyhit
+    else:
+        closest = lambda *a: walk_closest(*a, wide=wide)
+        anyhit = lambda *a: walk_anyhit(*a, wide=wide)
+    o, d, tnear, tfar, order = _prepare(
+        wt, o, d, tnear, tfar, sort_rays,
+        opt.compact_inert if compact_inert is None else compact_inert,
+        opt.inc_sort if inc_sort is None else inc_sort)
     if any_hit:
         return _unsort(anyhit(wt, o, d, tnear, tfar), order, n)
     t, tri, u, v = (_unsort(x, order, n)
@@ -366,11 +465,19 @@ def _default_range(o, tnear, tfar):
     return tnear, tfar
 
 
-def intersect_walk(wt, o, d, tnear=None, tfar=None) -> RayHit:
+def intersect_walk(wt, o, d, tnear=None, tfar=None, wide: bool = None,
+                   hier: bool = None, sub: int = None, sparse: bool = None,
+                   inc_sort: bool = None) -> RayHit:
     """Closest hit of rays (o, d) [n, 3] over device walk tables."""
-    return _walk_impl(wt, o, d, *_default_range(o, tnear, tfar), False)
+    return _walk_impl(wt, o, d, *_default_range(o, tnear, tfar), False,
+                      wide=wide, hier=hier, sub=sub, sparse=sparse,
+                      inc_sort=inc_sort)
 
 
-def occluded_walk(wt, o, d, tnear=None, tfar=None):
+def occluded_walk(wt, o, d, tnear=None, tfar=None, wide: bool = None,
+                  hier: bool = None, sub: int = None, sparse: bool = None,
+                  inc_sort: bool = None):
     """Any hit of rays (o, d) over device walk tables; True = blocked."""
-    return _walk_impl(wt, o, d, *_default_range(o, tnear, tfar), True)
+    return _walk_impl(wt, o, d, *_default_range(o, tnear, tfar), True,
+                      wide=wide, hier=hier, sub=sub, sparse=sparse,
+                      inc_sort=inc_sort)

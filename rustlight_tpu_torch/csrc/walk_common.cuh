@@ -1,5 +1,7 @@
 // Pieces of the tile walk shared by the one-level kernels (walk_trace.cu,
-// K3/K4) and the two-level kernels (walk_hier.cu, K5).
+// K3/K4 and their wide pop), the two-level kernels (walk_hier.cu, K5), the
+// sub-tiled kernels (walk_sub.cu, K6) and the sparse-visit kernels
+// (walk_sparse.cu, K7).
 //
 // A tile is TILE = 64 rays walked by one block of 64 threads, one thread per
 // ray. Entries are packed: the float bits of a non-negative entry distance
@@ -73,24 +75,32 @@ __device__ __forceinline__ void load_tile(const Ray& ray, TileRays& s) {
   s.tfar[k] = ray.tfar;
 }
 
-// Minimum over the tile's rays j of the slab entry max(tmin, tnear[j]) into
-// the box [l, h], counted where tmax >= entry and entry < cap[j]; +inf if
-// no ray enters.
+// Whether ray j of the tile enters the box [l, h] below cap: its slab entry
+// max(tmin, tnear[j]), counted where tmax >= entry and entry < cap.
+__device__ __forceinline__ bool slab_entry(const float l[3], const float h[3],
+                                           const TileRays& r, int j, float cap,
+                                           float& entry) {
+  float tmin = -CUDART_INF_F, tmax = CUDART_INF_F;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float t0 = __fmul_rn(__fsub_rn(l[ax], r.o[ax][j]), r.inv[ax][j]);
+    const float t1 = __fmul_rn(__fsub_rn(h[ax], r.o[ax][j]), r.inv[ax][j]);
+    tmin = nan_max(tmin, nan_min(t0, t1));
+    tmax = nan_min(tmax, nan_max(t0, t1));
+  }
+  entry = nan_max(tmin, r.tnear[j]);
+  return tmax >= entry && entry < cap;
+}
+
+// Minimum over the tile's rays j of the slab entry into the box [l, h],
+// each capped by cap[j]; +inf if no ray enters.
 __device__ __forceinline__ float min_entry(const float l[3], const float h[3],
                                            const TileRays& r,
                                            const float* cap) {
   float e = CUDART_INF_F;
   for (int j = 0; j < TILE; ++j) {
-    float tmin = -CUDART_INF_F, tmax = CUDART_INF_F;
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const float t0 = __fmul_rn(__fsub_rn(l[ax], r.o[ax][j]), r.inv[ax][j]);
-      const float t1 = __fmul_rn(__fsub_rn(h[ax], r.o[ax][j]), r.inv[ax][j]);
-      tmin = nan_max(tmin, nan_min(t0, t1));
-      tmax = nan_min(tmax, nan_max(t0, t1));
-    }
-    const float entry = nan_max(tmin, r.tnear[j]);
-    if (tmax >= entry && entry < cap[j]) e = fminf(e, entry);
+    float entry;
+    if (slab_entry(l, h, r, j, cap[j], entry)) e = fminf(e, entry);
   }
   return e;
 }
@@ -144,19 +154,19 @@ __device__ __forceinline__ bool stage(const float4* __restrict__ rows,
   return true;
 }
 
-// One closest-hit visit of cluster csel: the lowest column wins inside the
+// One ray against the KC triangles of cluster csel, whose rows are at
+// c_rows (staged, or in the table): the lowest column wins inside the
 // cluster, a strict < against best_t across clusters.
-__device__ __forceinline__ void visit_closest(
-    const float4* __restrict__ rows, const int* __restrict__ ids, int csel,
-    const Ray& ray, float4* s_rows, float& best_t, int& best_i,
-    float& best_u, float& best_v) {
-  const bool want = ray.tnear < best_t;
-  if (!stage(rows, csel, want, s_rows) || !want) return;
+__device__ __forceinline__ void scan_closest(const float4* c_rows,
+                                             const int* __restrict__ ids,
+                                             int csel, const Ray& ray,
+                                             float& best_t, int& best_i,
+                                             float& best_u, float& best_v) {
   float bt = best_t, bu = 0.0f, bv = 0.0f;
   int bj = -1;
   for (int j = 0; j < KC; ++j) {
     float t, u, v;
-    if (test_tri(&s_rows[3 * j], ray, bt, t, u, v)) {
+    if (test_tri(&c_rows[3 * j], ray, bt, t, u, v)) {
       bt = t; bj = j; bu = u; bv = v;
     }
   }
@@ -168,6 +178,26 @@ __device__ __forceinline__ void visit_closest(
   }
 }
 
+// Whether the ray hits any of the KC triangles at c_rows in (tnear, tfar).
+__device__ __forceinline__ bool scan_anyhit(const float4* c_rows,
+                                            const Ray& ray) {
+  for (int j = 0; j < KC; ++j) {
+    float t, u, v;
+    if (test_tri(&c_rows[3 * j], ray, ray.tfar, t, u, v)) return true;
+  }
+  return false;
+}
+
+// One closest-hit visit of cluster csel by the block's tile.
+__device__ __forceinline__ void visit_closest(
+    const float4* __restrict__ rows, const int* __restrict__ ids, int csel,
+    const Ray& ray, float4* s_rows, float& best_t, int& best_i,
+    float& best_u, float& best_v) {
+  const bool want = ray.tnear < best_t;
+  if (!stage(rows, csel, want, s_rows) || !want) return;
+  scan_closest(s_rows, ids, csel, ray, best_t, best_i, best_u, best_v);
+}
+
 // One any-hit visit of cluster csel against (tnear, tfar); occ is sticky,
 // so occluded rays skip the test.
 __device__ __forceinline__ void visit_anyhit(const float4* __restrict__ rows,
@@ -175,13 +205,7 @@ __device__ __forceinline__ void visit_anyhit(const float4* __restrict__ rows,
                                              float4* s_rows, bool& occ) {
   const bool want = !occ && ray.tnear < ray.tfar;
   if (!stage(rows, csel, want, s_rows) || !want) return;
-  for (int j = 0; j < KC; ++j) {
-    float t, u, v;
-    if (test_tri(&s_rows[3 * j], ray, ray.tfar, t, u, v)) {
-      occ = true;
-      return;
-    }
-  }
+  if (scan_anyhit(s_rows, ray)) occ = true;
 }
 
 __device__ __forceinline__ void write_closest(int i, float best_t, int best_i,

@@ -51,6 +51,17 @@
 // a third occupied, and tiles that walk far keep their SM after the others
 // finish.
 //
+// The wide pop (the same TPU kernels with wide=True, for tables past 2^14
+// clusters that do not take the two-level walk): entries are the plain bits
+// of max(entry, 0), no id packed. A pop is a block-wide min over (bits,
+// column), so the lowest column wins among equal entries, and clears that
+// one slot; an empty heap pops column 0, as the reference's does, for a
+// visit that can change nothing. The stop test compares the bits
+// unstripped. The heaps of Cp x 4 B are in dynamic shared memory, or, when
+// `heap` is given, in a slice per block of that device buffer; the grid is
+// bounded by the caller and a block walks tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... so that the buffer stays bounded too.
+//
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError().
 
@@ -139,6 +150,136 @@ walk_anyhit_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
   occ_out[i] = occ;
 }
 
+// --------------------------------------------------------------- wide pop
+
+__device__ __forceinline__ long long block_min64(long long v, long long* red) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();  // every thread has read red from the last reduction
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  long long r = red[0];
+  for (int w = 1; w < WARPS; ++w) r = min(r, red[w]);
+  return r;
+}
+
+// heap[c] = plain entry bits of cluster c (pack_entry with no id bits).
+__device__ inline void tile_entries_wide(const float* __restrict__ lo,
+                                         const float* __restrict__ hi, int cp,
+                                         int n_real, const TileRays& r,
+                                         int* heap) {
+  for (int c = threadIdx.x; c < cp; c += TILE) {
+    int bits = INF_BITS;
+    if (c < n_real) {
+      const float l[3] = {lo[c], lo[cp + c], lo[2 * cp + c]};
+      const float h[3] = {hi[c], hi[cp + c], hi[2 * cp + c]};
+      bits = pack_entry(min_entry(l, h, r, r.tfar), 0, 0);
+    }
+    heap[c] = bits;
+  }
+}
+
+// Pops the smallest entry, the lowest column among equals: returns its bits
+// and sets csel; an empty heap gives INF_BITS and column 0. The caller puts
+// a barrier between this pop and the next scan.
+__device__ __forceinline__ int pop_min_wide(int* heap, int cp, long long* red,
+                                            int& csel) {
+  long long m = (static_cast<long long>(INF_BITS) << 32);
+  for (int c = threadIdx.x; c < cp; c += TILE)
+    m = min(m, (static_cast<long long>(heap[c]) << 32) | c);
+  m = block_min64(m, red);
+  csel = static_cast<int>(m & 0xffffffffll);
+  if (threadIdx.x == 0) heap[csel] = INF_BITS;
+  return static_cast<int>(m >> 32);
+}
+
+struct WideShared {
+  float4 rows[3 * KC];
+  TileRays ray;
+  long long red[WARPS];
+};
+
+__global__ void __launch_bounds__(TILE)
+walk_closest_wide_kernel(const float* __restrict__ lo,
+                         const float* __restrict__ hi, int cp, int n_real,
+                         const float4* __restrict__ rows,
+                         const int* __restrict__ ids,
+                         const float* __restrict__ o,
+                         const float* __restrict__ d,
+                         const float* __restrict__ tnear,
+                         const float* __restrict__ tfar, int tiles,
+                         int* heap_mem, float* __restrict__ t_out,
+                         int* __restrict__ tri_out, float* __restrict__ u_out,
+                         float* __restrict__ v_out) {
+  extern __shared__ int s_heap[];
+  __shared__ WideShared s;
+  int* red = reinterpret_cast<int*>(s.red);
+  int* heap = heap_mem ? heap_mem + static_cast<size_t>(blockIdx.x) * cp
+                       : s_heap;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int i = tile * TILE + threadIdx.x;
+    const Ray ray = load_ray(i, o, d, tnear, tfar);
+    __syncthreads();  // the last tile's walk has ended
+    load_tile(ray, s.ray);
+    __syncthreads();
+    tile_entries_wide(lo, hi, cp, n_real, s.ray, heap);
+    __syncthreads();
+
+    float best_t = ray.tfar, best_u = 0.0f, best_v = 0.0f;
+    int best_i = -1, csel;
+    int emin = pop_min_wide(heap, cp, s.red, csel);
+    int thresh = block_max(__float_as_int(best_t), red);
+    for (int nv = 0; nv < cp && emin < thresh; ++nv) {
+      for (int half = 0; half < 2; ++half) {
+        visit_closest(rows, ids, csel, ray, s.rows, best_t, best_i, best_u,
+                      best_v);
+        emin = pop_min_wide(heap, cp, s.red, csel);
+      }
+      thresh = block_max(__float_as_int(best_t), red);
+    }
+    write_closest(i, best_t, best_i, best_u, best_v, t_out, tri_out, u_out,
+                  v_out);
+  }
+}
+
+__global__ void __launch_bounds__(TILE)
+walk_anyhit_wide_kernel(const float* __restrict__ lo,
+                        const float* __restrict__ hi, int cp, int n_real,
+                        const float4* __restrict__ rows,
+                        const float* __restrict__ o,
+                        const float* __restrict__ d,
+                        const float* __restrict__ tnear,
+                        const float* __restrict__ tfar, int tiles,
+                        int* heap_mem, bool* __restrict__ occ_out) {
+  extern __shared__ int s_heap[];
+  __shared__ WideShared s;
+  int* red = reinterpret_cast<int*>(s.red);
+  int* heap = heap_mem ? heap_mem + static_cast<size_t>(blockIdx.x) * cp
+                       : s_heap;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int i = tile * TILE + threadIdx.x;
+    const Ray ray = load_ray(i, o, d, tnear, tfar);
+    __syncthreads();  // the last tile's walk has ended
+    load_tile(ray, s.ray);
+    __syncthreads();
+    tile_entries_wide(lo, hi, cp, n_real, s.ray, heap);
+    __syncthreads();
+
+    bool occ = false;
+    int csel;
+    int emin = pop_min_wide(heap, cp, s.red, csel);
+    int thresh = block_max(__float_as_int(ray.tfar), red);
+    for (int nv = 0; nv < cp && emin < thresh; ++nv) {
+      for (int half = 0; half < 2; ++half) {
+        visit_anyhit(rows, csel, ray, s.rows, occ);
+        emin = pop_min_wide(heap, cp, s.red, csel);
+      }
+      thresh = block_max(occ ? 0 : __float_as_int(ray.tfar), red);
+    }
+    occ_out[i] = occ;
+  }
+}
+
 }  // namespace
 
 // n must be a multiple of 64 (the wrapper pads).
@@ -174,5 +315,45 @@ extern "C" int rl_walk_anyhit(const void* lo, const void* hi, int cp,
       static_cast<const float4*>(rows), static_cast<const float*>(o),
       static_cast<const float*>(d), static_cast<const float*>(tnear),
       static_cast<const float*>(tfar), static_cast<bool*>(occ_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide pop: `blocks` blocks walk the n / 64 tiles; `heap` is null (heaps
+// in shared memory) or a device buffer of blocks * cp ints.
+extern "C" int rl_walk_closest_wide(const void* lo, const void* hi, int cp,
+                                    int n_real, const void* rows,
+                                    const void* ids, const void* o,
+                                    const void* d, const void* tnear,
+                                    const void* tfar, int n, void* heap,
+                                    int blocks, void* t_out, void* tri_out,
+                                    void* u_out, void* v_out, void* stream) {
+  const size_t smem = heap ? 0 : static_cast<size_t>(cp) * sizeof(int);
+  if (const int err = set_smem(walk_closest_wide_kernel, smem)) return err;
+  walk_closest_wide_kernel<<<blocks, TILE, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
+      static_cast<const float4*>(rows), static_cast<const int*>(ids),
+      static_cast<const float*>(o), static_cast<const float*>(d),
+      static_cast<const float*>(tnear), static_cast<const float*>(tfar),
+      n / TILE, static_cast<int*>(heap), static_cast<float*>(t_out),
+      static_cast<int*>(tri_out), static_cast<float*>(u_out),
+      static_cast<float*>(v_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rl_walk_anyhit_wide(const void* lo, const void* hi, int cp,
+                                   int n_real, const void* rows, const void* o,
+                                   const void* d, const void* tnear,
+                                   const void* tfar, int n, void* heap,
+                                   int blocks, void* occ_out, void* stream) {
+  const size_t smem = heap ? 0 : static_cast<size_t>(cp) * sizeof(int);
+  if (const int err = set_smem(walk_anyhit_wide_kernel, smem)) return err;
+  walk_anyhit_wide_kernel<<<blocks, TILE, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
+      static_cast<const float4*>(rows), static_cast<const float*>(o),
+      static_cast<const float*>(d), static_cast<const float*>(tnear),
+      static_cast<const float*>(tfar), n / TILE, static_cast<int*>(heap),
+      static_cast<bool*>(occ_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,14 @@ same arithmetic, so the kernels are bit-identical to them; they also return
 the number of cluster visits. The wrappers use them only for tensors on the
 CPU; a CUDA tensor launches the kernel or raises.
 
+With `wide=True` the wrappers take the wide pop (the same TPU kernels with
+wide=True: tables past 2^14 clusters that do not take the two-level walk,
+up to MAX_WIDE_CLUSTERS): entries are the plain bits of the entry distance,
+a pop takes the lowest column among the smallest entries and clears that
+one slot, and the per-tile heaps live in shared memory or, past
+_WIDE_SHARED_MAX entries, in a device buffer allocated for the launch. The
+wide kernels count as `walk_closest_wide` / `walk_anyhit_wide`.
+
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
 """
@@ -36,10 +44,27 @@ _ID_BITS = 14
 _ID_MASK = (1 << _ID_BITS) - 1
 _INF_BITS = 0x7F800000
 
-LAUNCHES = {"walk_closest": 0, "walk_anyhit": 0}
+# the wide pop's ceiling (the reference's _MAX_CLUSTERS), and the blocks a
+# wide launch starts at most: each walks several tiles, so the heaps in
+# device memory stay at _WIDE_BLOCKS x Cp x 4 B
+MAX_WIDE_CLUSTERS = 1 << 17
+_WIDE_BLOCKS = 1024
+# a block's shared memory past the heap, and the card's opt-in limit
+_STATIC_SMEM, _MAX_SMEM = 20496, 227 * 1024
+# the largest heap a wide launch keeps in shared memory unless told to
+# (16 KB: six blocks still share an SM). A larger heap in shared memory
+# leaves too few tiles in flight: at 18,816 clusters (75 KB, two blocks an
+# SM) the kernels took 1.4-1.65x as long on an H100 as with the heaps in
+# device memory.
+_WIDE_SHARED_MAX = 4096
+
+LAUNCHES = {"walk_closest": 0, "walk_anyhit": 0,
+            "walk_closest_wide": 0, "walk_anyhit_wide": 0}
 
 _LIB = None
-_REF_ELEMS = 1 << 24   # elements per [tiles, 64, max(Cp, K)] plain tensor
+# elements per [tiles, 64, max(Cp, K)] tensor of a plain version, on the
+# CPU and on a card (whose plain runs are bound by launches, not memory)
+_REF_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 27}
 
 
 def reset_launches() -> None:
@@ -57,13 +82,27 @@ def _load():
         lib.rl_walk_closest.restype = i
         lib.rl_walk_anyhit.argtypes = [p, p, i, i, p, p, p, p, p, i, p, p]
         lib.rl_walk_anyhit.restype = i
+        lib.rl_walk_closest_wide.argtypes = [p, p, i, i, p, p, p, p, p, p, i,
+                                             p, i, p, p, p, p, p]
+        lib.rl_walk_closest_wide.restype = i
+        lib.rl_walk_anyhit_wide.argtypes = [p, p, i, i, p, p, p, p, p, i,
+                                            p, i, p, p]
+        lib.rl_walk_anyhit_wide.restype = i
         _LIB = lib
     return _LIB
 
 
-def _check(wt, o, d, tnear, tfar) -> None:
+def _check(wt, o, d, tnear, tfar, wide: bool = False, heap=None) -> None:
     cp = int(wt.n_clusters)
-    if not 0 < int(wt.n_real) <= cp <= 1 << _ID_BITS:
+    if heap not in (None, "shared", "global") or (heap and not wide):
+        raise ValueError("heap is 'shared' or 'global', and goes with wide; "
+                         f"got {heap!r}")
+    if wide:
+        if not 0 < int(wt.n_real) <= cp <= MAX_WIDE_CLUSTERS:
+            raise ValueError(f"walk tables with {wt.n_real} real of {cp} "
+                             "clusters (the wide pop takes at most "
+                             f"{MAX_WIDE_CLUSTERS})")
+    elif not 0 < int(wt.n_real) <= cp <= 1 << _ID_BITS:
         raise ValueError(f"walk tables with {wt.n_real} real of {cp} clusters"
                          f" (the packed entries take at most 2^{_ID_BITS})")
     _check_arrays(wt, o, d, tnear, tfar)
@@ -106,10 +145,10 @@ def _slab_inv(d):
                              torch.where(d >= 0.0, 1e-12, -1e-12))
 
 
-def _min_entry(lo, hi, o, inv, tnear, cap):
-    """Min over each tile's rays of the slab entry into boxes lo/hi ([3, C],
-    or [3, G, 1, C] per tile) for rays o, inv [G, R, 3], tnear, cap [G, R],
-    counted where tmax >= entry and entry < cap: [G, C], inf for no entry."""
+def _ray_entries(lo, hi, o, inv, tnear, cap):
+    """Each ray's slab entry into boxes lo/hi ([3, C], or [3, G, 1, C] per
+    tile) for rays o, inv [G, R, 3], tnear, cap [G, R], counted where
+    tmax >= entry and entry < cap: [G, R, C], inf for no entry."""
     tmin = tmax = None
     for ax in range(3):
         t0 = (lo[ax] - o[..., ax:ax + 1]) * inv[..., ax:ax + 1]
@@ -119,35 +158,55 @@ def _min_entry(lo, hi, o, inv, tnear, cap):
         tmax = hi_t if tmax is None else torch.minimum(tmax, hi_t)
     entry = torch.maximum(tmin, tnear[..., None])
     ok = (tmax >= entry) & (entry < cap[..., None])
-    return torch.where(ok, entry, float("inf")).amin(dim=1)
+    return torch.where(ok, entry, float("inf"))
+
+
+def _min_entry(lo, hi, o, inv, tnear, cap):
+    """Min over each tile's rays of `_ray_entries`: [G, C]."""
+    return _ray_entries(lo, hi, o, inv, tnear, cap).amin(dim=1)
 
 
 def _pack_entries(ent, real, mask: int):
     """Entries [G, C] packed with the column index in the low bits of
-    `mask`; _INF_BITS where not finite or not `real` [C] or [G, C]."""
+    `mask` (0: the plain bits, the wide pop's entries); _INF_BITS where not
+    finite or not `real` [C] or [G, C]."""
     cid = torch.arange(ent.shape[1], dtype=torch.int32, device=ent.device)
     fin = real & torch.isfinite(ent)
     # + 0 maps a -0 entry to +0, so its bits sort as the smallest
     z = torch.clamp(torch.where(fin, ent, 0.0), min=0.0) + 0.0
-    packed = (z.view(torch.int32) & ~mask) | cid
+    packed = (z.view(torch.int32) & ~mask) | (cid & mask)
     return torch.where(fin, packed, _INF_BITS)
 
 
-def _tile_entries(lo, hi, n_real, o, d, tnear, tfar):
+def _tile_entries(lo, hi, n_real, o, d, tnear, tfar, mask: int = _ID_MASK,
+                  with_rays: bool = False):
     """Packed entries [G, C] int32 of G tiles (o, d [G, R, 3]; tnear, tfar
     [G, R]) into the boxes lo/hi [3, C], the first n_real real: the bits of
-    min over the tile's rays of the slab entry, the box id in the low
-    _ID_BITS, _INF_BITS where no ray enters."""
-    ent = _min_entry(lo, hi, o, _slab_inv(d), tnear, tfar)          # [G, C]
-    cid = torch.arange(ent.shape[1], device=o.device)
-    return _pack_entries(ent, cid < int(n_real), _ID_MASK)
+    min over the tile's rays of the slab entry, the box id in the low bits
+    of `mask`, _INF_BITS where no ray enters. `with_rays` also returns which
+    rays enter which real box, [G, R, C] bool."""
+    per_ray = _ray_entries(lo, hi, o, _slab_inv(d), tnear, tfar)    # [G, R, C]
+    real = torch.arange(per_ray.shape[2], device=o.device) < int(n_real)
+    ent = _pack_entries(per_ray.amin(dim=1), real, mask)
+    if with_rays:
+        return ent, (per_ray < float("inf")) & real
+    return ent
 
 
 def _pop_min(ent, mask: int = _ID_MASK):
     """Pops each row's smallest entry: (bits [G], id [G] int64, entries),
     the id being the bits under `mask` clamped to the last column;
-    all-popped rows give id 0, as the reference's pop does."""
+    all-popped rows give id 0, as the reference's pop does. mask = 0 is the
+    wide pop over plain bits: the id is the lowest column among the
+    smallest entries, and only that column is cleared."""
     bmin = ent.amin(dim=1)
+    if mask == 0:
+        cp = ent.shape[1]
+        col = torch.arange(cp, device=ent.device)
+        csel = torch.clamp(torch.where(ent == bmin[:, None], col, cp)
+                           .amin(dim=1), max=cp - 1)
+        return bmin, csel, ent.scatter(
+            1, csel[:, None], torch.full_like(bmin, _INF_BITS)[:, None])
     ent = torch.where(ent == bmin[:, None], _INF_BITS, ent)
     csel = torch.clamp(bmin & mask, max=ent.shape[1] - 1).long()
     return bmin, csel, ent
@@ -176,10 +235,11 @@ def _test_clusters(rows, o, d, tnear, tcap):
     return t, u, v, valid
 
 
-def _visit_closest(rows, ids, csel, o, d, tnear, best):
+def _visit_closest(rows, ids, csel, o, d, tnear, best, tested=None):
     """One closest-hit visit of cluster csel [A] by A tiles: best = (t, tri,
-    u, v) [A, R], updated where a hit is strictly nearer; the lowest column
-    wins inside the cluster."""
+    u, v) [A, R], updated where a hit is strictly nearer (and the ray is
+    among `tested` [A, R], if given); the lowest column wins inside the
+    cluster."""
     bt, bi, bu, bv = best
     t, u, v, valid = _test_clusters(rows[csel], o, d, tnear, bt)
     tm = torch.where(valid, t, float("inf"))
@@ -188,6 +248,8 @@ def _visit_closest(rows, ids, csel, o, d, tnear, best):
     j = torch.where(tm == ct[..., None], kiota, K).amin(dim=-1)
     j = torch.clamp(j, max=K - 1)
     better = ct < bt
+    if tested is not None:
+        better = better & tested
     tri = ids[csel[:, None], j]
     # + 0 maps a -0 barycentric to +0, as the kernel's output does
     uj = u.gather(-1, j[..., None])[..., 0] + 0.0
@@ -196,32 +258,38 @@ def _visit_closest(rows, ids, csel, o, d, tnear, best):
             torch.where(better, uj, bu), torch.where(better, vj, bv))
 
 
-def _visit_anyhit(rows, csel, o, d, tnear, tfar, occ):
-    """One any-hit visit of cluster csel [A]: occ [A, R] | a hit in range."""
-    return occ | _test_clusters(rows[csel], o, d, tnear, tfar)[3].any(dim=-1)
+def _visit_anyhit(rows, csel, o, d, tnear, tfar, occ, tested=None):
+    """One any-hit visit of cluster csel [A]: occ [A, R] | a hit in range
+    (of a ray among `tested` [A, R], if given)."""
+    hit = _test_clusters(rows[csel], o, d, tnear, tfar)[3].any(dim=-1)
+    return occ | (hit if tested is None else hit & tested)
 
 
-def _tiled(fn, width, o, d, tnear, tfar):
-    """fn(o, d, tnear, tfar) on [G, RAY_TILE, ...] tiles, G chosen so that a
-    [G, RAY_TILE, width] tensor stays near _REF_ELEMS elements; returns
-    fn's (outputs, *per-tile counts), concatenated over the chunks."""
+def _tiled(fn, width, o, d, tnear, tfar, tile: int = RAY_TILE):
+    """fn(o, d, tnear, tfar) on [G, tile, ...] tiles, G chosen so that a
+    [G, tile, width] tensor stays near _REF_ELEMS elements; returns fn's
+    (outputs, *per-tile counts), concatenated over the chunks."""
     n = o.shape[0]
-    per = max(1, _REF_ELEMS // (RAY_TILE * width)) * RAY_TILE
-    parts = [fn(*(x[s:s + per].reshape(-1, RAY_TILE, *x.shape[1:])
+    per = max(1, _REF_ELEMS[o.device.type] // (tile * width)) * tile
+    parts = [fn(*(x[s:s + per].reshape(-1, tile, *x.shape[1:])
                   for x in (o, d, tnear, tfar)))
              for s in range(0, max(n, 1), per)]
     outs = tuple(torch.cat(xs).reshape(-1) for xs in zip(*(p[0] for p in parts)))
     return (outs, *(torch.cat(c) for c in zip(*(p[1:] for p in parts))))
 
 
-def _walk_ref(wt, o, d, tnear, tfar, any_hit: bool):
+def _walk_ref(wt, o, d, tnear, tfar, any_hit: bool, wide: bool = False,
+              tile: int = RAY_TILE, sparse_cap: int = None):
     """The tile walk of the kernels for every tile at once, chunked over
-    tiles. Returns ((t, tri, u, v) or (occ,), cluster visits per tile)."""
+    tiles of `tile` rays. Returns ((t, tri, u, v) or (occ,), cluster visits
+    per tile), and with `sparse_cap` also the visits that tested only the
+    flagged rays, the rays tested and the rays flagged, per tile."""
     cp = int(wt.n_clusters)
     rows = wt.rows.view(cp, K, 3, 4)
     ids = wt.ids.view(cp, K)
-    return _tiled(lambda *r: _walk_chunk(wt, rows, ids, *r, any_hit),
-                  max(cp, K), o, d, tnear, tfar)
+    return _tiled(lambda *r: _walk_chunk(wt, rows, ids, *r, any_hit, wide,
+                                         sparse_cap),
+                  max(cp, K), o, d, tnear, tfar, tile)
 
 
 def _sortable_max(x):
@@ -229,11 +297,24 @@ def _sortable_max(x):
     return x.view(torch.int32).amax(dim=-1)
 
 
-def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
-    g = o.shape[0]
+def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit, wide=False,
+                sparse_cap=None):
+    """The walk of G tiles [G, R]: packed pops, or the wide pop over plain
+    entries. With `sparse_cap` (the sparse-visit schedule) a visit tests
+    only the rays that enter the popped cluster when they are at most
+    sparse_cap, else the whole tile."""
+    g, r = tfar.shape
     cp = rows.shape[0]
-    ent = _tile_entries(wt.lo, wt.hi, wt.n_real, o, d, tnear, tfar)
-    emin, csel, ent = _pop_min(ent)
+    mask = 0 if wide else _ID_MASK
+    sparse = sparse_cap is not None
+    ent = _tile_entries(wt.lo, wt.hi, wt.n_real, o, d, tnear, tfar, mask,
+                        with_rays=sparse)
+    if sparse:
+        ent, flags = ent                                 # flags [G, R, C]
+        n_sparse, n_tested, n_flagged = (
+            torch.zeros(g, dtype=torch.int64, device=o.device)
+            for _ in range(3))
+    emin, csel, ent = _pop_min(ent, mask)
     if any_hit:
         occ = torch.zeros(tfar.shape, dtype=torch.bool, device=o.device)
         thresh = _sortable_max(tfar)
@@ -245,7 +326,7 @@ def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
         thresh = _sortable_max(best_t)
     nv = torch.zeros(g, dtype=torch.int64, device=o.device)   # visit pairs
     while True:
-        act = torch.nonzero(((emin & ~_ID_MASK) < thresh) & (nv < cp))[:, 0]
+        act = torch.nonzero(((emin & ~mask) < thresh) & (nv < cp))[:, 0]
         if act.numel() == 0:
             break
         a_o, a_d, a_tn, a_tf = o[act], d[act], tnear[act], tfar[act]
@@ -255,13 +336,22 @@ def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
         else:
             bt, bi, bu, bv = best_t[act], best_i[act], best_u[act], best_v[act]
         for _ in range(2):
+            tested = None
+            if sparse:
+                tested = flags[act, :, a_csel]                       # [A, R]
+                count = tested.sum(dim=1)
+                few = count <= sparse_cap
+                tested = tested | ~few[:, None]
+                n_sparse[act] += few
+                n_tested[act] += tested.sum(dim=1)
+                n_flagged[act] += count
             if any_hit:
                 a_occ = _visit_anyhit(rows, a_csel, a_o, a_d, a_tn, a_tf,
-                                      a_occ)
+                                      a_occ, tested)
             else:
                 bt, bi, bu, bv = _visit_closest(rows, ids, a_csel, a_o, a_d,
-                                                a_tn, (bt, bi, bu, bv))
-            a_emin, a_csel, a_ent = _pop_min(a_ent)
+                                                a_tn, (bt, bi, bu, bv), tested)
+            a_emin, a_csel, a_ent = _pop_min(a_ent, mask)
         ent[act], emin[act], csel[act] = a_ent, a_emin, a_csel
         nv[act] += 1
         if any_hit:
@@ -270,70 +360,110 @@ def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
         else:
             best_t[act], best_i[act], best_u[act], best_v[act] = bt, bi, bu, bv
             thresh[act] = _sortable_max(bt)
+    counts = ((2 * nv, n_sparse, n_tested, n_flagged) if sparse
+              else (2 * nv,))
     if any_hit:
-        return (occ,), 2 * nv
+        return ((occ,), *counts)
     hit = best_i >= 0
-    return (torch.where(hit, best_t, float("inf")), best_i, best_u,
-            best_v), 2 * nv
+    return ((torch.where(hit, best_t, float("inf")), best_i, best_u,
+             best_v), *counts)
 
 
-def walk_closest_ref(wt, o, d, tnear, tfar):
+def walk_closest_ref(wt, o, d, tnear, tfar, wide: bool = False):
     """Plain version of the closest-hit walk: (t, tri, u, v, visits); t = inf
     and tri = -1 (u = v = 0) on a miss."""
-    (t, tri, u, v), visits = _walk_ref(wt, o, d, tnear, tfar, False)
+    (t, tri, u, v), visits = _walk_ref(wt, o, d, tnear, tfar, False, wide)
     return t, tri, u, v, int(visits.sum())
 
 
-def walk_anyhit_ref(wt, o, d, tnear, tfar):
+def walk_anyhit_ref(wt, o, d, tnear, tfar, wide: bool = False):
     """Plain version of the any-hit walk: (occ, visits)."""
-    (occ,), visits = _walk_ref(wt, o, d, tnear, tfar, True)
+    (occ,), visits = _walk_ref(wt, o, d, tnear, tfar, True, wide)
     return occ, int(visits.sum())
 
 
 # ------------------------------------------------------------------ wrappers
 
-def walk_closest(wt, o, d, tnear, tfar) -> Tuple[torch.Tensor, ...]:
+def _wide_heap(cp: int, n: int, heap, device):
+    """Where a wide launch keeps its per-tile heaps of Cp x 4 B: (blocks,
+    device scratch or None). In shared memory up to _WIDE_SHARED_MAX
+    entries, or with heap = "shared" while the heap and the rest of the
+    block's shared memory fit the card's opt-in limit; else, or with heap =
+    "global", in a slice per block of a device buffer allocated for this
+    launch. A launch starts at most _WIDE_BLOCKS blocks and each walks
+    several tiles, which bounds that buffer."""
+    if heap == "shared" and cp * 4 + _STATIC_SMEM > _MAX_SMEM:
+        raise ValueError(f"a heap of {cp} entries does not fit shared memory")
+    blocks = min(n // RAY_TILE, _WIDE_BLOCKS)
+    if heap == "global" or (heap is None and cp > _WIDE_SHARED_MAX):
+        return blocks, torch.empty(blocks * cp, dtype=torch.int32,
+                                   device=device)
+    return blocks, None
+
+
+def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
+                 heap: str = None) -> Tuple[torch.Tensor, ...]:
     """Closest hit of whole 64-ray tiles (o, d [n, 3], tnear, tfar [n]) over
-    walk tables `wt`: (t, tri, u, v), each [n]."""
-    _check(wt, o, d, tnear, tfar)
+    walk tables `wt`: (t, tri, u, v), each [n]. `wide` takes the wide pop
+    (plain entries, any Cp up to MAX_WIDE_CLUSTERS); `heap` forces where its
+    heaps live (see _wide_heap)."""
+    _check(wt, o, d, tnear, tfar, wide, heap)
     count_rays(tfar)
     if o.device.type == "cpu":
-        return walk_closest_ref(wt, o, d, tnear, tfar)[:4]
+        return walk_closest_ref(wt, o, d, tnear, tfar, wide)[:4]
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    if n:
-        with torch.cuda.device(o.device):
-            err = _load().rl_walk_closest(
-                wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
-                int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
-                o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(),
-                n, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"walk_closest launch failed: CUDA error {err}")
-        LAUNCHES["walk_closest"] += 1
+    if not n:
+        return t, tri, u, v
+    name = "walk_closest_wide" if wide else "walk_closest"
+    tables = (wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
+              int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
+              o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n)
+    outs = (t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr())
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if wide:
+            blocks, scratch = _wide_heap(int(wt.n_clusters), n, heap, o.device)
+            err = _load().rl_walk_closest_wide(
+                *tables, None if scratch is None else scratch.data_ptr(),
+                blocks, *outs, stream)
+        else:
+            err = _load().rl_walk_closest(*tables, *outs, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return t, tri, u, v
 
 
-def walk_anyhit(wt, o, d, tnear, tfar) -> torch.Tensor:
-    """Any hit of whole 64-ray tiles over walk tables: True = occluded."""
-    _check(wt, o, d, tnear, tfar)
+def walk_anyhit(wt, o, d, tnear, tfar, wide: bool = False,
+                heap: str = None) -> torch.Tensor:
+    """Any hit of whole 64-ray tiles over walk tables: True = occluded.
+    `wide` and `heap` as in walk_closest."""
+    _check(wt, o, d, tnear, tfar, wide, heap)
     count_rays(tfar)
     if o.device.type == "cpu":
-        return walk_anyhit_ref(wt, o, d, tnear, tfar)[0]
+        return walk_anyhit_ref(wt, o, d, tnear, tfar, wide)[0]
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    if n:
-        with torch.cuda.device(o.device):
-            err = _load().rl_walk_anyhit(
-                wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
-                int(wt.n_real), wt.rows.data_ptr(), o.data_ptr(),
-                d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n,
-                occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"walk_anyhit launch failed: CUDA error {err}")
-        LAUNCHES["walk_anyhit"] += 1
+    if not n:
+        return occ
+    name = "walk_anyhit_wide" if wide else "walk_anyhit"
+    tables = (wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
+              int(wt.n_real), wt.rows.data_ptr(), o.data_ptr(), d.data_ptr(),
+              tnear.data_ptr(), tfar.data_ptr(), n)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if wide:
+            blocks, scratch = _wide_heap(int(wt.n_clusters), n, heap, o.device)
+            err = _load().rl_walk_anyhit_wide(
+                *tables, None if scratch is None else scratch.data_ptr(),
+                blocks, occ.data_ptr(), stream)
+        else:
+            err = _load().rl_walk_anyhit(*tables, occ.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return occ

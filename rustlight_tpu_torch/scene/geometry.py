@@ -160,10 +160,11 @@ def build_geometry_tables(meshes: List[TriMesh],
     return gt
 
 
-def geometry_to(geom, device) -> GeometryTables:
+def geometry_to(geom, device, walk_options=None) -> GeometryTables:
     """Upload numpy geometry tables (this module's or the JAX package's,
     read by attribute) to `device`; the JAX package's walk tables are
-    converted to this package's layout and its clustered tables ignored."""
+    converted to this package's layout and its clustered tables ignored.
+    `walk_options` (accel/walk.py: WalkOptions) sets the walk's schedule."""
     walk = getattr(geom, "walk", None)
     if walk is None and geom.n_tris > CLUSTER_THRESHOLD:
         raise NotImplementedError(
@@ -175,7 +176,8 @@ def geometry_to(geom, device) -> GeometryTables:
             if f not in ("n_tris", "n_pad", "walk")}
     return GeometryTables(
         n_tris=int(geom.n_tris), n_pad=int(geom.n_pad),
-        walk=None if walk is None else walk_tables_to(walk, device), **cols)
+        walk=(None if walk is None
+              else walk_tables_to(walk, device, walk_options)), **cols)
 
 
 def scene_bounds(meshes: List[TriMesh]):

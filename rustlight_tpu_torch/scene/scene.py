@@ -51,8 +51,11 @@ class Scene:
         self.meshes.append(mesh)
         return len(self.meshes) - 1
 
-    def compile(self, device, use_shading_normals: bool = True) -> SceneData:
-        """Build the numpy tables and upload them to `device`."""
+    def compile(self, device, use_shading_normals: bool = True,
+                walk_options=None) -> SceneData:
+        """Build the numpy tables and upload them to `device`.
+        `walk_options` (accel/walk.py: WalkOptions) picks the walk's
+        schedule for scenes that carry walk tables."""
         materials = self.materials or [MaterialDesc()]
         mesh_emitter_id, next_id = [], 0
         for m in self.meshes:
@@ -75,16 +78,17 @@ class Scene:
                             materials=build_material_table(materials),
                             emitters=emitters,
                             use_shading_normals=use_shading_normals)
-        return from_numpy_scene(host_sd, device)
+        return from_numpy_scene(host_sd, device, walk_options)
 
 
-def from_numpy_scene(host_sd, device) -> SceneData:
+def from_numpy_scene(host_sd, device, walk_options=None) -> SceneData:
     """Upload a compiled numpy scene to `device`.
 
     `host_sd` is this package's host SceneData or the JAX package's
     `sd.host.data`; it is read by attribute only. Walk tables come along
     (the JAX package's converted to this package's layout); the JAX
-    package's clustered tables are ignored."""
+    package's clustered tables are ignored. `walk_options` sets the walk's
+    schedule (accel/walk.py: WalkOptions)."""
     if getattr(host_sd, "volume", None) is not None:
         raise NotImplementedError("participating media are not ported yet")
     if getattr(host_sd, "ats", None) is not None:
@@ -92,7 +96,7 @@ def from_numpy_scene(host_sd, device) -> SceneData:
     device = torch.device(device)
     return SceneData(
         camera=camera_to(host_sd.camera, device),
-        geom=geometry_to(host_sd.geom, device),
+        geom=geometry_to(host_sd.geom, device, walk_options),
         materials=material_table_to(host_sd.materials, device),
         emitters=emitters_to(host_sd.emitters, device),
         host=host_sd,

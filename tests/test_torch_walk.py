@@ -158,7 +158,7 @@ def test_walk_tables_equal_jax(soup, monkeypatch, layout):
     assert port is not None and port.n_real == jwt.n_real == 6
     for f in tw.WalkTables._fields:
         a, b = getattr(conv, f), getattr(port, f)
-        if isinstance(b, int):
+        if isinstance(b, (int, tuple)):          # counts, schedule options
             assert a == b, f
             continue
         assert a.dtype == b.dtype and a.shape == b.shape, f
@@ -259,7 +259,8 @@ def test_wrappers_take_plain_versions_on_cpu(soup):
     with dt.counting_rays("cpu") as n_rays:
         closest = wk.walk_closest(wt, o, d, tnear, tfar)
         occ = wk.walk_anyhit(wt, o, d, tnear, tfar)
-    assert wk.LAUNCHES == {"walk_closest": 0, "walk_anyhit": 0}
+    assert wk.LAUNCHES == {"walk_closest": 0, "walk_anyhit": 0,
+                           "walk_closest_wide": 0, "walk_anyhit_wide": 0}
     assert int(n_rays) == 2 * int((tfar > 0).sum())
     t, tri, u, v, visits = wk.walk_closest_ref(wt, o, d, tnear, tfar)
     for a, b in zip(closest, (t, tri, u, v)):
