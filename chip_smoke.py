@@ -85,9 +85,40 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      kernels, 99.9% of pixels equal to phase 10's image, means within 1e-3;
  16. sort key: the grid4p9M AO render with WalkOptions(inc_sort=False)
      beside phase 10's, images held equal as in 15.
+ 17. lab kernels (K9 and the tensor-core form of the triangle test): on the
+     roofline tools' scene (sphere_grid_mesh(110_000, n_theta=18): 132,192
+     triangles, 432 clusters padded to 512) and their coherent and divergent
+     ray sets at 65,536 rays, sorted by the walk: the counted walk against
+     its plain version (bit-equal, visits equal per tile) and against K3
+     (bit-equal); the floor walk against its plain version (bit-equal; the
+     plain one timed on every 8th tile); fma_peak against its plain version
+     at 4,000 steps and one block (rtol 1e-4), then timed at the tools' size
+     and at half the steps (the time must follow); the tensor-core visit of
+     K3, the wide pop and K5: its two products against the _dot4 form's and
+     against torch.matmul's (the error printed), then each kernel pair
+     against its plain mxu version and against the _dot4 kernels under
+     _compare_mxu's rules, the excused lanes printed. The same check runs
+     where the main path launches these kernels, and the kernels line takes
+     their time, bound and error from there: K3's on grid122k's two
+     wavefronts (with phase 13), the wide pop's and K5's on grid5p7M's
+     camera and AO wavefronts (Cp 18,816, heaps in device memory; with
+     phase 13's wide-pop check), the plain mxu version run on every tile.
+ 18. lab path: roofline.main and trace_122k.main at 262,144 rays, without
+     and with --mxu, and tree_lab.main with its five variants, each printing
+     its own JSON; launch counts reset before and read after; roofline
+     twice more under torch.profiler for the lab kernels' device time; then
+     intersect_bvh (the skip-link traversal, plain torch) on the coherent
+     set's first 65,536 rays against K3: hit masks equal, ids equal save
+     near ties, t within 1e-6 relative; steps and ms printed.
+ 19. main path, mxu: the grid122k render of phase 6 with
+     WalkOptions(mxu_tritest=True), held to phase 6's image as in 14, only
+     the tensor-core kernels launching; and, on grid5p7M, the AO render of
+     phase 10 with mxu_tritest on the two-level walk and on the wide pop,
+     held to phase 10's image as in 15. (Run with phases 14 and 15.)
 
-Before the last line: the card line from nvidia-smi and a JSON line with
-each kernel's launches, error, times and bound. The last line is the JSON
+Before the last line: a JSON line with each kernel's tables and wavefronts
+(kernel_cases), the card line from nvidia-smi and a JSON line with each
+kernel's launches, error, times and bound. The last line is the JSON
 status {"ok": true, "device": {...}}; a failed phase raises and prints no
 status.
 """
@@ -140,7 +171,41 @@ KERNEL_SOURCES = {"dense": "rustlight_tpu_torch/csrc/dense_trace.cu",
                   "walk_hier": "rustlight_tpu_torch/csrc/walk_hier.cu",
                   "walk_sub": "rustlight_tpu_torch/csrc/walk_sub.cu",
                   "walk_sparse": "rustlight_tpu_torch/csrc/walk_sparse.cu",
-                  "pair": "rustlight_tpu_torch/csrc/pair_trace.cu"}
+                  "pair": "rustlight_tpu_torch/csrc/pair_trace.cu",
+                  "lab": "rustlight_tpu_torch/csrc/walk_lab.cu",
+                  "mma": "rustlight_tpu_torch/csrc/tri_test_mma.cuh"}
+# phase 17: the lab scene, and the tensor-core form's tolerance. It is not
+# bit-identical to the _dot4 form: both round products of magnitudes that
+# cancel (coordinates near 20 down to a t or u near 0), in another order.
+# Against its plain mxu version and against the _dot4 kernels: hit masks,
+# occlusion and ids equal except on lanes that are a near tie (TIE_RTOL) or
+# whose u, v or u + v lies within MXU_EDGE of a triangle's edge, or on which
+# an operand error of MXU_OPERAND_EPS of the summed magnitudes moves some
+# triangle's t, u or v across a limit of the test (_graze_mask: rays that
+# leave a surface at 1e-3 graze it) (excused, counted, at most
+# MXU_EXCUSED_FRAC of the lanes together); on the other lanes t within
+# MXU_T_RTOL / MXU_T_ATOL, or within what an operand error of MXU_OPERAND_EPS
+# of the summed magnitudes makes of it (rays that start on a surface have
+# t near 0 from terms near 400: such lanes are counted too); u, v likewise.
+LAB_TRIS, LAB_THETA, LAB_RAYS = 110_000, 18, 65_536
+MXU_T_RTOL, MXU_T_ATOL, MXU_EDGE = 1e-5, 1e-6, 1e-5
+MXU_OPERAND_EPS, MXU_EXCUSED_FRAC = 2e-6, 1e-3
+# the lanes held to the operand-error bound are capped too. Their share
+# is the data's (under 1% of the lab's sets, a fifth of a wavefront that
+# leaves a surface at 1e-3, where t near 1e-3 comes from terms near 10), so
+# the cap is tied to it: at most MXU_LOOSE_RATIO x the lanes on which the
+# plain mxu version (torch.matmul, full f32) misses the plain tolerance
+# against the same _dot4 kernels, plus MXU_LOOSE_SLACK. The route is for
+# ill-conditioned lanes, which any summation order shows. Measured on an
+# H100: the three-pass products miss it on 3.5-3.7x as many lanes as
+# torch.matmul does (479 to 137, 12,601 to 3,450; 120 to 19 on the smallest
+# count), their operand error being 2.9e-7 to its 1.6e-7; the ratio is 1.5 x
+# that, and the slack covers sets where the plain version misses on none
+MXU_LOOSE_RATIO, MXU_LOOSE_SLACK = 5.5, 32
+TC_TF32_OPS = 495e12        # H100 SXM dense TF32 tensor-core rate
+FMA_RTOL = 1e-4
+PW = "rustlight_tpu/accel/pallas_walk.py"
+ROOFLINE = "tools/perf/roofline.py"
 # the schedule renders of phase 14 and the shortlist lengths of phase 13
 SCHED_PIX_FRAC, SCHED_PIX_RTOL, SCHED_MEAN_RTOL = 0.999, 1e-3, 1e-4
 PAIR_KMS = (8, 2)
@@ -294,6 +359,28 @@ def block_mean_l1(img: np.ndarray) -> tuple:
     return float(np.abs(bm - ref["blockmean"]).mean()), float(ref["floor_l1"])
 
 
+def _profile(fn):
+    """torch.profiler over one call of `fn`: (wall s, the device kernels'
+    key averages, longest total first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    from torch.autograd import DeviceType
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count > 0]
+    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return wall, kern
+
+
+def _kernel_line(e) -> str:
+    return (f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x "
+            f"{e.self_device_time_total / e.count:8.2f} us  {e.key[:90]}")
+
+
 def profile_render(label, sd, integ, spp, names, top=12):
     """torch.profiler over one warm render at `spp`; prints the device time
     by kernel (the top ones and those whose name holds one of `names`), the
@@ -301,19 +388,10 @@ def profile_render(label, sd, integ, spp, names, top=12):
     stream, so kernel times do not overlap). Returns (busy share, share of
     the device time spent in kernels matching `names`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from rustlight_tpu_torch.integrators import render
     render(sd, integ, spp=spp, seed=1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        render(sd, integ, spp=spp, seed=1)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    from torch.autograd import DeviceType
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count > 0]
-    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    wall, kern = _profile(lambda: render(sd, integ, spp=spp, seed=1))
     if not kern:
         phase("profile", f"{label}: torch.profiler recorded no device kernels")
         return None, None
@@ -327,9 +405,7 @@ def profile_render(label, sd, integ, spp, names, top=12):
           f"{ours_us / 1e6:.3f}s ({100 * ours_us / max(busy_us, 1e-9):.1f}% "
           "of device time)")
     for e in kern[:top] + [e for e in ours if e not in kern[:top]]:
-        phase("profile", f"  {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{e.count:7d}x {e.self_device_time_total / e.count:8.2f} us  "
-              f"{e.key[:90]}")
+        phase("profile", _kernel_line(e))
     return busy_us / 1e6 / wall, ours_us / max(busy_us, 1e-9)
 
 
@@ -337,10 +413,11 @@ def _launch_modules():
     from rustlight_tpu_torch.ops import dense_trace as dt
     from rustlight_tpu_torch.ops import pair_trace as pt
     from rustlight_tpu_torch.ops import walk_hier as wh
+    from rustlight_tpu_torch.ops import walk_lab as wl
     from rustlight_tpu_torch.ops import walk_sparse as ws
     from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
-    return dt, wk, wh, wsub, ws, pt
+    return dt, wk, wh, wsub, ws, pt, wl
 
 
 def _reset_launches():
@@ -702,7 +779,7 @@ def _only(label, launches, kernels):
 
 
 def schedule_renders(label, gsd, integ, ref_img, ref_rays, ref_wall):
-    """Phase 14: the grid render once per schedule, against the default
+    """Phases 14 and 19: the grid render once per schedule, against the default
     schedule's image of the same seed (ref_rays rays in ref_wall s; a pair
     render counts its re-traced rays twice, so every rate here is over
     ref_rays). Returns the launches summed."""
@@ -715,7 +792,9 @@ def schedule_renders(label, gsd, integ, ref_img, ref_rays, ref_wall):
             ("sparse", WalkOptions(sparse=True),
              ("walk_sparse_closest", "walk_sparse_anyhit")),
             ("pair", WalkOptions(pair=True),
-             ("pair_closest", "pair_anyhit", "walk_closest", "walk_anyhit"))):
+             ("pair_closest", "pair_anyhit", "walk_closest", "walk_anyhit")),
+            ("mxu_tritest", WalkOptions(mxu_tritest=True),
+             ("walk_closest_mma", "walk_anyhit_mma"))):
         sd = from_numpy_scene(gsd.host, gsd.device, walk_options=options)
         tag = f"{label} {name}"
         img, wall, warm, n_rays, launches = timed_render(tag, sd, integ,
@@ -738,9 +817,10 @@ def schedule_renders(label, gsd, integ, ref_img, ref_rays, ref_wall):
     return total
 
 
-def ao_option_render(label, sd, options, kernels, ref_img, ref_wall):
-    """Phases 15 and 16: the AO render of phase 10 with other walk options,
-    its image held to phase 10's. Returns the launches."""
+def ao_option_render(label, sd, options, kernels, ref_img, ref_wall,
+                     profile=True):
+    """Phases 15, 16 and 19: the AO render of phase 10 with other walk
+    options, its image held to phase 10's. Returns the launches."""
     from rustlight_tpu_torch.integrators import IntegratorAO
     from rustlight_tpu_torch.scene.scene import from_numpy_scene
     osd = from_numpy_scene(sd.host, sd.device, walk_options=options)
@@ -758,8 +838,9 @@ def ao_option_render(label, sd, options, kernels, ref_img, ref_wall):
           f"launches { {k: v for k, v in launches.items() if v} }")
     _images_agree(label, img, ref_img, AO_ORACLE_PIX_FRAC, 0.0,
                   AO_ORACLE_MEAN_RTOL)
-    profile_render(label, osd, IntegratorAO(max_distance=AO_DIST), 1,
-                   ("walk_",))
+    if profile:
+        profile_render(label, osd, IntegratorAO(max_distance=AO_DIST), 1,
+                       ("walk_",))
     return launches
 
 
@@ -940,13 +1021,452 @@ def check_hier(label, sd):
     return out
 
 
+# ------------------------------------------------------- phases 17 and 18
+
+def _tie_mask(rows, o, d, tnear, tfar, lanes):
+    """Per lane of `lanes`: whether its two nearest valid t lie within
+    TIE_RTOL of each other (the plain version's arithmetic)."""
+    import torch
+    from rustlight_tpu_torch.ops.dense_trace import _chunk_test
+    step = max(1, min(64, (1 << 26) // rows.shape[0]))
+    out = []
+    for s in range(0, lanes.numel(), step):
+        k = lanes[s:s + step]
+        t, _, _, valid = _chunk_test(rows, o[k], d[k], tnear[k], tfar[k])
+        t2 = torch.topk(torch.where(valid, t, float("inf")), 2, dim=1,
+                        largest=False).values
+        out.append(t2[:, 1] - t2[:, 0] <= TIE_RTOL * t2[:, 0].abs())
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool,
+                                                  device=lanes.device)
+
+
+def _graze_mask(rows, o, d, tnear, tfar, lanes):
+    """Per lane of `lanes`: whether an operand error of MXU_OPERAND_EPS of
+    the summed magnitudes can change what the lane hits. Over every triangle
+    (the plain version's arithmetic), with bt, bu, bv the error that operand
+    error makes of t, u, v: some triangle passes the test widened by those
+    errors while one of its conditions (u, v, u + v, tnear, tfar) lies
+    within its error of its limit, or the two nearest such t lie within
+    their errors of each other."""
+    import torch
+    from rustlight_tpu_torch.ops.dense_trace import _chunk_test
+    step = max(1, min(64, (1 << 24) // rows.shape[0]))
+    eps, inf = MXU_OPERAND_EPS, float("inf")
+    rt = rows.permute(1, 2, 0).contiguous()                      # [3, 4, T]
+    out = []
+    for s in range(0, lanes.numel(), step):
+        k = lanes[s:s + step]
+        t, u, v, _ = _chunk_test(rows, o[k], d[k], tnear[k], tfar[k])
+        one = torch.ones_like(o[k][:, :1])
+        o4 = torch.cat([o[k], one], 1)
+        d4 = torch.cat([d[k], 0 * one], 1)
+        err = []
+        for c in range(3):
+            mag = o4.abs() @ rt[c].abs() + t.abs() * (d4.abs() @ rt[c].abs())
+            err.append((eps * mag, d4 @ rt[c]))
+        live = err[0][1].abs() > 1e-20
+        bt = err[0][0] / err[0][1].abs().clamp(min=1e-30)
+        bu = err[1][0] + bt * err[1][1].abs()
+        bv = err[2][0] + bt * err[2][1].abs()
+        tn, tf = tnear[k][:, None], tfar[k][:, None]
+        wide = (live & (t > tn - bt) & (t < tf + bt) & (u >= -bu)
+                & (v >= -bv) & (u + v <= 1.0 + bu + bv))
+        near = ((u < bu) | (v < bv) | (1.0 - (u + v) < bu + bv)
+                | ((t - tn).abs() < bt) | ((t - tf).abs() < bt))
+        t2, i2 = torch.topk(torch.where(wide, t, inf), 2, dim=1, largest=False)
+        b2 = torch.gather(bt, 1, i2)
+        tie = torch.isfinite(t2[:, 1]) & (t2[:, 1] - t2[:, 0]
+                                         <= b2[:, 0] + b2[:, 1])
+        out.append((wide & near).any(1) | tie)
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool,
+                                                  device=lanes.device)
+
+
+def _on_edge(hit):
+    """Whether a hit's u, v or u + v lies within MXU_EDGE of an edge."""
+    import torch
+    _, tri, u, v = hit
+    edge = torch.minimum(torch.minimum(u, v), 1.0 - (u + v)) < MXU_EDGE
+    return (tri >= 0) & edge
+
+
+def _compare_mxu(label, rows, rays, got, ref, occ_got, occ_ref):
+    """The tensor-core form `got` against `ref` (its plain version or the
+    _dot4 kernels) on one sorted ray set, under the tolerance stated beside
+    MXU_T_RTOL. Returns (max abs error of t/u/v on the lanes held to the
+    plain bound, excused lanes, [n] mask of the lanes held to the
+    operand-error bound: the caller caps their count)."""
+    import torch
+    o, d, tnear, tfar = rays
+    n = o.shape[0]
+    t_g, i_g, u_g, v_g = got
+    t_r, i_r, u_r, v_r = ref
+    differ = (i_g != i_r) | (occ_got != occ_ref)
+    lanes = torch.nonzero(differ)[:, 0]
+    excused = _on_edge(got)[lanes] | _on_edge(ref)[lanes]
+    rest = lanes[~excused]
+    rest = rest[~_tie_mask(rows, o, d, tnear, tfar, rest)]
+    rest = rest[~_graze_mask(rows, o, d, tnear, tfar, rest)]
+    if rest.numel():
+        k = rest[:4]
+        raise AssertionError(
+            f"{label}: {rest.numel()} lanes differ in id, hit or occlusion "
+            "outside near ties, edge grazes and what the operand error "
+            f"explains; the first: lanes {k.tolist()}, got t {t_g[k].tolist()}"
+            f" id {i_g[k].tolist()} u {u_g[k].tolist()} v {v_g[k].tolist()} "
+            f"occ {occ_got[k].tolist()}, ref t {t_r[k].tolist()} id "
+            f"{i_r[k].tolist()} u {u_r[k].tolist()} v {v_r[k].tolist()} occ "
+            f"{occ_ref[k].tolist()}, tnear {tnear[k].tolist()} tfar "
+            f"{tfar[k].tolist()}")
+    if lanes.numel() > MXU_EXCUSED_FRAC * n:
+        raise AssertionError(f"{label}: {lanes.numel()} of {n} lanes excused")
+    same = (i_g == i_r) & (i_r >= 0)
+    k = i_r[same].long()
+    o4 = torch.cat([o[same], torch.ones_like(o[same][:, :1])], 1)
+    d4 = torch.cat([d[same], torch.zeros_like(o[same][:, :1])], 1)
+    mag_o = (o4[:, None, :] * rows[k]).abs().sum(-1)            # [m, 3]
+    mag_d = (d4[:, None, :] * rows[k]).abs().sum(-1)
+    dot_d = (d4[:, None, :] * rows[k]).sum(-1)
+    t = t_r[same]
+    eps = MXU_OPERAND_EPS
+    bound_t = eps * (mag_o[:, 0] + t.abs() * mag_d[:, 0]) / dot_d[:, 0].abs()
+    err_t = (t_g[same] - t).abs()
+    plain_t = MXU_T_RTOL * t.abs() + MXU_T_ATOL
+    if bool(torch.any(err_t > torch.maximum(plain_t, bound_t))):
+        raise AssertionError(f"{label}: t differs beyond rtol {MXU_T_RTOL} "
+                             "and beyond the operand-error bound")
+    loose = err_t > plain_t
+    err = float(err_t[~loose].max()) if bool((~loose).any()) else 0.0
+    for a, b, c in ((u_g, u_r, 1), (v_g, v_r, 2)):
+        bound = (MXU_T_ATOL + eps * (mag_o[:, c] + t.abs() * mag_d[:, c])
+                 + torch.maximum(plain_t, bound_t) * dot_d[:, c].abs())
+        e = (a[same] - b[same]).abs()
+        if bool(torch.any(e > bound)):
+            raise AssertionError(f"{label}: u/v differ beyond the bound")
+        err = max(err, float(e[~loose].max()) if bool((~loose).any()) else 0.0)
+    loose_lanes = torch.zeros(n, dtype=torch.bool, device=o.device)
+    loose_lanes[same] = loose
+    return err, lanes.numel(), loose_lanes
+
+
+def _lab_sets(dev, n):
+    """The tools' scene, tables, dense rows and their two ray sets (the
+    draw order of tree_lab: coherent, then divergent)."""
+    import torch
+    from rustlight_tpu_torch.accel.walk import walk_tables_to
+    from rustlight_tpu_torch.tools.perf import common
+    geom, ext = common.lab_scene(LAB_TRIS, LAB_THETA)
+    rng = np.random.default_rng(3)
+    sets = {"coherent": common.to_device(dev, *common.coherent_rays(rng, n, ext)),
+            "divergent": common.to_device(dev, *common.divergent_rays(rng, n, ext))}
+    rows = torch.as_tensor(np.ascontiguousarray(geom.inter_rows[:geom.n_tris]),
+                           device=dev)
+    return geom, walk_tables_to(geom.walk, dev), rows, sets
+
+
+def _mma_bound_ms(visits, n_bytes):
+    """The bound of a walk with the tensor-core visit: (ms, what bounds it,
+    the two routes' operation times). A visit's test may take either route,
+    so the operations' time is the smaller of the two: the three-pass
+    products (3 x 2 x 2*64*4*1152 flop at the TF32 rate) with the rest of
+    the test (9 of the 25 f32 operations of each of 64 x 384 tests), or all
+    25 operations at the f32 rate, as the _dot4 kernels' bound counts."""
+    routes = {"tc_route_ms": visits * (3 * 2 * 2 * 64 * 4 * 1152 / TC_TF32_OPS
+                                       + 64 * 384 * 9 / PEAK_F32_OPS) * 1e3,
+              "f32_route_ms": visits * 64 * 384 * OPS_PER_TEST
+              / PEAK_F32_OPS * 1e3}
+    ops_ms = min(routes.values())
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    return ((ops_ms, "operations", routes) if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes", routes))
+
+
+def _check_mma(tag, rows, wt, srt, which, resident, add, **where):
+    """The tensor-core visit of the walks named in `which` ("walk": K3,
+    "walk_wide": the wide pop, "walk_hier": K5) on one sorted wavefront:
+    each against its plain mxu version on every tile and against its _dot4
+    kernel, under the tolerance stated beside MXU_T_RTOL. The plain mxu
+    version is held to the same _dot4 kernel, and the kernel may miss the
+    plain tolerance on at most MXU_LOOSE_RATIO x as many lanes (plus
+    MXU_LOOSE_SLACK). `resident`: the table is read once, else a cluster's
+    rows per visit. Records go to add(kernel name, **record)."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_hier as wh
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    n = srt[0].shape[0]
+    table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
+             + wt.hi.numel()) * 4
+    variants = {
+        "walk": ("walk_closest_mma", "walk_anyhit_mma",
+                 lambda **k: wk.walk_closest(wt, *srt, **k),
+                 lambda **k: wk.walk_anyhit(wt, *srt, **k),
+                 lambda: wk.walk_closest_ref(wt, *srt, mxu=True),
+                 lambda: wk.walk_anyhit_ref(wt, *srt, mxu=True)),
+        "walk_wide": ("walk_closest_wide_mma", "walk_anyhit_wide_mma",
+                      lambda **k: wk.walk_closest(wt, *srt, wide=True, **k),
+                      lambda **k: wk.walk_anyhit(wt, *srt, wide=True, **k),
+                      lambda: wk.walk_closest_ref(wt, *srt, True, True),
+                      lambda: wk.walk_anyhit_ref(wt, *srt, True, True)),
+        "walk_hier": ("walk_hier_closest_mma", "walk_hier_anyhit_mma",
+                      lambda **k: wh.walk_hier_closest(wt, *srt, **k),
+                      lambda **k: wh.walk_hier_anyhit(wt, *srt, **k),
+                      lambda: wh.walk_hier_closest_ref(wt, *srt, True),
+                      lambda: wh.walk_hier_anyhit_ref(wt, *srt, True))}
+    for name in which:
+        cname, aname, closest, anyhit, pc, pa = variants[name]
+        dot_c, dot_a = closest(), anyhit()
+        got_c, got_a = closest(mxu=True), anyhit(mxu=True)
+        (out_c, pms_c), (out_a, pms_a) = _timed(pc), _timed(pa)
+        ref_c, ref_a = out_c[:4], out_a[0]
+        at = f"{tag} {name} mma"
+        err_p, exc_p, loose_p = _compare_mxu(
+            f"{at} vs plain mxu", rows, srt, got_c, ref_c, got_a, ref_a)
+        err_k, exc_k, loose_k = _compare_mxu(
+            f"{at} vs _dot4 kernels", rows, srt, got_c, dot_c, got_a, dot_a)
+        _, exc_r, loose_r = _compare_mxu(
+            f"{tag} {name} plain mxu vs _dot4 kernels", rows, srt, ref_c,
+            dot_c, ref_a, dot_a)
+        n_p, n_k, n_r = (int(x.sum()) for x in (loose_p, loose_k, loose_r))
+        shared = int((loose_k & loose_r).sum())
+        if max(n_k, n_p) > MXU_LOOSE_RATIO * n_r + MXU_LOOSE_SLACK:
+            raise AssertionError(
+                f"{at}: {n_k} lanes miss rtol {MXU_T_RTOL} against the _dot4 "
+                f"kernels and {n_p} against the plain mxu version, which "
+                f"itself misses it against the _dot4 kernels on only {n_r}")
+        base = (_median_ms(closest), _median_ms(anyhit))
+        for kname, fn, out, pms, b_ms, out_b in (
+                (cname, closest, out_c, pms_c, base[0], 16),
+                (aname, anyhit, out_a, pms_a, base[1], 1)):
+            visits = out[-1]            # this run's visits, the plain count
+            bound, by, routes = _mma_bound_ms(
+                visits, n * (RAY_IN_BYTES + out_b)
+                + (table if resident else visits * HIER_VISIT_BYTES))
+            add(kname, max_abs_err=max(err_p, err_k),
+                ms=_median_ms(lambda: fn(mxu=True)), dot4_ms=b_ms,
+                plain_ms=pms, bound_ms=bound, bound_by=by, **routes,
+                visits=visits, excused=max(exc_p, exc_k),
+                loose=max(n_p, n_k), **where)
+            rc = add.last(kname)
+            phase("mma", f"{at} {kname}: {visits} visits, {rc['ms']:.4f} ms "
+                  f"(_dot4 {b_ms:.4f}), plain {pms:.1f} ms, bound "
+                  f"{bound:.4f} ms ({by}; tensor-core route "
+                  f"{routes['tc_route_ms']:.4f}, f32 route "
+                  f"{routes['f32_route_ms']:.4f})")
+        phase("mma", f"{at} (of {n} lanes): vs plain mxu {exc_p} excused, "
+              f"{n_p} on the operand-error bound; vs _dot4 kernels {exc_k}, "
+              f"{n_k}; plain mxu vs _dot4 kernels {exc_r}, {n_r} ({shared} of "
+              f"them the kernel's too); err {max(err_p, err_k):.3g}")
+
+
+class _Records(dict):
+    """{kernel name: [a record per case]}; callable to append one."""
+
+    def __call__(self, name, **rec):
+        self.setdefault(name, []).append(rec)
+
+    def last(self, name):
+        return self[name][-1]
+
+
+def check_mma(label, sd, waves, which):
+    """The tensor-core kernels named in `which` at the shapes their main
+    path gives them: on the scene's own table and wavefronts, sorted by the
+    walk (_check_mma). Returns {kernel name: [a record per wavefront]}."""
+    from rustlight_tpu_torch.accel import walk
+    from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS
+    wt = sd.geom.walk
+    recs = _Records()
+    for wname, rays in waves.items():
+        srt = walk._prepare(wt, *rays)[:4]
+        _check_mma(f"{label}/{wname}", sd.geom.inter_rows, wt, srt, which,
+                   wt.n_clusters <= FLAT_MAX_CLUSTERS, recs, table=label,
+                   wavefront=wname)
+    return recs
+
+
+def check_lab(dev):
+    """Phase 17. Returns the records of the lab kernels and of the
+    tensor-core kernels, keyed by kernel name."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_lab as wl
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    from rustlight_tpu_torch.tools.perf import common, roofline
+    geom, wt, rows, sets = _lab_sets(dev, LAB_RAYS)
+    R, K = wk.RAY_TILE, wk.K
+    table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
+             + wt.hi.numel()) * 4
+    recs = _Records()
+
+    def add(name, wname, **rec):
+        recs(name, wavefront=wname, **rec)
+
+    # the two products of the tensor-core form, one tile and one cluster
+    crow = wt.rows.view(-1, K, 3, 4)[0].contiguous()
+    o64 = sets["divergent"][0][:R].contiguous()
+    d64 = sets["divergent"][1][:R].contiguous()
+    got = wl.mma_products(crow, o64, d64)
+    ref = wl.dot4_products(crow, o64, d64)
+    lib = wl.mma_products_ref(crow, o64, d64)
+    torch.cuda.synchronize()
+    rel = lambda x, y: float(((x - y).abs() / y.abs().amax(1, keepdim=True)
+                              .clamp(min=1e-30)).max())
+    op_err = max(rel(a, b) for a, b in zip(got, ref))
+    lib_err = max(rel(a, b) for a, b in zip(lib, ref))
+    if op_err > 1e-5:
+        raise AssertionError(f"mma_products: error {op_err:.3g} of a ray's "
+                             "largest product: the fragment layout is off")
+    prod_bytes = crow.numel() * 4 + 2 * o64.numel() * 4 + 2 * got[0].numel() * 4
+    bound, by, _ = _mma_bound_ms(1, prod_bytes)
+    add("mma_products", "divergent",
+        max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+        ms=_median_ms(lambda: wl.mma_products(crow, o64, d64)),
+        plain_ms=_median_ms(lambda: wl.dot4_products(crow, o64, d64)),
+        library_ms=_median_ms(lambda: wl.mma_products_ref(crow, o64, d64)),
+        bound_ms=bound, bound_by=by)
+    phase("lab", f"mma_products vs the _dot4 products, relative to each "
+          f"ray's largest: {op_err:.3g} (torch.matmul, full f32: "
+          f"{lib_err:.3g}; limit stated in PERF.md: {MXU_OPERAND_EPS:g}); "
+          f"kernel {recs['mma_products'][0]['ms']:.4f} ms, torch.matmul x 2 "
+          f"{recs['mma_products'][0]['library_ms']:.4f} ms")
+
+    # fma_peak
+    x = torch.rand(wl.FMA_SHAPE, device=dev) + 0.5
+    y, yp = wl.fma_peak(x, roofline.FMA_ITERS, 1), wl.fma_peak_ref(
+        x, roofline.FMA_ITERS)
+    torch.cuda.synchronize()
+    fma_err = float(((y - yp).abs() / yp.abs()).max())
+    if not fma_err <= FMA_RTOL:
+        raise AssertionError(f"fma_peak: rel err {fma_err:.3g} > {FMA_RTOL}")
+    blocks, iters = roofline.FMA_BLOCKS, roofline.FMA_ITERS
+    ms = _median_ms(lambda: wl.fma_peak(x, iters, blocks), runs=5)
+    half = _median_ms(lambda: wl.fma_peak(x, iters // 2, blocks), runs=5)
+    if not 1.8 <= ms / half <= 2.2:
+        raise AssertionError(f"fma_peak: {ms:.3f} ms at {iters} steps, "
+                             f"{half:.3f} at {iters // 2}: the chain is not "
+                             "what is timed")
+    flop = blocks * iters * R * 3 * K * 4
+    add("fma_peak", "-", max_abs_err=float((y - yp).abs().max()), ms=ms,
+        plain_ms=_median_ms(lambda: wl.fma_peak_ref(x, iters), runs=1),
+        bound_ms=flop / PEAK_F32_OPS * 1e3, bound_by="operations",
+        tflops=flop / ms / 1e9)
+    phase("lab", f"fma_peak: rel err {fma_err:.3g} at {iters} steps; "
+          f"{blocks} blocks: {ms:.3f} ms ({flop / ms / 1e9:.2f} TFLOP/s, "
+          f"{100 * flop / ms / 1e9 / (PEAK_F32_OPS / 1e12):.1f}% of the f32 "
+          f"peak), {half:.3f} ms at {iters // 2} steps")
+
+    # batched torch.matmul of one visit's two products, every tile at once
+    tiles = LAB_RAYS // R
+    o4 = torch.rand((tiles, R, 4), device=dev)
+    pm = torch.rand((tiles, 4, 3 * K), device=dev)
+    mm_visit = _median_ms(lambda: (torch.matmul(o4, pm), torch.matmul(o4, pm)))
+    phase("lab", f"torch.matmul [{tiles}, 64, 4] x [{tiles}, 4, 1152] twice "
+          f"(one visit's products of every tile): {mm_visit:.4f} ms")
+
+    for wname, (o, d) in sets.items():
+        srt = common.sorted_tiles(wt, o, d)
+        n = srt[0].shape[0]
+        k3 = wk.walk_closest(wt, *srt)
+        cnt = wl.walk_closest_counted(wt, *srt)
+        cnt_p, pms = _timed(lambda: wl.walk_closest_counted_ref(wt, *srt))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(cnt, cnt_p)):
+            raise AssertionError(f"lab/{wname}: counted differs from plain")
+        if not all(torch.equal(a, b) for a, b in zip(cnt[:4], k3)):
+            raise AssertionError(f"lab/{wname}: counted differs from K3")
+        nv = cnt[4].view(-1, R)[:, 0].long()
+        visits = int(nv.sum())
+        bound, by = _bound_ms(visits * R * K, n * (RAY_IN_BYTES + 20) + table)
+        k3_ms = _median_ms(lambda: wk.walk_closest(wt, *srt))
+        add("walk_closest_counted", wname, max_abs_err=0.0,
+            ms=_median_ms(lambda: wl.walk_closest_counted(wt, *srt)),
+            plain_ms=pms, bound_ms=bound, bound_by=by, k3_ms=k3_ms,
+            visits="%.2f, p99 %.0f, max %d" % _spread(nv))
+        nvi = int(round(visits / tiles))
+        fl = wl.walk_floor(wt, *srt, nvi)
+        fl_p = wl.walk_floor_ref(wt, *srt, nvi)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(fl, fl_p)):
+            raise AssertionError(f"lab/{wname}: floor differs from plain")
+        lanes = (torch.arange(0, tiles, HIER_SAMPLE, device=dev)[:, None] * R
+                 + torch.arange(R, device=dev)).reshape(-1)
+        sub = [x[lanes].contiguous() for x in srt]
+        bound, by = _bound_ms(tiles * nvi * R * K,
+                              n * (RAY_IN_BYTES + 16) + table)
+        add("walk_floor", wname, max_abs_err=0.0, visits=nvi,
+            ms=_median_ms(lambda: wl.walk_floor(wt, *srt, nvi)),
+            plain_sample_ms=_median_ms(
+                lambda: wl.walk_floor_ref(wt, *sub, nvi), runs=PLAIN_RUNS),
+            plain_tiles=lanes.numel() // R, bound_ms=bound, bound_by=by)
+        c, f = recs["walk_closest_counted"][-1], recs["walk_floor"][-1]
+        f["plain_ms"] = f["plain_sample_ms"] * HIER_SAMPLE
+        phase("lab", f"{wname}: counted = plain = K3 bit for bit, visits/"
+              f"tile {c['visits']}; K3 {k3_ms:.4f} ms, counted "
+              f"{c['ms']:.4f} ms (plain {pms:.1f} ms), floor at {nvi} visits "
+              f"{f['ms']:.4f} ms = plain bit for bit (plain "
+              f"{f['plain_sample_ms']:.1f} ms on {f['plain_tiles']} tiles): "
+              f"production/floor {k3_ms / f['ms']:.2f}x; bound "
+              f"{c['bound_ms']:.4f} ms ({by})")
+
+        # the tensor-core visit: K3, the wide pop, K5 (forced onto these
+        # tables), each against its plain mxu version and the _dot4 kernels
+        _check_mma(f"lab/{wname}", rows, wt, srt,
+                   ("walk", "walk_wide", "walk_hier"), True, recs,
+                   table="lab", wavefront=wname)
+    return recs
+
+
+def lab_path(dev):
+    """Phase 18. Returns the launches of the tools' runs."""
+    import torch
+    from rustlight_tpu_torch.accel import bvh as tb
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    from rustlight_tpu_torch.tools.perf import roofline, trace_122k, tree_lab
+    out = os.path.join(ROOT, "build", "lab")
+    _reset_launches()
+    for tool, name, extra in ((roofline, "roofline", ()),
+                              (roofline, "roofline_mxu", ("--mxu",)),
+                              (trace_122k, "trace_122k", ()),
+                              (trace_122k, "trace_122k_mxu", ("--mxu",)),
+                              (tree_lab, "tree_lab", ())):
+        t0 = time.time()
+        tool.main(["--device", DEVICE, "--rays", str(N_RAYS), "--out",
+                   os.path.join(out, f"{name}_h100.json"), *extra])
+        phase("lab path", f"{name} in {time.time() - t0:.1f}s")
+    launches = _launches()
+    # the lab kernels' device time per launch at the tools' size
+    for extra in ((), ("--mxu",)):
+        _, kern = _profile(lambda: roofline.main(
+            ["--device", DEVICE, "--rays", str(N_RAYS), "--runs", "1",
+             "--out", os.path.join(out, "roofline_profiled.json"), *extra]))
+        for e in kern:
+            if any(nm in e.key for nm in ("walk_", "fma_peak", "mma_products")):
+                phase("profile", _kernel_line(e))
+    geom, wt, rows, sets = _lab_sets(dev, LAB_RAYS)
+    o, d = sets["coherent"]
+    bvh = tb.bvh_tables_to(tb.build_bvh(geom), dev)
+    stats = {}
+    tnear = torch.full((LAB_RAYS,), 1e-4, device=dev)
+    tfar = torch.full((LAB_RAYS,), float("inf"), device=dev)
+    rh, ms = _timed(lambda: tb.intersect_bvh(bvh, o, d, tnear, tfar,
+                                             stats=stats))
+    k3 = wk.walk_closest(wt, o, d, tnear, tfar)
+    _compare("intersect_bvh vs K3", rows, (o, d, tnear, tfar), rh[:4], k3,
+             rh.hit, k3[1] >= 0)
+    phase("lab path", f"intersect_bvh: {LAB_RAYS} coherent rays, "
+          f"{bvh.n_nodes} nodes, {stats['steps']} steps, {ms:.1f} ms, "
+          f"{int(rh.hit.sum())} hits: masks and ids equal to K3's, t within "
+          f"{T_RTOL}")
+    return launches
+
+
 def ao_row(dev, label, n_tris):
     """Phases 9-12 on one AO row, then phases 13 (the wide pop) and 15 on
     the row past FLAT_MAX_CLUSTERS clusters and phase 16 on the other. The
     two-level kernels are checked on every row; the render takes the
     reference's route: the two-level walk past FLAT_MAX_CLUSTERS clusters.
-    Returns (walk-hier records, wide records, the launches of the row's
-    main-path renders summed)."""
+    Returns (walk-hier records, wide records, the tensor-core kernels'
+    records on this row's wavefronts, the launches of the row's main-path
+    renders summed)."""
     from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS, WalkOptions
     from rustlight_tpu_torch.integrators import IntegratorAO
     sd, build_s, camera = ao_scene(dev, n_tris)
@@ -970,22 +1490,35 @@ def ao_row(dev, label, n_tris):
     phase("main", f"{label} AO {AO_RES}x{AO_RES} {AO_SPP} spp, max distance "
           f"{AO_DIST}: warm-up {warm:.3f}s, timed (seed 1) {wall:.3f}s, "
           f"{n_rays} rays, {n_rays / wall / 1e6:.3f} Mrays/s, mean_ao "
-          f"{img.mean():.5f}, launches {launches}")
+          f"{img.mean():.5f}, launches { {k: v for k, v in launches.items() if v} }")
     small = sd._replace(camera=camera(AO_ORACLE_RES))
     oracle_check(label, small, integ, AO_ORACLE_SPP, kernels,
                  AO_ORACLE_PIX_FRAC, 0.0, AO_ORACLE_MEAN_RTOL)
     profile_render(label, sd, integ, 1, ("walk_hier",) if hier else ("walk_",))
-    wide_recs = []
+    wide_recs, mma_recs = [], {}
     if hier:
-        wide_recs = check_wide(label, sd, ao_wavefronts(sd))
+        waves = ao_wavefronts(sd)
+        wide_recs = check_wide(label, sd, waves)
+        # the tensor-core visit where the renders below launch it
+        mma_recs = check_mma(label, sd, waves, ("walk_wide", "walk_hier"))
         extra = ao_option_render(
             f"{label} AO hier=False (wide pop)", sd, WalkOptions(hier=False),
             ("walk_closest_wide", "walk_anyhit_wide"), img, wall)
+        for name, options, mma_kernels in (
+                ("mxu_tritest", WalkOptions(mxu_tritest=True),
+                 ("walk_hier_closest_mma", "walk_hier_anyhit_mma")),
+                ("hier=False mxu_tritest",
+                 WalkOptions(hier=False, mxu_tritest=True),
+                 ("walk_closest_wide_mma", "walk_anyhit_wide_mma"))):
+            more = ao_option_render(f"{label} AO {name}", sd, options,
+                                    mma_kernels, img, wall, profile=False)
+            extra = {k: extra[k] + more[k] for k in extra}
     else:
         extra = ao_option_render(
             f"{label} AO inc_sort=False", sd, WalkOptions(inc_sort=False),
             kernels, img, wall)
-    return recs, wide_recs, {k: launches[k] + extra[k] for k in launches}
+    return recs, wide_recs, mma_recs, {k: launches[k] + extra[k]
+                                       for k in launches}
 
 
 def main() -> int:
@@ -1042,7 +1575,7 @@ def main() -> int:
           f"{CBOX_DEPTH}: warm-up {warm:.3f}s, timed {wall:.3f}s, {n_rays} "
           f"rays, {n_rays / wall / 1e6:.3f} Mrays/s, mean {img.mean():.6f}, "
           f"block-mean l1 {l1:.6f} (limit {GATE_MARGIN * floor:.6f}), "
-          f"launches {launches}")
+          f"launches { {k: v for k, v in launches.items() if v} }")
     profile_render("cbox", sd, integ, 8, ("dense_",))
     del sd
 
@@ -1074,7 +1607,7 @@ def main() -> int:
               f"real), scene build {build_s:.3f}s; {GRID_RES}x{GRID_RES} "
               f"{GRID_SPP} spp depth {GRID_DEPTH}: warm-up {warm:.3f}s, "
               f"timed {wall:.3f}s, {n_rays} rays, {n_rays / wall / 1e6:.3f} "
-              f"Mrays/s, mean {img.mean():.6f}, launches {launches}")
+              f"Mrays/s, mean {img.mean():.6f}, launches { {k: v for k, v in launches.items() if v} }")
     osd = sphere_grid(GRID_ROWS[0][1], ORACLE_RES, ORACLE_RES).compile(
         device=dev)
     oracle_check(f"sphere_grid({GRID_ROWS[0][1]})", osd,
@@ -1088,18 +1621,23 @@ def main() -> int:
     label = GRID_ROWS[0][0]
     gsd, _, _, waves = grids[label]
     sched_recs = check_schedules(label, gsd, waves)
+    # the tensor-core visit of K3 where phase 19's render launches it
+    mma_recs = check_mma(label, gsd, waves, ("walk",))
     sched_launches = schedule_renders(label, gsd, integ, *grid_renders[label])
     del grids, gsd, waves, grid_renders
     hier_recs, wide_recs, ao_launches = [], [], {}
     for label, n_tris in AO_ROWS:
-        recs, wrecs, launches = ao_row(dev, label, n_tris)
+        recs, wrecs, mrecs, launches = ao_row(dev, label, n_tris)
         hier_recs += recs
         wide_recs += wrecs
+        mma_recs.update(mrecs)
         for k, v in launches.items():
             ao_launches[k] = ao_launches.get(k, 0) + v
     for k in walk_launches:
         # the pair renders' fallback launches the tile walk too
         walk_launches[k] += ao_launches[k] + sched_launches[k]
+    lab_recs = check_lab(dev)
+    lab_launches = lab_path(dev)
 
     def pick(kind):
         """The K3-size spread wavefront stands for a walk kernel; every
@@ -1205,11 +1743,59 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None, "cases": cases})
+    def lab_entry(name, source, replaces, launches, library_ms=None,
+                  cases=None, wave="divergent"):
+        """A kernel of phases 17-19: its numbers from the case `wave` of
+        `cases` (by default phase 17's)."""
+        cases = lab_recs[name] if cases is None else cases
+        rec = next(c for c in cases if c["wavefront"] in (wave, "-"))
+        return {"name": name, "route": "cuda",
+                "source": KERNEL_SOURCES[source], "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": library_ms,
+                "cases": [{k: c[k] for k in (
+                    "table", "wavefront", "ms", "dot4_ms", "bound_ms",
+                    "tc_route_ms", "f32_route_ms", "max_abs_err", "excused",
+                    "loose") if k in c} for c in cases]}
+
+    kernels += [
+        lab_entry("walk_closest_counted", "lab", f"{ROOFLINE}:58",
+                  lab_launches["walk_closest_counted"]
+                  + lab_launches["walk_closest_counted_mma"]),
+        lab_entry("walk_floor", "lab", f"{ROOFLINE}:119",
+                  lab_launches["walk_floor"] + lab_launches["walk_floor_mma"]),
+        lab_entry("fma_peak", "lab", f"{ROOFLINE}:163",
+                  lab_launches["fma_peak"]),
+        lab_entry("mma_products", "lab", f"{PW}:591 (MXU_TRITEST products)",
+                  lab_launches["mma_products"],
+                  lab_recs["mma_products"][0]["library_ms"])]
+    # the tensor-core kernels: launches, time, bound and error from the table
+    # and wavefront of their main-path render (the spread wavefront of
+    # grid122k, the camera and AO wavefronts of the row past
+    # FLAT_MAX_CLUSTERS); phase 17's cases on the lab scene follow in `cases`
+    for name, what, launches, wave in (
+            ("walk_closest_mma", "K3", sched_launches, "spread"),
+            ("walk_anyhit_mma", "K3", sched_launches, "spread"),
+            ("walk_closest_wide_mma", "K3, wide=True", ao_launches, "camera"),
+            ("walk_anyhit_wide_mma", "K3, wide=True", ao_launches, "ao"),
+            ("walk_hier_closest_mma", "K5", ao_launches, "camera"),
+            ("walk_hier_anyhit_mma", "K5", ao_launches, "ao")):
+        kernels.append(lab_entry(
+            name, "mma", f"{PW}:591 (MXU_TRITEST in {what})", launches[name],
+            cases=mma_recs[name] + lab_recs[name], wave=wave))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on a "
                                  "main path")
     phase("done", f"all phases passed in {time.time() - t_start:.1f}s")
+    # every table and wavefront of each kernel on a line of its own, so the
+    # kernels line stays short
+    print(json.dumps({"kernel_cases": {k["name"]: k.pop("cases")
+                                       for k in kernels if "cases" in k}}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -106,8 +106,9 @@ def _pairs_impl(wt, o, d, tnear, tfar, any_hit: bool, km: int = None):
     # the fallback's tile walk runs with the tables' other options
     retrace = wt._replace(options=wt.options._replace(pair=False))
 
+    mxu = bool(wt.options.mxu_tritest)
     if any_hit:
-        occ = pair_anyhit(wt, *pairs)[:m].reshape(n, km).any(dim=1)
+        occ = pair_anyhit(wt, *pairs, mxu=mxu)[:m].reshape(n, km).any(dim=1)
         # an overflowing ray not yet occluded may be blocked by a cluster
         # off its shortlist
         fb = ~occ & overflow
@@ -115,7 +116,8 @@ def _pairs_impl(wt, o, d, tnear, tfar, any_hit: bool, km: int = None):
                             True, sort_rays=False)
         return _unsort(occ | (fb & occ_fb), order, n)
 
-    t, tri, u, v = (x[:m].reshape(n, km) for x in pair_closest(wt, *pairs))
+    t, tri, u, v = (x[:m].reshape(n, km)
+                    for x in pair_closest(wt, *pairs, mxu=mxu))
     tm = torch.where(tri >= 0, t, float("inf"))
     bt = tm.amin(dim=1)
     first = tm == bt[:, None]

@@ -35,9 +35,15 @@ clusters through the wide pop of the one-level walk; `sub` in (2, 4, 8)
 takes the sub-tiled walk (K6, ops/walk_sub.py); `sparse` the sparse-visit
 walk (K7, ops/walk_sparse.py); `pair` the pair walk (K8,
 accel/pair_walk.py, dispatched by accel/dense.py); `compact_inert` and
-`inc_sort` change the sort key. Where the reference silently drops an
-option that cannot apply, `_walk_impl` raises ValueError: an explicit
-request never runs another kernel.
+`inc_sort` change the sort key; `mxu_tritest` takes the tensor-core form of
+the visit's triangle test (the default, wide and two-level walks have it in
+CUDA; K6 and K8 on a card raise NotImplementedError). Where the reference
+silently drops an option that cannot apply, `_walk_impl` raises ValueError:
+an explicit request never runs another kernel.
+
+`build_walk_tables` also takes the laboratory's build variants: a caller's
+BVH, the builder ("binned" or "sweep") and a tightness-aware re-pack
+(`repack_alpha`), as arguments only.
 """
 from __future__ import annotations
 
@@ -76,6 +82,7 @@ class WalkOptions(NamedTuple):
     wide: bool = None             # None: past 2^14 clusters unless hier
     hier: bool = None             # None: past 2^14 clusters
     compact_inert: bool = False   # the morton key sorts inert lanes last
+    mxu_tritest: bool = False     # the tensor-core form of the triangle test
     inc_sort: bool = True         # spread-origin wavefronts: incidence key
 
 
@@ -152,11 +159,26 @@ def _treelet_cut(nodes: np.ndarray, max_tris: int):
     return out
 
 
-def build_walk_tables(geom) -> WalkTables:
-    """Host build over numpy geometry tables: the treelets of a binned SAH
-    BVH (max_leaf = 8) greedily re-packed up to K per cluster, with tight
-    per-cluster bounds."""
-    bvh = build_bvh(geom, max_leaf=8)
+def _box_area(lo_v, hi_v):
+    """Surface area of the box [lo_v, hi_v] ([3] f32), in f32 as the
+    reference's _sa (pallas_walk.py:223-225)."""
+    d = np.maximum(hi_v - lo_v, 0.0)
+    return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+
+def build_walk_tables(geom, bvh=None, builder: str = None,
+                      repack_alpha: float = None) -> WalkTables:
+    """Host build over numpy geometry tables: the treelets of a SAH BVH
+    (max_leaf = 8) greedily re-packed up to K per cluster, with tight
+    per-cluster bounds.
+
+    bvh: a caller's max_leaf = 8 build to share; else one is built with
+    `builder`, "binned" (the default) or "sweep" (accel/bvh.py).
+    repack_alpha: if set, the re-pack is tightness-aware: neighbours merge
+    only when SA(merged) <= alpha * (SA(a) + SA(b)), so spatially disjoint
+    treelets stay separate clusters at the price of a lower fill."""
+    if bvh is None:
+        bvh = build_bvh(geom, max_leaf=8, builder=builder or "binned")
     order = np.asarray(bvh.prim_index)                   # SAH preorder
     t = order.shape[0]
     nodes = np.stack([bvh.bbox_lo, bvh.bbox_hi], axis=1).reshape(-1, 6)
@@ -171,15 +193,33 @@ def build_walk_tables(geom) -> WalkTables:
     tri_lo = np.minimum(np.minimum(v0, p1), p2)          # [T, 3]
     tri_hi = np.maximum(np.maximum(v0, p1), p2)
     # greedy consecutive re-pack: segments tile the prim array in order, so
-    # merged neighbours keep their ranges contiguous
+    # merged neighbours keep their ranges contiguous. With repack_alpha the
+    # merged box must also stay tight (f32 arithmetic on the f32 rows, as
+    # the reference, so the cuts fall where its cuts fall).
+    sa_aware = repack_alpha is not None
+    if sa_aware:
+        seg_starts = np.fromiter((s for s, _ in segs), np.int64, len(segs))
+        seg_lo = np.minimum.reduceat(tri_lo, seg_starts, axis=0)
+        seg_hi = np.maximum.reduceat(tri_hi, seg_starts, axis=0)
+        clo, chi = seg_lo[0].copy(), seg_hi[0].copy()
     cuts = []
     cs, cn = segs[0]
-    for s, n in segs[1:]:
-        if cn + n <= K:
+    for i, (s, n) in enumerate(segs[1:], start=1):
+        ok = cn + n <= K
+        if ok and sa_aware:
+            mlo = np.minimum(clo, seg_lo[i])
+            mhi = np.maximum(chi, seg_hi[i])
+            ok = _box_area(mlo, mhi) <= repack_alpha * (
+                _box_area(clo, chi) + _box_area(seg_lo[i], seg_hi[i]))
+        if ok:
             cn += n
+            if sa_aware:
+                clo, chi = mlo, mhi
         else:
             cuts.append((cs, cn))
             cs, cn = s, n
+            if sa_aware:
+                clo, chi = seg_lo[i].copy(), seg_hi[i].copy()
     cuts.append((cs, cn))
 
     c = len(cuts)
@@ -381,12 +421,15 @@ def _unsort(x, order, n):
     return out
 
 
-def _resolve(wt, hier, wide, sub, sparse):
-    """The kernels' schedule for tables `wt`: (hier, wide, sub, sparse),
+def _resolve(wt, hier, wide, sub, sparse, mxu=None):
+    """The kernels' schedule for tables `wt`: (hier, wide, sub, sparse, mxu),
     resolved in the reference's order (pallas_walk.py:1499-1510,
     :1613-1654). None takes the tables' option. An option that cannot
-    apply raises ValueError where the reference drops it."""
+    apply raises ValueError where the reference drops it; the sparse-visit
+    walk with the tensor-core triangle test raises as in the reference
+    (:1631-1639)."""
     opt = wt.options
+    mxu = bool(opt.mxu_tritest if mxu is None else mxu)
     hier = opt.hier if hier is None else hier
     wide = opt.wide if wide is None else wide
     sub = opt.sub if sub is None else int(sub)
@@ -419,31 +462,38 @@ def _resolve(wt, hier, wide, sub, sparse):
     if sparse and sub > 1:
         raise ValueError("walk: sparse and sub > 1 are two schedules; ask "
                          "for one")
-    return hier, bool(wide), sub, sparse
+    if sparse and mxu:
+        raise ValueError("walk: sparse and mxu_tritest are mutually "
+                         "exclusive (the sparse visit has no tensor-core "
+                         "triangle test; mixing the two forms breaks its bit "
+                         "parity)")
+    return hier, bool(wide), sub, sparse, mxu
 
 
 def _walk_impl(wt, o, d, tnear, tfar, any_hit: bool, sort_rays: bool = True,
                hier: bool = None, wide: bool = None, sub: int = None,
                sparse: bool = None, compact_inert: bool = None,
-               inc_sort: bool = None):
+               inc_sort: bool = None, mxu_tritest: bool = None):
     """Closest hit (RayHit) or occlusion ([n] bool) of a wavefront over
     device walk tables. The keyword options pick the schedule and the sort
     key; None takes the tables' option (wt.options), whose defaults are the
     two-level walk past FLAT_MAX_CLUSTERS clusters and the packed
     one-level walk below."""
     n = o.shape[0]
-    hier, wide, sub, sparse = _resolve(wt, hier, wide, sub, sparse)
+    hier, wide, sub, sparse, mxu = _resolve(wt, hier, wide, sub, sparse,
+                                            mxu_tritest)
     opt = wt.options
     if hier:
-        closest, anyhit = walk_hier_closest, walk_hier_anyhit
+        closest = lambda *a: walk_hier_closest(*a, mxu=mxu)
+        anyhit = lambda *a: walk_hier_anyhit(*a, mxu=mxu)
     elif sub > 1:
-        closest = lambda *a: walk_sub_closest(*a, sub)
-        anyhit = lambda *a: walk_sub_anyhit(*a, sub)
+        closest = lambda *a: walk_sub_closest(*a, sub, mxu=mxu)
+        anyhit = lambda *a: walk_sub_anyhit(*a, sub, mxu=mxu)
     elif sparse:
         closest, anyhit = walk_sparse_closest, walk_sparse_anyhit
     else:
-        closest = lambda *a: walk_closest(*a, wide=wide)
-        anyhit = lambda *a: walk_anyhit(*a, wide=wide)
+        closest = lambda *a: walk_closest(*a, wide=wide, mxu=mxu)
+        anyhit = lambda *a: walk_anyhit(*a, wide=wide, mxu=mxu)
     o, d, tnear, tfar, order = _prepare(
         wt, o, d, tnear, tfar, sort_rays,
         opt.compact_inert if compact_inert is None else compact_inert,
@@ -467,17 +517,17 @@ def _default_range(o, tnear, tfar):
 
 def intersect_walk(wt, o, d, tnear=None, tfar=None, wide: bool = None,
                    hier: bool = None, sub: int = None, sparse: bool = None,
-                   inc_sort: bool = None) -> RayHit:
+                   inc_sort: bool = None, mxu_tritest: bool = None) -> RayHit:
     """Closest hit of rays (o, d) [n, 3] over device walk tables."""
     return _walk_impl(wt, o, d, *_default_range(o, tnear, tfar), False,
                       wide=wide, hier=hier, sub=sub, sparse=sparse,
-                      inc_sort=inc_sort)
+                      inc_sort=inc_sort, mxu_tritest=mxu_tritest)
 
 
 def occluded_walk(wt, o, d, tnear=None, tfar=None, wide: bool = None,
                   hier: bool = None, sub: int = None, sparse: bool = None,
-                  inc_sort: bool = None):
+                  inc_sort: bool = None, mxu_tritest: bool = None):
     """Any hit of rays (o, d) over device walk tables; True = blocked."""
     return _walk_impl(wt, o, d, *_default_range(o, tnear, tfar), True,
                       wide=wide, hier=hier, sub=sub, sparse=sparse,
-                      inc_sort=inc_sort)
+                      inc_sort=inc_sort, mxu_tritest=mxu_tritest)

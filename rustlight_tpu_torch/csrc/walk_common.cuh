@@ -12,19 +12,23 @@
 // __fsub_rn, __fadd_rn, __fdiv_rn) and min/max propagate NaN as
 // torch.minimum/maximum do, so the kernels are bit-identical to the plain
 // versions in ops/walk_trace.py and ops/walk_hier.py.
+//
+// A visit's triangle test has two forms, chosen by a template flag of
+// visit_closest / visit_anyhit: the _dot4 form of tri_test.cuh, one thread a
+// ray (the default, and the bit-identical one), and the tensor-core form of
+// tri_test_mma.cuh, a warp for its 32 rays.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "tri_test.cuh"
+#include "tri_test_mma.cuh"
 
 namespace rl {
 namespace walk {
 
-constexpr int TILE = 64;
-constexpr int WARPS = TILE / 32;
-constexpr int KC = 384;           // triangles per cluster
+// TILE, WARPS and KC (64 rays, 2 warps, 384 triangles per cluster) come from
+// tri_test_mma.cuh
 constexpr int ID_BITS = 14;
 constexpr int ID_MASK = (1 << ID_BITS) - 1;
 constexpr int INF_BITS = 0x7f800000;
@@ -188,24 +192,49 @@ __device__ __forceinline__ bool scan_anyhit(const float4* c_rows,
   return false;
 }
 
-// One closest-hit visit of cluster csel by the block's tile.
+// One closest-hit visit of cluster csel by the block's tile. MMA takes the
+// tensor-core form of the test, with the warp's ray fragments `m`.
+template <bool MMA = false>
 __device__ __forceinline__ void visit_closest(
     const float4* __restrict__ rows, const int* __restrict__ ids, int csel,
     const Ray& ray, float4* s_rows, float& best_t, int& best_i,
-    float& best_u, float& best_v) {
+    float& best_u, float& best_v, const MmaRays& m = MmaRays{}) {
   const bool want = ray.tnear < best_t;
-  if (!stage(rows, csel, want, s_rows) || !want) return;
-  scan_closest(s_rows, ids, csel, ray, best_t, best_i, best_u, best_v);
+  if (!stage(rows, csel, want, s_rows)) return;
+  if constexpr (MMA) {
+    if (!__any_sync(FULL, want)) return;
+    float t, u, v;
+    int j;
+    mma_scan_closest(s_rows, m, best_t, t, j, u, v);
+    if (j < KC) {
+      best_t = t;
+      best_i = ids[static_cast<size_t>(csel) * KC + j];
+      best_u = u;
+      best_v = v;
+    }
+  } else {
+    if (!want) return;
+    scan_closest(s_rows, ids, csel, ray, best_t, best_i, best_u, best_v);
+  }
 }
 
 // One any-hit visit of cluster csel against (tnear, tfar); occ is sticky,
 // so occluded rays skip the test.
+template <bool MMA = false>
 __device__ __forceinline__ void visit_anyhit(const float4* __restrict__ rows,
                                              int csel, const Ray& ray,
-                                             float4* s_rows, bool& occ) {
+                                             float4* s_rows, bool& occ,
+                                             const MmaRays& m = MmaRays{}) {
   const bool want = !occ && ray.tnear < ray.tfar;
-  if (!stage(rows, csel, want, s_rows) || !want) return;
-  if (scan_anyhit(s_rows, ray)) occ = true;
+  if (!stage(rows, csel, want, s_rows)) return;
+  if constexpr (MMA) {
+    if (!__any_sync(FULL, want)) return;
+    if (mma_scan_anyhit(s_rows, m, want ? ray.tfar : -CUDART_INF_F))
+      occ = true;
+  } else {
+    if (!want) return;
+    if (scan_anyhit(s_rows, ray)) occ = true;
+  }
 }
 
 __device__ __forceinline__ void write_closest(int i, float best_t, int best_i,
@@ -224,6 +253,16 @@ int set_smem(Kernel kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));
+}
+
+// Launches `kernel` as `blocks` blocks of TILE threads with `smem` bytes of
+// dynamic shared memory on `stream`; returns cudaGetLastError().
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int blocks, size_t smem, void* stream,
+           Args... args) {
+  if (const int err = set_smem(kernel, smem)) return err;
+  kernel<<<blocks, TILE, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace walk

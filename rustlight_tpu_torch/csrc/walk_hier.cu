@@ -46,7 +46,9 @@
 // tiles do. The design keeps it simple: the super and child entries live in
 // shared memory, rays that cannot improve skip the tests, and a visit no ray
 // of the block needs skips the stage. No TMA, no double buffering, no
-// persistent tile scheduling yet.
+// persistent tile scheduling yet. With mma set, a visit takes the
+// tensor-core form of the triangle test (tri_test_mma.cuh), which is not
+// bit-identical.
 //
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -100,6 +102,7 @@ struct HierShared {
   int red[WARPS];
 };
 
+template <bool MMA>
 __global__ void __launch_bounds__(TILE)
 walk_hier_closest_kernel(const float* __restrict__ slo,
                          const float* __restrict__ shi, int sp, int n_sup,
@@ -118,6 +121,8 @@ walk_hier_closest_kernel(const float* __restrict__ slo,
   __shared__ HierShared s;
   const int i = blockIdx.x * TILE + threadIdx.x;
   const Ray ray = load_ray(i, o, d, tnear, tfar);
+  MmaRays m{};
+  if constexpr (MMA) m = mma_rays(ray);
   load_tile(ray, s.ray);
   __syncthreads();
   tile_entries(slo, shi, sp, n_sup, s.ray, s_sup);
@@ -139,8 +144,8 @@ walk_hier_closest_kernel(const float* __restrict__ slo,
     int th = thresh;
     for (int ni = 0; ni < SUP && (cemin & ~CHILD_MASK) < th; ++ni) {
       for (int half = 0; half < 2; ++half) {
-        visit_closest(rows, ids, csel, ray, s.rows, best_t, best_i, best_u,
-                      best_v);
+        visit_closest<MMA>(rows, ids, csel, ray, s.rows, best_t, best_i,
+                           best_u, best_v, m);
         cemin = pop_min(s.child, SUP, CHILD_MASK, s.red);
         csel = child_of(cemin, base, n_real);
       }
@@ -153,6 +158,7 @@ walk_hier_closest_kernel(const float* __restrict__ slo,
                 v_out);
 }
 
+template <bool MMA>
 __global__ void __launch_bounds__(TILE)
 walk_hier_anyhit_kernel(const float* __restrict__ slo,
                         const float* __restrict__ shi, int sp, int n_sup,
@@ -168,6 +174,8 @@ walk_hier_anyhit_kernel(const float* __restrict__ slo,
   __shared__ HierShared s;
   const int i = blockIdx.x * TILE + threadIdx.x;
   const Ray ray = load_ray(i, o, d, tnear, tfar);
+  MmaRays m{};
+  if constexpr (MMA) m = mma_rays(ray);
   load_tile(ray, s.ray);
   __syncthreads();
   tile_entries(slo, shi, sp, n_sup, s.ray, s_sup);
@@ -187,7 +195,7 @@ walk_hier_anyhit_kernel(const float* __restrict__ slo,
     int th = thresh;
     for (int ni = 0; ni < SUP && (cemin & ~CHILD_MASK) < th; ++ni) {
       for (int half = 0; half < 2; ++half) {
-        visit_anyhit(rows, csel, ray, s.rows, occ);
+        visit_anyhit<MMA>(rows, csel, ray, s.rows, occ, m);
         cemin = pop_min(s.child, SUP, CHILD_MASK, s.red);
         csel = child_of(cemin, base, n_real);
       }
@@ -201,19 +209,19 @@ walk_hier_anyhit_kernel(const float* __restrict__ slo,
 
 }  // namespace
 
-// n must be a multiple of 64 (the wrapper pads).
+// n must be a multiple of 64 (the wrapper pads). mma != 0 takes the
+// tensor-core form of the triangle test (tri_test_mma.cuh).
 extern "C" int rl_walk_hier_closest(const void* slo, const void* shi, int sp,
                                     int n_sup, const void* lo, const void* hi,
                                     int cp, int n_real, const void* rows,
                                     const void* ids, const void* o,
                                     const void* d, const void* tnear,
-                                    const void* tfar, int n, void* t_out,
-                                    void* tri_out, void* u_out, void* v_out,
-                                    void* stream) {
-  const size_t smem = static_cast<size_t>(sp) * sizeof(int);
-  if (const int err = set_smem(walk_hier_closest_kernel, smem)) return err;
-  walk_hier_closest_kernel<<<n / TILE, TILE, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+                                    const void* tfar, int n, int mma,
+                                    void* t_out, void* tri_out, void* u_out,
+                                    void* v_out, void* stream) {
+  return launch(
+      mma ? walk_hier_closest_kernel<true> : walk_hier_closest_kernel<false>,
+      n / TILE, static_cast<size_t>(sp) * sizeof(int), stream,
       static_cast<const float*>(slo), static_cast<const float*>(shi), sp,
       n_sup, static_cast<const float*>(lo), static_cast<const float*>(hi), cp,
       n_real, static_cast<const float4*>(rows), static_cast<const int*>(ids),
@@ -221,7 +229,6 @@ extern "C" int rl_walk_hier_closest(const void* slo, const void* shi, int sp,
       static_cast<const float*>(tnear), static_cast<const float*>(tfar),
       static_cast<float*>(t_out), static_cast<int*>(tri_out),
       static_cast<float*>(u_out), static_cast<float*>(v_out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rl_walk_hier_anyhit(const void* slo, const void* shi, int sp,
@@ -229,15 +236,13 @@ extern "C" int rl_walk_hier_anyhit(const void* slo, const void* shi, int sp,
                                    int cp, int n_real, const void* rows,
                                    const void* o, const void* d,
                                    const void* tnear, const void* tfar, int n,
-                                   void* occ_out, void* stream) {
-  const size_t smem = static_cast<size_t>(sp) * sizeof(int);
-  if (const int err = set_smem(walk_hier_anyhit_kernel, smem)) return err;
-  walk_hier_anyhit_kernel<<<n / TILE, TILE, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+                                   int mma, void* occ_out, void* stream) {
+  return launch(
+      mma ? walk_hier_anyhit_kernel<true> : walk_hier_anyhit_kernel<false>,
+      n / TILE, static_cast<size_t>(sp) * sizeof(int), stream,
       static_cast<const float*>(slo), static_cast<const float*>(shi), sp,
       n_sup, static_cast<const float*>(lo), static_cast<const float*>(hi), cp,
       n_real, static_cast<const float4*>(rows), static_cast<const float*>(o),
       static_cast<const float*>(d), static_cast<const float*>(tnear),
       static_cast<const float*>(tfar), static_cast<bool*>(occ_out));
-  return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,10 @@
 //     stops when the popped entry with its id bits cleared reaches it, or
 //     after Cp pairs.
 // The entry pass, pops, staging and visits live in walk_common.cuh, shared
-// with the two-level kernels (walk_hier.cu). Arithmetic is IEEE f32 without
+// with the two-level kernels (walk_hier.cu); the closest-hit kernel itself is
+// the template of walk_flat.cuh, shared with the roofline tools' counted
+// kernel (walk_lab.cu). With mma set, a visit takes the tensor-core form of
+// the triangle test (tri_test_mma.cuh), which is not bit-identical. Arithmetic is IEEE f32 without
 // contraction and min/max propagate NaN as torch.minimum/maximum do, so the
 // results are bit-identical to the plain versions in ops/walk_trace.py.
 //
@@ -67,7 +70,7 @@
 
 #include <cuda_runtime.h>
 
-#include "walk_common.cuh"
+#include "walk_flat.cuh"
 
 namespace {
 
@@ -75,49 +78,7 @@ using namespace rl::walk;
 using rl::Ray;
 using rl::load_ray;
 
-__device__ __forceinline__ int cluster_of(int bits, int cp) {
-  return min(bits & ID_MASK, cp - 1);
-}
-
-__global__ void __launch_bounds__(TILE)
-walk_closest_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
-                    int cp, int n_real, const float4* __restrict__ rows,
-                    const int* __restrict__ ids, const float* __restrict__ o,
-                    const float* __restrict__ d,
-                    const float* __restrict__ tnear,
-                    const float* __restrict__ tfar,
-                    float* __restrict__ t_out, int* __restrict__ tri_out,
-                    float* __restrict__ u_out, float* __restrict__ v_out) {
-  extern __shared__ int s_ent[];
-  __shared__ float4 s_rows[3 * KC];
-  __shared__ TileRays s_ray;
-  __shared__ int s_red[WARPS];
-  const int i = blockIdx.x * TILE + threadIdx.x;
-  const Ray ray = load_ray(i, o, d, tnear, tfar);
-  load_tile(ray, s_ray);
-  __syncthreads();
-  tile_entries(lo, hi, cp, n_real, s_ray, s_ent);
-  __syncthreads();
-
-  // best_t starts at tfar and only decreases: it is the t cap
-  float best_t = ray.tfar, best_u = 0.0f, best_v = 0.0f;
-  int best_i = -1;
-  int emin = pop_min(s_ent, cp, ID_MASK, s_red);
-  int csel = cluster_of(emin, cp);
-  int thresh = block_max(__float_as_int(best_t), s_red);
-  for (int nv = 0; nv < cp && (emin & ~ID_MASK) < thresh; ++nv) {
-    for (int half = 0; half < 2; ++half) {
-      visit_closest(rows, ids, csel, ray, s_rows, best_t, best_i, best_u,
-                    best_v);
-      emin = pop_min(s_ent, cp, ID_MASK, s_red);
-      csel = cluster_of(emin, cp);
-    }
-    thresh = block_max(__float_as_int(best_t), s_red);
-  }
-  write_closest(i, best_t, best_i, best_u, best_v, t_out, tri_out, u_out,
-                v_out);
-}
-
+template <bool MMA>
 __global__ void __launch_bounds__(TILE)
 walk_anyhit_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
                    int cp, int n_real, const float4* __restrict__ rows,
@@ -130,6 +91,8 @@ walk_anyhit_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
   __shared__ int s_red[WARPS];
   const int i = blockIdx.x * TILE + threadIdx.x;
   const Ray ray = load_ray(i, o, d, tnear, tfar);
+  MmaRays m{};
+  if constexpr (MMA) m = mma_rays(ray);
   load_tile(ray, s_ray);
   __syncthreads();
   tile_entries(lo, hi, cp, n_real, s_ray, s_ent);
@@ -141,7 +104,7 @@ walk_anyhit_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
   int thresh = block_max(__float_as_int(ray.tfar), s_red);
   for (int nv = 0; nv < cp && (emin & ~ID_MASK) < thresh; ++nv) {
     for (int half = 0; half < 2; ++half) {
-      visit_anyhit(rows, csel, ray, s_rows, occ);
+      visit_anyhit<MMA>(rows, csel, ray, s_rows, occ, m);
       emin = pop_min(s_ent, cp, ID_MASK, s_red);
       csel = cluster_of(emin, cp);
     }
@@ -199,6 +162,7 @@ struct WideShared {
   long long red[WARPS];
 };
 
+template <bool MMA>
 __global__ void __launch_bounds__(TILE)
 walk_closest_wide_kernel(const float* __restrict__ lo,
                          const float* __restrict__ hi, int cp, int n_real,
@@ -219,6 +183,8 @@ walk_closest_wide_kernel(const float* __restrict__ lo,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int i = tile * TILE + threadIdx.x;
     const Ray ray = load_ray(i, o, d, tnear, tfar);
+    MmaRays m{};
+    if constexpr (MMA) m = mma_rays(ray);
     __syncthreads();  // the last tile's walk has ended
     load_tile(ray, s.ray);
     __syncthreads();
@@ -231,8 +197,8 @@ walk_closest_wide_kernel(const float* __restrict__ lo,
     int thresh = block_max(__float_as_int(best_t), red);
     for (int nv = 0; nv < cp && emin < thresh; ++nv) {
       for (int half = 0; half < 2; ++half) {
-        visit_closest(rows, ids, csel, ray, s.rows, best_t, best_i, best_u,
-                      best_v);
+        visit_closest<MMA>(rows, ids, csel, ray, s.rows, best_t, best_i,
+                           best_u, best_v, m);
         emin = pop_min_wide(heap, cp, s.red, csel);
       }
       thresh = block_max(__float_as_int(best_t), red);
@@ -242,6 +208,7 @@ walk_closest_wide_kernel(const float* __restrict__ lo,
   }
 }
 
+template <bool MMA>
 __global__ void __launch_bounds__(TILE)
 walk_anyhit_wide_kernel(const float* __restrict__ lo,
                         const float* __restrict__ hi, int cp, int n_real,
@@ -259,6 +226,8 @@ walk_anyhit_wide_kernel(const float* __restrict__ lo,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int i = tile * TILE + threadIdx.x;
     const Ray ray = load_ray(i, o, d, tnear, tfar);
+    MmaRays m{};
+    if constexpr (MMA) m = mma_rays(ray);
     __syncthreads();  // the last tile's walk has ended
     load_tile(ray, s.ray);
     __syncthreads();
@@ -271,7 +240,7 @@ walk_anyhit_wide_kernel(const float* __restrict__ lo,
     int thresh = block_max(__float_as_int(ray.tfar), red);
     for (int nv = 0; nv < cp && emin < thresh; ++nv) {
       for (int half = 0; half < 2; ++half) {
-        visit_anyhit(rows, csel, ray, s.rows, occ);
+        visit_anyhit<MMA>(rows, csel, ray, s.rows, occ, m);
         emin = pop_min_wide(heap, cp, s.red, csel);
       }
       thresh = block_max(occ ? 0 : __float_as_int(ray.tfar), red);
@@ -282,40 +251,38 @@ walk_anyhit_wide_kernel(const float* __restrict__ lo,
 
 }  // namespace
 
-// n must be a multiple of 64 (the wrapper pads).
+// n must be a multiple of 64 (the wrapper pads). mma != 0 takes the
+// tensor-core form of the triangle test.
 extern "C" int rl_walk_closest(const void* lo, const void* hi, int cp,
                                int n_real, const void* rows, const void* ids,
                                const void* o, const void* d, const void* tnear,
-                               const void* tfar, int n, void* t_out,
+                               const void* tfar, int n, int mma, void* t_out,
                                void* tri_out, void* u_out, void* v_out,
                                void* stream) {
-  const size_t smem = static_cast<size_t>(cp) * sizeof(int);
-  if (const int err = set_smem(walk_closest_kernel, smem)) return err;
-  walk_closest_kernel<<<n / TILE, TILE, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  return launch(
+      mma ? walk_closest_kernel<true, false> : walk_closest_kernel<false, false>,
+      n / TILE, static_cast<size_t>(cp) * sizeof(int), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const int*>(ids),
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const float*>(tnear), static_cast<const float*>(tfar),
       static_cast<float*>(t_out), static_cast<int*>(tri_out),
-      static_cast<float*>(u_out), static_cast<float*>(v_out));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(u_out), static_cast<float*>(v_out),
+      static_cast<int*>(nullptr));
 }
 
 extern "C" int rl_walk_anyhit(const void* lo, const void* hi, int cp,
                               int n_real, const void* rows, const void* o,
                               const void* d, const void* tnear,
-                              const void* tfar, int n, void* occ_out,
+                              const void* tfar, int n, int mma, void* occ_out,
                               void* stream) {
-  const size_t smem = static_cast<size_t>(cp) * sizeof(int);
-  if (const int err = set_smem(walk_anyhit_kernel, smem)) return err;
-  walk_anyhit_kernel<<<n / TILE, TILE, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  return launch(
+      mma ? walk_anyhit_kernel<true> : walk_anyhit_kernel<false>, n / TILE,
+      static_cast<size_t>(cp) * sizeof(int), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const float*>(o),
       static_cast<const float*>(d), static_cast<const float*>(tnear),
       static_cast<const float*>(tfar), static_cast<bool*>(occ_out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The wide pop: `blocks` blocks walk the n / 64 tiles; `heap` is null (heaps
@@ -324,13 +291,13 @@ extern "C" int rl_walk_closest_wide(const void* lo, const void* hi, int cp,
                                     int n_real, const void* rows,
                                     const void* ids, const void* o,
                                     const void* d, const void* tnear,
-                                    const void* tfar, int n, void* heap,
-                                    int blocks, void* t_out, void* tri_out,
-                                    void* u_out, void* v_out, void* stream) {
-  const size_t smem = heap ? 0 : static_cast<size_t>(cp) * sizeof(int);
-  if (const int err = set_smem(walk_closest_wide_kernel, smem)) return err;
-  walk_closest_wide_kernel<<<blocks, TILE, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+                                    const void* tfar, int n, int mma,
+                                    void* heap, int blocks, void* t_out,
+                                    void* tri_out, void* u_out, void* v_out,
+                                    void* stream) {
+  return launch(
+      mma ? walk_closest_wide_kernel<true> : walk_closest_wide_kernel<false>,
+      blocks, heap ? 0 : static_cast<size_t>(cp) * sizeof(int), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const int*>(ids),
       static_cast<const float*>(o), static_cast<const float*>(d),
@@ -338,22 +305,20 @@ extern "C" int rl_walk_closest_wide(const void* lo, const void* hi, int cp,
       n / TILE, static_cast<int*>(heap), static_cast<float*>(t_out),
       static_cast<int*>(tri_out), static_cast<float*>(u_out),
       static_cast<float*>(v_out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rl_walk_anyhit_wide(const void* lo, const void* hi, int cp,
                                    int n_real, const void* rows, const void* o,
                                    const void* d, const void* tnear,
-                                   const void* tfar, int n, void* heap,
-                                   int blocks, void* occ_out, void* stream) {
-  const size_t smem = heap ? 0 : static_cast<size_t>(cp) * sizeof(int);
-  if (const int err = set_smem(walk_anyhit_wide_kernel, smem)) return err;
-  walk_anyhit_wide_kernel<<<blocks, TILE, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+                                   const void* tfar, int n, int mma,
+                                   void* heap, int blocks, void* occ_out,
+                                   void* stream) {
+  return launch(
+      mma ? walk_anyhit_wide_kernel<true> : walk_anyhit_wide_kernel<false>,
+      blocks, heap ? 0 : static_cast<size_t>(cp) * sizeof(int), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const float*>(o),
       static_cast<const float*>(d), static_cast<const float*>(tnear),
       static_cast<const float*>(tfar), n / TILE, static_cast<int*>(heap),
       static_cast<bool*>(occ_out));
-  return static_cast<int>(cudaGetLastError());
 }

@@ -57,7 +57,12 @@ def _load():
     return _LIB
 
 
-def _check(wt, o, d, tnear, tcap, cid) -> None:
+def _check(wt, o, d, tnear, tcap, cid, mxu: bool = False) -> None:
+    if mxu and o.device.type == "cuda":
+        raise NotImplementedError(
+            "the pair walk (K8) has no tensor-core form of the triangle test "
+            "on CUDA: a warp takes one pair, not a tile of rays; take "
+            "mxu_tritest with the default, wide or two-level walk")
     check_resident(wt, "the pair walk")
     cp = int(wt.n_clusters)
     m = o.shape[0]
@@ -88,7 +93,7 @@ def _check(wt, o, d, tnear, tcap, cid) -> None:
 
 # ------------------------------------------------------------ plain versions
 
-def _pair_chunks(wt, o, d, tnear, tcap, cid):
+def _pair_chunks(wt, o, d, tnear, tcap, cid, mxu=False):
     """Yields (pair indices, (t, u, v, valid) [A, K]) over the live pairs
     in chunks."""
     rows = wt.rows.view(int(wt.n_clusters), K, 3, 4)
@@ -97,11 +102,11 @@ def _pair_chunks(wt, o, d, tnear, tcap, cid):
         k = live[s:s + _PAIR_CHUNK]
         t, u, v, valid = _test_clusters(rows[cid[k].long()], o[k, None],
                                         d[k, None], tnear[k, None],
-                                        tcap[k, None])
+                                        tcap[k, None], mxu)
         yield k, (t[:, 0], u[:, 0], v[:, 0], valid[:, 0])
 
 
-def pair_closest_ref(wt, o, d, tnear, tcap, cid):
+def pair_closest_ref(wt, o, d, tnear, tcap, cid, mxu: bool = False):
     """Plain version of the pair closest hit: (t, tri, u, v, live pairs);
     t = inf and tri = -1 (u = v = 0) on a miss."""
     m = o.shape[0]
@@ -112,7 +117,7 @@ def pair_closest_ref(wt, o, d, tnear, tcap, cid):
     ids = wt.ids.view(int(wt.n_clusters), K)
     kiota = torch.arange(K, device=o.device)
     n_live = 0
-    for k, (t, u, v, valid) in _pair_chunks(wt, o, d, tnear, tcap, cid):
+    for k, (t, u, v, valid) in _pair_chunks(wt, o, d, tnear, tcap, cid, mxu):
         n_live += k.numel()
         tm = torch.where(valid, t, float("inf"))
         ct = tm.amin(dim=1)
@@ -127,11 +132,11 @@ def pair_closest_ref(wt, o, d, tnear, tcap, cid):
     return bt, bi, bu, bv, n_live
 
 
-def pair_anyhit_ref(wt, o, d, tnear, tfar, cid):
+def pair_anyhit_ref(wt, o, d, tnear, tfar, cid, mxu: bool = False):
     """Plain version of the pair any hit: (occ, live pairs)."""
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     n_live = 0
-    for k, (_, _, _, valid) in _pair_chunks(wt, o, d, tnear, tfar, cid):
+    for k, (_, _, _, valid) in _pair_chunks(wt, o, d, tnear, tfar, cid, mxu):
         n_live += k.numel()
         occ[k] = valid.any(dim=1)
     return occ, n_live
@@ -139,12 +144,15 @@ def pair_anyhit_ref(wt, o, d, tnear, tfar, cid):
 
 # ------------------------------------------------------------------ wrappers
 
-def pair_closest(wt, o, d, tnear, tcap, cid) -> Tuple[torch.Tensor, ...]:
+def pair_closest(wt, o, d, tnear, tcap, cid,
+                 mxu: bool = False) -> Tuple[torch.Tensor, ...]:
     """Closest hit of each pair (o, d [m, 3]; tnear, tcap [m]; cid [m]
-    int32) inside its cluster of walk tables `wt`: (t, tri, u, v)."""
-    _check(wt, o, d, tnear, tcap, cid)
+    int32) inside its cluster of walk tables `wt`: (t, tri, u, v). `mxu`
+    (the tensor-core form of the triangle test) has a plain version only:
+    on a card it raises NotImplementedError."""
+    _check(wt, o, d, tnear, tcap, cid, mxu)
     if o.device.type == "cpu":
-        return pair_closest_ref(wt, o, d, tnear, tcap, cid)[:4]
+        return pair_closest_ref(wt, o, d, tnear, tcap, cid, mxu)[:4]
     m = o.shape[0]
     t = torch.empty(m, dtype=torch.float32, device=o.device)
     tri = torch.empty(m, dtype=torch.int32, device=o.device)
@@ -163,11 +171,12 @@ def pair_closest(wt, o, d, tnear, tcap, cid) -> Tuple[torch.Tensor, ...]:
     return t, tri, u, v
 
 
-def pair_anyhit(wt, o, d, tnear, tfar, cid) -> torch.Tensor:
-    """Any hit of each pair inside its cluster: True = occluded."""
-    _check(wt, o, d, tnear, tfar, cid)
+def pair_anyhit(wt, o, d, tnear, tfar, cid, mxu: bool = False) -> torch.Tensor:
+    """Any hit of each pair inside its cluster: True = occluded. `mxu` as
+    in pair_closest."""
+    _check(wt, o, d, tnear, tfar, cid, mxu)
     if o.device.type == "cpu":
-        return pair_anyhit_ref(wt, o, d, tnear, tfar, cid)[0]
+        return pair_anyhit_ref(wt, o, d, tnear, tfar, cid, mxu)[0]
     m = o.shape[0]
     occ = torch.empty(m, dtype=torch.bool, device=o.device)
     if m:

@@ -19,6 +19,9 @@ kernels, so the kernels are bit-identical to them; they also return the
 supers opened and the clusters visited per tile. The wrappers use them only
 for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 
+With `mxu=True` a visit takes the tensor-core form of the triangle test (see
+ops/walk_trace.py), not bit-identical; those kernels count as `<name>_mma`.
+
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
 """
@@ -41,7 +44,8 @@ _CHILD_BITS = 7
 _CHILD_MASK = (1 << _CHILD_BITS) - 1
 MAX_CLUSTERS = 1 << 17
 
-LAUNCHES = {"walk_hier_closest": 0, "walk_hier_anyhit": 0}
+LAUNCHES = {"walk_hier_closest": 0, "walk_hier_anyhit": 0,
+            "walk_hier_closest_mma": 0, "walk_hier_anyhit_mma": 0}
 
 _LIB = None
 
@@ -57,10 +61,10 @@ def _load():
         lib = load_cuda()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rl_walk_hier_closest.argtypes = [p, p, i, i, p, p, i, i, p, p, p,
-                                             p, p, p, i, p, p, p, p, p]
+                                             p, p, p, i, i, p, p, p, p, p]
         lib.rl_walk_hier_closest.restype = i
         lib.rl_walk_hier_anyhit.argtypes = [p, p, i, i, p, p, i, i, p, p, p,
-                                            p, p, i, p, p]
+                                            p, p, i, i, p, p]
         lib.rl_walk_hier_anyhit.restype = i
         _LIB = lib
     return _LIB
@@ -102,7 +106,7 @@ def _thresh(best, tfar, any_hit):
     return _sortable_max(best[0])
 
 
-def _walk_hier_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
+def _walk_hier_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit, mxu=False):
     g = o.shape[0]
     dev = o.device
     sp, n_real = int(wt.n_sup_pad), int(wt.n_real)
@@ -121,8 +125,9 @@ def _walk_hier_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
 
     def visit(csel, o, d, tnear, tfar, best):
         if any_hit:
-            return (_visit_anyhit(rows, csel, o, d, tnear, tfar, best[0]),)
-        return _visit_closest(rows, ids, csel, o, d, tnear, best)
+            return (_visit_anyhit(rows, csel, o, d, tnear, tfar, best[0],
+                                  mxu=mxu),)
+        return _visit_closest(rows, ids, csel, o, d, tnear, best, mxu=mxu)
 
     while True:
         act = torch.nonzero(((semin & ~_ID_MASK) < thresh)
@@ -172,42 +177,44 @@ def _walk_hier_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit):
             opened, 2 * pairs)
 
 
-def _walk_hier_ref(wt, o, d, tnear, tfar, any_hit: bool):
+def _walk_hier_ref(wt, o, d, tnear, tfar, any_hit: bool, mxu: bool = False):
     """The two-level walk of the kernels for every tile at once, chunked
     over tiles. Returns ((t, tri, u, v) or (occ,), supers opened per tile,
     cluster visits per tile)."""
     cp = int(wt.n_clusters)
     rows = wt.rows.view(cp, K, 3, 4)
     ids = wt.ids.view(cp, K)
-    return _tiled(lambda *r: _walk_hier_chunk(wt, rows, ids, *r, any_hit),
+    return _tiled(lambda *r: _walk_hier_chunk(wt, rows, ids, *r, any_hit, mxu),
                   max(int(wt.n_sup_pad), K), o, d, tnear, tfar)
 
 
-def walk_hier_closest_ref(wt, o, d, tnear, tfar):
+def walk_hier_closest_ref(wt, o, d, tnear, tfar, mxu: bool = False):
     """Plain version of the two-level closest-hit walk: (t, tri, u, v,
     supers opened, cluster visits); t = inf and tri = -1 (u = v = 0) on a
     miss."""
     (t, tri, u, v), opened, visits = _walk_hier_ref(wt, o, d, tnear, tfar,
-                                                    False)
+                                                    False, mxu)
     return t, tri, u, v, int(opened.sum()), int(visits.sum())
 
 
-def walk_hier_anyhit_ref(wt, o, d, tnear, tfar):
+def walk_hier_anyhit_ref(wt, o, d, tnear, tfar, mxu: bool = False):
     """Plain version of the two-level any-hit walk: (occ, supers opened,
     cluster visits)."""
-    (occ,), opened, visits = _walk_hier_ref(wt, o, d, tnear, tfar, True)
+    (occ,), opened, visits = _walk_hier_ref(wt, o, d, tnear, tfar, True, mxu)
     return occ, int(opened.sum()), int(visits.sum())
 
 
 # ------------------------------------------------------------------ wrappers
 
-def walk_hier_closest(wt, o, d, tnear, tfar) -> Tuple[torch.Tensor, ...]:
+def walk_hier_closest(wt, o, d, tnear, tfar,
+                      mxu: bool = False) -> Tuple[torch.Tensor, ...]:
     """Closest hit of whole 64-ray tiles (o, d [n, 3], tnear, tfar [n]) over
-    walk tables `wt` with super tables: (t, tri, u, v), each [n]."""
+    walk tables `wt` with super tables: (t, tri, u, v), each [n]. `mxu`
+    takes the tensor-core form of the triangle test."""
     _check(wt, o, d, tnear, tfar)
     count_rays(tfar)
     if o.device.type == "cpu":
-        return walk_hier_closest_ref(wt, o, d, tnear, tfar)[:4]
+        return walk_hier_closest_ref(wt, o, d, tnear, tfar, mxu)[:4]
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -220,23 +227,23 @@ def walk_hier_closest(wt, o, d, tnear, tfar) -> Tuple[torch.Tensor, ...]:
                 int(wt.n_sup), wt.lo.data_ptr(), wt.hi.data_ptr(),
                 int(wt.n_clusters), int(wt.n_real), wt.rows.data_ptr(),
                 wt.ids.data_ptr(), o.data_ptr(), d.data_ptr(),
-                tnear.data_ptr(), tfar.data_ptr(), n, t.data_ptr(),
+                tnear.data_ptr(), tfar.data_ptr(), n, int(mxu), t.data_ptr(),
                 tri.data_ptr(), u.data_ptr(), v.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(
                 f"walk_hier_closest launch failed: CUDA error {err}")
-        LAUNCHES["walk_hier_closest"] += 1
+        LAUNCHES["walk_hier_closest" + ("_mma" if mxu else "")] += 1
     return t, tri, u, v
 
 
-def walk_hier_anyhit(wt, o, d, tnear, tfar) -> torch.Tensor:
+def walk_hier_anyhit(wt, o, d, tnear, tfar, mxu: bool = False) -> torch.Tensor:
     """Any hit of whole 64-ray tiles over walk tables with super tables:
-    True = occluded."""
+    True = occluded. `mxu` as in walk_hier_closest."""
     _check(wt, o, d, tnear, tfar)
     count_rays(tfar)
     if o.device.type == "cpu":
-        return walk_hier_anyhit_ref(wt, o, d, tnear, tfar)[0]
+        return walk_hier_anyhit_ref(wt, o, d, tnear, tfar, mxu)[0]
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if n:
@@ -246,10 +253,10 @@ def walk_hier_anyhit(wt, o, d, tnear, tfar) -> torch.Tensor:
                 int(wt.n_sup), wt.lo.data_ptr(), wt.hi.data_ptr(),
                 int(wt.n_clusters), int(wt.n_real), wt.rows.data_ptr(),
                 o.data_ptr(), d.data_ptr(), tnear.data_ptr(),
-                tfar.data_ptr(), n, occ.data_ptr(),
+                tfar.data_ptr(), n, int(mxu), occ.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(
                 f"walk_hier_anyhit launch failed: CUDA error {err}")
-        LAUNCHES["walk_hier_anyhit"] += 1
+        LAUNCHES["walk_hier_anyhit" + ("_mma" if mxu else "")] += 1
     return occ

@@ -71,7 +71,12 @@ def check_resident(wt, what: str) -> None:
             f"(the reference's resident tables); these have {cp}")
 
 
-def _check(wt, o, d, tnear, tfar, sub: int) -> None:
+def _check(wt, o, d, tnear, tfar, sub: int, mxu: bool = False) -> None:
+    if mxu and o.device.type == "cuda":
+        raise NotImplementedError(
+            "the sub-tiled walk (K6) has no tensor-core form of the triangle "
+            "test on CUDA: its groups live inside a warp and scan unstaged "
+            "rows; take mxu_tritest with the default, wide or two-level walk")
     if sub not in SUBS:
         raise ValueError(f"sub must be one of {SUBS} (groups of whole "
                          f"8-ray rows of a {RAY_TILE}-ray tile), got {sub}")
@@ -81,31 +86,33 @@ def _check(wt, o, d, tnear, tfar, sub: int) -> None:
 
 # ------------------------------------------------------------ plain versions
 
-def walk_sub_closest_ref(wt, o, d, tnear, tfar, sub: int):
+def walk_sub_closest_ref(wt, o, d, tnear, tfar, sub: int, mxu: bool = False):
     """Plain version of the sub-tiled closest-hit walk: (t, tri, u, v,
     visits), the visits summed over the groups."""
     (t, tri, u, v), visits = _walk_ref(wt, o, d, tnear, tfar, False,
-                                       tile=RAY_TILE // sub)
+                                       tile=RAY_TILE // sub, mxu=mxu)
     return t, tri, u, v, int(visits.sum())
 
 
-def walk_sub_anyhit_ref(wt, o, d, tnear, tfar, sub: int):
+def walk_sub_anyhit_ref(wt, o, d, tnear, tfar, sub: int, mxu: bool = False):
     """Plain version of the sub-tiled any-hit walk: (occ, visits)."""
     (occ,), visits = _walk_ref(wt, o, d, tnear, tfar, True,
-                               tile=RAY_TILE // sub)
+                               tile=RAY_TILE // sub, mxu=mxu)
     return occ, int(visits.sum())
 
 
 # ------------------------------------------------------------------ wrappers
 
-def walk_sub_closest(wt, o, d, tnear, tfar,
-                     sub: int) -> Tuple[torch.Tensor, ...]:
+def walk_sub_closest(wt, o, d, tnear, tfar, sub: int,
+                     mxu: bool = False) -> Tuple[torch.Tensor, ...]:
     """Closest hit of whole 64-ray tiles (o, d [n, 3], tnear, tfar [n]),
-    each walked as `sub` groups, over walk tables `wt`: (t, tri, u, v)."""
-    _check(wt, o, d, tnear, tfar, sub)
+    each walked as `sub` groups, over walk tables `wt`: (t, tri, u, v).
+    `mxu` (the tensor-core form of the triangle test) has a plain version
+    only: on a card it raises NotImplementedError."""
+    _check(wt, o, d, tnear, tfar, sub, mxu)
     count_rays(tfar)
     if o.device.type == "cpu":
-        return walk_sub_closest_ref(wt, o, d, tnear, tfar, sub)[:4]
+        return walk_sub_closest_ref(wt, o, d, tnear, tfar, sub, mxu)[:4]
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -126,13 +133,14 @@ def walk_sub_closest(wt, o, d, tnear, tfar,
     return t, tri, u, v
 
 
-def walk_sub_anyhit(wt, o, d, tnear, tfar, sub: int) -> torch.Tensor:
+def walk_sub_anyhit(wt, o, d, tnear, tfar, sub: int,
+                    mxu: bool = False) -> torch.Tensor:
     """Any hit of whole 64-ray tiles, each walked as `sub` groups: True =
-    occluded."""
-    _check(wt, o, d, tnear, tfar, sub)
+    occluded. `mxu` as in walk_sub_closest."""
+    _check(wt, o, d, tnear, tfar, sub, mxu)
     count_rays(tfar)
     if o.device.type == "cpu":
-        return walk_sub_anyhit_ref(wt, o, d, tnear, tfar, sub)[0]
+        return walk_sub_anyhit_ref(wt, o, d, tnear, tfar, sub, mxu)[0]
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if n:

@@ -24,6 +24,14 @@ one slot, and the per-tile heaps live in shared memory or, past
 _WIDE_SHARED_MAX entries, in a device buffer allocated for the launch. The
 wide kernels count as `walk_closest_wide` / `walk_anyhit_wide`.
 
+With `mxu=True` a visit takes the tensor-core form of the triangle test
+(the reference's MXU_TRITEST, pallas_walk.py:591-597; csrc/tri_test_mma.cuh):
+ao = [o, 1] . rows and ad = [d, 0] . rows as matrix products at f32 accuracy.
+The plain versions form them with one f32 torch.matmul per product
+(`_test_clusters`). This form is not bit-identical to the default one, nor
+the kernel to its plain version: hits agree save near ties and edge grazes,
+t within rtol 1e-5. These kernels count as `<name>_mma`.
+
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
 """
@@ -59,7 +67,9 @@ _STATIC_SMEM, _MAX_SMEM = 20496, 227 * 1024
 _WIDE_SHARED_MAX = 4096
 
 LAUNCHES = {"walk_closest": 0, "walk_anyhit": 0,
-            "walk_closest_wide": 0, "walk_anyhit_wide": 0}
+            "walk_closest_wide": 0, "walk_anyhit_wide": 0,
+            "walk_closest_mma": 0, "walk_anyhit_mma": 0,
+            "walk_closest_wide_mma": 0, "walk_anyhit_wide_mma": 0}
 
 _LIB = None
 # elements per [tiles, 64, max(Cp, K)] tensor of a plain version, on the
@@ -77,15 +87,15 @@ def _load():
     if _LIB is None:
         lib = load_cuda()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rl_walk_closest.argtypes = [p, p, i, i, p, p, p, p, p, p, i,
+        lib.rl_walk_closest.argtypes = [p, p, i, i, p, p, p, p, p, p, i, i,
                                         p, p, p, p, p]
         lib.rl_walk_closest.restype = i
-        lib.rl_walk_anyhit.argtypes = [p, p, i, i, p, p, p, p, p, i, p, p]
+        lib.rl_walk_anyhit.argtypes = [p, p, i, i, p, p, p, p, p, i, i, p, p]
         lib.rl_walk_anyhit.restype = i
         lib.rl_walk_closest_wide.argtypes = [p, p, i, i, p, p, p, p, p, p, i,
-                                             p, i, p, p, p, p, p]
+                                             i, p, i, p, p, p, p, p]
         lib.rl_walk_closest_wide.restype = i
-        lib.rl_walk_anyhit_wide.argtypes = [p, p, i, i, p, p, p, p, p, i,
+        lib.rl_walk_anyhit_wide.argtypes = [p, p, i, i, p, p, p, p, p, i, i,
                                             p, i, p, p]
         lib.rl_walk_anyhit_wide.restype = i
         _LIB = lib
@@ -219,29 +229,53 @@ def _dot4(x4, r):
             + x4[..., 2:3] * r[:, None, :, 2] + x4[..., 3:4] * r[:, None, :, 3])
 
 
-def _test_clusters(rows, o, d, tnear, tcap):
+def _matmul_products(rows, o4, d4):
+    """The tensor-core form's two products: ao = o4 . rows and ad = d4 . rows
+    as one f32 torch.matmul each, [G, R, 4] x [G, 4, 3K] with the columns in
+    blocks N | U | V; each [G, R, 3K]. On a card the product must run in
+    full f32: TF32 keeps about three digits and must not decide a hit."""
+    if rows.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the mxu triangle test needs torch.backends.cuda."
+                           "matmul.allow_tf32 = False")
+    g, k = rows.shape[:2]
+    p = rows.permute(0, 3, 2, 1).reshape(g, 4, 3 * k)
+    return torch.matmul(o4, p), torch.matmul(d4, p)
+
+
+def _test_clusters(rows, o, d, tnear, tcap, mxu: bool = False):
     """Rays [G, R] against each tile's cluster rows [G, K, 3, 4]:
-    (t, u, v, valid), each [G, R, K]."""
+    (t, u, v, valid), each [G, R, K]. `mxu` forms the dot products as two
+    matrix products (the tensor-core form) instead of in _dot4 order."""
     one = torch.ones_like(o[..., :1])
     o4 = torch.cat([o, one], dim=-1)
     d4 = torch.cat([d, torch.zeros_like(one)], dim=-1)
-    nd = _dot4(d4, rows[:, :, 0])
-    live = nd.abs() > 1e-20
-    t = -_dot4(o4, rows[:, :, 0]) / torch.where(live, nd, 1.0)
-    u = _dot4(o4, rows[:, :, 1]) + t * _dot4(d4, rows[:, :, 1])
-    v = _dot4(o4, rows[:, :, 2]) + t * _dot4(d4, rows[:, :, 2])
+    if mxu:
+        k = rows.shape[1]
+        ao, ad = _matmul_products(rows, o4, d4)
+        nd = ad[..., :k]
+        live = nd.abs() > 1e-20
+        t = -ao[..., :k] / torch.where(live, nd, 1.0)
+        u = ao[..., k:2 * k] + t * ad[..., k:2 * k]
+        v = ao[..., 2 * k:] + t * ad[..., 2 * k:]
+    else:
+        nd = _dot4(d4, rows[:, :, 0])
+        live = nd.abs() > 1e-20
+        t = -_dot4(o4, rows[:, :, 0]) / torch.where(live, nd, 1.0)
+        u = _dot4(o4, rows[:, :, 1]) + t * _dot4(d4, rows[:, :, 1])
+        v = _dot4(o4, rows[:, :, 2]) + t * _dot4(d4, rows[:, :, 2])
     valid = (live & (t > tnear[..., None]) & (t < tcap[..., None])
              & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0))
     return t, u, v, valid
 
 
-def _visit_closest(rows, ids, csel, o, d, tnear, best, tested=None):
+def _visit_closest(rows, ids, csel, o, d, tnear, best, tested=None,
+                   mxu: bool = False):
     """One closest-hit visit of cluster csel [A] by A tiles: best = (t, tri,
     u, v) [A, R], updated where a hit is strictly nearer (and the ray is
     among `tested` [A, R], if given); the lowest column wins inside the
     cluster."""
     bt, bi, bu, bv = best
-    t, u, v, valid = _test_clusters(rows[csel], o, d, tnear, bt)
+    t, u, v, valid = _test_clusters(rows[csel], o, d, tnear, bt, mxu)
     tm = torch.where(valid, t, float("inf"))
     ct = tm.amin(dim=-1)
     kiota = torch.arange(K, device=o.device)
@@ -258,10 +292,11 @@ def _visit_closest(rows, ids, csel, o, d, tnear, best, tested=None):
             torch.where(better, uj, bu), torch.where(better, vj, bv))
 
 
-def _visit_anyhit(rows, csel, o, d, tnear, tfar, occ, tested=None):
+def _visit_anyhit(rows, csel, o, d, tnear, tfar, occ, tested=None,
+                  mxu: bool = False):
     """One any-hit visit of cluster csel [A]: occ [A, R] | a hit in range
     (of a ray among `tested` [A, R], if given)."""
-    hit = _test_clusters(rows[csel], o, d, tnear, tfar)[3].any(dim=-1)
+    hit = _test_clusters(rows[csel], o, d, tnear, tfar, mxu)[3].any(dim=-1)
     return occ | (hit if tested is None else hit & tested)
 
 
@@ -279,7 +314,8 @@ def _tiled(fn, width, o, d, tnear, tfar, tile: int = RAY_TILE):
 
 
 def _walk_ref(wt, o, d, tnear, tfar, any_hit: bool, wide: bool = False,
-              tile: int = RAY_TILE, sparse_cap: int = None):
+              tile: int = RAY_TILE, sparse_cap: int = None,
+              mxu: bool = False):
     """The tile walk of the kernels for every tile at once, chunked over
     tiles of `tile` rays. Returns ((t, tri, u, v) or (occ,), cluster visits
     per tile), and with `sparse_cap` also the visits that tested only the
@@ -288,7 +324,7 @@ def _walk_ref(wt, o, d, tnear, tfar, any_hit: bool, wide: bool = False,
     rows = wt.rows.view(cp, K, 3, 4)
     ids = wt.ids.view(cp, K)
     return _tiled(lambda *r: _walk_chunk(wt, rows, ids, *r, any_hit, wide,
-                                         sparse_cap),
+                                         sparse_cap, mxu),
                   max(cp, K), o, d, tnear, tfar, tile)
 
 
@@ -298,7 +334,7 @@ def _sortable_max(x):
 
 
 def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit, wide=False,
-                sparse_cap=None):
+                sparse_cap=None, mxu=False):
     """The walk of G tiles [G, R]: packed pops, or the wide pop over plain
     entries. With `sparse_cap` (the sparse-visit schedule) a visit tests
     only the rays that enter the popped cluster when they are at most
@@ -347,10 +383,11 @@ def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit, wide=False,
                 n_flagged[act] += count
             if any_hit:
                 a_occ = _visit_anyhit(rows, a_csel, a_o, a_d, a_tn, a_tf,
-                                      a_occ, tested)
+                                      a_occ, tested, mxu)
             else:
                 bt, bi, bu, bv = _visit_closest(rows, ids, a_csel, a_o, a_d,
-                                                a_tn, (bt, bi, bu, bv), tested)
+                                                a_tn, (bt, bi, bu, bv), tested,
+                                                mxu)
             a_emin, a_csel, a_ent = _pop_min(a_ent, mask)
         ent[act], emin[act], csel[act] = a_ent, a_emin, a_csel
         nv[act] += 1
@@ -369,16 +406,19 @@ def _walk_chunk(wt, rows, ids, o, d, tnear, tfar, any_hit, wide=False,
              best_v), *counts)
 
 
-def walk_closest_ref(wt, o, d, tnear, tfar, wide: bool = False):
+def walk_closest_ref(wt, o, d, tnear, tfar, wide: bool = False,
+                     mxu: bool = False):
     """Plain version of the closest-hit walk: (t, tri, u, v, visits); t = inf
     and tri = -1 (u = v = 0) on a miss."""
-    (t, tri, u, v), visits = _walk_ref(wt, o, d, tnear, tfar, False, wide)
+    (t, tri, u, v), visits = _walk_ref(wt, o, d, tnear, tfar, False, wide,
+                                       mxu=mxu)
     return t, tri, u, v, int(visits.sum())
 
 
-def walk_anyhit_ref(wt, o, d, tnear, tfar, wide: bool = False):
+def walk_anyhit_ref(wt, o, d, tnear, tfar, wide: bool = False,
+                    mxu: bool = False):
     """Plain version of the any-hit walk: (occ, visits)."""
-    (occ,), visits = _walk_ref(wt, o, d, tnear, tfar, True, wide)
+    (occ,), visits = _walk_ref(wt, o, d, tnear, tfar, True, wide, mxu=mxu)
     return occ, int(visits.sum())
 
 
@@ -401,16 +441,22 @@ def _wide_heap(cp: int, n: int, heap, device):
     return blocks, None
 
 
+def _kernel_name(base: str, wide: bool, mxu: bool) -> str:
+    return base + ("_wide" if wide else "") + ("_mma" if mxu else "")
+
+
 def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
-                 heap: str = None) -> Tuple[torch.Tensor, ...]:
+                 heap: str = None, mxu: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
     """Closest hit of whole 64-ray tiles (o, d [n, 3], tnear, tfar [n]) over
     walk tables `wt`: (t, tri, u, v), each [n]. `wide` takes the wide pop
     (plain entries, any Cp up to MAX_WIDE_CLUSTERS); `heap` forces where its
-    heaps live (see _wide_heap)."""
+    heaps live (see _wide_heap); `mxu` takes the tensor-core form of the
+    triangle test."""
     _check(wt, o, d, tnear, tfar, wide, heap)
     count_rays(tfar)
     if o.device.type == "cpu":
-        return walk_closest_ref(wt, o, d, tnear, tfar, wide)[:4]
+        return walk_closest_ref(wt, o, d, tnear, tfar, wide, mxu)[:4]
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -418,10 +464,11 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
     v = torch.empty_like(t)
     if not n:
         return t, tri, u, v
-    name = "walk_closest_wide" if wide else "walk_closest"
+    name = _kernel_name("walk_closest", wide, mxu)
     tables = (wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
               int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
-              o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n)
+              o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n,
+              int(mxu))
     outs = (t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr())
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -439,21 +486,21 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
 
 
 def walk_anyhit(wt, o, d, tnear, tfar, wide: bool = False,
-                heap: str = None) -> torch.Tensor:
+                heap: str = None, mxu: bool = False) -> torch.Tensor:
     """Any hit of whole 64-ray tiles over walk tables: True = occluded.
-    `wide` and `heap` as in walk_closest."""
+    `wide`, `heap` and `mxu` as in walk_closest."""
     _check(wt, o, d, tnear, tfar, wide, heap)
     count_rays(tfar)
     if o.device.type == "cpu":
-        return walk_anyhit_ref(wt, o, d, tnear, tfar, wide)[0]
+        return walk_anyhit_ref(wt, o, d, tnear, tfar, wide, mxu)[0]
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if not n:
         return occ
-    name = "walk_anyhit_wide" if wide else "walk_anyhit"
+    name = _kernel_name("walk_anyhit", wide, mxu)
     tables = (wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
               int(wt.n_real), wt.rows.data_ptr(), o.data_ptr(), d.data_ptr(),
-              tnear.data_ptr(), tfar.data_ptr(), n)
+              tnear.data_ptr(), tfar.data_ptr(), n, int(mxu))
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         if wide:

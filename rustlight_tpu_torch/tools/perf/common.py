@@ -1,0 +1,142 @@
+"""What the laboratory's three tools share: the device, the scene, the
+timing and the record they write."""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ...accel.walk import _default_range, _prepare
+from ...models.presets import sphere_grid_mesh
+from ...ops.walk_lab import walk_closest_counted
+from ...ops.walk_trace import RAY_TILE
+from ...scene.geometry import build_geometry_tables
+
+TIMING_RUNS = 5
+# records go under build/, which git ignores; never over regress/*.json, the
+# JAX package's records of another machine
+OUT_DIR = Path("build") / "lab"
+
+
+def parser(doc: str, out_name: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=doc)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default) or cpu (plain versions, no "
+                        "device times)")
+    p.add_argument("--rays", type=int, default=262_144)
+    p.add_argument("--tris", type=int, default=110_000,
+                   help="target triangle count of the sphere grid")
+    p.add_argument("--theta", type=int, default=18,
+                   help="n_theta = n_phi of each UV sphere")
+    p.add_argument("--runs", type=int, default=TIMING_RUNS,
+                   help="timed runs per number; the median is reported")
+    p.add_argument("--mxu", action="store_true",
+                   help="the tensor-core form of the triangle test")
+    p.add_argument("--out", default=str(OUT_DIR / out_name))
+    return p
+
+
+def pick_device(name: str) -> torch.device:
+    """The device asked for; a card that is not there raises. No process-wide
+    flag is set here: the plain mxu test itself raises where
+    torch.backends.cuda.matmul.allow_tf32 is on."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: torch.cuda.is_available() is "
+                           "false; pass --device cpu for the plain versions")
+    return dev
+
+
+def device_record(dev: torch.device) -> dict:
+    """The device's name, and on a card its nvidia-smi name and power
+    limit: every time in a record stands beside them."""
+    if dev.type != "cuda":
+        return {"device": "cpu", "card": None,
+                "note": "CPU run: times are host times of the plain "
+                        "versions, not device metrics"}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return {"device": torch.cuda.get_device_name(dev), "card": card}
+
+
+def lab_scene(tris: int, theta: int):
+    """The laboratory's scene: (numpy geometry tables, grid extent). At the
+    defaults sphere_grid_mesh(110_000, n_theta=18): 216 spheres, 132,192
+    triangles."""
+    mesh, gs = sphere_grid_mesh(tris, n_theta=theta)
+    return build_geometry_tables([mesh], [-1]), gs * 3.0
+
+
+def coherent_rays(rng, n: int, ext: float):
+    """Camera-like rays from one point outside the grid to random targets."""
+    o = np.tile(np.array([ext / 2, ext / 2, -0.35 * ext], np.float32), (n, 1))
+    tgt = rng.uniform(0, ext, (n, 3)).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def divergent_rays(rng, n: int, ext: float):
+    """Rays from random points inside the grid in random directions."""
+    o = rng.uniform(0, ext, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def to_device(dev, *arrays):
+    return [torch.as_tensor(x, device=dev) for x in arrays]
+
+
+def timed_ms(fn, dev: torch.device, runs: int = TIMING_RUNS) -> float:
+    """Median ms of `runs` calls after a warm one: between CUDA events on a
+    card, on the host clock on the CPU."""
+    fn()
+    times = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(end))
+    else:
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sorted_tiles(wt, o, d):
+    """The wavefront as the walk hands it to its kernels: default range,
+    coherence sort, pad (accel/walk.py:_prepare)."""
+    return _prepare(wt, o, d, *_default_range(o, None, None))[:4]
+
+
+def tile_visits(wt, srt, mxu: bool = False):
+    """Per-tile visit counts of the production walk on sorted tiles, from
+    the counted kernel: [tiles] int64 on the host."""
+    nv = walk_closest_counted(wt, *srt, mxu=mxu)[4]
+    return nv.view(-1, RAY_TILE)[:, 0].long().cpu()
+
+
+def checksum(t) -> float:
+    return float(torch.where(torch.isfinite(t), t, 0.0).double().sum())
+
+
+def write_record(path: str, record) -> None:
+    out = Path(path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=2))
+    print(json.dumps(record), flush=True)

@@ -63,8 +63,8 @@ def test_ao_on_the_hier_route_equals_the_flat_walk(scenes, monkeypatch):
     calls = []
     for name in ("walk_hier_closest", "walk_hier_anyhit"):
         fn = getattr(tw, name)
-        monkeypatch.setattr(tw, name, lambda *a, fn=fn, name=name: (
-            calls.append(name), fn(*a))[1])
+        monkeypatch.setattr(tw, name, lambda *a, fn=fn, name=name, **kw: (
+            calls.append(name), fn(*a, **kw))[1])
     monkeypatch.setattr(tw, "FLAT_MAX_CLUSTERS", 0)
     hier = _port_ao(jsd, dist)["primal"]
     assert calls == ["walk_hier_closest", "walk_hier_anyhit"] * SPP

@@ -210,7 +210,9 @@ def test_hier_wrappers_take_plain_versions_on_cpu(grid):
     with native.counting_rays("cpu") as n_rays:
         closest = wh.walk_hier_closest(wt, o, d, tnear, tfar)
         occ = wh.walk_hier_anyhit(wt, o, d, tnear, tfar)
-    assert wh.LAUNCHES == {"walk_hier_closest": 0, "walk_hier_anyhit": 0}
+    assert wh.LAUNCHES == {"walk_hier_closest": 0, "walk_hier_anyhit": 0,
+                           "walk_hier_closest_mma": 0,
+                           "walk_hier_anyhit_mma": 0}
     assert int(n_rays) == 2 * int((tfar > 0).sum())
     t, tri, u, v, opened, visits = wh.walk_hier_closest_ref(wt, o, d, tnear,
                                                             tfar)
@@ -236,8 +238,8 @@ def test_walk_route_and_sort_key_past_the_caps(grid, monkeypatch):
     calls = []
     for name in ("walk_hier_closest", "walk_hier_anyhit"):
         fn = getattr(tw, name)
-        monkeypatch.setattr(tw, name, lambda *a, fn=fn, name=name: (
-            calls.append(name), fn(*a))[1])
+        monkeypatch.setattr(tw, name, lambda *a, fn=fn, name=name, **kw: (
+            calls.append(name), fn(*a, **kw))[1])
     flat = tw._walk_impl(wt, *rays, False)
     assert not calls
     monkeypatch.setattr(tw, "FLAT_MAX_CLUSTERS", wt.n_clusters - 1)

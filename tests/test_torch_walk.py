@@ -260,7 +260,10 @@ def test_wrappers_take_plain_versions_on_cpu(soup):
         closest = wk.walk_closest(wt, o, d, tnear, tfar)
         occ = wk.walk_anyhit(wt, o, d, tnear, tfar)
     assert wk.LAUNCHES == {"walk_closest": 0, "walk_anyhit": 0,
-                           "walk_closest_wide": 0, "walk_anyhit_wide": 0}
+                           "walk_closest_wide": 0, "walk_anyhit_wide": 0,
+                           "walk_closest_mma": 0, "walk_anyhit_mma": 0,
+                           "walk_closest_wide_mma": 0,
+                           "walk_anyhit_wide_mma": 0}
     assert int(n_rays) == 2 * int((tfar > 0).sum())
     t, tri, u, v, visits = wk.walk_closest_ref(wt, o, d, tnear, tfar)
     for a, b in zip(closest, (t, tri, u, v)):

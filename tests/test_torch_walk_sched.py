@@ -204,15 +204,19 @@ def test_options_that_cannot_apply_raise(soup, kw, cp, match):
 
 def test_option_resolution_follows_the_reference(soup):
     _, wt, _, _, _ = soup
-    assert tw._resolve(wt, None, None, None, None) == (False, False, 1, False)
+    assert tw._resolve(wt, None, None, None, None) == (
+        False, False, 1, False, False)
     assert tw._resolve(_big(wt, 1 << 15), None, None, None, None) == (
-        True, False, 1, False)
+        True, False, 1, False, False)
     assert tw._resolve(_big(wt, 1 << 15), False, None, None, None) == (
-        False, True, 1, False)
+        False, True, 1, False, False)
     opt = wt._replace(options=WalkOptions(sub=4))
-    assert tw._resolve(opt, None, None, None, None) == (False, False, 4, False)
-    assert tw._resolve(opt, None, None, 1, True) == (False, False, 1, True)
-    assert WalkOptions() == (1, False, False, 8, None, None, False, True)
+    assert tw._resolve(opt, None, None, None, None) == (
+        False, False, 4, False, False)
+    assert tw._resolve(opt, None, None, 1, True) == (
+        False, False, 1, True, False)
+    assert WalkOptions() == (1, False, False, 8, None, None, False, False,
+                             True)
     assert wsub.MAX_VMEM_CLUSTERS == W.MAX_VMEM_CLUSTERS == 640
     assert ws.SPARSE_CAP == W.SPARSE_CAP == 16
 
