@@ -69,7 +69,11 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      rules and against K3's result on the same rays (K7 with the share of
      visits that took the sparse branch and the rays flagged a visit);
      kernel and whole-call times are medians of 10 beside K3's, plain times
-     one run. The wide pop
+     one run. Then the tensor-core forms of K6 (sub = 2, 4, 8) and K8 (km =
+     8, 2) on the same rays and pairs, each against its plain mxu version
+     and against the _dot4 kernels under _compare_mxu's rules, with the
+     count of lanes outside MXU_T_RTOL beside the plain form's (the cap of
+     _check_mma) and K8's whole pair walk timed. The wide pop
      the same way on grid5p7M's tables and the two AO wavefronts of phase 9
      (every tile), beside K5's times. (Run while each scene is alive: the
      grid122k part after phase 8, the grid5p7M part after phase 12.)
@@ -97,7 +101,14 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      K3, the wide pop and K5: its two products against the _dot4 form's and
      against torch.matmul's (the error printed), then each kernel pair
      against its plain mxu version and against the _dot4 kernels under
-     _compare_mxu's rules, the excused lanes printed. The same check runs
+     _compare_mxu's rules, the excused lanes printed. The candidate forms of
+     the products (ops/walk_lab.py:MMA_FORMS; the kernels' one, bit for bit
+     against mma_products): on every set where a tensor-core kernel is
+     checked (the lab's two, grid122k's two, grid5p7M's camera and AO), each
+     form's lanes outside MXU_T_RTOL of the _dot4 kernel's t and of the
+     exact t, beside the plain matmul form's, and each form's time on
+     A1_VISITS visits a tile;
+     the table follows phase 18 (`a1` lines). The same check runs
      where the main path launches these kernels, and the kernels line takes
      their time, bound and error from there: K3's on grid122k's two
      wavefronts (with phase 13), the wide pop's and K5's on grid5p7M's
@@ -111,16 +122,19 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      set's first 65,536 rays against K3: hit masks equal, ids equal save
      near ties, t within 1e-6 relative; steps and ms printed.
  19. main path, mxu: the grid122k render of phase 6 with
-     WalkOptions(mxu_tritest=True), held to phase 6's image as in 14, only
-     the tensor-core kernels launching; and, on grid5p7M, the AO render of
+     WalkOptions(mxu_tritest=True), with (sub=2, mxu_tritest=True) and with
+     (pair=True, mxu_tritest=True), each held to phase 6's image as in 14,
+     only that schedule's tensor-core kernels launching (the pair walk's
+     also K3's, for its fallback), a warm 2 spp render of each profiled;
+     and, on grid5p7M, the AO render of
      phase 10 with mxu_tritest on the two-level walk and on the wide pop,
      held to phase 10's image as in 15. (Run with phases 14 and 15.)
 
 Before the last line: a JSON line with each kernel's tables and wavefronts
-(kernel_cases), the card line from nvidia-smi and a JSON line with each
-kernel's launches, error, times and bound. The last line is the JSON
-status {"ok": true, "device": {...}}; a failed phase raises and prints no
-status.
+(kernel_cases) and the candidate forms' table (a1_forms), the card line
+from nvidia-smi and a JSON line with each kernel's launches, error, times
+and bound. The last line is the JSON status {"ok": true, "device": {...}};
+a failed phase raises and prints no status. The run prints its seconds.
 """
 from __future__ import annotations
 
@@ -189,20 +203,27 @@ KERNEL_SOURCES = {"dense": "rustlight_tpu_torch/csrc/dense_trace.cu",
 # t near 0 from terms near 400: such lanes are counted too); u, v likewise.
 LAB_TRIS, LAB_THETA, LAB_RAYS = 110_000, 18, 65_536
 MXU_T_RTOL, MXU_T_ATOL, MXU_EDGE = 1e-5, 1e-6, 1e-5
-MXU_OPERAND_EPS, MXU_EXCUSED_FRAC = 2e-6, 1e-3
+MXU_OPERAND_EPS, MXU_EXCUSED_FRAC = 1e-6, 1e-3
 # the lanes held to the operand-error bound are capped too. Their share
 # is the data's (under 1% of the lab's sets, a fifth of a wavefront that
 # leaves a surface at 1e-3, where t near 1e-3 comes from terms near 10), so
 # the cap is tied to it: at most MXU_LOOSE_RATIO x the lanes on which the
 # plain mxu version (torch.matmul, full f32) misses the plain tolerance
 # against the same _dot4 kernels, plus MXU_LOOSE_SLACK. The route is for
-# ill-conditioned lanes, which any summation order shows. Measured on an
-# H100: the three-pass products miss it on 3.5-3.7x as many lanes as
-# torch.matmul does (479 to 137, 12,601 to 3,450; 120 to 19 on the smallest
-# count), their operand error being 2.9e-7 to its 1.6e-7; the ratio is 1.5 x
-# that, and the slack covers sets where the plain version misses on none
-MXU_LOOSE_RATIO, MXU_LOOSE_SLACK = 5.5, 32
+# ill-conditioned lanes, which any summation order shows: measured on an
+# H100, even the exact products (float64) rounded to f32 miss it against
+# the _dot4 t on 2.22x as many lanes as torch.matmul, whose rounding
+# tracks the _dot4 form's; the six-pass products miss it on 2.23x
+# (7,815 to 3,499 on grid122k's spread wavefront, 153 to 137 on the lab's
+# divergent set) while they miss the exact t on 0.05x as many lanes as
+# torch.matmul (phase 17's a1 lines). Their operand error is 2.1e-7 to
+# torch.matmul's 1.6e-7. The ratio is 1.5 x the largest measured, and the
+# slack covers sets where the plain version misses on few.
+MXU_LOOSE_RATIO, MXU_LOOSE_SLACK = 3.3, 32
 TC_TF32_OPS = 495e12        # H100 SXM dense TF32 tensor-core rate
+MMA_PASSES = 6              # TF32 passes a product (tri_test_mma.cuh:mma_f32)
+A1_RATIO = 1.5              # a form's lanes outside rtol / the plain form's
+A1_VISITS = 25              # visits a tile of phase 17's timing of the forms
 FMA_RTOL = 1e-4
 PW = "rustlight_tpu/accel/pallas_walk.py"
 ROOFLINE = "tools/perf/roofline.py"
@@ -779,10 +800,11 @@ def _only(label, launches, kernels):
 
 
 def schedule_renders(label, gsd, integ, ref_img, ref_rays, ref_wall):
-    """Phases 14 and 19: the grid render once per schedule, against the default
-    schedule's image of the same seed (ref_rays rays in ref_wall s; a pair
-    render counts its re-traced rays twice, so every rate here is over
-    ref_rays). Returns the launches summed."""
+    """Phases 14 and 19: the grid render once per schedule and tensor-core
+    schedule, against the default schedule's image of the same seed
+    (ref_rays rays in ref_wall s; a pair render counts its re-traced rays
+    twice, so every rate here is over ref_rays). Returns the launches
+    summed."""
     from rustlight_tpu_torch.accel.walk import WalkOptions
     from rustlight_tpu_torch.scene.scene import from_numpy_scene
     total = {}
@@ -794,7 +816,12 @@ def schedule_renders(label, gsd, integ, ref_img, ref_rays, ref_wall):
             ("pair", WalkOptions(pair=True),
              ("pair_closest", "pair_anyhit", "walk_closest", "walk_anyhit")),
             ("mxu_tritest", WalkOptions(mxu_tritest=True),
-             ("walk_closest_mma", "walk_anyhit_mma"))):
+             ("walk_closest_mma", "walk_anyhit_mma")),
+            ("sub=2 mxu_tritest", WalkOptions(sub=2, mxu_tritest=True),
+             ("walk_sub_closest_mma", "walk_sub_anyhit_mma")),
+            ("pair mxu_tritest", WalkOptions(pair=True, mxu_tritest=True),
+             ("pair_closest_mma", "pair_anyhit_mma", "walk_closest_mma",
+              "walk_anyhit_mma"))):
         sd = from_numpy_scene(gsd.host, gsd.device, walk_options=options)
         tag = f"{label} {name}"
         img, wall, warm, n_rays, launches = timed_render(tag, sd, integ,
@@ -1164,67 +1191,147 @@ def _lab_sets(dev, n):
     return geom, walk_tables_to(geom.walk, dev), rows, sets
 
 
-def _mma_bound_ms(visits, n_bytes):
+def _mma_bound_ms(tests, n_bytes):
     """The bound of a walk with the tensor-core visit: (ms, what bounds it,
-    the two routes' operation times). A visit's test may take either route,
-    so the operations' time is the smaller of the two: the three-pass
-    products (3 x 2 x 2*64*4*1152 flop at the TF32 rate) with the rest of
-    the test (9 of the 25 f32 operations of each of 64 x 384 tests), or all
-    25 operations at the f32 rate, as the _dot4 kernels' bound counts."""
-    routes = {"tc_route_ms": visits * (3 * 2 * 2 * 64 * 4 * 1152 / TC_TF32_OPS
-                                       + 64 * 384 * 9 / PEAK_F32_OPS) * 1e3,
-              "f32_route_ms": visits * 64 * 384 * OPS_PER_TEST
-              / PEAK_F32_OPS * 1e3}
+    the two routes' operation times) for `tests` ray-triangle tests. A test
+    may take either route, so the operations' time is the smaller of the
+    two: MMA_PASSES TF32 passes of its products (2 products x 3 row kinds x
+    2 x 4 flop a pass at the TF32 rate) with the rest of the test (9 of the
+    25 f32 operations), or all 25 operations at the f32 rate, as the _dot4
+    kernels' bound counts."""
+    routes = {"tc_route_ms": tests * (MMA_PASSES * 48 / TC_TF32_OPS
+                                      + 9 / PEAK_F32_OPS) * 1e3,
+              "f32_route_ms": tests * OPS_PER_TEST / PEAK_F32_OPS * 1e3}
     ops_ms = min(routes.values())
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
     return ((ops_ms, "operations", routes) if ops_ms >= bytes_ms
             else (bytes_ms, "bytes", routes))
 
 
-def _check_mma(tag, rows, wt, srt, which, resident, add, **where):
-    """The tensor-core visit of the walks named in `which` ("walk": K3,
-    "walk_wide": the wide pop, "walk_hier": K5) on one sorted wavefront:
-    each against its plain mxu version on every tile and against its _dot4
-    kernel, under the tolerance stated beside MXU_T_RTOL. The plain mxu
-    version is held to the same _dot4 kernel, and the kernel may miss the
-    plain tolerance on at most MXU_LOOSE_RATIO x as many lanes (plus
-    MXU_LOOSE_SLACK). `resident`: the table is read once, else a cluster's
-    rows per visit. Records go to add(kernel name, **record)."""
-    import torch
+def _walk_variants(wt, srt, which):
+    """The tensor-core kernel pairs named in `which` on the sorted rays
+    `srt`: {name: (closest kernel name, any-hit kernel name, closest(**kw),
+    anyhit(**kw), plain mxu closest, plain mxu any hit, rays a counted unit
+    tests)}; a plain version returns its outputs, then the count (visits,
+    or live pairs)."""
     from rustlight_tpu_torch.ops import walk_hier as wh
+    from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
-    n = srt[0].shape[0]
-    table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
-             + wt.hi.numel()) * 4
-    variants = {
+    R = wk.RAY_TILE
+    out = {
         "walk": ("walk_closest_mma", "walk_anyhit_mma",
                  lambda **k: wk.walk_closest(wt, *srt, **k),
                  lambda **k: wk.walk_anyhit(wt, *srt, **k),
                  lambda: wk.walk_closest_ref(wt, *srt, mxu=True),
-                 lambda: wk.walk_anyhit_ref(wt, *srt, mxu=True)),
+                 lambda: wk.walk_anyhit_ref(wt, *srt, mxu=True), R),
         "walk_wide": ("walk_closest_wide_mma", "walk_anyhit_wide_mma",
                       lambda **k: wk.walk_closest(wt, *srt, wide=True, **k),
                       lambda **k: wk.walk_anyhit(wt, *srt, wide=True, **k),
                       lambda: wk.walk_closest_ref(wt, *srt, True, True),
-                      lambda: wk.walk_anyhit_ref(wt, *srt, True, True)),
+                      lambda: wk.walk_anyhit_ref(wt, *srt, True, True), R),
         "walk_hier": ("walk_hier_closest_mma", "walk_hier_anyhit_mma",
                       lambda **k: wh.walk_hier_closest(wt, *srt, **k),
                       lambda **k: wh.walk_hier_anyhit(wt, *srt, **k),
                       lambda: wh.walk_hier_closest_ref(wt, *srt, True),
-                      lambda: wh.walk_hier_anyhit_ref(wt, *srt, True))}
-    for name in which:
-        cname, aname, closest, anyhit, pc, pa = variants[name]
+                      lambda: wh.walk_hier_anyhit_ref(wt, *srt, True), R)}
+    for sub in wsub.SUBS:
+        out[f"sub{sub}"] = (
+            "walk_sub_closest_mma", "walk_sub_anyhit_mma",
+            lambda s=sub, **k: wsub.walk_sub_closest(wt, *srt, s, **k),
+            lambda s=sub, **k: wsub.walk_sub_anyhit(wt, *srt, s, **k),
+            lambda s=sub: wsub.walk_sub_closest_ref(wt, *srt, s, mxu=True),
+            lambda s=sub: wsub.walk_sub_anyhit_ref(wt, *srt, s, mxu=True),
+            R // sub)
+    return {k: out[k] for k in which}
+
+
+def _pair_variants(wt, pairs, km):
+    """The tensor-core pair kernels on one set of pairs, as _walk_variants."""
+    from rustlight_tpu_torch.ops import pair_trace as pt
+    return {f"pair{km}": (
+        "pair_closest_mma", "pair_anyhit_mma",
+        lambda **k: pt.pair_closest(wt, *pairs, **k),
+        lambda **k: pt.pair_anyhit(wt, *pairs, **k),
+        lambda: pt.pair_closest_ref(wt, *pairs, mxu=True),
+        lambda: pt.pair_anyhit_ref(wt, *pairs, mxu=True), 1)}
+
+
+def _form_counts(tag, rows, rays, dot, plain, add):
+    """A1's candidate forms of the products (ops/walk_lab.py:MMA_FORMS) on
+    the lanes the _dot4 kernel `dot` (t, tri, u, v) hits: each lane against
+    its hit triangle, t = -no / nd. Counted per form: the lanes whose t lies
+    outside MXU_T_RTOL / MXU_T_ATOL of the _dot4 t, and of the exact t (the
+    products and the quotient in float64 from the same f32 operands); the
+    _dot4 t and the plain mxu version's t (`plain`, on the lanes where its
+    id is the _dot4 one) are counted against the exact t too. The record
+    goes to add("mma_forms", ...) and the counts are returned."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_lab as wl
+    o, d = rays[0], rays[1]
+    t_d, i_d = dot[0], dot[1]
+    lanes = torch.nonzero(i_d >= 0)[:, 0]
+    n = lanes.numel()
+    pad = -n % 64
+    sel = lambda x: torch.cat([x[lanes], torch.zeros((pad, *x.shape[1:]),
+                                                     device=x.device,
+                                                     dtype=x.dtype)])
+    tri = sel(rows[i_d.clamp(min=0).long()]).contiguous()
+    oo, dd = sel(o).contiguous(), sel(d).contiguous()
+    nr = tri[:n, 0].double()
+    one = torch.ones_like(oo[:n, :1]).double()
+    t_x = (-(torch.cat([oo[:n].double(), one], 1) * nr).sum(1)
+           / (torch.cat([dd[:n].double(), 0 * one], 1) * nr).sum(1))
+    t = t_d[lanes]
+
+    def outside(a, b):
+        return int((~((a - b).abs() <= MXU_T_RTOL * b.abs()
+                      + MXU_T_ATOL)).sum())
+
+    counts, exact = [], []
+    for form in range(len(wl.MMA_FORMS)):
+        no, nd = wl.mma_form_lanes(form, tri, oo, dd)
+        t_f = (-no / nd)[:n]
+        counts.append(outside(t_f, t))
+        exact.append(outside(t_f.double(), t_x))
+    same = plain[1][lanes] == i_d[lanes]
+    add("mma_forms", set=tag, lanes=n, counts=counts, exact=exact,
+        dot4_exact=outside(t.double(), t_x),
+        plain_exact=outside(plain[0][lanes][same].double(), t_x[same]),
+        plain_lanes=int(same.sum()))
+    return counts, exact
+
+
+def _check_mma(tag, rows, wt, rays, variants, resident, add, in_bytes=None,
+               forms=True, **where):
+    """The tensor-core kernel pairs of `variants` (_walk_variants,
+    _pair_variants) on one sorted wavefront or set of pairs `rays`: each
+    against its plain mxu version on every tile and against its _dot4
+    kernel, under the tolerance stated beside MXU_T_RTOL. The plain mxu
+    version is held to the same _dot4 kernel, and the kernel may miss the
+    plain tolerance on at most MXU_LOOSE_RATIO x as many lanes (plus
+    MXU_LOOSE_SLACK). `resident`: the table is read once, else a cluster's
+    rows per visit. With `forms`, A1's candidate forms are counted on the
+    first variant's _dot4 hits (_form_counts). Records go to add(kernel
+    name, **record)."""
+    from rustlight_tpu_torch.ops import walk_lab as wl
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    n = rays[0].shape[0]
+    in_bytes = RAY_IN_BYTES if in_bytes is None else in_bytes
+    table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
+             + wt.hi.numel()) * 4
+    first = forms
+    for name, (cname, aname, closest, anyhit, pc, pa, per) in variants.items():
         dot_c, dot_a = closest(), anyhit()
         got_c, got_a = closest(mxu=True), anyhit(mxu=True)
         (out_c, pms_c), (out_a, pms_a) = _timed(pc), _timed(pa)
         ref_c, ref_a = out_c[:4], out_a[0]
         at = f"{tag} {name} mma"
         err_p, exc_p, loose_p = _compare_mxu(
-            f"{at} vs plain mxu", rows, srt, got_c, ref_c, got_a, ref_a)
+            f"{at} vs plain mxu", rows, rays, got_c, ref_c, got_a, ref_a)
         err_k, exc_k, loose_k = _compare_mxu(
-            f"{at} vs _dot4 kernels", rows, srt, got_c, dot_c, got_a, dot_a)
+            f"{at} vs _dot4 kernels", rows, rays, got_c, dot_c, got_a, dot_a)
         _, exc_r, loose_r = _compare_mxu(
-            f"{tag} {name} plain mxu vs _dot4 kernels", rows, srt, ref_c,
+            f"{tag} {name} plain mxu vs _dot4 kernels", rows, rays, ref_c,
             dot_c, ref_a, dot_a)
         n_p, n_k, n_r = (int(x.sum()) for x in (loose_p, loose_k, loose_r))
         shared = int((loose_k & loose_r).sum())
@@ -1233,21 +1340,33 @@ def _check_mma(tag, rows, wt, srt, which, resident, add, **where):
                 f"{at}: {n_k} lanes miss rtol {MXU_T_RTOL} against the _dot4 "
                 f"kernels and {n_p} against the plain mxu version, which "
                 f"itself misses it against the _dot4 kernels on only {n_r}")
+        form_note = ""
+        if first:
+            first = False
+            counts, exact = _form_counts(tag, rows, rays, dot_c, ref_c, add)
+            rec = add.last("mma_forms")
+            rec.update(plain=n_r, kernel=n_k)
+            form_note = (f"; A1's forms on the _dot4 hits: {counts} outside "
+                         f"rtol of the _dot4 t, {exact} of the exact t "
+                         f"(_dot4 {rec['dot4_exact']}, plain mxu "
+                         f"{rec['plain_exact']}; form {wl.PRODUCTION_FORM} "
+                         "is the kernels')")
         base = (_median_ms(closest), _median_ms(anyhit))
         for kname, fn, out, pms, b_ms, out_b in (
                 (cname, closest, out_c, pms_c, base[0], 16),
                 (aname, anyhit, out_a, pms_a, base[1], 1)):
-            visits = out[-1]            # this run's visits, the plain count
+            count = out[-1]             # this run's visits or live pairs
+            tests = count * per * wk.K
             bound, by, routes = _mma_bound_ms(
-                visits, n * (RAY_IN_BYTES + out_b)
-                + (table if resident else visits * HIER_VISIT_BYTES))
+                tests, n * (in_bytes + out_b)
+                + (table if resident else count * HIER_VISIT_BYTES))
             add(kname, max_abs_err=max(err_p, err_k),
                 ms=_median_ms(lambda: fn(mxu=True)), dot4_ms=b_ms,
                 plain_ms=pms, bound_ms=bound, bound_by=by, **routes,
-                visits=visits, excused=max(exc_p, exc_k),
-                loose=max(n_p, n_k), **where)
+                tests=tests, excused=max(exc_p, exc_k),
+                loose=max(n_p, n_k), plain_loose=n_r, schedule=name, **where)
             rc = add.last(kname)
-            phase("mma", f"{at} {kname}: {visits} visits, {rc['ms']:.4f} ms "
+            phase("mma", f"{at} {kname}: {tests} tests, {rc['ms']:.4f} ms "
                   f"(_dot4 {b_ms:.4f}), plain {pms:.1f} ms, bound "
                   f"{bound:.4f} ms ({by}; tensor-core route "
                   f"{routes['tc_route_ms']:.4f}, f32 route "
@@ -1255,7 +1374,9 @@ def _check_mma(tag, rows, wt, srt, which, resident, add, **where):
         phase("mma", f"{at} (of {n} lanes): vs plain mxu {exc_p} excused, "
               f"{n_p} on the operand-error bound; vs _dot4 kernels {exc_k}, "
               f"{n_k}; plain mxu vs _dot4 kernels {exc_r}, {n_r} ({shared} of "
-              f"them the kernel's too); err {max(err_p, err_k):.3g}")
+              f"them the kernel's too; ratio "
+              f"{n_k / max(n_r, 1):.2f}); err {max(err_p, err_k):.3g}"
+              + form_note)
 
 
 class _Records(dict):
@@ -1268,19 +1389,41 @@ class _Records(dict):
         return self[name][-1]
 
 
-def check_mma(label, sd, waves, which):
+def check_mma(label, sd, waves, which, pairs=False):
     """The tensor-core kernels named in `which` at the shapes their main
     path gives them: on the scene's own table and wavefronts, sorted by the
-    walk (_check_mma). Returns {kernel name: [a record per wavefront]}."""
+    walk (_check_mma); with `pairs` also K8's at each of PAIR_KMS on the
+    pairs of the morton-sorted wavefront, as phase 13 makes them, with the
+    whole pair walk's time. Returns {kernel name: [a record per case]}."""
+    from rustlight_tpu_torch.accel import pair_walk as pw
     from rustlight_tpu_torch.accel import walk
     from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS
     wt = sd.geom.walk
+    rows = sd.geom.inter_rows
+    resident = wt.n_clusters <= FLAT_MAX_CLUSTERS
     recs = _Records()
     for wname, rays in waves.items():
         srt = walk._prepare(wt, *rays)[:4]
-        _check_mma(f"{label}/{wname}", sd.geom.inter_rows, wt, srt, which,
-                   wt.n_clusters <= FLAT_MAX_CLUSTERS, recs, table=label,
-                   wavefront=wname)
+        tag = f"{label}/{wname}"
+        _check_mma(tag, rows, wt, srt, _walk_variants(wt, srt, which),
+                   resident, recs, table=label, wavefront=wname)
+        if not pairs:
+            continue
+        msrt = walk._prepare(wt, *rays, inc_sort=False)[:4]
+        wt_mxu = wt._replace(options=wt.options._replace(mxu_tritest=True))
+        for km in PAIR_KMS:
+            prs, _ = pw._make_pairs(wt, *msrt, km)
+            _check_mma(tag, rows, wt, prs[:4], _pair_variants(wt, prs, km),
+                       resident, recs, in_bytes=PAIR_IN_BYTES, forms=False,
+                       table=label, wavefront=wname)
+            for kname, any_hit in (("pair_closest_mma", False),
+                                   ("pair_anyhit_mma", True)):
+                rec = recs.last(kname)
+                rec["walk_ms"] = _median_ms(lambda a=any_hit: pw._pairs_impl(
+                    wt_mxu, *rays, a, km))
+                phase("mma", f"{tag} pair{km} {kname}: the kernel with its "
+                      f"cluster runs' sort {rec['ms']:.4f} ms, the whole pair "
+                      f"walk {rec['walk_ms']:.4f} ms")
     return recs
 
 
@@ -1316,7 +1459,7 @@ def check_lab(dev):
         raise AssertionError(f"mma_products: error {op_err:.3g} of a ray's "
                              "largest product: the fragment layout is off")
     prod_bytes = crow.numel() * 4 + 2 * o64.numel() * 4 + 2 * got[0].numel() * 4
-    bound, by, _ = _mma_bound_ms(1, prod_bytes)
+    bound, by, _ = _mma_bound_ms(R * K, prod_bytes)
     add("mma_products", "divergent",
         max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, ref)),
         ms=_median_ms(lambda: wl.mma_products(crow, o64, d64)),
@@ -1328,6 +1471,20 @@ def check_lab(dev):
           f"{lib_err:.3g}; limit stated in PERF.md: {MXU_OPERAND_EPS:g}); "
           f"kernel {recs['mma_products'][0]['ms']:.4f} ms, torch.matmul x 2 "
           f"{recs['mma_products'][0]['library_ms']:.4f} ms")
+    # A1: the lab's production form is the kernels' body, bit for bit
+    lanes = torch.arange(R, device=dev)
+    no, nd = wl.mma_form_lanes(wl.PRODUCTION_FORM,
+                               crow[lanes % K].contiguous(), o64, d64)
+    if not (torch.equal(no, got[0][lanes, lanes % K])
+            and torch.equal(nd, got[1][lanes, lanes % K])):
+        raise AssertionError(f"mma_form_lanes: form {wl.PRODUCTION_FORM} "
+                             "is not the kernels' products")
+    # and each form's time: A1_VISITS visits a tile of the divergent set
+    o_dv, d_dv = sets["divergent"]
+    for form, desc in enumerate(wl.MMA_FORMS):
+        recs("mma_form_visits", form=form, desc=desc, visits=A1_VISITS,
+             ms=_median_ms(lambda f=form: wl.mma_form_visits(
+                 f, wt, o_dv, d_dv, A1_VISITS)))
 
     # fma_peak
     x = torch.rand(wl.FMA_SHAPE, device=dev) + 0.5
@@ -1410,9 +1567,48 @@ def check_lab(dev):
         # the tensor-core visit: K3, the wide pop, K5 (forced onto these
         # tables), each against its plain mxu version and the _dot4 kernels
         _check_mma(f"lab/{wname}", rows, wt, srt,
-                   ("walk", "walk_wide", "walk_hier"), True, recs,
-                   table="lab", wavefront=wname)
+                   _walk_variants(wt, srt, ("walk", "walk_wide", "walk_hier")),
+                   True, recs, table="lab", wavefront=wname)
     return recs
+
+
+def a1_summary(form_recs, visit_recs):
+    """Phase 17's table of the candidate forms of the tensor-core products:
+    per set, each form's lanes outside MXU_T_RTOL / MXU_T_ATOL of the _dot4
+    kernel's t beside the plain matmul form's (and the production kernel's
+    own), and of the exact t beside the plain form's and the _dot4 form's;
+    per form, its largest ratio to the plain form on either yardstick,
+    whether it stays within A1_RATIO x of it on every set, and its time.
+    Returns the rows."""
+    from rustlight_tpu_torch.ops import walk_lab as wl
+    for r in form_recs:
+        phase("a1", f"{r['set']}: {r['lanes']} lanes hit; outside rtol "
+              f"{MXU_T_RTOL} of the _dot4 t: plain matmul form {r['plain']}, "
+              f"the kernel {r['kernel']}, forms {r['counts']}; of the exact "
+              f"t: plain matmul form {r['plain_exact']} (of "
+              f"{r['plain_lanes']}), _dot4 {r['dot4_exact']}, forms "
+              f"{r['exact']}")
+    out = []
+    for f, desc in enumerate(wl.MMA_FORMS):
+        row = {"form": f, "desc": desc,
+               "counts": [r["counts"][f] for r in form_recs],
+               "exact": [r["exact"][f] for r in form_recs]}
+        for key, plain in (("counts", "plain"), ("exact", "plain_exact")):
+            row[f"{key}_max_ratio"] = max(r[key][f] / max(r[plain], 1)
+                                          for r in form_recs)
+            row[f"{key}_within"] = all(r[key][f] <= A1_RATIO * r[plain]
+                                       for r in form_recs)
+        row["ms"] = next(v["ms"] for v in visit_recs if v["form"] == f)
+        out.append(row)
+        phase("a1", f"form {f} ({desc})"
+              f"{' [the kernels]' if f == wl.PRODUCTION_FORM else ''}: "
+              f"against the _dot4 t largest ratio to the plain form "
+              f"{row['counts_max_ratio']:.2f}, within {A1_RATIO}x on every "
+              f"set {row['counts_within']}; against the exact t "
+              f"{row['exact_max_ratio']:.2f}, {row['exact_within']}; "
+              f"{A1_VISITS} visits a tile of the lab's divergent set "
+              f"{row['ms']:.4f} ms")
+    return out
 
 
 def lab_path(dev):
@@ -1621,8 +1817,10 @@ def main() -> int:
     label = GRID_ROWS[0][0]
     gsd, _, _, waves = grids[label]
     sched_recs = check_schedules(label, gsd, waves)
-    # the tensor-core visit of K3 where phase 19's render launches it
-    mma_recs = check_mma(label, gsd, waves, ("walk",))
+    # the tensor-core visit of K3, K6 and K8 where phase 19's renders launch
+    # them
+    mma_recs = check_mma(label, gsd, waves, ("walk", "sub2", "sub4", "sub8"),
+                         pairs=True)
     sched_launches = schedule_renders(label, gsd, integ, *grid_renders[label])
     del grids, gsd, waves, grid_renders
     hier_recs, wide_recs, ao_launches = [], [], {}
@@ -1630,13 +1828,16 @@ def main() -> int:
         recs, wrecs, mrecs, launches = ao_row(dev, label, n_tris)
         hier_recs += recs
         wide_recs += wrecs
-        mma_recs.update(mrecs)
+        for k, v in mrecs.items():
+            mma_recs.setdefault(k, []).extend(v)
         for k, v in launches.items():
             ao_launches[k] = ao_launches.get(k, 0) + v
     for k in walk_launches:
         # the pair renders' fallback launches the tile walk too
         walk_launches[k] += ao_launches[k] + sched_launches[k]
     lab_recs = check_lab(dev)
+    a1 = a1_summary(mma_recs["mma_forms"] + lab_recs["mma_forms"],
+                    lab_recs["mma_form_visits"])
     lab_launches = lab_path(dev)
 
     def pick(kind):
@@ -1744,11 +1945,12 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None, "cases": cases})
     def lab_entry(name, source, replaces, launches, library_ms=None,
-                  cases=None, wave="divergent"):
-        """A kernel of phases 17-19: its numbers from the case `wave` of
-        `cases` (by default phase 17's)."""
+                  cases=None, wave="divergent", sched=None):
+        """A kernel of phases 13 and 17-19: its numbers from the case `wave`
+        (and schedule `sched`) of `cases` (by default phase 17's)."""
         cases = lab_recs[name] if cases is None else cases
-        rec = next(c for c in cases if c["wavefront"] in (wave, "-"))
+        rec = next(c for c in cases if c["wavefront"] in (wave, "-")
+                   and sched in (None, c.get("schedule")))
         return {"name": name, "route": "cuda",
                 "source": KERNEL_SOURCES[source], "replaces": replaces,
                 "launches": launches,
@@ -1757,7 +1959,8 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": library_ms,
                 "cases": [{k: c[k] for k in (
-                    "table", "wavefront", "ms", "dot4_ms", "bound_ms",
+                    "table", "wavefront", "schedule", "ms", "dot4_ms",
+                    "walk_ms", "bound_ms",
                     "tc_route_ms", "f32_route_ms", "max_abs_err", "excused",
                     "loose") if k in c} for c in cases]}
 
@@ -1786,6 +1989,19 @@ def main() -> int:
         kernels.append(lab_entry(
             name, "mma", f"{PW}:591 (MXU_TRITEST in {what})", launches[name],
             cases=mma_recs[name] + lab_recs[name], wave=wave))
+    # K6's and K8's: from grid122k's spread wavefront at the schedule its
+    # main-path render takes (sub 2; km 8), the others in `cases`
+    for name, what, sched, source in (
+            ("walk_sub_closest_mma", f"K6, {PW}:765", "sub2", "walk_sub"),
+            ("walk_sub_anyhit_mma", f"K6, {PW}:832", "sub2", "walk_sub"),
+            ("pair_closest_mma", "K8, rustlight_tpu/accel/pair_walk.py:108",
+             f"pair{PAIR_KMS[0]}", "pair"),
+            ("pair_anyhit_mma", "K8, rustlight_tpu/accel/pair_walk.py:155",
+             f"pair{PAIR_KMS[0]}", "pair")):
+        kernels.append(lab_entry(
+            name, source, f"{PW}:591 (MXU_TRITEST in {what})",
+            sched_launches[name], cases=mma_recs[name], wave="spread",
+            sched=sched))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on a "
@@ -1794,8 +2010,8 @@ def main() -> int:
     # every table and wavefront of each kernel on a line of its own, so the
     # kernels line stays short
     print(json.dumps({"kernel_cases": {k["name"]: k.pop("cases")
-                                       for k in kernels if "cases" in k}}),
-          flush=True)
+                                       for k in kernels if "cases" in k},
+                      "a1_forms": a1}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,8 +36,9 @@ takes the sub-tiled walk (K6, ops/walk_sub.py); `sparse` the sparse-visit
 walk (K7, ops/walk_sparse.py); `pair` the pair walk (K8,
 accel/pair_walk.py, dispatched by accel/dense.py); `compact_inert` and
 `inc_sort` change the sort key; `mxu_tritest` takes the tensor-core form of
-the visit's triangle test (the default, wide and two-level walks have it in
-CUDA; K6 and K8 on a card raise NotImplementedError). Where the reference
+the visit's triangle test (in CUDA for the default, wide, two-level and
+sub-tiled walks and the pair walk; the sparse-visit walk refuses it, as the
+reference does). Where the reference
 silently drops an option that cannot apply, `_walk_impl` raises ValueError:
 an explicit request never runs another kernel.
 

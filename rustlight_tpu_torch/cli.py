@@ -8,8 +8,12 @@ scene, the `path` integrator with -m/-n/-r/-x/-s (strategies all, bsdf,
 emitter), the `ao` integrator with -d/--distance (`inf` for no limit) and
 -c/--normal-correction, -n/--nbsamples, -o/--output (.pfm),
 -s/--scale-image and -r/--random-number-generator independent[:seed].
-`--device` names the torch device to render on. Every other scene or
-integrator exits with "not ported yet".
+`--device` names the torch device to render on. The reference's other
+global flags (-a -e -t -m -l -x --progress --resume --adaptive --guiding
+--aovs --feature-aovs --profile) are declared with its defaults: a flag
+left at its default is accepted, any other value exits with code 1 and
+"<flag> is not ported yet". So does every other scene, sampler or
+integrator subcommand of the reference.
 """
 from __future__ import annotations
 
@@ -21,7 +25,26 @@ import time
 _NOT_PORTED = ("direct", "light-tracing", "light", "vpl",
                "vol-primitivies", "vol-primitives", "plane-single",
                "uncorrelated-plane-single", "point-normal", "gradient-path",
-               "gradient-path-explicit", "pssmlt", "erpt", "smcmc", "avg")
+               "gradient-path-explicit", "pssmlt", "erpt", "smcmc")
+# global flags of the reference CLI that have no port yet, with its names
+# and defaults (rustlight_tpu/cli.py:44-89)
+_NOT_PORTED_FLAGS = (
+    (("-a", "--average"), dict(default=None)),
+    (("--progress",), dict(action="store_true")),
+    (("--resume",), dict(action="store_true")),
+    (("--adaptive",), dict(action="store_true")),
+    (("--guiding",), dict(action="store_true")),
+    (("--aovs",), dict(action="store_true")),
+    (("--feature-aovs",), dict(action="store_true")),
+    (("--profile",), dict(metavar="OUT.json", default=None)),
+    (("-t", "--threads"), dict(type=int, default=None)),
+    (("-e", "--equal-time"), dict(type=float, default=None)),
+    (("-m", "--medium"), dict(default="0.0")),
+    (("-l", "--log"), dict(default=None)),
+    (("-x", "--xtra-options"),
+     dict(action="append", default=[],
+          choices=["ats", "no-shading", "hvs-light", "texture-light"])),
+)
 
 
 def _inf_or(s, conv=int):
@@ -42,6 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="independent[:seed]")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (cuda, cuda:1, cpu)")
+    for names, kw in _NOT_PORTED_FLAGS:
+        ap.add_argument(*names, **kw, help="not ported yet")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser("path")
     p.add_argument("-m", "--max-depth", default="inf")
@@ -71,7 +96,12 @@ def build_integrator(args):
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for names, _ in _NOT_PORTED_FLAGS:
+        dest = names[-1].lstrip("-").replace("-", "_")
+        if getattr(args, dest) != ap.get_default(dest):
+            raise SystemExit(f"{names[-1]} is not ported yet")
     if args.command not in ("path", "ao"):
         raise SystemExit(f"integrator {args.command!r} is not ported yet")
     if args.scene != "cbox":

@@ -26,15 +26,29 @@
 // Arithmetic is IEEE f32 without contraction (tri_test.cuh), so the results
 // are bit-identical to the plain versions in ops/pair_trace.py.
 //
+// The tensor-core form of the test (tri_test_mma.cuh, not bit-identical)
+// needs the 16 rays of a fragment to share a cluster, which one pair a warp
+// cannot give. A pair's result depends only on its own ray, cluster and
+// cap, so the wrapper sorts the live pairs by cluster id and lays them out
+// in runs of 32 of one cluster (perm: the original pair of each slot, -1
+// for a pad); a warp (pair_mma_kernel) scans its 32 rays against its one
+// cluster straight from the table and writes each result to its original
+// pair. Inert pairs never enter: the wrapper fills their miss. (The
+// reference's schedule, a 64-pair tile walking its distinct cluster ids
+// with the other pairs' caps at -inf, took 2.6x as long at km = 8 on an
+// H100: PERF.md section 6.)
+//
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "tri_test.cuh"
+#include "walk_common.cuh"
 
 namespace {
+
+namespace w = rl::walk;
 
 using rl::Ray;
 using rl::load_ray;
@@ -123,6 +137,46 @@ pair_anyhit_kernel(int n_real, const float4* __restrict__ rows,
   }
 }
 
+// The sorted schedule: slot k of the layout is pair perm[k] (-1: a pad);
+// the 32 slots of a warp hold pairs of one cluster, the first a real pair
+// unless the whole warp is padding.
+template <bool ANY>
+__global__ void __launch_bounds__(PAIR_TILE)
+pair_mma_kernel(const float4* __restrict__ rows, const int* __restrict__ ids,
+                const float* __restrict__ o, const float* __restrict__ d,
+                const float* __restrict__ tnear,
+                const float* __restrict__ tcap, const int* __restrict__ cid,
+                const int* __restrict__ perm, float* __restrict__ t_out,
+                int* __restrict__ tri_out, float* __restrict__ u_out,
+                float* __restrict__ v_out, bool* __restrict__ occ_out) {
+  const int p = perm[blockIdx.x * PAIR_TILE + threadIdx.x];
+  const int lead = __shfl_sync(FULL, p, 0);
+  if (lead < 0) return;                  // warp-uniform: padding only
+  const int c = cid[lead];
+  const Ray ray = load_ray(p >= 0 ? p : lead, o, d, tnear, tcap);
+  const bool want = p >= 0 && ray.tnear < ray.tfar;
+  const w::MmaRays m = w::mma_rays(ray);
+  if (!__any_sync(FULL, want)) return;  // the wrapper filled the misses
+  const float* c_rows =
+      reinterpret_cast<const float*>(rows + static_cast<size_t>(c) * (3 * KC));
+  const float cap = want ? ray.tfar : -CUDART_INF_F;
+  if constexpr (ANY) {
+    const bool occ = w::mma_scan_anyhit<32>(c_rows, m, cap);
+    if (p >= 0) occ_out[p] = occ;
+  } else {
+    float t, u, v;
+    int j;
+    w::mma_scan_closest<32>(c_rows, m, cap, t, j, u, v);
+    if (p >= 0 && j < KC) {
+      t_out[p] = t;
+      tri_out[p] = ids[static_cast<size_t>(c) * KC + j];
+      // + 0 maps a -0 barycentric to +0, as the walk kernels' output does
+      u_out[p] = __fadd_rn(u, 0.0f);
+      v_out[p] = __fadd_rn(v, 0.0f);
+    }
+  }
+}
+
 }  // namespace
 
 // m must be a multiple of 64 (the caller pads with inert pairs).
@@ -152,6 +206,27 @@ extern "C" int rl_pair_anyhit(int n_real, const void* rows, const void* o,
       n_real, static_cast<const float4*>(rows), static_cast<const float*>(o),
       static_cast<const float*>(d), static_cast<const float*>(tnear),
       static_cast<const float*>(tfar), static_cast<const int*>(cid),
+      static_cast<bool*>(occ_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core form over the layout perm of n_slots slots (a multiple of
+// 64; see pair_mma_kernel); writes the live pairs only. any_hit picks the
+// outputs: occ_out, or t/tri/u/v_out.
+extern "C" int rl_pair_mma(int any_hit, const void* rows, const void* ids,
+                           const void* o, const void* d, const void* tnear,
+                           const void* tcap, const void* cid,
+                           const void* perm, int n_slots, void* t_out,
+                           void* tri_out, void* u_out, void* v_out,
+                           void* occ_out, void* stream) {
+  const auto k = any_hit ? pair_mma_kernel<true> : pair_mma_kernel<false>;
+  k<<<n_slots / PAIR_TILE, PAIR_TILE, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(rows), static_cast<const int*>(ids),
+      static_cast<const float*>(o), static_cast<const float*>(d),
+      static_cast<const float*>(tnear), static_cast<const float*>(tcap),
+      static_cast<const int*>(cid), static_cast<const int*>(perm),
+      static_cast<float*>(t_out), static_cast<int*>(tri_out),
+      static_cast<float*>(u_out), static_cast<float*>(v_out),
       static_cast<bool*>(occ_out));
   return static_cast<int>(cudaGetLastError());
 }

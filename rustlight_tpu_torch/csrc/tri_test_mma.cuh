@@ -4,19 +4,32 @@
 // [64, 4] x [4, 3K] matrix products at f32 accuracy and the rest of the test
 // is unchanged.
 //
-// A tile's 64 rays are four m16 row blocks; each of the block's two warps
-// takes two of them (its own 32 rays) against all KC = 384 triangles of the
-// staged cluster, eight triangles (one n8 column block per row kind N, U, V)
-// at a time, with mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32: the
-// contraction depth 4 is exactly [o, 1] or [d, 0].
+// A warp takes its 32 rays as two m16 row blocks against KC = 384 triangles,
+// eight triangles (one n8 column block per row kind N, U, V) at a time, with
+// mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32: the contraction depth
+// 4 is exactly [o, 1] or [d, 0]. The rays of a warp may test different
+// clusters (SPAN below): one for the whole warp (the tile walks K3, K3w, K5,
+// the sub-tiled walk at 32-ray groups, the pair walk), one per row block of
+// 16 rays, or one per slot of 8 rays. A row block whose two slots test two
+// clusters runs once per cluster and keeps the rows of each slot (twice
+// the products).
 //
-// Accuracy: one TF32 pass keeps 11 significand bits (about 3 decimal digits)
-// and must never decide a hit. Each operand is split x = hi + lo, hi =
-// cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and a product is the three
-// passes lo.hi + hi.lo + hi.hi accumulated in f32 (the small terms first):
-// the card's analogue of the reference's Precision.HIGHEST. The dropped
-// lo.lo term and lo's own rounding leave about 2^-22 of each term. The
-// ray operand's constant 1 and 0 are exact and have lo = 0.
+// Accuracy: one TF32 pass keeps 11 significand bits and must never decide a
+// hit. Each operand is split into three TF32 parts, x = hi + mid + lo
+// exactly (hi = cvt.rna.tf32(x), mid and lo the same of what is left: 11 +
+// 11 bits and the last two), and a product is the six passes whose terms
+// reach down to 2^-22 of the result: the five small ones, mid.mid, lo.hi,
+// hi.lo, mid.hi, hi.mid, accumulated in one f32 accumulator, and hi.hi in
+// another, the two then added in f32 (IEEE). The dropped terms are below
+// 2^-33 of the result. Kept apart, the small sum is not cut by the tensor
+// core's own accumulation of the large terms: on an H100 that order leaves
+// t outside rtol 1e-5 of the exact t (the products in float64) on 378 of
+// 37,813 hit lanes of a divergent wavefront, one accumulator for all six on
+// 2,486, the two-way split's three passes on 11,390, and a plain f32 matmul
+// on 7,006 (PERF.md section 6; the laboratory keeps every form measured,
+// walk_lab.cu). The ray side is split once a walk; the rows side as a visit
+// reads them. The ray operand's constant 1 and 0 are exact and have zero
+// mid and lo parts.
 //
 // Fragment layout (PTX ISA, m16n8k4 .tf32), g = lane / 4, q = lane % 4:
 //   A 16x4 row-major: a0 = A[g][q], a1 = A[g + 8][q];
@@ -26,8 +39,8 @@
 // A thread so holds, for each of its four rays (slot s = 2 * mt + h: lane
 // 8 * s + g of the warp), the six products of two triangles, and computes t,
 // u, v and the validity of those pairs by itself. B for row kind b of
-// triangles j0 .. j0 + 7 is word (3 * (j0 + g) + b) * 4 + q of the staged
-// rows: the 32 lanes read 32 distinct banks.
+// triangles j0 .. j0 + 7 is word (3 * (j0 + g) + b) * 4 + q of the
+// cluster's rows: the 32 lanes read 32 distinct banks.
 //
 // After the products, t, u, v, valid follow tri_test.cuh (IEEE f32, no
 // contraction). The per-ray minimum keeps the lowest column on ties: a
@@ -51,13 +64,14 @@ namespace walk {
 constexpr int TILE = 64;          // rays per tile, one thread per ray
 constexpr int WARPS = TILE / 32;
 constexpr int KC = 384;           // triangles per cluster
+constexpr int PARTS = 3;          // TF32 parts of an operand
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// The A fragments of the warp's 32 rays, hi and lo parts, and each slot's
-// tnear: constant through a walk.
+// The A fragments of the warp's 32 rays, by part, and each slot's tnear:
+// constant through a walk.
 struct MmaRays {
-  uint32_t o_hi[4], o_lo[4], d_hi[4], d_lo[4];
+  uint32_t o[PARTS][4], d[PARTS][4];
   float tnear[4];
 };
 
@@ -67,10 +81,13 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+// x = p[0] + p[1] + p[2] exactly, each part a TF32 value. Each remainder is
+// exact (Sterbenz: a part is its remainder rounded to 11 bits).
+__device__ __forceinline__ void split_tf32(float x, uint32_t (&p)[PARTS]) {
+  p[0] = to_tf32(x);
+  const float r = __fsub_rn(x, __uint_as_float(p[0]));
+  p[1] = to_tf32(r);
+  p[2] = to_tf32(__fsub_rn(r, __uint_as_float(p[1])));
 }
 
 // c += A (a0, a1) x B (b), one m16n8k4 TF32 pass with f32 accumulation.
@@ -81,16 +98,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(b));
-}
-
-// c = A x B at f32 accuracy: three passes over the split operands.
-__device__ __forceinline__ void mma_3x(float (&c)[4], const uint32_t* a_hi,
-                                       const uint32_t* a_lo, uint32_t b_hi,
-                                       uint32_t b_lo) {
-  c[0] = c[1] = c[2] = c[3] = 0.0f;
-  mma_tf32(c, a_lo[0], a_lo[1], b_hi);
-  mma_tf32(c, a_hi[0], a_hi[1], b_lo);
-  mma_tf32(c, a_hi[0], a_hi[1], b_hi);
 }
 
 // Every thread of the warp calls this with its own ray.
@@ -108,18 +115,23 @@ __device__ __forceinline__ MmaRays mma_rays(const Ray& ray) {
     const float dy = __shfl_sync(FULL, ray.dy, src);
     const float dz = __shfl_sync(FULL, ray.dz, src);
     m.tnear[s] = __shfl_sync(FULL, ray.tnear, src);
-    const float o4 = q == 0 ? ox : q == 1 ? oy : q == 2 ? oz : 1.0f;
-    const float d4 = q == 0 ? dx : q == 1 ? dy : q == 2 ? dz : 0.0f;
-    split_tf32(o4, m.o_hi[s], m.o_lo[s]);
-    split_tf32(d4, m.d_hi[s], m.d_lo[s]);
+    uint32_t po[PARTS], pd[PARTS];
+    split_tf32(q == 0 ? ox : q == 1 ? oy : q == 2 ? oz : 1.0f, po);
+    split_tf32(q == 0 ? dx : q == 1 ? dy : q == 2 ? dz : 0.0f, pd);
+#pragma unroll
+    for (int k = 0; k < PARTS; ++k) {
+      m.o[k][s] = po[k];
+      m.d[k][s] = pd[k];
+    }
   }
   return m;
 }
 
-// The B fragments of triangles j0 .. j0 + 7 of the staged cluster `f`
-// ([KC][3][4] floats), one per row kind, split.
+// The B fragments of triangles j0 .. j0 + 7 of the cluster whose rows
+// ([KC][3][4] floats, staged or in the table) start at `f`: per row kind,
+// its parts.
 struct MmaCols {
-  uint32_t hi[3], lo[3];
+  uint32_t b[3][PARTS];
 };
 
 __device__ __forceinline__ MmaCols mma_cols(const float* f, int j0) {
@@ -127,9 +139,25 @@ __device__ __forceinline__ MmaCols mma_cols(const float* f, int j0) {
   MmaCols c;
 #pragma unroll
   for (int b = 0; b < 3; ++b)
-    split_tf32(f[(3 * (j0 + (lane >> 2)) + b) * 4 + (lane & 3)], c.hi[b],
-               c.lo[b]);
+    split_tf32(f[(3 * (j0 + (lane >> 2)) + b) * 4 + (lane & 3)], c.b[b]);
   return c;
+}
+
+// c = A x B at f32 accuracy from the parts a[k] = {a0, a1} and b[k]: the
+// five small passes in one accumulator, hi.hi in another, added in f32.
+__device__ __forceinline__ void mma_f32(float (&c)[4],
+                                        const uint32_t (&a)[PARTS][2],
+                                        const uint32_t (&b)[PARTS]) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  c[0] = c[1] = c[2] = c[3] = 0.0f;
+  mma_tf32(s, a[1][0], a[1][1], b[1]);
+  mma_tf32(s, a[2][0], a[2][1], b[0]);
+  mma_tf32(s, a[0][0], a[0][1], b[2]);
+  mma_tf32(s, a[1][0], a[1][1], b[0]);
+  mma_tf32(s, a[0][0], a[0][1], b[1]);
+  mma_tf32(c, a[0][0], a[0][1], b[0]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], s[e]);
 }
 
 // The six products of row block mt (slots 2 mt, 2 mt + 1) with the columns
@@ -137,11 +165,16 @@ __device__ __forceinline__ MmaCols mma_cols(const float* f, int j0) {
 __device__ __forceinline__ void mma_products(const MmaRays& m, int mt,
                                              const MmaCols& c,
                                              float (&acc)[6][4]) {
+  uint32_t ao[PARTS][2], ad[PARTS][2];
+#pragma unroll
+  for (int k = 0; k < PARTS; ++k) {
+    ao[k][0] = m.o[k][2 * mt]; ao[k][1] = m.o[k][2 * mt + 1];
+    ad[k][0] = m.d[k][2 * mt]; ad[k][1] = m.d[k][2 * mt + 1];
+  }
 #pragma unroll
   for (int b = 0; b < 3; ++b) {
-    mma_3x(acc[2 * b], &m.o_hi[2 * mt], &m.o_lo[2 * mt], c.hi[b], c.lo[b]);
-    mma_3x(acc[2 * b + 1], &m.d_hi[2 * mt], &m.d_lo[2 * mt], c.hi[b],
-           c.lo[b]);
+    mma_f32(acc[2 * b], ao, c.b[b]);
+    mma_f32(acc[2 * b + 1], ad, c.b[b]);
   }
 }
 
@@ -158,38 +191,86 @@ __device__ __forceinline__ bool test_products(float no, float nd, float uo,
   return u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f;
 }
 
-// The whole warp scans the staged cluster for its 32 rays: on return the
-// calling thread has its own ray's nearest valid hit below `cap` (its own
-// ray's t cap; -inf takes the ray out): j < KC, with t, u, v; j = KC for
-// none. The lowest column wins among equal t.
-__device__ __forceinline__ void mma_scan_closest(const float4* s_rows,
-                                                 const MmaRays& m, float cap,
-                                                 float& t_out, int& j_out,
-                                                 float& u_out, float& v_out) {
+// Per slot of the calling thread: the best (t, column, u, v) so far; for an
+// any-hit scan a column below KC marks a hit.
+struct MmaBest {
+  float t[4], u[4], v[4];
+  int j[4];
+};
+
+// Row block mt against the columns `cols` (triangles j0 .. j0 + 7), for the
+// slots h of the block with bit h of `hsel` set.
+template <bool ANY>
+__device__ __forceinline__ void mma_step(const MmaRays& m, int mt,
+                                         const MmaCols& cols, int j0,
+                                         unsigned hsel, const float (&caps)[4],
+                                         MmaBest& b) {
+  const int q = (threadIdx.x & 31) & 3;
+  float acc[6][4];
+  mma_products(m, mt, cols, acc);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int s = 2 * mt + (e >> 1);
+    float t, u, v;
+    if (((hsel >> (e >> 1)) & 1u) &&
+        test_products(acc[0][e], acc[1][e], acc[2][e], acc[3][e], acc[4][e],
+                      acc[5][e], m.tnear[s], caps[s], t, u, v) &&
+        (ANY || t < b.t[s])) {
+      b.t[s] = t; b.u[s] = u; b.v[s] = v; b.j[s] = j0 + 2 * q + (e & 1);
+    }
+  }
+}
+
+// The whole warp scans, each of its rays against the cluster whose rows
+// start at its own `c_rows`, which is the same for the SPAN (32, 16 or 8)
+// adjacent lanes of an aligned group. On return the calling thread has its
+// own ray's nearest valid hit below `cap` (its own ray's t cap; -inf takes
+// the ray out): j < KC, with t, u, v; j = KC for none. The lowest column
+// wins among equal t. With ANY, j < KC says only that there is a hit.
+template <int SPAN, bool ANY>
+__device__ __forceinline__ void mma_scan(const float* c_rows,
+                                         const MmaRays& m, float cap,
+                                         float& t_out, int& j_out,
+                                         float& u_out, float& v_out) {
+  static_assert(SPAN == 32 || SPAN == 16 || SPAN == 8, "SPAN: 32, 16 or 8");
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const float* f = reinterpret_cast<const float*>(s_rows);
-  float caps[4], bt[4], bu[4], bv[4];
-  int bj[4];
+  const int g = lane >> 2;
+  // a slot (8 rays) takes part when one of its rays has a cap
+  const unsigned live = __ballot_sync(FULL, cap > -CUDART_INF_F);
+  const float* f[4];
+  float caps[4];
+  MmaBest b;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     caps[s] = __shfl_sync(FULL, cap, 8 * s + g);
-    bt[s] = CUDART_INF_F; bu[s] = 0.0f; bv[s] = 0.0f; bj[s] = KC;
+    f[s] = SPAN == 32 ? c_rows
+                      : reinterpret_cast<const float*>(__shfl_sync(
+                            FULL, reinterpret_cast<unsigned long long>(c_rows),
+                            (8 * s) & ~(SPAN - 1)));
+    b.t[s] = CUDART_INF_F; b.u[s] = 0.0f; b.v[s] = 0.0f; b.j[s] = KC;
   }
+  const bool slot[4] = {(live & 0xffu) != 0, (live & 0xff00u) != 0,
+                        (live & 0xff0000u) != 0, (live & 0xff000000u) != 0};
   for (int j0 = 0; j0 < KC; j0 += 8) {
-    const MmaCols cols = mma_cols(f, j0);
+    if constexpr (SPAN == 32) {
+      const MmaCols cols = mma_cols(f[0], j0);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      float acc[6][4];
-      mma_products(m, mt, cols, acc);
+      for (int mt = 0; mt < 2; ++mt)
+        if (slot[2 * mt] || slot[2 * mt + 1])
+          mma_step<ANY>(m, mt, cols, j0, 3u, caps, b);
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int s = 2 * mt + (e >> 1);
-        float t, u, v;
-        if (test_products(acc[0][e], acc[1][e], acc[2][e], acc[3][e],
-                          acc[4][e], acc[5][e], m.tnear[s], caps[s], t, u,
-                          v) && t < bt[s]) {
-          bt[s] = t; bu[s] = u; bv[s] = v; bj[s] = j0 + 2 * q + (e & 1);
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* fa = f[2 * mt];
+        const float* fb = f[2 * mt + 1];
+        if (SPAN == 16 || fa == fb) {
+          if (slot[2 * mt] || slot[2 * mt + 1])
+            mma_step<ANY>(m, mt, mma_cols(fa, j0), j0, 3u, caps, b);
+        } else {
+          if (slot[2 * mt])
+            mma_step<ANY>(m, mt, mma_cols(fa, j0), j0, 1u, caps, b);
+          if (slot[2 * mt + 1])
+            mma_step<ANY>(m, mt, mma_cols(fb, j0), j0, 2u, caps, b);
         }
       }
     }
@@ -199,12 +280,12 @@ __device__ __forceinline__ void mma_scan_closest(const float4* s_rows,
   for (int s = 0; s < 4; ++s) {
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      const float ot = __shfl_xor_sync(FULL, bt[s], off);
-      const int oj = __shfl_xor_sync(FULL, bj[s], off);
-      const float ou = __shfl_xor_sync(FULL, bu[s], off);
-      const float ov = __shfl_xor_sync(FULL, bv[s], off);
-      if (ot < bt[s] || (ot == bt[s] && oj < bj[s])) {
-        bt[s] = ot; bj[s] = oj; bu[s] = ou; bv[s] = ov;
+      const float ot = __shfl_xor_sync(FULL, b.t[s], off);
+      const int oj = __shfl_xor_sync(FULL, b.j[s], off);
+      const float ou = __shfl_xor_sync(FULL, b.u[s], off);
+      const float ov = __shfl_xor_sync(FULL, b.v[s], off);
+      if (ot < b.t[s] || (ot == b.t[s] && oj < b.j[s])) {
+        b.t[s] = ot; b.j[s] = oj; b.u[s] = ou; b.v[s] = ov;
       }
     }
   }
@@ -213,55 +294,31 @@ __device__ __forceinline__ void mma_scan_closest(const float4* s_rows,
   t_out = CUDART_INF_F; j_out = KC; u_out = 0.0f; v_out = 0.0f;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    const float t = __shfl_sync(FULL, bt[s], src);
-    const int j = __shfl_sync(FULL, bj[s], src);
-    const float u = __shfl_sync(FULL, bu[s], src);
-    const float v = __shfl_sync(FULL, bv[s], src);
+    const float t = __shfl_sync(FULL, b.t[s], src);
+    const int j = __shfl_sync(FULL, b.j[s], src);
+    const float u = __shfl_sync(FULL, b.u[s], src);
+    const float v = __shfl_sync(FULL, b.v[s], src);
     if (s == own) { t_out = t; j_out = j; u_out = u; v_out = v; }
   }
 }
 
-// The whole warp scans the staged cluster: whether the calling thread's own
-// ray has a valid hit below `cap` (its own ray's tfar; -inf takes it out).
-__device__ __forceinline__ bool mma_scan_anyhit(const float4* s_rows,
+template <int SPAN = 32>
+__device__ __forceinline__ void mma_scan_closest(const float* c_rows,
+                                                 const MmaRays& m, float cap,
+                                                 float& t_out, int& j_out,
+                                                 float& u_out, float& v_out) {
+  mma_scan<SPAN, false>(c_rows, m, cap, t_out, j_out, u_out, v_out);
+}
+
+// Whether the calling thread's own ray has a valid hit below `cap` (its own
+// ray's tfar; -inf takes it out).
+template <int SPAN = 32>
+__device__ __forceinline__ bool mma_scan_anyhit(const float* c_rows,
                                                 const MmaRays& m, float cap) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const float* f = reinterpret_cast<const float*>(s_rows);
-  float caps[4];
-  int hit[4];
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    caps[s] = __shfl_sync(FULL, cap, 8 * s + g);
-    hit[s] = 0;
-  }
-  for (int j0 = 0; j0 < KC; j0 += 8) {
-    const MmaCols cols = mma_cols(f, j0);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      float acc[6][4];
-      mma_products(m, mt, cols, acc);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int s = 2 * mt + (e >> 1);
-        float t, u, v;
-        if (test_products(acc[0][e], acc[1][e], acc[2][e], acc[3][e],
-                          acc[4][e], acc[5][e], m.tnear[s], caps[s], t, u, v))
-          hit[s] = 1;
-      }
-    }
-  }
-  const int own = lane >> 3, src = 4 * (lane & 7);
-  bool out = false;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    int h = hit[s];
-    h |= __shfl_xor_sync(FULL, h, 1);
-    h |= __shfl_xor_sync(FULL, h, 2);
-    h = __shfl_sync(FULL, h, src);
-    if (s == own) out = h != 0;
-  }
-  return out;
+  float t, u, v;
+  int j;
+  mma_scan<SPAN, true>(c_rows, m, cap, t, j, u, v);
+  return j < KC;
 }
 
 }  // namespace walk

@@ -205,7 +205,8 @@ __device__ __forceinline__ void visit_closest(
     if (!__any_sync(FULL, want)) return;
     float t, u, v;
     int j;
-    mma_scan_closest(s_rows, m, best_t, t, j, u, v);
+    mma_scan_closest(reinterpret_cast<const float*>(s_rows), m,
+                     want ? best_t : -CUDART_INF_F, t, j, u, v);
     if (j < KC) {
       best_t = t;
       best_i = ids[static_cast<size_t>(csel) * KC + j];
@@ -229,7 +230,8 @@ __device__ __forceinline__ void visit_anyhit(const float4* __restrict__ rows,
   if (!stage(rows, csel, want, s_rows)) return;
   if constexpr (MMA) {
     if (!__any_sync(FULL, want)) return;
-    if (mma_scan_anyhit(s_rows, m, want ? ray.tfar : -CUDART_INF_F))
+    if (mma_scan_anyhit(reinterpret_cast<const float*>(s_rows), m,
+                        want ? ray.tfar : -CUDART_INF_F))
       occ = true;
   } else {
     if (!want) return;

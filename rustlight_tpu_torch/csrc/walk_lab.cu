@@ -29,6 +29,15 @@
 //     for one tile of 64 rays and one cluster, written out as ao, ad
 //     [64, 3 KC] (column b * KC + j: row kind b of triangle j): the probe
 //     that checks the fragment layout and measures the split's accuracy.
+//   - the candidate forms of those products (form_products below; form 4
+//     is tri_test_mma.cuh:mma_products itself, held to the probe above bit
+//     for bit by the smoke run): mma_form_lanes gives ao and ad of row kind
+//     N for n lanes, each against its own triangle (a warp's 32 lanes as
+//     the 32 columns of its row blocks, the diagonal kept), so t = -ao / ad
+//     of each lane's hit can be held to the _dot4 form's and to the exact
+//     one; mma_form_visits times each form on `nvis` visits a tile (stage,
+//     split, products, a sum of them): the instruments that chose the
+//     production form.
 //
 // What bounds them: counted and floor, the ray-triangle tests, as the
 // production walk (walk_trace.cu); fma_peak, the FMA pipes by construction.
@@ -134,6 +143,211 @@ mma_products_kernel(const float4* __restrict__ rows,
   }
 }
 
+// The candidate forms of the products. 0-5 run on the TF32 tensor cores
+// (mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32) from operands split
+// into TF32 parts as tri_test_mma.cuh:split_tf32 splits them, x = hi + mid
+// + lo (the two-part forms take hi and mid, the remainder rounded to TF32,
+// as their hi and lo):
+//   0: lo.hi + hi.lo + hi.hi, one accumulator (PR 5's form);
+//   1: lo.lo + lo.hi + hi.lo + hi.hi, one accumulator;
+//   2: lo.hi + hi.lo in one accumulator, hi.hi in another, added in f32;
+//   3: the six passes of the three-part split down to 2^-22 (mid.mid,
+//      lo.hi, hi.lo, mid.hi, hi.mid, hi.hi), one accumulator;
+//   4: those five small passes in one accumulator, hi.hi in another, added:
+//      tri_test_mma.cuh:mma_products itself (PRODUCTION_FORM);
+//   5: those five small passes in one accumulator, hi.hi as four passes of
+//      one column of A each (each an exact product), the four added in f32
+//      in column order, then the small sum;
+//   6: one pass on the FP64 tensor cores (mma.sync.aligned.m8n8k4 .f64, a
+//      slot of 8 rays a pass), each product exact and the sum in f64, then
+//      rounded to f32.
+constexpr int PRODUCTION_FORM = 4;
+constexpr int FP64_FORM = 6;
+
+template <int FORM>
+__device__ __forceinline__ void form_f32(float (&c)[4],
+                                         const uint32_t (&a)[PARTS][2],
+                                         const uint32_t (&b)[PARTS]) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  c[0] = c[1] = c[2] = c[3] = 0.0f;
+  float (&small)[4] = FORM == 2 || FORM == 5 ? s : c;
+  if constexpr (FORM == 1) mma_tf32(small, a[1][0], a[1][1], b[1]);
+  if constexpr (FORM >= 3) {
+    mma_tf32(small, a[1][0], a[1][1], b[1]);
+    mma_tf32(small, a[2][0], a[2][1], b[0]);
+    mma_tf32(small, a[0][0], a[0][1], b[2]);
+  }
+  mma_tf32(small, a[1][0], a[1][1], b[0]);
+  mma_tf32(small, a[0][0], a[0][1], b[1]);
+  if constexpr (FORM == 5) {
+    // a thread holds column q of A: one pass per column k of hi.hi
+    const int q = threadIdx.x & 3;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float h[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_tf32(h, q == k ? a[0][0] : 0u, q == k ? a[0][1] : 0u, b[0]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[e] = k ? __fadd_rn(c[e], h[e]) : h[e];
+    }
+  } else {
+    mma_tf32(c, a[0][0], a[0][1], b[0]);
+  }
+  if constexpr (FORM == 2 || FORM == 5) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], s[e]);
+  }
+}
+
+// c0, c1 += A (a) x B (b), one m8n8k4 pass on the FP64 tensor cores.
+__device__ __forceinline__ void mma_f64(double& c0, double& c1, double a,
+                                        double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};"
+      : "+d"(c0), "+d"(c1)
+      : "d"(a), "d"(b));
+}
+
+// The f32 operand of slot s from its three parts (exact in f64).
+__device__ __forceinline__ double whole(const uint32_t (&p)[PARTS][4], int s) {
+  return static_cast<double>(__uint_as_float(p[0][s]))
+         + static_cast<double>(__uint_as_float(p[1][s]))
+         + static_cast<double>(__uint_as_float(p[2][s]));
+}
+
+// The products of row block mt in form FORM with the columns of triangles
+// j0 .. j0 + 7 of the rows at f, in mma_products' layout.
+template <int FORM>
+__device__ __forceinline__ void form_products(const MmaRays& m, int mt,
+                                              const float* f, int j0,
+                                              float (&acc)[6][4]) {
+  const int lane = threadIdx.x & 31;
+  const int col = (3 * (j0 + (lane >> 2))) * 4 + (lane & 3);
+  if constexpr (FORM == PRODUCTION_FORM) {
+    mma_products(m, mt, mma_cols(f, j0), acc);
+  } else if constexpr (FORM == FP64_FORM) {
+    // C 8x8: c0 = C[g][2q], c1 = C[g][2q + 1]; slot 2 mt + h's rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const double ao = whole(m.o, 2 * mt + h), ad = whole(m.d, 2 * mt + h);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const double bb = f[col + 4 * b];
+        double o0 = 0.0, o1 = 0.0, d0 = 0.0, d1 = 0.0;
+        mma_f64(o0, o1, ao, bb);
+        mma_f64(d0, d1, ad, bb);
+        acc[2 * b][2 * h] = __double2float_rn(o0);
+        acc[2 * b][2 * h + 1] = __double2float_rn(o1);
+        acc[2 * b + 1][2 * h] = __double2float_rn(d0);
+        acc[2 * b + 1][2 * h + 1] = __double2float_rn(d1);
+      }
+    }
+  } else {
+    uint32_t ao[PARTS][2], ad[PARTS][2];
+#pragma unroll
+    for (int k = 0; k < PARTS; ++k) {
+      ao[k][0] = m.o[k][2 * mt]; ao[k][1] = m.o[k][2 * mt + 1];
+      ad[k][0] = m.d[k][2 * mt]; ad[k][1] = m.d[k][2 * mt + 1];
+    }
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      uint32_t p[PARTS];
+      split_tf32(f[col + 4 * b], p);
+      form_f32<FORM>(acc[2 * b], ao, p);
+      form_f32<FORM>(acc[2 * b + 1], ad, p);
+    }
+  }
+}
+
+// Lane i's ray against its own triangle tri_rows[i] ([3] float4, N first):
+// no[i] = [o, 1] . N, nd[i] = [d, 0] . N. Warp lanes 8 nb + g are the
+// columns of column block nb, whose diagonal holds slot nb's rays.
+template <int FORM>
+__global__ void __launch_bounds__(TILE)
+mma_form_lanes_kernel(const float4* __restrict__ tri_rows,
+                      const float* __restrict__ o, const float* __restrict__ d,
+                      float* __restrict__ no, float* __restrict__ nd) {
+  const int i = blockIdx.x * TILE + threadIdx.x;
+  const int base = i & ~31;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const Ray ray = {o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                   d[3 * i], d[3 * i + 1], d[3 * i + 2], 0.0f, 0.0f};
+  const MmaRays m = mma_rays(ray);
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    float acc[6][4];
+    form_products<FORM>(m, nb >> 1,
+                        reinterpret_cast<const float*>(tri_rows
+                                                       + 3 * (base + 8 * nb)),
+                        0, acc);
+    if (q == (g >> 1)) {
+      const int e = 2 * (nb & 1) + (g & 1);
+      no[base + 8 * nb + g] = acc[0][e];
+      nd[base + 8 * nb + g] = acc[1][e];
+    }
+  }
+}
+
+// nvis visits a tile of cluster (tile + k) % cp: stage, then every product
+// of the visit in the form, summed: out[i / 32] is the sum of the products
+// of warp i / 32's 32 rays.
+template <int FORM>
+__global__ void __launch_bounds__(TILE)
+mma_form_visits_kernel(const float4* __restrict__ rows, int cp, int nvis,
+                       const float* __restrict__ o,
+                       const float* __restrict__ d, float* __restrict__ out) {
+  __shared__ float4 s_rows[3 * KC];
+  const int i = blockIdx.x * TILE + threadIdx.x;
+  const Ray ray = {o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                   d[3 * i], d[3 * i + 1], d[3 * i + 2], 0.0f, 0.0f};
+  const MmaRays m = mma_rays(ray);
+  const float* f = reinterpret_cast<const float*>(s_rows);
+  float sum = 0.0f;
+  for (int k = 0; k < nvis; ++k) {
+    const float4* src = rows + static_cast<size_t>((blockIdx.x + k) % cp)
+                                   * (3 * KC);
+    __syncthreads();
+    for (int r = threadIdx.x; r < 3 * KC; r += TILE) s_rows[r] = src[r];
+    __syncthreads();
+    for (int j0 = 0; j0 < KC; j0 += 8) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float acc[6][4];
+        form_products<FORM>(m, mt, f, j0, acc);
+#pragma unroll
+        for (int b = 0; b < 6; ++b)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum += acc[b][e];
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(FULL, sum, off);
+  if ((threadIdx.x & 31) == 0) out[i / 32] = sum;
+}
+
+template <int FORM>
+int launch_form_lanes(const void* tri_rows, const void* o, const void* d,
+                      int n, void* no, void* nd, void* stream) {
+  mma_form_lanes_kernel<FORM><<<n / TILE, TILE, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(tri_rows), static_cast<const float*>(o),
+      static_cast<const float*>(d), static_cast<float*>(no),
+      static_cast<float*>(nd));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int FORM>
+int launch_form_visits(const void* rows, int cp, int nvis, const void* o,
+                       const void* d, int n, void* out, void* stream) {
+  mma_form_visits_kernel<FORM><<<n / TILE, TILE, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(rows), cp, nvis, static_cast<const float*>(o),
+      static_cast<const float*>(d), static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The production closest-hit walk with the per-tile visit count in nv_out
@@ -186,4 +400,37 @@ extern "C" int rl_mma_products(const void* rows, const void* o, const void* d,
       static_cast<const float*>(d), static_cast<float*>(ao),
       static_cast<float*>(ad));
   return static_cast<int>(cudaGetLastError());
+}
+
+// tri_rows [n][3] float4 (each lane's triangle), o, d [n, 3]; no, nd [n].
+// n must be a multiple of 64; form in 0 .. 6 (form_products).
+extern "C" int rl_mma_form_lanes(int form, const void* tri_rows, const void* o,
+                                 const void* d, int n, void* no, void* nd,
+                                 void* stream) {
+  switch (form) {
+    case 0: return launch_form_lanes<0>(tri_rows, o, d, n, no, nd, stream);
+    case 1: return launch_form_lanes<1>(tri_rows, o, d, n, no, nd, stream);
+    case 2: return launch_form_lanes<2>(tri_rows, o, d, n, no, nd, stream);
+    case 3: return launch_form_lanes<3>(tri_rows, o, d, n, no, nd, stream);
+    case 4: return launch_form_lanes<4>(tri_rows, o, d, n, no, nd, stream);
+    case 5: return launch_form_lanes<5>(tri_rows, o, d, n, no, nd, stream);
+    case 6: return launch_form_lanes<6>(tri_rows, o, d, n, no, nd, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// rows: the walk tables' rows [cp * KC][3] float4; o, d [n, 3]; out [n / 32].
+extern "C" int rl_mma_form_visits(int form, const void* rows, int cp,
+                                  int nvis, const void* o, const void* d,
+                                  int n, void* out, void* stream) {
+  switch (form) {
+    case 0: return launch_form_visits<0>(rows, cp, nvis, o, d, n, out, stream);
+    case 1: return launch_form_visits<1>(rows, cp, nvis, o, d, n, out, stream);
+    case 2: return launch_form_visits<2>(rows, cp, nvis, o, d, n, out, stream);
+    case 3: return launch_form_visits<3>(rows, cp, nvis, o, d, n, out, stream);
+    case 4: return launch_form_visits<4>(rows, cp, nvis, o, d, n, out, stream);
+    case 5: return launch_form_visits<5>(rows, cp, nvis, o, d, n, out, stream);
+    case 6: return launch_form_visits<6>(rows, cp, nvis, o, d, n, out, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

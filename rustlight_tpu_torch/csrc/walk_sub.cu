@@ -34,6 +34,18 @@
 // bit-identical to the plain version in ops/walk_sub.py, which is the
 // one-level walk at a tile of GS rays.
 //
+// With MMA a visit takes the tensor-core form of the triangle test
+// (tri_test_mma.cuh, not bit-identical): mma.sync is warp-collective, so the
+// whole warp scans whenever one of its groups has a ray that wants the
+// visit, each group against its own cluster's rows, read from the table.
+// A group of 32 lanes is the warp (one cluster, as the tile walk's scan); a
+// group of 16 is an m16 row block, which takes the B fragments of its own
+// cluster, so the mma.sync count is the same; a group of 8 is half a row
+// block, which runs once per cluster of its two groups (twice the products)
+// unless both groups visit the same one. Lanes of a stopped group, rays
+// with tnear >= best t and occluded rays enter the scan with a cap of -inf,
+// and a slot of 8 rays with no cap skips its products.
+//
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError(), or cudaErrorInvalidValue for
 // a SUB it was not built for.
@@ -104,7 +116,7 @@ __device__ __forceinline__ int group_pop(int* heap, int cp, bool active) {
   return m;
 }
 
-template <int SUB>
+template <int SUB, bool MMA>
 __global__ void __launch_bounds__(TILE)
 walk_sub_closest_kernel(const float* __restrict__ lo,
                         const float* __restrict__ hi, int cp, int n_real,
@@ -121,6 +133,8 @@ walk_sub_closest_kernel(const float* __restrict__ lo,
   __shared__ TileRays s_ray;
   const int i = blockIdx.x * TILE + threadIdx.x;
   const Ray ray = load_ray(i, o, d, tnear, tfar);
+  MmaRays m{};
+  if constexpr (MMA) m = mma_rays(ray);
   load_tile(ray, s_ray);
   __syncthreads();
   group_entries<SUB>(lo, hi, cp, n_real, s_ray, s_ent);
@@ -135,10 +149,24 @@ walk_sub_closest_kernel(const float* __restrict__ lo,
   bool active = (emin & ~ID_MASK) < thresh;
   while (__any_sync(FULL, active)) {
     for (int half = 0; half < 2; ++half) {
-      if (active && ray.tnear < best_t) {
-        const int csel = min(emin & ID_MASK, cp - 1);
-        scan_closest(rows + static_cast<size_t>(csel) * (3 * KC), ids, csel,
-                     ray, best_t, best_i, best_u, best_v);
+      const bool want = active && ray.tnear < best_t;
+      const int csel = min(emin & ID_MASK, cp - 1);
+      const float4* c_rows = rows + static_cast<size_t>(csel) * (3 * KC);
+      if constexpr (MMA) {
+        if (__any_sync(FULL, want)) {
+          float t, u, v;
+          int j;
+          mma_scan_closest<GS>(reinterpret_cast<const float*>(c_rows), m,
+                               want ? best_t : -CUDART_INF_F, t, j, u, v);
+          if (j < KC) {
+            best_t = t;
+            best_i = ids[static_cast<size_t>(csel) * KC + j];
+            best_u = u;
+            best_v = v;
+          }
+        }
+      } else if (want) {
+        scan_closest(c_rows, ids, csel, ray, best_t, best_i, best_u, best_v);
       }
       const int m = group_pop<GS>(heap, cp, active);
       if (active) emin = m;
@@ -154,7 +182,7 @@ walk_sub_closest_kernel(const float* __restrict__ lo,
                 v_out);
 }
 
-template <int SUB>
+template <int SUB, bool MMA>
 __global__ void __launch_bounds__(TILE)
 walk_sub_anyhit_kernel(const float* __restrict__ lo,
                        const float* __restrict__ hi, int cp, int n_real,
@@ -169,6 +197,8 @@ walk_sub_anyhit_kernel(const float* __restrict__ lo,
   __shared__ TileRays s_ray;
   const int i = blockIdx.x * TILE + threadIdx.x;
   const Ray ray = load_ray(i, o, d, tnear, tfar);
+  MmaRays m{};
+  if constexpr (MMA) m = mma_rays(ray);
   load_tile(ray, s_ray);
   __syncthreads();
   group_entries<SUB>(lo, hi, cp, n_real, s_ray, s_ent);
@@ -182,10 +212,16 @@ walk_sub_anyhit_kernel(const float* __restrict__ lo,
   bool active = (emin & ~ID_MASK) < thresh;
   while (__any_sync(FULL, active)) {
     for (int half = 0; half < 2; ++half) {
-      if (active && !occ && ray.tnear < ray.tfar) {
-        const int csel = min(emin & ID_MASK, cp - 1);
-        if (scan_anyhit(rows + static_cast<size_t>(csel) * (3 * KC), ray))
+      const bool want = active && !occ && ray.tnear < ray.tfar;
+      const float4* c_rows =
+          rows + static_cast<size_t>(min(emin & ID_MASK, cp - 1)) * (3 * KC);
+      if constexpr (MMA) {
+        if (__any_sync(FULL, want) &&
+            mma_scan_anyhit<GS>(reinterpret_cast<const float*>(c_rows), m,
+                                want ? ray.tfar : -CUDART_INF_F))
           occ = true;
+      } else if (want && scan_anyhit(c_rows, ray)) {
+        occ = true;
       }
       const int m = group_pop<GS>(heap, cp, active);
       if (active) emin = m;
@@ -204,57 +240,59 @@ template <int SUB>
 int launch_closest(const void* lo, const void* hi, int cp, int n_real,
                    const void* rows, const void* ids, const void* o,
                    const void* d, const void* tnear, const void* tfar, int n,
-                   void* t_out, void* tri_out, void* u_out, void* v_out,
-                   void* stream) {
-  const size_t smem = static_cast<size_t>(SUB) * cp * sizeof(int);
-  if (const int err = set_smem(walk_sub_closest_kernel<SUB>, smem)) return err;
-  walk_sub_closest_kernel<SUB><<<n / TILE, TILE, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+                   int mma, void* t_out, void* tri_out, void* u_out,
+                   void* v_out, void* stream) {
+  return launch(
+      mma ? walk_sub_closest_kernel<SUB, true>
+          : walk_sub_closest_kernel<SUB, false>,
+      n / TILE, static_cast<size_t>(SUB) * cp * sizeof(int), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const int*>(ids),
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const float*>(tnear), static_cast<const float*>(tfar),
       static_cast<float*>(t_out), static_cast<int*>(tri_out),
       static_cast<float*>(u_out), static_cast<float*>(v_out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int SUB>
 int launch_anyhit(const void* lo, const void* hi, int cp, int n_real,
                   const void* rows, const void* o, const void* d,
-                  const void* tnear, const void* tfar, int n, void* occ_out,
-                  void* stream) {
-  const size_t smem = static_cast<size_t>(SUB) * cp * sizeof(int);
-  if (const int err = set_smem(walk_sub_anyhit_kernel<SUB>, smem)) return err;
-  walk_sub_anyhit_kernel<SUB><<<n / TILE, TILE, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+                  const void* tnear, const void* tfar, int n, int mma,
+                  void* occ_out, void* stream) {
+  return launch(
+      mma ? walk_sub_anyhit_kernel<SUB, true>
+          : walk_sub_anyhit_kernel<SUB, false>,
+      n / TILE, static_cast<size_t>(SUB) * cp * sizeof(int), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const float*>(o),
       static_cast<const float*>(d), static_cast<const float*>(tnear),
       static_cast<const float*>(tfar), static_cast<bool*>(occ_out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// n must be a multiple of 64 (the wrapper pads); sub is 2, 4 or 8.
+// n must be a multiple of 64 (the wrapper pads); sub is 2, 4 or 8. mma != 0
+// takes the tensor-core form of the triangle test.
 extern "C" int rl_walk_sub_closest(int sub, const void* lo, const void* hi,
                                    int cp, int n_real, const void* rows,
                                    const void* ids, const void* o,
                                    const void* d, const void* tnear,
-                                   const void* tfar, int n, void* t_out,
-                                   void* tri_out, void* u_out, void* v_out,
-                                   void* stream) {
+                                   const void* tfar, int n, int mma,
+                                   void* t_out, void* tri_out, void* u_out,
+                                   void* v_out, void* stream) {
   switch (sub) {
     case 2:
       return launch_closest<2>(lo, hi, cp, n_real, rows, ids, o, d, tnear,
-                               tfar, n, t_out, tri_out, u_out, v_out, stream);
+                               tfar, n, mma, t_out, tri_out, u_out, v_out,
+                               stream);
     case 4:
       return launch_closest<4>(lo, hi, cp, n_real, rows, ids, o, d, tnear,
-                               tfar, n, t_out, tri_out, u_out, v_out, stream);
+                               tfar, n, mma, t_out, tri_out, u_out, v_out,
+                               stream);
     case 8:
       return launch_closest<8>(lo, hi, cp, n_real, rows, ids, o, d, tnear,
-                               tfar, n, t_out, tri_out, u_out, v_out, stream);
+                               tfar, n, mma, t_out, tri_out, u_out, v_out,
+                               stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -263,17 +301,17 @@ extern "C" int rl_walk_sub_anyhit(int sub, const void* lo, const void* hi,
                                   int cp, int n_real, const void* rows,
                                   const void* o, const void* d,
                                   const void* tnear, const void* tfar, int n,
-                                  void* occ_out, void* stream) {
+                                  int mma, void* occ_out, void* stream) {
   switch (sub) {
     case 2:
       return launch_anyhit<2>(lo, hi, cp, n_real, rows, o, d, tnear, tfar, n,
-                              occ_out, stream);
+                              mma, occ_out, stream);
     case 4:
       return launch_anyhit<4>(lo, hi, cp, n_real, rows, o, d, tnear, tfar, n,
-                              occ_out, stream);
+                              mma, occ_out, stream);
     case 8:
       return launch_anyhit<8>(lo, hi, cp, n_real, rows, o, d, tnear, tfar, n,
-                              occ_out, stream);
+                              mma, occ_out, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

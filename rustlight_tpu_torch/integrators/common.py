@@ -56,11 +56,14 @@ def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
     stream_fold(make_stream(seed), s), passes of min(spp_per_pass, spp)
     samples, spp rounded up to whole passes and the sum divided by that
     count, as the reference does. Non-finite or negative sums (per sample on
-    the per-pass route) are zeroed."""
+    the per-pass route) are zeroed. An integrator with `prepare(scene)` has
+    it called once, before either route, as the reference does."""
     if variance or sampler != "independent":
         raise NotImplementedError(
             "only the independent sampler without variance AOVs is ported "
             "so far (no variance or stratified)")
+    if hasattr(integrator, "prepare"):
+        integrator.prepare(scene)
     cam = scene.camera
     w, h = cam.width, cam.height
     device = scene.device

@@ -17,6 +17,14 @@ arithmetic as the kernels, so the kernels are bit-identical to them; they
 also return the number of live pairs. The wrappers use them only for
 tensors on the CPU; a CUDA tensor launches the kernel or raises.
 
+With `mxu=True` the test takes the tensor-core form (ops/walk_trace.py,
+csrc/tri_test_mma.cuh), whose warp scans one cluster for its 32 rays: the
+wrapper sorts the live pairs by cluster id on the device and lays them out
+in runs of 32 of one cluster (`_cluster_runs`), the kernel scans each run
+against its cluster and writes each pair's result in its own place, and
+the inert pairs keep the miss the wrapper filled in. These kernels count as
+`<name>_mma`; their plain version forms the products with torch.matmul.
+
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel.
 """
 from __future__ import annotations
@@ -33,7 +41,9 @@ from .walk_trace import K, _test_clusters
 PAIR_TILE = 64
 _PAIR_CHUNK = 4096     # live pairs per [chunk, K, 3, 4] gather of rows
 
-LAUNCHES = {"pair_closest": 0, "pair_anyhit": 0}
+LAUNCHES = {"pair_closest": 0, "pair_anyhit": 0,
+            "pair_closest_mma": 0, "pair_anyhit_mma": 0}
+_RUN = 32              # pairs of one cluster a warp scans
 
 _LIB = None
 
@@ -53,16 +63,14 @@ def _load():
         lib.rl_pair_closest.restype = i
         lib.rl_pair_anyhit.argtypes = [i, p, p, p, p, p, p, i, p, p]
         lib.rl_pair_anyhit.restype = i
+        lib.rl_pair_mma.argtypes = [i, p, p, p, p, p, p, p, p, i, p, p, p, p,
+                                    p, p]
+        lib.rl_pair_mma.restype = i
         _LIB = lib
     return _LIB
 
 
-def _check(wt, o, d, tnear, tcap, cid, mxu: bool = False) -> None:
-    if mxu and o.device.type == "cuda":
-        raise NotImplementedError(
-            "the pair walk (K8) has no tensor-core form of the triangle test "
-            "on CUDA: a warp takes one pair, not a tile of rays; take "
-            "mxu_tritest with the default, wide or two-level walk")
+def _check(wt, o, d, tnear, tcap, cid) -> None:
     check_resident(wt, "the pair walk")
     cp = int(wt.n_clusters)
     m = o.shape[0]
@@ -144,15 +152,68 @@ def pair_anyhit_ref(wt, o, d, tnear, tfar, cid, mxu: bool = False):
 
 # ------------------------------------------------------------------ wrappers
 
+def _cluster_runs(n_real: int, cid):
+    """The layout of the tensor-core kernels: the live pairs sorted by
+    cluster id (stable), each cluster's run padded to whole runs of _RUN
+    slots: perm [S] int32, the pair in each slot or -1. S is the bound
+    m + (_RUN - 1) * n_real rounded up to whole tiles, so that no size
+    is read back to the host."""
+    m, dev = cid.shape[0], cid.device
+    live = (cid >= 0) & (cid < n_real)
+    key = torch.where(live, cid, n_real).long()
+    order = torch.sort(key, stable=True).indices
+    counts = torch.zeros(n_real + 1, dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    counts = counts[:n_real]
+    padded = (counts + _RUN - 1) // _RUN * _RUN
+    start = torch.cumsum(counts, 0) - counts      # first sorted pair of c
+    first = torch.cumsum(padded, 0) - padded      # first slot of c
+    n_slots = -(-(m + (_RUN - 1) * n_real) // PAIR_TILE) * PAIR_TILE
+    ks = key[order]
+    c = torch.clamp(ks, max=n_real - 1)
+    slot = first[c] + torch.arange(m, device=dev) - start[c]
+    # inert pairs go to one slot past the end, which is dropped
+    slot = torch.where(ks < n_real, slot, n_slots)
+    perm = torch.full((n_slots + 1,), -1, dtype=torch.int32, device=dev)
+    perm[slot] = order.int()
+    return perm[:n_slots].contiguous()
+
+
+def _pair_mma(wt, o, d, tnear, tcap, cid, any_hit: bool):
+    """The tensor-core kernels on a card: (t, tri, u, v) or occ."""
+    m, dev = o.shape[0], o.device
+    t = torch.full((m,), float("inf"), device=dev)
+    tri = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros(m, device=dev)
+    v = torch.zeros(m, device=dev)
+    occ = torch.zeros(m, dtype=torch.bool, device=dev)
+    name = ("pair_anyhit" if any_hit else "pair_closest") + "_mma"
+    if not m:
+        return occ if any_hit else (t, tri, u, v)
+    with torch.cuda.device(dev):
+        perm = _cluster_runs(int(wt.n_real), cid)
+        err = _load().rl_pair_mma(
+            int(any_hit), wt.rows.data_ptr(), wt.ids.data_ptr(), o.data_ptr(),
+            d.data_ptr(), tnear.data_ptr(), tcap.data_ptr(), cid.data_ptr(),
+            perm.data_ptr(), perm.shape[0], t.data_ptr(), tri.data_ptr(),
+            u.data_ptr(), v.data_ptr(), occ.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return occ if any_hit else (t, tri, u, v)
+
+
 def pair_closest(wt, o, d, tnear, tcap, cid,
                  mxu: bool = False) -> Tuple[torch.Tensor, ...]:
     """Closest hit of each pair (o, d [m, 3]; tnear, tcap [m]; cid [m]
     int32) inside its cluster of walk tables `wt`: (t, tri, u, v). `mxu`
-    (the tensor-core form of the triangle test) has a plain version only:
-    on a card it raises NotImplementedError."""
-    _check(wt, o, d, tnear, tcap, cid, mxu)
+    takes the tensor-core form of the triangle test."""
+    _check(wt, o, d, tnear, tcap, cid)
     if o.device.type == "cpu":
         return pair_closest_ref(wt, o, d, tnear, tcap, cid, mxu)[:4]
+    if mxu:
+        return _pair_mma(wt, o, d, tnear, tcap, cid, False)
     m = o.shape[0]
     t = torch.empty(m, dtype=torch.float32, device=o.device)
     tri = torch.empty(m, dtype=torch.int32, device=o.device)
@@ -174,9 +235,11 @@ def pair_closest(wt, o, d, tnear, tcap, cid,
 def pair_anyhit(wt, o, d, tnear, tfar, cid, mxu: bool = False) -> torch.Tensor:
     """Any hit of each pair inside its cluster: True = occluded. `mxu` as
     in pair_closest."""
-    _check(wt, o, d, tnear, tfar, cid, mxu)
+    _check(wt, o, d, tnear, tfar, cid)
     if o.device.type == "cpu":
         return pair_anyhit_ref(wt, o, d, tnear, tfar, cid, mxu)[0]
+    if mxu:
+        return _pair_mma(wt, o, d, tnear, tfar, cid, True)
     m = o.shape[0]
     occ = torch.empty(m, dtype=torch.bool, device=o.device)
     if m:

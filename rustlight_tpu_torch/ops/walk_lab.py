@@ -23,6 +23,12 @@ ops/native.py and called through ctypes on PyTorch's current stream.
     triangle test (csrc/tri_test_mma.cuh) for one tile and one cluster, as
     the kernels' visit computes them: the probe of their accuracy. Its
     plain versions are the _dot4-ordered products and the f32 matmul.
+  - `mma_form_lanes`, `mma_form_visits`: the candidate forms of those
+    products (MMA_FORMS; PRODUCTION_FORM is the production body): [o, 1] . N
+    and [d, 0] . N of each lane against its own triangle, whose t = -no / nd
+    is held to the _dot4 form's; and `nvis` visits a tile of products in
+    the form, summed per 32 rays, for its time. Their plain versions are
+    the _dot4 products and the f32 sum of the matmul products.
 
 counted and floor keep the _dot4 triangle test and are bit-identical to
 their plain versions; with `mxu=True` they take the tensor-core form (see
@@ -49,7 +55,16 @@ FMA_SHAPE = (RAY_TILE, 3 * K)
 
 LAUNCHES = {"walk_closest_counted": 0, "walk_floor": 0, "fma_peak": 0,
             "mma_products": 0, "walk_closest_counted_mma": 0,
-            "walk_floor_mma": 0}
+            "walk_floor_mma": 0, "mma_form_lanes": 0, "mma_form_visits": 0}
+# the candidate forms of the tensor-core products (csrc/walk_lab.cu:
+# form_f32), by index; PRODUCTION_FORM is tri_test_mma.cuh:mma_products
+MMA_FORMS = ("TF32 3 passes (lo.hi + hi.lo + hi.hi)",
+             "TF32 4 passes (+ lo.lo)", "TF32 3 passes, hi.hi apart",
+             "TF32 6 passes, 3-way split",
+             "TF32 6 passes, 3-way split, hi.hi apart",
+             "TF32 9 passes, 3-way split, hi.hi a pass per column",
+             "FP64 1 pass")
+PRODUCTION_FORM = 4
 
 _LIB = None
 
@@ -70,8 +85,11 @@ def _load():
                                       p, p]
         lib.rl_fma_peak.argtypes = [p, i, i, p, p]
         lib.rl_mma_products.argtypes = [p, p, p, p, p, p]
+        lib.rl_mma_form_lanes.argtypes = [i, p, p, p, i, p, p, p]
+        lib.rl_mma_form_visits.argtypes = [i, p, i, i, p, p, i, p, p]
         for fn in (lib.rl_walk_closest_counted, lib.rl_walk_floor,
-                   lib.rl_fma_peak, lib.rl_mma_products):
+                   lib.rl_fma_peak, lib.rl_mma_products,
+                   lib.rl_mma_form_lanes, lib.rl_mma_form_visits):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -148,6 +166,31 @@ def dot4_products(rows, o, d):
                 + x4[:, 2:3] * p[None, :, 2] + x4[:, 3:4] * p[None, :, 3])
 
     return dot(o4), dot(d4)
+
+
+def mma_form_lanes_ref(tri_rows, o, d):
+    """Plain version of mma_form_lanes, in _dot4 order: tri_rows [n, 3, 4],
+    o, d [n, 3] -> (no, nd) [n]."""
+    o4, d4 = _o4_d4(o, d)
+    n = tri_rows[:, 0]
+    return tuple(((x[:, 0] * n[:, 0] + x[:, 1] * n[:, 1]) + x[:, 2] * n[:, 2])
+                 + x[:, 3] * n[:, 3] for x in (o4, d4))
+
+
+def mma_form_visits_ref(wt, o, d, nvis: int):
+    """Plain version of mma_form_visits: per 32 rays, the f32 sum of their
+    products over visits k = 0 .. nvis - 1 of cluster (tile + k) % Cp (not
+    in the kernel's order of summation)."""
+    cp = int(wt.n_clusters)
+    rows = wt.rows.view(cp, K, 3, 4).permute(0, 3, 2, 1).reshape(cp, 4, 3 * K)
+    o4, d4 = _o4_d4(o, d)
+    tile = torch.arange(o.shape[0], device=o.device) // RAY_TILE
+    out = torch.zeros(o.shape[0], device=o.device)
+    for k in range(nvis):
+        p = rows[(tile + k) % cp]                             # [n, 4, 3K]
+        out += (torch.bmm(o4[:, None], p) + torch.bmm(d4[:, None], p)).sum(
+            dim=(1, 2))
+    return out.view(-1, 32).sum(dim=1)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -265,3 +308,64 @@ def mma_products(rows, o, d) -> Tuple[torch.Tensor, torch.Tensor]:
         raise RuntimeError(f"mma_products launch failed: CUDA error {err}")
     LAUNCHES["mma_products"] += 1
     return ao, ad
+
+
+def _check_form(form: int) -> None:
+    if form not in range(len(MMA_FORMS)):
+        raise ValueError(f"form must lie in [0, {len(MMA_FORMS)}), got {form}")
+
+
+def mma_form_lanes(form: int, tri_rows, o, d) -> Tuple[torch.Tensor, ...]:
+    """[o, 1] . N and [d, 0] . N of each lane against its own triangle in
+    candidate form `form`: tri_rows [n, 3, 4] (N, U, V rows), o, d [n, 3]
+    f32, n a multiple of 64 -> (no, nd) [n]."""
+    _check_form(form)
+    n = o.shape[0]
+    if n % RAY_TILE:
+        raise ValueError(f"{n} lanes: the probe takes whole {RAY_TILE}-lane "
+                         "tiles")
+    _check_f32("tri_rows", tri_rows, (n, 3, 4))
+    _check_f32("o", o, (n, 3))
+    _check_f32("d", d, (n, 3))
+    if o.device.type == "cpu":
+        return mma_form_lanes_ref(tri_rows, o, d)
+    no = torch.empty(n, dtype=torch.float32, device=o.device)
+    nd = torch.empty_like(no)
+    if n:
+        with torch.cuda.device(o.device):
+            err = _load().rl_mma_form_lanes(
+                int(form), tri_rows.data_ptr(), o.data_ptr(), d.data_ptr(), n,
+                no.data_ptr(), nd.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(
+                f"mma_form_lanes launch failed: CUDA error {err}")
+        LAUNCHES["mma_form_lanes"] += 1
+    return no, nd
+
+
+def mma_form_visits(form: int, wt, o, d, nvis: int) -> torch.Tensor:
+    """`nvis` visits a 64-ray tile of cluster (tile + k) % Cp of walk tables
+    `wt`, each forming all its products in candidate form `form`: the sum
+    of the products of each 32 rays, [n / 32] (a timing probe)."""
+    _check_form(form)
+    n = o.shape[0]
+    if n % RAY_TILE or nvis < 0:
+        raise ValueError(f"whole {RAY_TILE}-ray tiles and nvis >= 0, got "
+                         f"{n} rays, nvis {nvis}")
+    _check_f32("o", o, (n, 3))
+    _check_f32("d", d, (n, 3))
+    if o.device.type == "cpu":
+        return mma_form_visits_ref(wt, o, d, nvis)
+    out = torch.empty(n // 32, dtype=torch.float32, device=o.device)
+    if n:
+        with torch.cuda.device(o.device):
+            err = _load().rl_mma_form_visits(
+                int(form), wt.rows.data_ptr(), int(wt.n_clusters), int(nvis),
+                o.data_ptr(), d.data_ptr(), n, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(
+                f"mma_form_visits launch failed: CUDA error {err}")
+        LAUNCHES["mma_form_visits"] += 1
+    return out

@@ -18,6 +18,11 @@ kernels, so the kernels are bit-identical to it; it also returns the
 cluster visits per group. The wrappers use it only for tensors on the CPU;
 a CUDA tensor launches the kernel or raises.
 
+With `mxu=True` a visit takes the tensor-core form of the triangle test
+(ops/walk_trace.py, csrc/tri_test_mma.cuh), each group against its own
+cluster inside a warp's scan; these kernels count as `<name>_mma`, and
+their plain version forms the products with torch.matmul.
+
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
 """
@@ -36,7 +41,8 @@ from .walk_trace import RAY_TILE, _check_arrays, _walk_ref
 MAX_VMEM_CLUSTERS = 640
 SUBS = (2, 4, 8)
 
-LAUNCHES = {"walk_sub_closest": 0, "walk_sub_anyhit": 0}
+LAUNCHES = {"walk_sub_closest": 0, "walk_sub_anyhit": 0,
+            "walk_sub_closest_mma": 0, "walk_sub_anyhit_mma": 0}
 
 _LIB = None
 
@@ -52,10 +58,10 @@ def _load():
         lib = load_cuda()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rl_walk_sub_closest.argtypes = [i, p, p, i, i, p, p, p, p, p, p,
-                                            i, p, p, p, p, p]
+                                            i, i, p, p, p, p, p]
         lib.rl_walk_sub_closest.restype = i
         lib.rl_walk_sub_anyhit.argtypes = [i, p, p, i, i, p, p, p, p, p, i,
-                                           p, p]
+                                           i, p, p]
         lib.rl_walk_sub_anyhit.restype = i
         _LIB = lib
     return _LIB
@@ -71,12 +77,7 @@ def check_resident(wt, what: str) -> None:
             f"(the reference's resident tables); these have {cp}")
 
 
-def _check(wt, o, d, tnear, tfar, sub: int, mxu: bool = False) -> None:
-    if mxu and o.device.type == "cuda":
-        raise NotImplementedError(
-            "the sub-tiled walk (K6) has no tensor-core form of the triangle "
-            "test on CUDA: its groups live inside a warp and scan unstaged "
-            "rows; take mxu_tritest with the default, wide or two-level walk")
+def _check(wt, o, d, tnear, tfar, sub: int) -> None:
     if sub not in SUBS:
         raise ValueError(f"sub must be one of {SUBS} (groups of whole "
                          f"8-ray rows of a {RAY_TILE}-ray tile), got {sub}")
@@ -107,9 +108,8 @@ def walk_sub_closest(wt, o, d, tnear, tfar, sub: int,
                      mxu: bool = False) -> Tuple[torch.Tensor, ...]:
     """Closest hit of whole 64-ray tiles (o, d [n, 3], tnear, tfar [n]),
     each walked as `sub` groups, over walk tables `wt`: (t, tri, u, v).
-    `mxu` (the tensor-core form of the triangle test) has a plain version
-    only: on a card it raises NotImplementedError."""
-    _check(wt, o, d, tnear, tfar, sub, mxu)
+    `mxu` takes the tensor-core form of the triangle test."""
+    _check(wt, o, d, tnear, tfar, sub)
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_sub_closest_ref(wt, o, d, tnear, tfar, sub, mxu)[:4]
@@ -124,12 +124,12 @@ def walk_sub_closest(wt, o, d, tnear, tfar, sub: int,
                 sub, wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
                 int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
                 o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(),
-                n, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+                n, int(mxu), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+                v.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        name = "walk_sub_closest" + ("_mma" if mxu else "")
         if err:
-            raise RuntimeError(
-                f"walk_sub_closest launch failed: CUDA error {err}")
-        LAUNCHES["walk_sub_closest"] += 1
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LAUNCHES[name] += 1
     return t, tri, u, v
 
 
@@ -137,7 +137,7 @@ def walk_sub_anyhit(wt, o, d, tnear, tfar, sub: int,
                     mxu: bool = False) -> torch.Tensor:
     """Any hit of whole 64-ray tiles, each walked as `sub` groups: True =
     occluded. `mxu` as in walk_sub_closest."""
-    _check(wt, o, d, tnear, tfar, sub, mxu)
+    _check(wt, o, d, tnear, tfar, sub)
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_sub_anyhit_ref(wt, o, d, tnear, tfar, sub, mxu)[0]
@@ -148,10 +148,10 @@ def walk_sub_anyhit(wt, o, d, tnear, tfar, sub: int,
             err = _load().rl_walk_sub_anyhit(
                 sub, wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
                 int(wt.n_real), wt.rows.data_ptr(), o.data_ptr(),
-                d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n,
+                d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n, int(mxu),
                 occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        name = "walk_sub_anyhit" + ("_mma" if mxu else "")
         if err:
-            raise RuntimeError(
-                f"walk_sub_anyhit launch failed: CUDA error {err}")
-        LAUNCHES["walk_sub_anyhit"] += 1
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LAUNCHES[name] += 1
     return occ

@@ -18,13 +18,16 @@ The same numpy inputs, made from a seed, go to both packages:
     XLA fuses);
   - the plain mxu form against the JAX walk with MXU_TRITEST monkeypatched
     on (a ray count of its own, so the flag is live when the kernel traces),
-    for the default walk, the wide pop and the two-level walk: hit masks and
+    for the default walk, the wide pop, the two-level walk, the sub-tiled
+    walk at sub = 2 and 8 and the pair walk at km = 8: hit masks and
     occlusion equal, ids equal except on near ties or edge grazes (at most
     0.1% of lanes), t within rtol 1e-5, atol 1e-6, as
     tests/test_pallas_walk.py:316-325 holds the reference to the dense
     oracle; and against the port's own default form under the same rule;
   - `_resolve` raises for mxu_tritest with sparse; K6 and K8 take the plain
     mxu form on the CPU;
+  - the candidate forms' probes (ops/walk_lab.py:mma_form_lanes,
+    mma_form_visits) take their plain versions on the CPU;
   - each tool's main() on the CPU on a small grid writes well-formed JSON
     and keeps device rates out of it.
 Tests marked `cuda` hold each new kernel to its plain version on a card.
@@ -42,6 +45,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import rustlight_tpu.accel.pair_walk as JP
 import rustlight_tpu.accel.pallas_walk as W
 from rustlight_tpu.accel.bvh import build_bvh as jax_build_bvh
 from rustlight_tpu.models.presets import sphere_grid_mesh as jax_grid_mesh
@@ -53,6 +57,7 @@ from rustlight_tpu_torch.accel.bvh import build_bvh
 from rustlight_tpu_torch.accel.walk import WalkOptions
 from rustlight_tpu_torch.models.presets import sphere_grid_mesh
 from rustlight_tpu_torch.ops import dense_trace as dt
+from rustlight_tpu_torch.ops import pair_trace as tpt
 from rustlight_tpu_torch.ops import walk_hier as wh
 from rustlight_tpu_torch.ops import walk_lab as wl
 from rustlight_tpu_torch.ops import walk_sub as wsub
@@ -69,6 +74,9 @@ FLOOR_RTOL = 1e-6
 FMA_RTOL = 1e-4
 MXU_T_RTOL, MXU_T_ATOL, MXU_EDGE, TIE_RTOL = 1e-5, 1e-6, 1e-5, 1e-6
 MXU_EXCUSED_FRAC = 1e-3
+# the tensor-core products against the _dot4 ones, relative to each ray's
+# largest product (chip_smoke.py phase 17 measured 2.1e-7 on an H100)
+MMA_OPERAND_ERR = 5e-7
 TFAR_OCC = 2.2
 K, R = wk.K, wk.RAY_TILE
 
@@ -315,7 +323,9 @@ def _assert_mxu_agree(rows, o, d, tnear, tfar, ref, got):
     np.testing.assert_allclose(v_g[same], v_r[same], rtol=1e-4, atol=1e-4)
 
 
-MXU_CASES = {"default": {}, "wide": dict(wide=True), "hier": dict(hier=True)}
+MXU_CASES = {"default": {}, "wide": dict(wide=True), "hier": dict(hier=True),
+             "sub2": dict(sub=2), "sub8": dict(sub=8), "pair": dict(pair=True)}
+PAIR_KM = 8
 
 
 @pytest.fixture(scope="module")
@@ -341,11 +351,15 @@ def jax_mxu(soup):
                 mp.setattr(W, "MAX_VMEM_CLUSTERS", 1)
                 tables = W.build_walk_tables(jgeom)
             before = len(taken)
-            rh = W._walk_impl(tables, jo, jd, tnear, jnp.full(NR_MXU, jnp.inf),
-                              False, interpret=True, sort_rays=False, **kw)
-            occ = W._walk_impl(tables, jo, jd, tnear,
-                               jnp.full(NR_MXU, TFAR_OCC), True,
-                               interpret=True, sort_rays=False, **kw)
+            if name == "pair":
+                walk = lambda tfar, any_hit: JP._pairs_impl(
+                    tables, jo, jd, tnear, tfar, any_hit, True, PAIR_KM)
+            else:
+                walk = lambda tfar, any_hit: W._walk_impl(
+                    tables, jo, jd, tnear, tfar, any_hit, interpret=True,
+                    sort_rays=False, **kw)
+            rh = walk(jnp.full(NR_MXU, jnp.inf), False)
+            occ = walk(jnp.full(NR_MXU, TFAR_OCC), True)
             out[name] = ([np.asarray(x) for x in (rh.t, rh.tri, rh.u, rh.v)],
                          np.asarray(occ))
             assert len(taken) > before and all(taken), name
@@ -354,13 +368,19 @@ def jax_mxu(soup):
     return out
 
 
-def _port_mxu(wt, o, d, mxu, **kw):
+def _port_mxu(wt, o, d, mxu, pair=False, **kw):
     args = [_t(x[:NR_MXU]) for x in (o, d)]
     tnear = torch.full((NR_MXU,), 1e-4)
-    rh = tw._walk_impl(wt, *args, tnear, torch.full((NR_MXU,), float("inf")),
-                       False, sort_rays=False, mxu_tritest=mxu, **kw)
-    occ = tw._walk_impl(wt, *args, tnear, torch.full((NR_MXU,), TFAR_OCC),
-                        True, sort_rays=False, mxu_tritest=mxu, **kw)
+    if pair:
+        pwt = wt._replace(options=WalkOptions(pair=True, mxu_tritest=mxu))
+        walk = lambda tfar, any_hit: tpw._pairs_impl(
+            pwt, *args, tnear, tfar, any_hit, PAIR_KM)
+    else:
+        walk = lambda tfar, any_hit: tw._walk_impl(
+            wt, *args, tnear, tfar, any_hit, sort_rays=False,
+            mxu_tritest=mxu, **kw)
+    rh = walk(torch.full((NR_MXU,), float("inf")), False)
+    occ = walk(torch.full((NR_MXU,), TFAR_OCC), True)
     return [x.numpy() for x in (rh.t, rh.tri, rh.u, rh.v)], occ.numpy()
 
 
@@ -423,8 +443,8 @@ def test_resolve_carries_mxu_and_refuses_sparse(soup):
 
 
 def test_other_schedules_take_the_plain_mxu_form_on_cpu(soup):
-    """K6 and K8 have no tensor-core kernel: on the CPU their plain versions
-    take the mxu form, and agree with the default walk's ids."""
+    """On the CPU the plain versions of K6 and K8 take the mxu form, and
+    agree with the default walk's ids."""
     _, _, wt, o, d, srt = soup
     k3 = wk.walk_closest(wt, *srt, mxu=True)
     sub = wsub.walk_sub_closest(wt, *srt, 4, mxu=True)
@@ -454,12 +474,39 @@ def test_lab_wrappers_take_plain_versions_on_cpu(soup):
     assert not any(wl.LAUNCHES.values()) and not any(wk.LAUNCHES.values())
     assert set(wl.LAUNCHES) == {
         "walk_closest_counted", "walk_floor", "fma_peak", "mma_products",
-        "walk_closest_counted_mma", "walk_floor_mma"}
+        "walk_closest_counted_mma", "walk_floor_mma", "mma_form_lanes",
+        "mma_form_visits"}
     assert {k for k in wk.LAUNCHES if k.endswith("_mma")} == {
         "walk_closest_mma", "walk_anyhit_mma", "walk_closest_wide_mma",
         "walk_anyhit_wide_mma"}
+    assert {k for k in wsub.LAUNCHES if k.endswith("_mma")} == {
+        "walk_sub_closest_mma", "walk_sub_anyhit_mma"}
+    assert {k for k in tpt.LAUNCHES if k.endswith("_mma")} == {
+        "pair_closest_mma", "pair_anyhit_mma"}
     with pytest.raises(ValueError, match="2\\^14"):
         wl.walk_closest_counted(wt._replace(n_clusters=1 << 15), *srt)
+
+
+def test_form_probes_take_plain_versions_on_cpu(soup):
+    """The candidate forms' probes: on the CPU each lane's products are the
+    _dot4 ones, so t = -no / nd is K3's t on its hit lanes, bit for bit."""
+    jgeom, _, wt, _, _, srt = soup
+    t, tri, _, _ = wk.walk_closest(wt, *srt)
+    lanes = torch.nonzero(tri >= 0)[:, 0][:R * 2]
+    rows = _t(jgeom.inter_rows)[tri[lanes].long()].contiguous()
+    o, d = srt[0][lanes].contiguous(), srt[1][lanes].contiguous()
+    wl.reset_launches()
+    for form in range(len(wl.MMA_FORMS)):
+        no, nd = wl.mma_form_lanes(form, rows, o, d)
+        assert torch.equal(-no / nd, t[lanes])
+    assert 0 <= wl.PRODUCTION_FORM < len(wl.MMA_FORMS)
+    out = wl.mma_form_visits(wl.PRODUCTION_FORM, wt, *srt[:2], 3)
+    assert out.shape == (srt[0].shape[0] // 32,) and torch.isfinite(out).all()
+    assert not any(wl.LAUNCHES.values())
+    with pytest.raises(ValueError, match="form"):
+        wl.mma_form_lanes(len(wl.MMA_FORMS), rows, o, d)
+    with pytest.raises(ValueError, match="tiles"):
+        wl.mma_form_lanes(0, rows[:100], o[:100], d[:100])
 
 
 # ------------------------------------------------------------- the tools
@@ -622,6 +669,43 @@ def test_cuda_tensor_core_visit_matches_plain_mxu(soup, name):
     for a, b in zip(wl.mma_products(rows, o64, d64),
                     wl.dot4_products(rows, o64, d64)):
         scale = b.abs().amax(dim=1, keepdim=True)
-        assert float(((a - b).abs() / scale).max()) < 2e-6
-    with pytest.raises(NotImplementedError, match="tensor-core"):
-        wsub.walk_sub_closest(wt, *srt, 2, mxu=True)
+        assert float(((a - b).abs() / scale).max()) < MMA_OPERAND_ERR
+    # the sub-tiled walk takes the tensor-core form on the card too
+    before = wsub.LAUNCHES["walk_sub_closest_mma"]
+    wsub.walk_sub_closest(wt, *srt, 2, mxu=True)
+    assert wsub.LAUNCHES["walk_sub_closest_mma"] == before + 1
+
+
+SCHED_MXU = {"sub2": 2, "sub4": 4, "sub8": 8, "pair8": 8, "pair2": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCHED_MXU))
+def test_cuda_tensor_core_schedules_match_plain_mxu(soup, name):
+    """K6 (sub 2, 4, 8) and K8 (km 8, 2) with the tensor-core visit against
+    their plain mxu versions, as the default walk's above."""
+    wt, srt = _cuda_soup(soup)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = SCHED_MXU[name]
+    if name.startswith("sub"):
+        mod, args = wsub, (wt, *srt, n)
+        kernels = (wsub.walk_sub_closest, wsub.walk_sub_anyhit)
+        refs = (wsub.walk_sub_closest_ref, wsub.walk_sub_anyhit_ref)
+        names = ("walk_sub_closest_mma", "walk_sub_anyhit_mma")
+    else:
+        cids, _ = tpw._shortlist(wt, *srt, n)
+        rep = lambda x: x.repeat_interleave(n, dim=0).contiguous()
+        mod, args = tpt, (wt, *(rep(x) for x in srt), cids.reshape(-1))
+        kernels = (tpt.pair_closest, tpt.pair_anyhit)
+        refs = (tpt.pair_closest_ref, tpt.pair_anyhit_ref)
+        names = ("pair_closest_mma", "pair_anyhit_mma")
+    before = dict(mod.LAUNCHES)
+    got, occ = (k(*args, mxu=True) for k in kernels)
+    torch.cuda.synchronize()
+    assert all(mod.LAUNCHES[k] == before[k] + 1 for k in names)
+    ref, occ_ref = (r(*args, mxu=True) for r in refs)
+    assert torch.equal(got[1], ref[1])        # the soup has no near ties
+    assert torch.equal(occ, occ_ref[0])
+    hit = ref[1] >= 0
+    torch.testing.assert_close(got[0][hit], ref[0][hit], rtol=MXU_T_RTOL,
+                               atol=MXU_T_ATOL)

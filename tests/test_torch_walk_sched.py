@@ -370,6 +370,37 @@ def test_walk_options_reach_the_dispatch(grid_host, monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("sched", ["sub", "pair"])
+def test_mxu_tritest_reaches_the_schedule_kernels(grid_host, monkeypatch,
+                                                  sched):
+    """`mxu_tritest` with `sub`, and with `pair`, reaches the `mxu` argument
+    of that schedule's kernels (and of the pair walk's fallback, the tile
+    walk), from Scene options through intersect_rays / occluded_rays."""
+    import rustlight_tpu_torch.accel.pair_walk as pw
+    opts = (WalkOptions(sub=4, mxu_tritest=True) if sched == "sub"
+            else WalkOptions(pair=True, mxu_tritest=True))
+    sd = from_numpy_scene(grid_host, "cpu", walk_options=opts)
+    seen = []
+    spies = ([(tw, ("walk_sub_closest", "walk_sub_anyhit"))] if sched == "sub"
+             else [(pw, ("pair_closest", "pair_anyhit")),
+                   (tw, ("walk_closest", "walk_anyhit"))])
+    for mod, names in spies:
+        for name in names:
+            real = getattr(mod, name)
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, _r=real, **k: (
+                seen.append((_n, k.get("mxu"))), _r(*a, **k))[1])
+    o = torch.zeros((128, 3)) + torch.tensor([1.5, 1.5, -2.0])
+    d = torch.nn.functional.normalize(torch.randn(
+        (128, 3), generator=torch.Generator().manual_seed(0)) * 0.2
+        + torch.tensor([0.0, 0.0, 1.0]), dim=1)
+    rh = intersect_rays(sd.geom, o, d)
+    occluded_rays(sd.geom, o, d, torch.full((128,), 1e-4),
+                  torch.full((128,), float("inf")))
+    assert {n for n, _ in seen} == {n for _, ns in spies for n in ns}
+    assert rh.hit.any()
+    assert all(mxu is True for _, mxu in seen)
+
+
 def _cuda_soup(soup):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
