@@ -23,10 +23,17 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      K3 row) and sphere_grid(516_000) (C = 2,048, the K4 row), two
      65,536-ray wavefronts (the scene's camera rays, a point origin; rays
      from the camera rays' hits in random directions with inert, bounded
-     and empty lanes) go through the walk's sort, then the kernels and
-     their plain versions see the same tiles: ids equal except near-ties,
-     t/u/v within 1e-6, occlusion equal, no inert lane hits; times are
-     medians of 10 (kernel, and the walk with its sort), plain one run;
+     and empty lanes) go through the walk's sort, then the kernels (the
+     production form: P threads a ray, and for the any hit the ring of
+     cluster rows; and the one-thread form, P1) and their plain versions
+     see the same tiles: ids equal except near-ties, t/u/v within 1e-6,
+     occlusion equal, no inert lane hits; the lanes on which the two forms
+     differ are counted (0 expected; any must be a near tie); times are
+     medians of 10 (kernel: P1, production, production, P1 in turns; and
+     the walk with its sort), plain one run; ptxas's registers and shared
+     memory of both forms are printed (`forms` lines; every kernel's after
+     the build, `ptxas` lines, where launch_geometry's static shared
+     memory must equal ptxas's for every walk kernel in both forms);
   6. main path, grids: render(sphere_grid(n, 256, 256), path tracer depth
      5, 8 spp) for n = 122,000 and 516,000 (bench.py:132-139), warm-up
      then timed with launch counts reset just before; the image must be
@@ -49,10 +56,15 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      rays with tfar = 2 and dead lanes as it leaves them) go through the
      walk's sort, then the two-level kernels and their plain versions see
      the same tiles, all of them: ids equal except near-ties,
-     t/u/v within 1e-6, occlusion equal, no inert lane hits; kernel times
+     t/u/v within 1e-6, occlusion equal, no inert lane hits, for the
+     production form and for P1, and the two forms against each other and
+     timed as in phase 5; kernel times
      and those of the walk with its sort, forced onto the two-level route,
      are medians of 10 on the whole wavefront, plain times one run on the
-     whole wavefront (the comparison's) and one more on every 8th tile;
+     whole wavefront (the comparison's) and one more on every 8th tile.
+     On grid4p9M (the one-level route) the one-level kernels K4 too: both
+     forms against the plain one-level walk on every tile (its visits give
+     the bound), against each other and timed as in phase 5 (`walk-flat`);
  10. main path, AO: render(scene, IntegratorAO(max_distance=2), 4 spp),
      warm-up seed 0, timed seed 1 (bench.py:209-214); the image must be
      finite, the ray count 2 x 256^2 x 4 = 524,288, and the row's walk
@@ -94,7 +106,9 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      triangles, 432 clusters padded to 512) and their coherent and divergent
      ray sets at 65,536 rays, sorted by the walk: the counted walk against
      its plain version (bit-equal, visits equal per tile) and against K3
-     (bit-equal); the floor walk against its plain version (bit-equal; the
+     (bit-equal), both in the production form, and the floor walk at the
+     same threads a ray and ring; the floor against its plain version
+     (bit-equal; the
      plain one timed on every 8th tile); fma_peak against its plain version
      at 4,000 steps and one block (rtol 1e-4), then timed at the tools' size
      and at half the steps (the time must follow); the tensor-core visit of
@@ -260,6 +274,131 @@ def _bound_ms(n_tests, n_bytes):
     ops_ms = n_tests * OPS_PER_TEST / PEAK_F32_OPS * 1e3
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _form_name(form) -> str:
+    """A kernel form (threads a ray, ring) as text."""
+    p, ring = form
+    return f"P{p}" + ("+ring" if ring else "")
+
+
+_PTXAS = {}
+
+
+def _ptxas(pattern) -> str:
+    """ptxas's registers and static shared memory (and spills) of the one
+    kernel whose mangled name holds `pattern`."""
+    from rustlight_tpu_torch.ops import native
+    if not _PTXAS:
+        _PTXAS.update(native.ptxas_usage())
+    hits = [v for k, v in _PTXAS.items() if pattern in k]
+    if len(hits) != 1:
+        raise AssertionError(f"ptxas: {len(hits)} kernels match {pattern}")
+    regs, smem, spill = hits[0]
+    return f"{regs} regs, {smem} B smem" + (f", {spill} B spilled"
+                                           if spill else "")
+
+
+def _symbol(kernel, form, count=False) -> str:
+    """The mangled-name fragment of `kernel` (a PRODUCTION_FORMS name, or
+    walk_floor) in `form` (its one-thread or its split form); `count`: the
+    counted walk's."""
+    p, ring = (int(x) for x in form)
+    if (p, ring) == (1, 0):
+        return {"walk_closest": f"walk_closest_kernelILb0ELb{int(count)}EE",
+                "walk_anyhit": "walk_anyhit_kernelILb0EE",
+                "walk_hier_closest": "walk_hier_closest_kernelILb0EE",
+                "walk_hier_anyhit": "walk_hier_anyhit_kernelILb0EE",
+                "walk_floor": "walk_floor_kernelILb0EE"}[kernel]
+    if kernel == "walk_closest":
+        return f"walk_closest_split_kernelILb{int(count)}ELi{p}ELb{ring}EE"
+    if kernel in ("walk_anyhit", "walk_floor"):
+        return f"{kernel}_split_kernelILi{p}ELb{ring}EE"
+    return f"{kernel}_split_kernelILi{p}EE"
+
+
+def check_static_smem():
+    """launch_geometry's static shared memory of every walk kernel in both
+    its forms (ops/walk_trace.py:static_smem) against ptxas's report."""
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    for kernel in (*wk.PRODUCTION_FORMS, "walk_floor"):
+        split = wk.PRODUCTION_FORMS.get(kernel,
+                                        wk.PRODUCTION_FORMS["walk_closest"])
+        for form in (wk.ONE_THREAD_FORM, split):
+            for count in ((False, True) if kernel == "walk_closest"
+                          else (False,)):
+                sym = _symbol(kernel, form, count)
+                hits = [v for k, v in _PTXAS.items() if sym in k]
+                if len(hits) != 1:
+                    raise AssertionError(f"ptxas: {len(hits)} kernels "
+                                         f"match {sym}")
+                if hits[0][1] != wk.static_smem(kernel, form):
+                    raise AssertionError(
+                        f"{sym}: ptxas {hits[0][1]} B of static shared "
+                        f"memory, launch_geometry "
+                        f"{wk.static_smem(kernel, form)} B")
+    phase("ptxas", "launch_geometry's static shared memory = ptxas's on "
+          "every walk kernel in both forms")
+
+
+def ptxas_table():
+    """Every kernel of the library with ptxas's registers, static shared
+    memory and spills, one line each."""
+    import re
+    from rustlight_tpu_torch.ops import native
+    _PTXAS.update(native.ptxas_usage())
+    for name, (regs, smem, spill) in sorted(_PTXAS.items()):
+        m = re.search(r"([a-z][a-z_]*_kernel)(I(?:L[bi]\d+E)+E)?", name)
+        short = name if m is None else m.group(1) + (
+            "<" + ",".join(re.findall(r"L[bi](\d+)E", m.group(2))) + ">"
+            if m.group(2) else "")
+        phase("ptxas", f"{short}: {regs} registers, {smem} B static shared"
+              f" memory, {spill} B spilled")
+
+
+def _lanes_differ(a, b) -> "torch.Tensor":
+    """Lanes on which two kernels' outputs (tuples of [n] tensors, or one)
+    differ in any bit."""
+    import torch
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    bad = torch.zeros(a[0].shape[0], dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        bad |= x != y
+    return torch.nonzero(bad)[:, 0]
+
+
+def _forms_vs_one(tag, kernels, wt, srt, rows):
+    """The one-thread form and the production form of each of `kernels`
+    ((LAUNCHES name, wrapper) pairs) on the same tiles: the lanes that
+    differ between them (0 expected; any must be a near tie), their times
+    in turns (one-thread, production, production, one-thread; medians of
+    TIMING_RUNS each) and ptxas's lines. Returns {name: record}."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    one = wk.ONE_THREAD_FORM
+    out = {}
+    for name, fn in kernels:
+        prod = wk.PRODUCTION_FORMS[name]
+        new, old = fn(wt, *srt), fn(wt, *srt, _form=one)
+        torch.cuda.synchronize()
+        diff = _lanes_differ(new, old)
+        if diff.numel() and not _near_tie(rows, *srt, diff):
+            raise AssertionError(f"{tag} {name}: {_form_name(prod)} and P1 "
+                                 f"differ on {diff.numel()} lanes")
+        turns = [_median_ms(lambda f=f: fn(wt, *srt, _form=f))
+                 for f in (one, None, None, one)]
+        out[name] = {"form": _form_name(prod), "lanes_differ": diff.numel(),
+                     "turns_ms": turns, "ms": (turns[1] + turns[2]) / 2,
+                     "p1_ms": (turns[0] + turns[3]) / 2}
+        phase("forms", f"{tag} {name}: {_form_name(prod)} vs P1 "
+              f"{diff.numel()} lanes differ; P1, new, new, P1 "
+              + ", ".join(f"{t:.4f}" for t in turns) + " ms; P1 "
+              f"{_ptxas(_symbol(name, one))}, {_form_name(prod)} "
+              f"{_ptxas(_symbol(name, prod))}")
+    return out
 
 
 def _lanes(rng, tnear, tfar, span):
@@ -518,35 +657,40 @@ def check_walk(label, sd, rng):
              + wt.hi.numel()) * 4
     out = []
     waves = _wavefronts(sd, rng)
+    one = wk.ONE_THREAD_FORM
     for name, rays in waves.items():
         srt = walk._prepare(wt, *rays)[:4]
         closest_k = wk.walk_closest(wt, *srt)
         closest_p, tile_c = wk._walk_ref(wt, *srt, False)
         occ_k = wk.walk_anyhit(wt, *srt)
         (occ_p,), tile_a = wk._walk_ref(wt, *srt, True)
+        closest_1 = wk.walk_closest(wt, *srt, _form=one)
+        occ_1 = wk.walk_anyhit(wt, *srt, _form=one)
         torch.cuda.synchronize()
         tag = f"{label}/{name}"
         err_c, err_a, ties = _compare(tag, sd.geom.inter_rows, srt, closest_k,
                                       closest_p, occ_k, occ_p)
+        _compare(f"{tag} P1", sd.geom.inter_rows, srt, closest_1, closest_p,
+                 occ_1, occ_p)
+        forms = _forms_vs_one(tag, (("walk_closest", wk.walk_closest),
+                                    ("walk_anyhit", wk.walk_anyhit)),
+                              wt, srt, sd.geom.inter_rows)
         n = srt[0].shape[0]
         tiles = n // wk.RAY_TILE
         rec = {"table": label, "wavefront": name, "cp": wt.n_clusters,
                "n_real": wt.n_real, "rays": n, "tie_ids": ties,
                "hits": int(torch.isfinite(closest_k[0]).sum()),
                "occluded": int(occ_k.sum())}
-        for kind, visits, err, kfn, pfn, any_hit, out_b in (
-                ("closest", tile_c, err_c, wk.walk_closest,
-                 wk.walk_closest_ref, False, 16),
-                ("anyhit", tile_a, err_a, wk.walk_anyhit,
-                 wk.walk_anyhit_ref, True, 1)):
+        for kind, visits, err, pfn, any_hit, out_b in (
+                ("closest", tile_c, err_c, wk.walk_closest_ref, False, 16),
+                ("anyhit", tile_a, err_a, wk.walk_anyhit_ref, True, 1)):
             bound, by = _bound_ms(int(visits.sum()) * wk.RAY_TILE * wk.K,
                                   n * (RAY_IN_BYTES + out_b) + table)
             rec[kind] = {
                 "visits_per_tile": int(visits.sum()) / tiles,
                 "max_visits": int(visits.max()),
                 "p99_visits": float(torch.quantile(visits.double(), 0.99)),
-                "max_abs_err": err,
-                "ms": _median_ms(lambda f=kfn: f(wt, *srt)),
+                "max_abs_err": err, **forms[f"walk_{kind}"],
                 "walk_ms": _median_ms(lambda a=any_hit: walk._walk_impl(
                     wt, *rays, a)),
                 "plain_ms": _median_ms(lambda f=pfn: f(wt, *srt),
@@ -557,7 +701,8 @@ def check_walk(label, sd, rng):
               f"{ties} tie ids; " + "; ".join(
                   f"{k}: {rec[k]['visits_per_tile']:.2f} visits/tile (p99 "
                   f"{rec[k]['p99_visits']:.0f}, max {rec[k]['max_visits']}), kernel "
-                  f"{rec[k]['ms']:.4f} ms, walk+sort {rec[k]['walk_ms']:.4f} "
+                  f"{rec[k]['ms']:.4f} ms ({rec[k]['form']}; P1 "
+                  f"{rec[k]['p1_ms']:.4f}), walk+sort {rec[k]['walk_ms']:.4f} "
                   f"ms, plain {rec[k]['plain_ms']:.2f} ms, bound "
                   f"{rec[k]['bound_ms']:.4f} ms ({rec[k]['bound_by']}), err "
                   f"{rec[k]['max_abs_err']:.3g}" for k in ("closest", "anyhit")))
@@ -977,19 +1122,24 @@ def check_hier(label, sd):
     integrator's two wavefronts, sorted by the walk: every tile is compared
     (the plain versions also count the supers opened and clusters visited
     per tile, for the bound), and the plain versions are timed on every
-    HIER_SAMPLE-th tile. Returns one record per wavefront."""
+    HIER_SAMPLE-th tile; the production and one-thread forms are held to
+    each other and timed in turns (_forms_vs_one); on a row at most
+    FLAT_MAX_CLUSTERS clusters the one-level walk too (check_flat_ao).
+    Returns (one record per wavefront, the one-level walk's records)."""
     import torch
     from rustlight_tpu_torch.accel import walk
     from rustlight_tpu_torch.ops import walk_hier as wh
-    from rustlight_tpu_torch.ops.walk_trace import RAY_TILE
+    from rustlight_tpu_torch.ops.walk_trace import ONE_THREAD_FORM, RAY_TILE
     wt = sd.geom.walk
-    out = []
+    out, flat = [], []
     for name, rays in ao_wavefronts(sd).items():
         srt = walk._prepare(wt, *rays)[:4]
         n = srt[0].shape[0]
         tiles = n // RAY_TILE
         closest_k = wh.walk_hier_closest(wt, *srt)
         occ_k = wh.walk_hier_anyhit(wt, *srt)
+        closest_1 = wh.walk_hier_closest(wt, *srt, _form=ONE_THREAD_FORM)
+        occ_1 = wh.walk_hier_anyhit(wt, *srt, _form=ONE_THREAD_FORM)
         torch.cuda.synchronize()
         t0 = time.time()
         closest_p, opened_c, visits_c = wh._walk_hier_ref(wt, *srt, False)
@@ -1002,19 +1152,27 @@ def check_hier(label, sd):
         tag = f"{label}/{name}"
         err_c, err_a, ties = _compare(tag, sd.geom.inter_rows, srt, closest_k,
                                       closest_p, occ_k, occ_p)
+        _compare(f"{tag} P1", sd.geom.inter_rows, srt, closest_1, closest_p,
+                 occ_1, occ_p)
+        forms = _forms_vs_one(tag, (("walk_hier_closest",
+                                     wh.walk_hier_closest),
+                                    ("walk_hier_anyhit", wh.walk_hier_anyhit)),
+                              wt, srt, sd.geom.inter_rows)
         lanes = (torch.arange(0, tiles, HIER_SAMPLE, device=srt[0].device)
                  [:, None] * RAY_TILE
                  + torch.arange(RAY_TILE, device=srt[0].device)).reshape(-1)
         sub = [x[lanes].contiguous() for x in srt]
+        if wt.n_clusters <= walk.FLAT_MAX_CLUSTERS:
+            flat.append(check_flat_ao(label, name, sd, srt))
         rec = {"table": label, "wavefront": name, "cp": wt.n_clusters,
                "n_real": wt.n_real, "n_sup": wt.n_sup, "rays": n,
                "tie_ids": ties,
                "hits": int(torch.isfinite(closest_k[0]).sum()),
                "occluded": int(occ_k.sum())}
-        for kind, opened, visits, err, kfn, pfn, any_hit, out_b in (
-                ("closest", opened_c, visits_c, err_c, wh.walk_hier_closest,
+        for kind, opened, visits, err, pfn, any_hit, out_b in (
+                ("closest", opened_c, visits_c, err_c,
                  wh.walk_hier_closest_ref, False, 16),
-                ("anyhit", opened_a, visits_a, err_a, wh.walk_hier_anyhit,
+                ("anyhit", opened_a, visits_a, err_a,
                  wh.walk_hier_anyhit_ref, True, 1)):
             nv = int(visits.sum())
             bound, by = _bound_ms(nv * RAY_TILE * wh.K,
@@ -1023,8 +1181,7 @@ def check_hier(label, sd):
             rec[kind] = {
                 "supers_per_tile": _spread(opened),
                 "visits_per_tile": _spread(visits),
-                "max_abs_err": err,
-                "ms": _median_ms(lambda f=kfn: f(wt, *srt)),
+                "max_abs_err": err, **forms[f"walk_hier_{kind}"],
                 "walk_ms": _median_ms(lambda a=any_hit: walk._walk_impl(
                     wt, *rays, a, hier=True)),
                 "plain_ms": plain_ms[kind],
@@ -1038,14 +1195,68 @@ def check_hier(label, sd):
               "ids; " + "; ".join(
                   f"{k}: supers/tile {'%.2f, p99 %.0f, max %d' % rec[k]['supers_per_tile']}, "
                   f"visits/tile {'%.2f, p99 %.0f, max %d' % rec[k]['visits_per_tile']}, "
-                  f"kernel {rec[k]['ms']:.4f} ms, walk+sort "
+                  f"kernel {rec[k]['ms']:.4f} ms ({rec[k]['form']}; P1 "
+                  f"{rec[k]['p1_ms']:.4f}), walk+sort "
                   f"{rec[k]['walk_ms']:.4f} ms, plain {rec[k]['plain_ms']:.2f}"
                   f" ms (every tile), {rec[k]['plain_sample_ms']:.2f} ms "
                   f"({rec[k]['plain_tiles']} tiles), bound "
                   f"{rec[k]['bound_ms']:.4f} ms ({rec[k]['bound_by']}), err "
                   f"{rec[k]['max_abs_err']:.3g}" for k in ("closest", "anyhit")))
         out.append(rec)
-    return out
+    return out, flat
+
+
+def check_flat_ao(label, name, sd, srt):
+    """Phase 9 on a row at most FLAT_MAX_CLUSTERS clusters: the one-level
+    walk (K4, the row's render route) on the sorted AO wavefront `srt`:
+    both forms against the plain walk on every tile, and against each other
+    and timed as _forms_vs_one does; the bound from the plain walk's visit
+    count. Returns a record as check_walk's."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    wt = sd.geom.walk
+    rows = sd.geom.inter_rows
+    tag = f"{label}/{name} K4"
+    one = wk.ONE_THREAD_FORM
+    closest_k, occ_k = wk.walk_closest(wt, *srt), wk.walk_anyhit(wt, *srt)
+    closest_1 = wk.walk_closest(wt, *srt, _form=one)
+    occ_1 = wk.walk_anyhit(wt, *srt, _form=one)
+    torch.cuda.synchronize()
+    plain_ms = {}
+    t0 = time.time()
+    closest_p, tile_c = wk._walk_ref(wt, *srt, False)
+    torch.cuda.synchronize()
+    plain_ms["closest"] = (time.time() - t0) * 1e3
+    t0 = time.time()
+    (occ_p,), tile_a = wk._walk_ref(wt, *srt, True)
+    torch.cuda.synchronize()
+    plain_ms["anyhit"] = (time.time() - t0) * 1e3
+    err_c, err_a, ties = _compare(tag, rows, srt, closest_k, closest_p,
+                                  occ_k, occ_p)
+    _compare(f"{tag} P1", rows, srt, closest_1, closest_p, occ_1, occ_p)
+    forms = _forms_vs_one(tag, (("walk_closest", wk.walk_closest),
+                                ("walk_anyhit", wk.walk_anyhit)),
+                          wt, srt, rows)
+    n = srt[0].shape[0]
+    table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
+             + wt.hi.numel()) * 4
+    rec = {"table": label, "wavefront": name, "cp": wt.n_clusters,
+           "n_real": wt.n_real, "rays": n, "tie_ids": ties}
+    for kind, visits, err, out_b in (("closest", tile_c, err_c, 16),
+                                     ("anyhit", tile_a, err_a, 1)):
+        bound, by = _bound_ms(int(visits.sum()) * wk.RAY_TILE * wk.K,
+                              n * (RAY_IN_BYTES + out_b) + table)
+        rec[kind] = {"visits_per_tile": _spread(visits), "max_abs_err": err,
+                     **forms[f"walk_{kind}"], "plain_ms": plain_ms[kind],
+                     "bound_ms": bound, "bound_by": by}
+    phase("walk-flat", f"{tag}: Cp {wt.n_clusters}, {n} rays; plain walk on "
+          f"every tile = both forms ({ties} tie ids); " + "; ".join(
+              f"{k}: visits/tile {'%.2f, p99 %.0f, max %d' % rec[k]['visits_per_tile']}"
+              f", kernel {rec[k]['ms']:.4f} ms ({rec[k]['form']}; "
+              f"P1 {rec[k]['p1_ms']:.4f}), plain {rec[k]['plain_ms']:.2f} ms"
+              f", bound {rec[k]['bound_ms']:.4f} ms ({rec[k]['bound_by']})"
+              for k in ("closest", "anyhit")))
+    return rec
 
 
 # ------------------------------------------------------- phases 17 and 18
@@ -1556,7 +1767,8 @@ def check_lab(dev):
             plain_tiles=lanes.numel() // R, bound_ms=bound, bound_by=by)
         c, f = recs["walk_closest_counted"][-1], recs["walk_floor"][-1]
         f["plain_ms"] = f["plain_sample_ms"] * HIER_SAMPLE
-        phase("lab", f"{wname}: counted = plain = K3 bit for bit, visits/"
+        phase("lab", f"{wname} ({_form_name(wk.PRODUCTION_FORMS['walk_closest'])}"
+              f" threads a ray): counted = plain = K3 bit for bit, visits/"
               f"tile {c['visits']}; K3 {k3_ms:.4f} ms, counted "
               f"{c['ms']:.4f} ms (plain {pms:.1f} ms), floor at {nvi} visits "
               f"{f['ms']:.4f} ms = plain bit for bit (plain "
@@ -1660,7 +1872,8 @@ def ao_row(dev, label, n_tris):
     the row past FLAT_MAX_CLUSTERS clusters and phase 16 on the other. The
     two-level kernels are checked on every row; the render takes the
     reference's route: the two-level walk past FLAT_MAX_CLUSTERS clusters.
-    Returns (walk-hier records, wide records, the tensor-core kernels'
+    Returns (walk-hier records, the one-level walk's records on a row at
+    most FLAT_MAX_CLUSTERS clusters, wide records, the tensor-core kernels'
     records on this row's wavefronts, the launches of the row's main-path
     renders summed)."""
     from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS, WalkOptions
@@ -1674,7 +1887,7 @@ def ao_row(dev, label, n_tris):
           f"{sd.geom.n_tris} triangles, Cp {w.n_clusters} ({w.n_real} real),"
           f" n_sup {w.n_sup} (padded {w.n_sup_pad}), scene build "
           f"{build_s:.3f}s; route {'/'.join(kernels)}")
-    recs = check_hier(label, sd)
+    recs, flat_recs = check_hier(label, sd)
     integ = IntegratorAO(max_distance=AO_DIST)
     img, wall, warm, n_rays, launches = timed_render(label, sd, integ,
                                                      AO_SPP, seed=1)
@@ -1713,8 +1926,8 @@ def ao_row(dev, label, n_tris):
         extra = ao_option_render(
             f"{label} AO inc_sort=False", sd, WalkOptions(inc_sort=False),
             kernels, img, wall)
-    return recs, wide_recs, mma_recs, {k: launches[k] + extra[k]
-                                       for k in launches}
+    return recs, flat_recs, wide_recs, mma_recs, {
+        k: launches[k] + extra[k] for k in launches}
 
 
 def main() -> int:
@@ -1738,6 +1951,8 @@ def main() -> int:
     t0 = time.time()
     lib = native.build(verbose=True)
     phase("build", f"{lib.name} in {time.time() - t0:.2f}s")
+    ptxas_table()
+    check_static_smem()
 
     from rustlight_tpu_torch.integrators import IntegratorPathTracing
     from rustlight_tpu_torch.models import cornell_box, sphere_grid
@@ -1825,8 +2040,9 @@ def main() -> int:
     del grids, gsd, waves, grid_renders
     hier_recs, wide_recs, ao_launches = [], [], {}
     for label, n_tris in AO_ROWS:
-        recs, wrecs, mrecs, launches = ao_row(dev, label, n_tris)
+        recs, frecs, wrecs, mrecs, launches = ao_row(dev, label, n_tris)
         hier_recs += recs
+        walk_recs += frecs
         wide_recs += wrecs
         for k, v in mrecs.items():
             mma_recs.setdefault(k, []).extend(v)

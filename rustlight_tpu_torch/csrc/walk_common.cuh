@@ -3,21 +3,27 @@
 // sub-tiled kernels (walk_sub.cu, K6) and the sparse-visit kernels
 // (walk_sparse.cu, K7).
 //
-// A tile is TILE = 64 rays walked by one block of 64 threads, one thread per
-// ray. Entries are packed: the float bits of a non-negative entry distance
-// with the low mantissa bits replaced by an id (ID_BITS = 14 for clusters or
-// supers, CHILD_BITS = 7 for the children of an opened super), +inf bits for
-// no entry. Non-negative floats order as their int32 bits, so every pop is an
-// int32 min. Arithmetic is IEEE f32 without contraction (__fmul_rn,
-// __fsub_rn, __fadd_rn, __fdiv_rn) and min/max propagate NaN as
-// torch.minimum/maximum do, so the kernels are bit-identical to the plain
-// versions in ops/walk_trace.py and ops/walk_hier.py.
+// A tile is TILE = 64 rays walked by one block of NT = P x 64 threads: P
+// threads a ray (P = 1 in every kernel but the split ones of walk_flat.cuh,
+// walk_trace.cu and walk_hier.cu), the ray's P threads side by side in a
+// warp (ray threadIdx.x / P, lane threadIdx.x % P). Entries are packed: the
+// float bits of a non-negative entry distance with the low mantissa bits
+// replaced by an id (ID_BITS = 14 for clusters or supers, CHILD_BITS = 7 for
+// the children of an opened super), +inf bits for no entry. Non-negative
+// floats order as their int32 bits, so every pop is an int32 min.
+// Arithmetic is IEEE f32 without contraction (__fmul_rn, __fsub_rn,
+// __fadd_rn, __fdiv_rn) and min/max propagate NaN as torch.minimum/maximum
+// do, so the kernels are bit-identical to the plain versions in
+// ops/walk_trace.py and ops/walk_hier.py.
 //
 // A visit's triangle test has two forms, chosen by a template flag of
 // visit_closest / visit_anyhit: the _dot4 form of tri_test.cuh, one thread a
 // ray (the default, and the bit-identical one), and the tensor-core form of
 // tri_test_mma.cuh, a warp for its 32 rays.
 #pragma once
+
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -42,6 +48,8 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (isnan(a) || isnan(b)) ? CUDART_NAN_F : fmaxf(a, b);
 }
 
+// The min of v over the block's NT threads; red holds NT / 32 partials.
+template <int NT = TILE>
 __device__ __forceinline__ int block_min(int v, int* red) {
   for (int off = 16; off > 0; off >>= 1)
     v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -49,12 +57,13 @@ __device__ __forceinline__ int block_min(int v, int* red) {
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   int r = red[0];
-  for (int w = 1; w < WARPS; ++w) r = min(r, red[w]);
+  for (int w = 1; w < NT / 32; ++w) r = min(r, red[w]);
   return r;
 }
 
+template <int NT = TILE>
 __device__ __forceinline__ int block_max(int v, int* red) {
-  return -block_min(-v, red);  // v >= 0: the bits of non-negative floats
+  return -block_min<NT>(-v, red);  // v >= 0: the bits of non-negative floats
 }
 
 struct TileRays {
@@ -69,8 +78,11 @@ __device__ __forceinline__ float slab_inv(float d) {
   return __fdiv_rn(1.0f, dd);
 }
 
+// Ray threadIdx.x / P of the tile into s, written by its first thread.
+template <int P = 1>
 __device__ __forceinline__ void load_tile(const Ray& ray, TileRays& s) {
-  const int k = threadIdx.x;
+  if (threadIdx.x % P) return;
+  const int k = threadIdx.x / P;
   s.o[0][k] = ray.ox; s.o[1][k] = ray.oy; s.o[2][k] = ray.oz;
   s.inv[0][k] = slab_inv(ray.dx);
   s.inv[1][k] = slab_inv(ray.dy);
@@ -118,12 +130,14 @@ __device__ __forceinline__ int pack_entry(float e, int id, int id_mask) {
 }
 
 // s_ent[c] = packed tile entry of box c of [lo, hi] ([3, cp] f32; boxes at
-// or past n_real are pads), capped by each ray's tfar.
+// or past n_real are pads), capped by each ray's tfar. Thread c % NT writes
+// entry c.
+template <int NT = TILE>
 __device__ inline void tile_entries(const float* __restrict__ lo,
                                     const float* __restrict__ hi, int cp,
                                     int n_real, const TileRays& r,
                                     int* s_ent) {
-  for (int c = threadIdx.x; c < cp; c += TILE) {
+  for (int c = threadIdx.x; c < cp; c += NT) {
     int bits = INF_BITS;
     if (c < n_real) {
       const float l[3] = {lo[c], lo[cp + c], lo[2 * cp + c]};
@@ -136,24 +150,29 @@ __device__ inline void tile_entries(const float* __restrict__ lo,
 
 // Pops the smallest of the n entries; returns its bits (INF_BITS once all
 // are popped). Every thread has scanned s_ent before block_min's second
-// barrier; the caller puts a barrier between this pop and the next scan,
-// which publishes the clear.
+// barrier. OWNER = false: thread 0 clears the popped entry, and the caller
+// puts a barrier between this pop and the next scan, which publishes the
+// clear. OWNER = true: the thread that scans entry c (c % NT) clears it, so
+// the next pop needs no barrier before it (the split kernels).
+template <int NT = TILE, bool OWNER = false>
 __device__ __forceinline__ int pop_min(int* s_ent, int n, int id_mask,
                                        int* red) {
   int m = INF_BITS;
-  for (int c = threadIdx.x; c < n; c += TILE) m = min(m, s_ent[c]);
-  m = block_min(m, red);
-  if (threadIdx.x == 0 && m != INF_BITS) s_ent[m & id_mask] = INF_BITS;
+  for (int c = threadIdx.x; c < n; c += NT) m = min(m, s_ent[c]);
+  m = block_min<NT>(m, red);
+  const int owner = OWNER ? (m & id_mask) % NT : 0;
+  if (threadIdx.x == owner && m != INF_BITS) s_ent[m & id_mask] = INF_BITS;
   return m;
 }
 
 // Stages cluster csel's rows if any thread of the block wants them;
 // returns whether it did. The first barrier also ends the last visit.
+template <int NT = TILE>
 __device__ __forceinline__ bool stage(const float4* __restrict__ rows,
                                       int csel, bool want, float4* s_rows) {
   if (!__syncthreads_or(want)) return false;
   const float4* src = rows + static_cast<size_t>(csel) * (3 * KC);
-  for (int k = threadIdx.x; k < 3 * KC; k += TILE) s_rows[k] = src[k];
+  for (int k = threadIdx.x; k < 3 * KC; k += NT) s_rows[k] = src[k];
   __syncthreads();
   return true;
 }
@@ -239,6 +258,206 @@ __device__ __forceinline__ void visit_anyhit(const float4* __restrict__ rows,
   }
 }
 
+// ------------------------------------------------------------- split visit
+//
+// The split kernels test a visit's KC triangles with P threads a ray: lane q
+// of a ray scans the columns j = q, q + P, q + 2P, ... in ascending order
+// with the serial rule (a strict < against its running cap, which starts at
+// the visit's best_t). Then a butterfly over the ray's P lanes keeps the
+// least t, and the lowest column among equal t: (t, j) beats (t', j') when
+// t < t' or t == t' and j < j'. The serial scan's winner is the first
+// column with the least t below the cap, which is that same pair, so the
+// split visit's result is the serial one bit for bit, the winner's own u, v
+// and id included. t is compared as a float, not by its bits: a caller may
+// pass tnear < 0, so t may be negative. Every lane ends with the winner, so
+// best_t stays equal across a ray's lanes. Every thread of the warp calls
+// these (the shuffles are warp-wide); lanes whose ray does not want the
+// visit enter with want = false and leave best unchanged.
+
+template <int P>
+__device__ __forceinline__ void split_closest(const float4* c_rows,
+                                              const int* __restrict__ ids,
+                                              int csel, const Ray& ray,
+                                              bool want, float& best_t,
+                                              int& best_i, float& best_u,
+                                              float& best_v) {
+  float bt = best_t, bu = 0.0f, bv = 0.0f;
+  int bj = KC;
+  if (want) {
+    for (int j = threadIdx.x % P; j < KC; j += P) {
+      float t, u, v;
+      if (test_tri(&c_rows[3 * j], ray, bt, t, u, v)) {
+        bt = t; bj = j; bu = u; bv = v;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = P / 2; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(FULL, bt, off);
+    const int oj = __shfl_xor_sync(FULL, bj, off);
+    const float ou = __shfl_xor_sync(FULL, bu, off);
+    const float ov = __shfl_xor_sync(FULL, bv, off);
+    if (ot < bt || (ot == bt && oj < bj)) {
+      bt = ot; bj = oj; bu = ou; bv = ov;
+    }
+  }
+  if (bj < KC) {
+    best_t = bt;
+    best_i = ids[static_cast<size_t>(csel) * KC + bj];
+    best_u = bu;
+    best_v = bv;
+  }
+}
+
+// Any hit: each lane stops at its first hit; an OR over the ray's lanes.
+template <int P>
+__device__ __forceinline__ void split_anyhit(const float4* c_rows,
+                                             const Ray& ray, bool want,
+                                             bool& occ) {
+  int hit = 0;
+  if (want) {
+    for (int j = threadIdx.x % P; j < KC; j += P) {
+      float t, u, v;
+      if (test_tri(&c_rows[3 * j], ray, ray.tfar, t, u, v)) {
+        hit = 1;
+        break;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = P / 2; off > 0; off >>= 1)
+    hit |= __shfl_xor_sync(FULL, hit, off);
+  if (hit) occ = true;
+}
+
+// ------------------------------------------------------ feeding the rows
+//
+// Where a split kernel's visit finds its cluster's rows. Both feeds are
+// handed every cluster one visit ahead (prefetch), in the pop order, and
+// then take the visit's own rows (take): the pop order does not depend on a
+// visit's result, only the stop test does, so the next cluster is known a
+// visit early. The caller pops between two takes (pop_min's barriers end
+// the visit before a slot is filled again).
+
+// The stage of walk_common: one slot, copied by the block at the visit,
+// skipped when no thread wants it.
+template <int NT>
+struct StageFeed {
+  float4* slot;
+  __device__ void init() {}
+  __device__ __forceinline__ void prefetch(const float4*, int) {}
+  // cluster csel's rows (the cluster prefetched before the last one), or
+  // nullptr when no ray of the block wants them
+  __device__ __forceinline__ const float4* take(const float4* rows, int csel,
+                                                bool want) {
+    return stage<NT>(rows, csel, want, slot) ? slot : nullptr;
+  }
+  __device__ void drain() {}
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A two-slot ring of cluster rows in shared memory, filled one visit ahead
+// by Hopper's bulk asynchronous copy: thread 0 issues one
+// cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes for the
+// cluster's contiguous 3 x KC float4 (18,432 B), and the copy's completion
+// arrives on the slot's mbarrier (one arrival, the issuer's expect_tx, and
+// the bytes). Copy k goes to slot k & 1 and completes phase k >> 1 of its
+// barrier, so every thread knows the parity to wait on from the count n of
+// copies issued, which all threads keep alike. Before copy k thread 0
+// waits for copy k - 2 (the slot's last), whose visit the caller's pops
+// have ended; a ray that wants a visit waits for its copy, one that does
+// not skips it. A copy no ray then wants (or the one popped after the
+// stop) is read and dropped: cluster_of clamps every id to a real slot of
+// the table. drain() waits for the copies in flight before the block
+// exits.
+struct RingFeed {
+  float4* slot;       // two slots of 3 x KC float4
+  uint64_t* bar;      // two mbarriers
+  int n = 0;          // copies issued
+  static constexpr uint32_t BYTES = 3 * KC * sizeof(float4);
+  __device__ void init() {
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < 2; ++k)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                         smem_u32(&bar[k]))
+                     : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  __device__ __forceinline__ void prefetch(const float4* rows, int c) {
+    if (threadIdx.x == 0) {
+      const int s = n & 1;
+      if (n >= 2) mbar_wait(&bar[s], ((n - 2) >> 1) & 1);
+      // the slot's last reads (generic proxy) before the copy (async proxy)
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+              smem_u32(&bar[s])),
+          "r"(BYTES)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slot + s * 3 * KC)),
+          "l"(rows + static_cast<size_t>(c) * (3 * KC)), "r"(BYTES),
+          "r"(smem_u32(&bar[s]))
+          : "memory");
+    }
+    ++n;
+  }
+  // the rows of the cluster prefetched before the last one (copy n - 2)
+  __device__ __forceinline__ const float4* take(const float4*, int,
+                                                bool want) {
+    const int k = n - 2;
+    if (want) mbar_wait(&bar[k & 1], (k >> 1) & 1);
+    return slot + (k & 1) * 3 * KC;
+  }
+  __device__ void drain() {
+    if (threadIdx.x == 0)
+      for (int k = max(n - 2, 0); k < n; ++k)
+        mbar_wait(&bar[k & 1], (k >> 1) & 1);
+  }
+};
+
+// The shared memory of a split kernel: the tile's rays, the block's NT / 32
+// partials and the ring's two mbarriers (static); the rows' slots (one for
+// the stage, two for the ring) and then the heap of entries (dynamic).
+template <int NT>
+struct SplitShared {
+  TileRays ray;
+  uint64_t bar[2];
+  int red[NT / 32];
+};
+
+template <int NT, bool RING>
+using Feed = typename std::conditional<RING, RingFeed, StageFeed<NT>>::type;
+
+template <bool RING>
+__host__ __device__ constexpr int feed_slots() { return RING ? 2 : 1; }
+
+template <int NT, bool RING>
+__device__ __forceinline__ Feed<NT, RING> make_feed(float4* s_dyn,
+                                                    uint64_t* bar) {
+  Feed<NT, RING> f;
+  f.slot = s_dyn;
+  if constexpr (RING) f.bar = bar;
+  return f;
+}
+
 __device__ __forceinline__ void write_closest(int i, float best_t, int best_i,
                                               float best_u, float best_v,
                                               float* t_out, int* tri_out,
@@ -257,14 +476,29 @@ int set_smem(Kernel kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-// Launches `kernel` as `blocks` blocks of TILE threads with `smem` bytes of
-// dynamic shared memory on `stream`; returns cudaGetLastError().
+// Whether an entry point's (p threads a ray, ring) names the split form
+// (P, RING) that it was built with.
+template <int P, bool RING>
+inline bool is_form(int p, int ring) {
+  return p == P && (ring != 0) == RING;
+}
+
+// Launches `kernel` as `blocks` blocks of `threads` threads with `smem`
+// bytes of dynamic shared memory on `stream`; returns cudaGetLastError().
+template <typename Kernel, typename... Args>
+int launch_threads(Kernel kernel, int blocks, int threads, size_t smem,
+                   void* stream, Args... args) {
+  if (const int err = set_smem(kernel, smem)) return err;
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with TILE threads a block.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int blocks, size_t smem, void* stream,
            Args... args) {
-  if (const int err = set_smem(kernel, smem)) return err;
-  kernel<<<blocks, TILE, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
+  return launch_threads(kernel, blocks, TILE, smem, stream, args...);
 }
 
 }  // namespace walk

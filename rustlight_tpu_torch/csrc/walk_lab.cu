@@ -5,15 +5,18 @@
 // _closest_kernel_counted (:58, also called from tools/perf/tree_lab.py:80),
 // _floor_kernel (:119) and _fma_kernel (:163).
 //
-//   - counted: the production closest-hit walk (the kernel template of
-//     walk_flat.cuh, COUNT = true) with one more output, the tile's visit
-//     count, 2 per loop iteration, written to every lane. Its hits are the
-//     production kernel's, bit for bit.
-//   - floor: the same visit (stage + scan + best update: visit_closest of
-//     walk_common.cuh) under a free schedule: nv_total visits a tile with
-//     csel = i % cp, no entry pass, no pops, no threshold. Its time is what
-//     the visits cost when the traversal logic is free, so production /
-//     floor is the schedule's overhead. Bit-identical to its plain version
+//   - counted: the production closest-hit walk (the kernel templates of
+//     walk_flat.cuh, COUNT = true, in the form the wrapper passes: the
+//     split form by default, or one thread a ray) with one more output, the tile's
+//     visit count, 2 per loop iteration, written to every lane. Its hits
+//     are the production kernel's, bit for bit.
+//   - floor: the same visit (walk_floor_kernel: stage + scan + best update,
+//     visit_closest of walk_common.cuh; walk_floor_split_kernel: the split
+//     visit at the closest-hit kernel's P threads a ray and feed) under a free
+//     schedule: nv_total visits a tile with csel = i % cp, no entry pass,
+//     no pops, no threshold. Its time is what the visits cost when the
+//     traversal logic is free, so production / floor, at the same P and
+//     feed, is the schedule's overhead. Bit-identical to its plain version
 //     in ops/walk_lab.py.
 //   - fma_peak: two independent chains per element of a [64, 3 KC] f32
 //     block, a = a * 1.000001 + 0.5 and b = b * 0.999999 + 0.25 from a = x,
@@ -74,6 +77,46 @@ walk_floor_kernel(int cp, int nv_total, const float4* __restrict__ rows,
   for (int k = 0; k < nv_total; ++k)
     visit_closest<MMA>(rows, ids, k % cp, ray, s_rows, best_t, best_i, best_u,
                        best_v, m);
+  write_closest(i, best_t, best_i, best_u, best_v, t_out, tri_out, u_out,
+                v_out);
+}
+
+// The floor at P threads a ray with the split visit and the feed of the
+// production form (walk_common.cuh): cluster k % cp at visit k, the next
+// one handed to the feed a visit ahead, a barrier after each visit (the
+// production kernel's pops end a visit so).
+template <int P, bool RING>
+__global__ void __launch_bounds__(P * TILE)
+walk_floor_split_kernel(int cp, int nv_total, const float4* __restrict__ rows,
+                        const int* __restrict__ ids,
+                        const float* __restrict__ o,
+                        const float* __restrict__ d,
+                        const float* __restrict__ tnear,
+                        const float* __restrict__ tfar,
+                        float* __restrict__ t_out, int* __restrict__ tri_out,
+                        float* __restrict__ u_out,
+                        float* __restrict__ v_out) {
+  constexpr int NT = P * TILE;
+  extern __shared__ float4 s_dyn[];
+  __shared__ uint64_t s_bar[2];
+  const int i = blockIdx.x * TILE + threadIdx.x / P;
+  const Ray ray = load_ray(i, o, d, tnear, tfar);
+  auto feed = make_feed<NT, RING>(s_dyn, s_bar);
+  feed.init();
+  __syncthreads();
+  float best_t = ray.tfar, best_u = 0.0f, best_v = 0.0f;
+  int best_i = -1;
+  feed.prefetch(rows, 0);
+  for (int k = 0; k < nv_total; ++k) {
+    feed.prefetch(rows, (k + 1) % cp);
+    const bool want = ray.tnear < best_t;
+    if (const float4* c_rows = feed.take(rows, k % cp, want))
+      split_closest<P>(c_rows, ids, k % cp, ray, want, best_t, best_i, best_u,
+                       best_v);
+    if constexpr (RING) __syncthreads();
+  }
+  feed.drain();
+  if (threadIdx.x % P) return;
   write_closest(i, best_t, best_i, best_u, best_v, t_out, tri_out, u_out,
                 v_out);
 }
@@ -351,15 +394,21 @@ int launch_form_visits(const void* rows, int cp, int nvis, const void* o,
 }  // namespace
 
 // The production closest-hit walk with the per-tile visit count in nv_out
-// [n] int32. n must be a multiple of 64.
+// [n] int32, in the form (p, ring) and with the smem of walk_trace.cu's
+// rl_walk_closest. n must be a multiple of 64.
 extern "C" int rl_walk_closest_counted(
     const void* lo, const void* hi, int cp, int n_real, const void* rows,
     const void* ids, const void* o, const void* d, const void* tnear,
-    const void* tfar, int n, int mma, void* t_out, void* tri_out, void* u_out,
-    void* v_out, void* nv_out, void* stream) {
-  return launch(
-      mma ? walk_closest_kernel<true, true> : walk_closest_kernel<false, true>,
-      n / TILE, static_cast<size_t>(cp) * sizeof(int), stream,
+    const void* tfar, int n, int mma, int p, int ring, int smem, void* t_out,
+    void* tri_out, void* u_out, void* v_out, void* nv_out, void* stream) {
+  const bool one = p == 1 && !ring;
+  if (!one && (mma || !is_form<CLOSEST_P, CLOSEST_RING>(p, ring)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_threads(
+      one ? (mma ? walk_closest_kernel<true, true>
+                 : walk_closest_kernel<false, true>)
+          : walk_closest_split_kernel<true, CLOSEST_P, CLOSEST_RING>,
+      n / TILE, p * TILE, static_cast<size_t>(smem), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const int*>(ids),
       static_cast<const float*>(o), static_cast<const float*>(d),
@@ -369,19 +418,26 @@ extern "C" int rl_walk_closest_counted(
       static_cast<int*>(nv_out));
 }
 
+// The floor walk, in the form (p, ring) as above: smem holds the feed's
+// slots (the one-thread-a-ray form stages into static memory).
 extern "C" int rl_walk_floor(int cp, int nv_total, const void* rows,
                              const void* ids, const void* o, const void* d,
                              const void* tnear, const void* tfar, int n,
-                             int mma, void* t_out, void* tri_out, void* u_out,
-                             void* v_out, void* stream) {
-  return launch(
-      mma ? walk_floor_kernel<true> : walk_floor_kernel<false>, n / TILE, 0,
-      stream, cp, nv_total, static_cast<const float4*>(rows),
-      static_cast<const int*>(ids), static_cast<const float*>(o),
-      static_cast<const float*>(d), static_cast<const float*>(tnear),
-      static_cast<const float*>(tfar), static_cast<float*>(t_out),
-      static_cast<int*>(tri_out), static_cast<float*>(u_out),
-      static_cast<float*>(v_out));
+                             int mma, int p, int ring, int smem, void* t_out,
+                             void* tri_out, void* u_out, void* v_out,
+                             void* stream) {
+  const bool one = p == 1 && !ring;
+  if (!one && (mma || !is_form<CLOSEST_P, CLOSEST_RING>(p, ring)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_threads(
+      one ? (mma ? walk_floor_kernel<true> : walk_floor_kernel<false>)
+          : walk_floor_split_kernel<CLOSEST_P, CLOSEST_RING>,
+      n / TILE, p * TILE, static_cast<size_t>(smem), stream, cp, nv_total,
+      static_cast<const float4*>(rows), static_cast<const int*>(ids),
+      static_cast<const float*>(o), static_cast<const float*>(d),
+      static_cast<const float*>(tnear), static_cast<const float*>(tfar),
+      static_cast<float*>(t_out), static_cast<int*>(tri_out),
+      static_cast<float*>(u_out), static_cast<float*>(v_out));
 }
 
 // x, y: [64, 3 KC] f32.

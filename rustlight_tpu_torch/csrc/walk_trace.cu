@@ -13,10 +13,14 @@
 // ids [Cp*KC] i32 (-1 in pad slots, whose rows are zero and never hit),
 // cluster bounds lo/hi [3, Cp] f32; the first n_real clusters are real.
 //
-// One block of TILE = 64 threads per 64-ray tile, one thread per ray, in the
-// order the caller passes the rays (RAY_TILE of the reference). The schedule
-// is the reference kernels', so the visit order, and the winner on exact
-// ties, are theirs:
+// One block per 64-ray tile, in the order the caller passes the rays
+// (RAY_TILE of the reference): P x 64 threads, P threads a ray, in the
+// split form that the wrappers launch by default (walk_flat.cuh:
+// walk_closest_split_kernel, walk_anyhit_split_kernel below), or 64, one
+// thread a ray (walk_closest_kernel, walk_anyhit_kernel: the tensor-core
+// visit, and the form the smoke run times beside the split one). The
+// schedule is the reference kernels', so the visit order, and the winner on
+// exact ties, are theirs:
 //   - entry pass (_tile_entries): for every cluster, the minimum over the
 //     tile's rays of the slab entry max(tmin, tnear), valid where
 //     tmax >= entry and entry < tfar; its float bits with the cluster id
@@ -26,10 +30,12 @@
 //   - pop (_pop_min): a block-wide min over those bits; the popped entry is
 //     cleared (its id locates it, so this is the reference's clear by bit
 //     equality); csel = bits & 0x3FFF, clamped to Cp - 1.
-//   - visit (_test_rows): the cluster's 384 triangles are staged into shared
-//     memory (18 KB) and each thread tests its ray in column order with the
-//     shared Baldwin-Weber test (tri_test.cuh) against t in (tnear, best_t):
-//     the lowest column wins inside a cluster, a strict < across clusters.
+//   - visit (_test_rows): the cluster's 384 triangles are in shared memory
+//     (18 KB) and a ray's threads test it with the shared Baldwin-Weber test
+//     (tri_test.cuh) against t in (tnear, best_t): one thread in column
+//     order, or P threads each every P-th column, then a (t, column) min
+//     over them (walk_common.cuh: the split visit); either way the lowest
+//     column wins inside a cluster, a strict < across clusters.
 //   - two visits per termination check; then the threshold becomes the
 //     block max of best-t bits (any hit: of occ ? 0 : tfar), and the walk
 //     stops when the popped entry with its id bits cleared reaches it, or
@@ -45,14 +51,24 @@
 // What bounds it: the ray-triangle tests, visits x 64 x 384 per tile at
 // about 25 f32 operations each; the tables are 6.3 MB of rows at 131k
 // triangles and 29 MB at 608k, plus a quarter of that in ids, and both fit
-// the 50 MB L2, so after the first touch a visit's 18 KB stage is an L2
-// read. The design keeps all per-visit traffic in shared memory and
-// registers; rays that cannot improve (tnear >= best_t, occluded, inert
-// tfar = 0 lanes) skip the test, and a visit no ray of the block needs skips
-// the stage. The entry pass costs Cp x 64 slab tests per tile. Known
-// limits, left to a later change: 64 threads a block leaves the SMs under
-// a third occupied, and tiles that walk far keep their SM after the others
-// finish.
+// the 50 MB L2; at 4.9M triangles (16,000 clusters) they are 295 MB, read
+// from HBM. One wave of 1,024 tiles ends with its longest tiles (110 visits
+// against a mean of 25 on a divergent wavefront), which then run nearly
+// alone on their SMs, so a visit's latency, not the card's throughput, set
+// the one-thread kernel's time: 384 serial tests a thread, each with an
+// IEEE division. The split form attacks that latency: P = 8 threads a ray
+// cut a visit's chain to 48 tests and give the SM 8 times the warps; the
+// entry pass and the pops stride over 512 threads. The any-hit kernel's
+// rows come through a two-slot ring filled a visit ahead by one bulk copy
+// (walk_common.cuh: RingFeed), so a visit waits on no copy and takes two
+// block barriers (the pops') instead of four. The closest-hit kernel
+// stages its rows at the visit: on an H100 the ring did not beat the stage
+// there by more than the spread of the timings, on tables in L2 or in HBM
+// (PERF.md section 6). Rays that cannot improve (tnear >= best_t,
+// occluded, inert tfar = 0 lanes) skip the tests. What bounds the split
+// kernels now: still the tests, at about a tenth of the f32 rate; lanes of
+// a warp whose ray does not want a visit idle through it, and the test's
+// early exits diverge. The entry pass costs Cp x 64 slab tests per tile.
 //
 // The wide pop (the same TPU kernels with wide=True, for tables past 2^14
 // clusters that do not take the two-level walk): entries are the plain bits
@@ -111,6 +127,56 @@ walk_anyhit_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
     thresh = block_max(occ ? 0 : __float_as_int(ray.tfar), s_red);
   }
   occ_out[i] = occ;
+}
+
+// The split form of walk_anyhit_kernel (walk_closest_split_kernel's
+// layout): any hit is an OR over a ray's P lanes, and a lane stops at its
+// first hit.
+template <int P, bool RING>
+__global__ void __launch_bounds__(P * TILE)
+walk_anyhit_split_kernel(const float* __restrict__ lo,
+                         const float* __restrict__ hi, int cp, int n_real,
+                         const float4* __restrict__ rows,
+                         const float* __restrict__ o,
+                         const float* __restrict__ d,
+                         const float* __restrict__ tnear,
+                         const float* __restrict__ tfar,
+                         bool* __restrict__ occ_out) {
+  constexpr int NT = P * TILE;
+  extern __shared__ float4 s_dyn[];
+  __shared__ SplitShared<NT> s;
+  int* s_ent = reinterpret_cast<int*>(s_dyn + feed_slots<RING>() * 3 * KC);
+  auto feed = make_feed<NT, RING>(s_dyn, s.bar);
+  feed.init();
+  const int i = blockIdx.x * TILE + threadIdx.x / P;
+  const Ray ray = load_ray(i, o, d, tnear, tfar);
+  load_tile<P>(ray, s.ray);
+  __syncthreads();
+  tile_entries<NT>(lo, hi, cp, n_real, s.ray, s_ent);
+  __syncthreads();
+
+  bool occ = false;
+  int emin = pop_min<NT, true>(s_ent, cp, ID_MASK, s.red);
+  int csel = cluster_of(emin, cp);
+  feed.prefetch(rows, csel);
+  int enext = pop_min<NT, true>(s_ent, cp, ID_MASK, s.red);
+  int cnext = cluster_of(enext, cp);
+  int thresh = block_max<NT>(__float_as_int(ray.tfar), s.red);
+  for (int nv = 0; nv < cp && (emin & ~ID_MASK) < thresh; ++nv) {
+    for (int half = 0; half < 2; ++half) {
+      feed.prefetch(rows, cnext);
+      const bool want = !occ && ray.tnear < ray.tfar;
+      if (const float4* c_rows = feed.take(rows, csel, want))
+        split_anyhit<P>(c_rows, ray, want, occ);
+      emin = enext;
+      csel = cnext;
+      enext = pop_min<NT, true>(s_ent, cp, ID_MASK, s.red);
+      cnext = cluster_of(enext, cp);
+    }
+    thresh = block_max<NT>(occ ? 0 : __float_as_int(ray.tfar), s.red);
+  }
+  feed.drain();
+  if (threadIdx.x % P == 0) occ_out[i] = occ;
 }
 
 // --------------------------------------------------------------- wide pop
@@ -252,16 +318,26 @@ walk_anyhit_wide_kernel(const float* __restrict__ lo,
 }  // namespace
 
 // n must be a multiple of 64 (the wrapper pads). mma != 0 takes the
-// tensor-core form of the triangle test.
+// tensor-core form of the triangle test (the one-thread form only). p
+// threads a ray and ring name the form: (1, 0) the one-thread-a-ray kernel,
+// else the split form this library builds (walk_flat.cuh: CLOSEST_P and
+// CLOSEST_RING, ANYHIT_P and ANYHIT_RING); smem is the dynamic shared
+// memory the wrapper computed for it (ops/walk_trace.py:launch_geometry).
+// Returns cudaErrorInvalidValue for a form not built.
 extern "C" int rl_walk_closest(const void* lo, const void* hi, int cp,
                                int n_real, const void* rows, const void* ids,
                                const void* o, const void* d, const void* tnear,
-                               const void* tfar, int n, int mma, void* t_out,
-                               void* tri_out, void* u_out, void* v_out,
-                               void* stream) {
-  return launch(
-      mma ? walk_closest_kernel<true, false> : walk_closest_kernel<false, false>,
-      n / TILE, static_cast<size_t>(cp) * sizeof(int), stream,
+                               const void* tfar, int n, int mma, int p,
+                               int ring, int smem, void* t_out, void* tri_out,
+                               void* u_out, void* v_out, void* stream) {
+  const bool one = p == 1 && !ring;
+  if (!one && (mma || !is_form<CLOSEST_P, CLOSEST_RING>(p, ring)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_threads(
+      one ? (mma ? walk_closest_kernel<true, false>
+                 : walk_closest_kernel<false, false>)
+          : walk_closest_split_kernel<false, CLOSEST_P, CLOSEST_RING>,
+      n / TILE, p * TILE, static_cast<size_t>(smem), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const int*>(ids),
       static_cast<const float*>(o), static_cast<const float*>(d),
@@ -274,11 +350,16 @@ extern "C" int rl_walk_closest(const void* lo, const void* hi, int cp,
 extern "C" int rl_walk_anyhit(const void* lo, const void* hi, int cp,
                               int n_real, const void* rows, const void* o,
                               const void* d, const void* tnear,
-                              const void* tfar, int n, int mma, void* occ_out,
+                              const void* tfar, int n, int mma, int p,
+                              int ring, int smem, void* occ_out,
                               void* stream) {
-  return launch(
-      mma ? walk_anyhit_kernel<true> : walk_anyhit_kernel<false>, n / TILE,
-      static_cast<size_t>(cp) * sizeof(int), stream,
+  const bool one = p == 1 && !ring;
+  if (!one && (mma || !is_form<ANYHIT_P, ANYHIT_RING>(p, ring)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_threads(
+      one ? (mma ? walk_anyhit_kernel<true> : walk_anyhit_kernel<false>)
+          : walk_anyhit_split_kernel<ANYHIT_P, ANYHIT_RING>,
+      n / TILE, p * TILE, static_cast<size_t>(smem), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const float*>(o),
       static_cast<const float*>(d), static_cast<const float*>(tnear),

@@ -7,7 +7,9 @@ compiled with g++. Both land in build/kernels/ under the checkout, keyed by
 the hash of their sources and flags, at first use; a failed compile raises.
 
 `counting_rays()` sums, on the device, the lanes with tfar > 0 handed to any
-trace kernel of ops/ (the rays actually traced).
+trace kernel of ops/ (the rays actually traced). The build keeps ptxas's
+report (registers, shared memory, spills per kernel) beside the library;
+`ptxas_usage()` reads it.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -102,9 +105,36 @@ def build(verbose: bool = False) -> Path:
                       *map(str, objs)]).strip())
     if verbose:
         print("\n".join(x for x in logs if x))
+    report = out.with_suffix(f".{os.getpid()}.ptxas")
+    report.write_text("\n".join(logs))
+    os.replace(report, out.with_suffix(".ptxas"))
     os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
     shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def ptxas_usage(lib: Path = None) -> dict:
+    """ptxas's report of the built library (`build()`'s by default): {mangled
+    kernel name: (registers, static shared-memory bytes, spill-store
+    bytes)}."""
+    text = (lib or build()).with_suffix(".ptxas").read_text()
+    usage, name, spill = {}, None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            sm = re.search(r"(\d+) bytes smem", line)
+            usage[name] = (int(m.group(1)), int(sm.group(1)) if sm else 0,
+                           spill)
+            name = None
+    return usage
 
 
 def load_cuda() -> ctypes.CDLL:

@@ -21,6 +21,10 @@ for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 
 With `mxu=True` a visit takes the tensor-core form of the triangle test (see
 ops/walk_trace.py), not bit-identical; those kernels count as `<name>_mma`.
+The default kernels run in a split form of ops/walk_trace.py (P threads a
+ray, the rows staged at the visit: PRODUCTION_FORMS); the private
+`_form=ONE_THREAD_FORM` launches the one-thread-a-ray kernel, for
+chip_smoke.py's side-by-side timing and the `cuda` test only.
 
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
@@ -34,8 +38,9 @@ import torch
 
 from .native import count_rays, load_cuda
 from .walk_trace import (K, _ID_BITS, _ID_MASK, _check_arrays, _min_entry,
-                         _pack_entries, _pop_min, _slab_inv, _sortable_max,
-                         _tile_entries, _tiled, _visit_anyhit, _visit_closest)
+                         _pack_entries, _pop_min, _resolve_form, _slab_inv,
+                         _sortable_max, _tile_entries, _tiled, _visit_anyhit,
+                         _visit_closest, form_args, launch_geometry)
 
 # clusters per super and the child-id bits of a packed child entry: the
 # reference's SUP and _CHILD_BITS (pallas_walk.py:74-75)
@@ -61,10 +66,11 @@ def _load():
         lib = load_cuda()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rl_walk_hier_closest.argtypes = [p, p, i, i, p, p, i, i, p, p, p,
-                                             p, p, p, i, i, p, p, p, p, p]
+                                             p, p, p, i, i, i, i, i, p, p, p,
+                                             p, p]
         lib.rl_walk_hier_closest.restype = i
         lib.rl_walk_hier_anyhit.argtypes = [p, p, i, i, p, p, i, i, p, p, p,
-                                            p, p, i, i, p, p]
+                                            p, p, i, i, i, i, i, p, p]
         lib.rl_walk_hier_anyhit.restype = i
         _LIB = lib
     return _LIB
@@ -206,12 +212,18 @@ def walk_hier_anyhit_ref(wt, o, d, tnear, tfar, mxu: bool = False):
 
 # ------------------------------------------------------------------ wrappers
 
-def walk_hier_closest(wt, o, d, tnear, tfar,
-                      mxu: bool = False) -> Tuple[torch.Tensor, ...]:
+def _form_geometry(name: str, wt, form, mxu: bool):
+    form = _resolve_form(name, form, mxu)
+    return form, launch_geometry(name, form, wt.n_sup_pad)[1]
+
+
+def walk_hier_closest(wt, o, d, tnear, tfar, mxu: bool = False, *,
+                      _form=None) -> Tuple[torch.Tensor, ...]:
     """Closest hit of whole 64-ray tiles (o, d [n, 3], tnear, tfar [n]) over
     walk tables `wt` with super tables: (t, tri, u, v), each [n]. `mxu`
     takes the tensor-core form of the triangle test."""
     _check(wt, o, d, tnear, tfar)
+    form, smem = _form_geometry("walk_hier_closest", wt, _form, mxu)
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_hier_closest_ref(wt, o, d, tnear, tfar, mxu)[:4]
@@ -227,7 +239,8 @@ def walk_hier_closest(wt, o, d, tnear, tfar,
                 int(wt.n_sup), wt.lo.data_ptr(), wt.hi.data_ptr(),
                 int(wt.n_clusters), int(wt.n_real), wt.rows.data_ptr(),
                 wt.ids.data_ptr(), o.data_ptr(), d.data_ptr(),
-                tnear.data_ptr(), tfar.data_ptr(), n, int(mxu), t.data_ptr(),
+                tnear.data_ptr(), tfar.data_ptr(), n, int(mxu),
+                *form_args(form, smem), t.data_ptr(),
                 tri.data_ptr(), u.data_ptr(), v.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
         if err:
@@ -237,10 +250,12 @@ def walk_hier_closest(wt, o, d, tnear, tfar,
     return t, tri, u, v
 
 
-def walk_hier_anyhit(wt, o, d, tnear, tfar, mxu: bool = False) -> torch.Tensor:
+def walk_hier_anyhit(wt, o, d, tnear, tfar, mxu: bool = False, *,
+                     _form=None) -> torch.Tensor:
     """Any hit of whole 64-ray tiles over walk tables with super tables:
     True = occluded. `mxu` as in walk_hier_closest."""
     _check(wt, o, d, tnear, tfar)
+    form, smem = _form_geometry("walk_hier_anyhit", wt, _form, mxu)
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_hier_anyhit_ref(wt, o, d, tnear, tfar, mxu)[0]
@@ -253,7 +268,8 @@ def walk_hier_anyhit(wt, o, d, tnear, tfar, mxu: bool = False) -> torch.Tensor:
                 int(wt.n_sup), wt.lo.data_ptr(), wt.hi.data_ptr(),
                 int(wt.n_clusters), int(wt.n_real), wt.rows.data_ptr(),
                 o.data_ptr(), d.data_ptr(), tnear.data_ptr(),
-                tfar.data_ptr(), n, int(mxu), occ.data_ptr(),
+                tfar.data_ptr(), n, int(mxu),
+                *form_args(form, smem), occ.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(

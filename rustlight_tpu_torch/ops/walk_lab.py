@@ -30,7 +30,10 @@ ops/native.py and called through ctypes on PyTorch's current stream.
     the form, summed per 32 rays, for its time. Their plain versions are
     the _dot4 products and the f32 sum of the matmul products.
 
-counted and floor keep the _dot4 triangle test and are bit-identical to
+counted and floor run in the production form of the closest-hit walk
+(ops/walk_trace.py:PRODUCTION_FORMS: P threads a ray), so that production /
+floor compares like with like, or with the private `_form=ONE_THREAD_FORM`
+one thread a ray. They keep the _dot4 triangle test and are bit-identical to
 their plain versions; with `mxu=True` they take the tensor-core form (see
 ops/walk_trace.py). The wrappers use the plain versions only for tensors on
 the CPU; a CUDA tensor launches the kernel or raises. Each wrapper adds one
@@ -45,8 +48,9 @@ import numpy as np
 import torch
 
 from .native import load_cuda
-from .walk_trace import (K, RAY_TILE, _check, _matmul_products, _tiled,
-                         _visit_closest, _walk_ref)
+from .walk_trace import (K, RAY_TILE, _check, _matmul_products,
+                         _resolve_form, _tiled, _visit_closest, _walk_ref,
+                         form_args, launch_geometry)
 
 # the fused step's constants, as f32 (roofline.py:169-170)
 _FMA_A = (float(np.float32(1.000001)), 0.5)
@@ -80,9 +84,10 @@ def _load():
         lib = load_cuda()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rl_walk_closest_counted.argtypes = [p, p, i, i, p, p, p, p, p, p,
-                                                i, i, p, p, p, p, p, p]
-        lib.rl_walk_floor.argtypes = [i, i, p, p, p, p, p, p, i, i, p, p, p,
-                                      p, p]
+                                                i, i, i, i, i, p, p, p, p, p,
+                                                p]
+        lib.rl_walk_floor.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i,
+                                      p, p, p, p, p]
         lib.rl_fma_peak.argtypes = [p, i, i, p, p]
         lib.rl_mma_products.argtypes = [p, p, p, p, p, p]
         lib.rl_mma_form_lanes.argtypes = [i, p, p, p, i, p, p, p]
@@ -195,12 +200,14 @@ def mma_form_visits_ref(wt, o, d, nvis: int):
 
 # ------------------------------------------------------------------ wrappers
 
-def walk_closest_counted(wt, o, d, tnear, tfar,
-                         mxu: bool = False) -> Tuple[torch.Tensor, ...]:
+def walk_closest_counted(wt, o, d, tnear, tfar, mxu: bool = False, *,
+                         _form=None) -> Tuple[torch.Tensor, ...]:
     """The production closest-hit walk of whole 64-ray tiles over walk
     tables `wt` (at most 2^14 clusters), with the tile's visit count:
     (t, tri, u, v, nv), nv [n] int32."""
     _check(wt, o, d, tnear, tfar)
+    form = _resolve_form("walk_closest", _form, mxu)
+    smem = launch_geometry("walk_closest", form, wt.n_clusters)[1]
     if o.device.type == "cpu":
         return walk_closest_counted_ref(wt, o, d, tnear, tfar, mxu)
     n = o.shape[0]
@@ -215,8 +222,9 @@ def walk_closest_counted(wt, o, d, tnear, tfar,
                 wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
                 int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
                 o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(),
-                n, int(mxu), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-                v.data_ptr(), nv.data_ptr(),
+                n, int(mxu), *form_args(form, smem), t.data_ptr(),
+                tri.data_ptr(),
+                u.data_ptr(), v.data_ptr(), nv.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(
@@ -225,13 +233,15 @@ def walk_closest_counted(wt, o, d, tnear, tfar,
     return t, tri, u, v, nv
 
 
-def walk_floor(wt, o, d, tnear, tfar, nv_total: int,
-               mxu: bool = False) -> Tuple[torch.Tensor, ...]:
+def walk_floor(wt, o, d, tnear, tfar, nv_total: int, mxu: bool = False, *,
+               _form=None) -> Tuple[torch.Tensor, ...]:
     """`nv_total` round-robin visits a tile (cluster i % Cp at visit i) of
     whole 64-ray tiles over walk tables `wt`: (t, tri, u, v)."""
     _check(wt, o, d, tnear, tfar)
     if nv_total < 0:
         raise ValueError(f"nv_total must not be negative, got {nv_total}")
+    form = _resolve_form("walk_closest", _form, mxu)
+    smem = launch_geometry("walk_floor", form, 0)[1]
     if o.device.type == "cpu":
         return walk_floor_ref(wt, o, d, tnear, tfar, nv_total, mxu)
     n = o.shape[0]
@@ -244,8 +254,9 @@ def walk_floor(wt, o, d, tnear, tfar, nv_total: int,
             err = _load().rl_walk_floor(
                 int(wt.n_clusters), int(nv_total), wt.rows.data_ptr(),
                 wt.ids.data_ptr(), o.data_ptr(), d.data_ptr(),
-                tnear.data_ptr(), tfar.data_ptr(), n, int(mxu), t.data_ptr(),
-                tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+                tnear.data_ptr(), tfar.data_ptr(), n, int(mxu),
+                *form_args(form, smem), t.data_ptr(), tri.data_ptr(),
+                u.data_ptr(), v.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"walk_floor launch failed: CUDA error {err}")

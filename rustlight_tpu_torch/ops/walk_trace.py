@@ -32,6 +32,17 @@ The plain versions form them with one f32 torch.matmul per product
 the kernel to its plain version: hits agree save near ties and edge grazes,
 t within rtol 1e-5. These kernels count as `<name>_mma`.
 
+The default kernels (K3/K4 here, K5 in ops/walk_hier.py) run in a split
+form: P threads a ray, each testing every P-th column of a visit's cluster,
+and for K3/K4's any hit a two-slot ring of cluster rows filled a visit ahead
+by Hopper's bulk copy (csrc/walk_common.cuh). `PRODUCTION_FORMS` names each
+kernel's form, `launch_geometry` its threads and dynamic shared memory.
+`_visit_closest_split` / `_visit_anyhit_split` model the split visit in
+torch, for the tests only. The wrappers' private `_form=ONE_THREAD_FORM`
+launches the one-thread-a-ray kernel instead, for chip_smoke.py's
+side-by-side timing and the `cuda` test only; no path of the package
+passes it.
+
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
 """
@@ -66,6 +77,83 @@ _STATIC_SMEM, _MAX_SMEM = 20496, 227 * 1024
 # device memory.
 _WIDE_SHARED_MAX = 4096
 
+# a kernel's form: (threads a ray, ring of cluster rows); ONE_THREAD_FORM is
+# the one-thread-a-ray kernel
+ONE_THREAD_FORM = (1, False)
+# the split form of each kernel, the only one csrc/ builds beside the
+# one-thread kernel (walk_flat.cuh: CLOSEST_P, CLOSEST_RING, ANYHIT_P,
+# ANYHIT_RING; walk_hier.cu: HIER_CLOSEST_P, HIER_ANYHIT_P): the faster on an
+# H100 on the wavefronts its main path hands it (PERF.md section 6). The
+# counted and floor walks of ops/walk_lab.py take walk_closest's.
+PRODUCTION_FORMS = {"walk_closest": (8, False), "walk_anyhit": (8, True),
+                    "walk_hier_closest": (4, False),
+                    "walk_hier_anyhit": (8, False)}
+# a visit's rows: KC triangles of three float4
+_SLOT_BYTES = K * 3 * 16
+# static shared memory, bytes, as ptxas reports it (chip_smoke.py holds the
+# two to each other), of each kernel (a PRODUCTION_FORMS name, or the
+# floor) in its one-thread form: the staged rows, the tile's rays, the
+# partials (K5 also the caps and the children), padded to 16 B ...
+_ONE_THREAD_STATIC = {"walk_closest": _STATIC_SMEM,
+                      "walk_anyhit": _STATIC_SMEM, "walk_hier_closest": 21264, "walk_hier_anyhit": 21264,
+                      "walk_floor": _SLOT_BYTES}
+# ... and in its split form: the tile's rays, the ring's two mbarriers and
+# the partials of P x 2 warps (K5 the caps and the children, no
+# mbarriers); the floor's slots are all dynamic
+_SPLIT_STATIC = {"walk_closest": 2128, "walk_anyhit": 2128,
+                 "walk_hier_closest": 2848, "walk_hier_anyhit": 2880,
+                 "walk_floor": 0}
+
+
+def static_smem(kernel: str, form) -> int:
+    """ptxas's static shared memory of `kernel` (as in launch_geometry) in
+    `form`, bytes."""
+    table = (_ONE_THREAD_STATIC if tuple(form) == ONE_THREAD_FORM
+             else _SPLIT_STATIC)
+    return table[kernel]
+
+
+def launch_geometry(kernel: str, form, n_heap: int) -> Tuple[int, int]:
+    """(threads a block, dynamic shared-memory bytes) of `kernel` (a
+    PRODUCTION_FORMS name, the counted walk taking "walk_closest", or
+    "walk_floor") in `form` (threads a ray, ring) over a heap of n_heap
+    entries (Cp, or Sp for K5; the floor has none); raises ValueError for a
+    form not built or past the card's 232,448 B a block."""
+    if kernel not in _ONE_THREAD_STATIC:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    form = tuple(form)
+    split = PRODUCTION_FORMS["walk_closest" if kernel == "walk_floor"
+                             else kernel]
+    if form not in (ONE_THREAD_FORM, split):
+        raise ValueError(f"{kernel} in form {form} is not built (built: "
+                         f"{ONE_THREAD_FORM}, {split})")
+    p, ring = form
+    heap = 0 if kernel == "walk_floor" else 4 * int(n_heap)
+    dyn = heap if form == ONE_THREAD_FORM else (
+        (2 if ring else 1) * _SLOT_BYTES + heap)
+    static = static_smem(kernel, form)
+    if static + dyn > _MAX_SMEM:
+        raise ValueError(f"{kernel} in form {form} needs {static} + {dyn} B "
+                         f"of shared memory, past {_MAX_SMEM}")
+    return p * RAY_TILE, dyn
+
+
+def _resolve_form(name: str, form, mxu: bool):
+    """The form a launch of kernel `name` takes: the production one, or the
+    one-thread-a-ray kernel for the tensor-core visit or where the private
+    `form` asks for it (ONE_THREAD_FORM, the only value it takes)."""
+    if form is not None and tuple(form) != ONE_THREAD_FORM:
+        raise ValueError(f"_form takes only {ONE_THREAD_FORM}, got {form}")
+    if mxu or form is not None:
+        return ONE_THREAD_FORM
+    return PRODUCTION_FORMS[name]
+
+
+def form_args(form, smem: int):
+    """The form's arguments of an entry point: (p, ring, smem)."""
+    return form[0], int(form[1]), smem
+
+
 LAUNCHES = {"walk_closest": 0, "walk_anyhit": 0,
             "walk_closest_wide": 0, "walk_anyhit_wide": 0,
             "walk_closest_mma": 0, "walk_anyhit_mma": 0,
@@ -88,9 +176,10 @@ def _load():
         lib = load_cuda()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rl_walk_closest.argtypes = [p, p, i, i, p, p, p, p, p, p, i, i,
-                                        p, p, p, p, p]
+                                        i, i, i, p, p, p, p, p]
         lib.rl_walk_closest.restype = i
-        lib.rl_walk_anyhit.argtypes = [p, p, i, i, p, p, p, p, p, i, i, p, p]
+        lib.rl_walk_anyhit.argtypes = [p, p, i, i, p, p, p, p, p, i, i, i, i,
+                                       i, p, p]
         lib.rl_walk_anyhit.restype = i
         lib.rl_walk_closest_wide.argtypes = [p, p, i, i, p, p, p, p, p, p, i,
                                              i, p, i, p, p, p, p, p]
@@ -300,6 +389,63 @@ def _visit_anyhit(rows, csel, o, d, tnear, tfar, occ, tested=None,
     return occ | (hit if tested is None else hit & tested)
 
 
+def _split_scan(t, ok, cap, p: int):
+    """The split visit's per-lane scans and their butterfly
+    (csrc/walk_common.cuh:split_closest): lane q of each ray scans the
+    columns j = q, q + p, ... in order, taking a hit that is valid (`ok`)
+    with t strictly below its running cap (starting at `cap` [A, R]); then
+    for off = p/2, ..., 1 each lane takes its partner q ^ off's (t, j) when
+    that is less (t smaller, or t equal and j lower). Returns each ray's
+    (t, j) [A, R]; j = K where no lane found a hit."""
+    a, r, k = t.shape
+    tq = t.reshape(a, r, k // p, p)
+    okq = ok.reshape(a, r, k // p, p)
+    bt = cap[..., None].expand(a, r, p).clone()
+    bj = torch.full((a, r, p), k, dtype=torch.int64, device=t.device)
+    lane = torch.arange(p, device=t.device)
+    for m in range(k // p):
+        take = okq[:, :, m] & (tq[:, :, m] < bt)
+        bt = torch.where(take, tq[:, :, m], bt)
+        bj = torch.where(take, m * p + lane, bj)
+    off = p // 2
+    while off:
+        ot, oj = bt[..., lane ^ off], bj[..., lane ^ off]
+        take = (ot < bt) | ((ot == bt) & (oj < bj))
+        bt, bj = torch.where(take, ot, bt), torch.where(take, oj, bj)
+        off //= 2
+    return bt[..., 0], bj[..., 0]
+
+
+def _visit_closest_split(rows, ids, csel, o, d, tnear, best, p: int):
+    """_visit_closest as the split kernels compute it, with p threads a ray
+    (tests only: no path runs it). The triangle test is _test_clusters' with
+    no cap; the cap is the scan's."""
+    bt, bi, bu, bv = best
+    t, u, v, valid = _test_clusters(rows[csel], o, d, tnear,
+                                    torch.full_like(bt, float("inf")))
+    _, j = _split_scan(t, valid, bt, p)
+    better = j < K
+    jc = torch.clamp(j, max=K - 1)
+    tri = ids[csel[:, None], jc]
+    tj = t.gather(-1, jc[..., None])[..., 0]
+    uj = u.gather(-1, jc[..., None])[..., 0] + 0.0
+    vj = v.gather(-1, jc[..., None])[..., 0] + 0.0
+    return (torch.where(better, tj, bt), torch.where(better, tri, bi),
+            torch.where(better, uj, bu), torch.where(better, vj, bv))
+
+
+def _visit_anyhit_split(rows, csel, o, d, tnear, tfar, occ, p: int):
+    """_visit_anyhit as the split kernels compute it: an OR over the p
+    lanes' scans of their columns (tests only)."""
+    valid = _test_clusters(rows[csel], o, d, tnear, tfar)[3]
+    a, r, k = valid.shape
+    lanes = valid.reshape(a, r, k // p, p).any(dim=2)        # [A, R, p]
+    hit = torch.zeros((a, r), dtype=torch.bool, device=o.device)
+    for q in range(p):
+        hit = hit | lanes[..., q]
+    return occ | hit
+
+
 def _tiled(fn, width, o, d, tnear, tfar, tile: int = RAY_TILE):
     """fn(o, d, tnear, tfar) on [G, tile, ...] tiles, G chosen so that a
     [G, tile, width] tensor stays near _REF_ELEMS elements; returns fn's
@@ -445,8 +591,18 @@ def _kernel_name(base: str, wide: bool, mxu: bool) -> str:
     return base + ("_wide" if wide else "") + ("_mma" if mxu else "")
 
 
+def _check_form(form, wide: bool, mxu: bool, name: str, n_heap: int):
+    """The form of a launch of kernel `name` and its geometry."""
+    if wide:
+        if form is not None:
+            raise ValueError("the wide pop has one form")
+        return ONE_THREAD_FORM, (RAY_TILE, 0)
+    form = _resolve_form(name, form, mxu)
+    return form, launch_geometry(name, form, n_heap)
+
+
 def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
-                 heap: str = None, mxu: bool = False
+                 heap: str = None, mxu: bool = False, *, _form=None
                  ) -> Tuple[torch.Tensor, ...]:
     """Closest hit of whole 64-ray tiles (o, d [n, 3], tnear, tfar [n]) over
     walk tables `wt`: (t, tri, u, v), each [n]. `wide` takes the wide pop
@@ -454,6 +610,8 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
     heaps live (see _wide_heap); `mxu` takes the tensor-core form of the
     triangle test."""
     _check(wt, o, d, tnear, tfar, wide, heap)
+    form, (_, smem) = _check_form(_form, wide, mxu, "walk_closest",
+                                  wt.n_clusters)
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_closest_ref(wt, o, d, tnear, tfar, wide, mxu)[:4]
@@ -478,7 +636,8 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
                 *tables, None if scratch is None else scratch.data_ptr(),
                 blocks, *outs, stream)
         else:
-            err = _load().rl_walk_closest(*tables, *outs, stream)
+            err = _load().rl_walk_closest(*tables, *form_args(form, smem),
+                                          *outs, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -486,10 +645,13 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
 
 
 def walk_anyhit(wt, o, d, tnear, tfar, wide: bool = False,
-                heap: str = None, mxu: bool = False) -> torch.Tensor:
+                heap: str = None, mxu: bool = False, *, _form=None
+                ) -> torch.Tensor:
     """Any hit of whole 64-ray tiles over walk tables: True = occluded.
     `wide`, `heap` and `mxu` as in walk_closest."""
     _check(wt, o, d, tnear, tfar, wide, heap)
+    form, (_, smem) = _check_form(_form, wide, mxu, "walk_anyhit",
+                                  wt.n_clusters)
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_anyhit_ref(wt, o, d, tnear, tfar, wide, mxu)[0]
@@ -509,7 +671,8 @@ def walk_anyhit(wt, o, d, tnear, tfar, wide: bool = False,
                 *tables, None if scratch is None else scratch.data_ptr(),
                 blocks, occ.data_ptr(), stream)
         else:
-            err = _load().rl_walk_anyhit(*tables, occ.data_ptr(), stream)
+            err = _load().rl_walk_anyhit(*tables, *form_args(form, smem),
+                                         occ.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
