@@ -9,10 +9,19 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      TF32 off for matmuls and cuDNN;
   1. build: compile the port's CUDA kernels from csrc/ (sm_90a, one nvcc
      per source, all at once);
-  2. kernels: the dense kernels (K1, K2) against their plain versions at
-     262,144 rays against the Cornell box's rows and against a random
-     1,000-triangle soup, with inert (tfar = 0) and empty (tnear >= tfar)
-     lanes; times are medians of 10 synchronised runs;
+  2. kernels: the dense kernels (K1, K2) against their plain versions, bit
+     for bit (0 lanes differ, no near-tie excuse), at 262,144 rays against
+     the Cornell box's rows and against a random 1,000-triangle soup, with
+     inert (tfar = 0) and empty (tnear >= tfar) lanes; on the wavefronts
+     the cbox render hands them in its first two iterations (camera and
+     first bounce rays, K1; the first NEE shadow rays, K2); and on the
+     planted boundary sets of ops/dense_trace.py:planted_sets. Times on
+     all but the planted sets: the wrapper's ms (medians of 10
+     synchronised runs), the plain version's, the kernel's device us a
+     launch (torch.profiler over 20), the wrapper's host us a call (1,000
+     calls, one sync); beside the bound, the issue floor: tests x the
+     FP32-pipe instructions a test in the kernel's SASS (cuobjdump, every
+     path) / (132 SMs x 128 lanes x clocks.max.sm);
   3. main path, cbox: render(cornell_box(512, 512), path tracer depth 6,
      128 spp) twice (warm-up, then timed), with launch counts reset just
      before the timed render; the image must be finite and within 4x the
@@ -476,37 +485,168 @@ def _compare(label, rows, rays, closest_k, closest_p, occ_k, occ_p):
     return err_closest, err_anyhit, diff_ids.numel()
 
 
-def check_kernels(rows, rays, label):
-    """Dense kernels against plain versions on one (rows, rays) set; returns
-    the max abs error of each kernel, the four median times and the two
-    bounds."""
-    from rustlight_tpu_torch.ops import dense_trace as dt
-    o, d, tnear, tfar = rays
-    closest_k = dt.dense_closest(rows, o, d, tnear, tfar)
-    closest_p = dt.dense_closest_ref(rows, o, d, tnear, tfar)
-    occ_k = dt.dense_anyhit(rows, o, d, tnear, tfar)
-    occ_p = dt.dense_anyhit_ref(rows, o, d, tnear, tfar)
+def render_wavefronts(sd, integ):
+    """The wavefronts the dense kernels see in the first two iterations of
+    one compute_block of the scene's render at 1 spp: the camera rays and
+    the first bounce's rays (closest hit), the first NEE shadow rays
+    (integrators/path.py, `visible`: any hit). Returns {name: (kind,
+    [o, d, tnear, tfar])}."""
     import torch
+    from rustlight_tpu_torch.accel import dense as ad
+    from rustlight_tpu_torch.integrators import render
+    seen = {"closest": [], "anyhit": []}
+    wrapped = {k: getattr(ad, "dense_" + k) for k in seen}
+
+    def spy(kind):
+        def call(rows, *rays):
+            seen[kind].append([x.clone() for x in rays])
+            return wrapped[kind](rows, *rays)
+        return call
+    try:
+        for k in seen:
+            setattr(ad, "dense_" + k, spy(k))
+        render(sd, integ, spp=1, seed=0)
+        torch.cuda.synchronize()
+    finally:
+        for k, fn in wrapped.items():
+            setattr(ad, "dense_" + k, fn)
+    return {"camera": ("closest", seen["closest"][0]),
+            "bounce": ("closest", seen["closest"][1]),
+            "shadow": ("anyhit", seen["anyhit"][0])}
+
+
+def _device_us(fn, name, launches=20):
+    """The kernel `name`'s device time a launch, by torch.profiler over
+    `launches` calls of `fn`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    err_c, err_a, ties = _compare(label, rows, rays, closest_k, closest_p,
-                                  occ_k, occ_p)
-    fns = {"closest": dt.dense_closest, "closest_plain": dt.dense_closest_ref,
-           "anyhit": dt.dense_anyhit, "anyhit_plain": dt.dense_anyhit_ref}
-    times = {f"{k}_ms": _median_ms(lambda fn=fn: fn(rows, o, d, tnear, tfar))
-             for k, fn in fns.items()}
-    # every ray read once against every triangle; outputs t, idx, u, v
-    # (16 B) or occ (1 B)
-    n, n_tris = o.shape[0], rows.shape[0]
-    table = rows.numel() * 4
-    bounds = {"closest": _bound_ms(n * n_tris, n * (RAY_IN_BYTES + 16) + table),
-              "anyhit": _bound_ms(n * n_tris, n * (RAY_IN_BYTES + 1) + table)}
-    phase("kernels", f"{label}: {int(torch.isfinite(closest_k[0]).sum())} "
-          f"hits, {int(occ_k.sum())} occluded, {ties} tie ids, max abs err "
-          f"{err_c:.3g} / {err_a:.3g}; " + ", ".join(
-              f"{k} {v:.4f}" for k, v in times.items())
-          + f", bound {bounds['closest'][0]:.4f} / "
-          f"{bounds['anyhit'][0]:.4f} ms ({bounds['closest'][1]})")
-    return err_c, err_a, times, bounds
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and e.count and name in e.key]
+    if len(ev) != 1:
+        raise AssertionError(f"profiler: {len(ev)} device kernels match {name}")
+    return ev[0].self_device_time_total / ev[0].count
+
+
+def _host_us(fn, calls=1000):
+    """The host's time a call of `fn`: perf_counter around `calls` calls
+    without a sync, then one."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def sass_fp32_per_test(kernel):
+    """FP32-pipe instructions (FADD, FMUL, FFMA) a ray-triangle test in the
+    triangle loop of `kernel` (a name its mangled name holds), counted in
+    `cuobjdump -sass` of the built library: the instructions of the
+    innermost loop that holds the most |Nd| > 1e-20 compares, over their
+    number (the tests the loop body holds). Every path of the test is
+    counted once: what a warp issues when its lanes take them all."""
+    import re
+    from rustlight_tpu_torch.ops import native
+    cuobjdump = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(native.build())],
+                          capture_output=True, text=True, check=True).stdout
+    body, on = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            on = kernel in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if on and m:
+            body.append((int(m.group(1), 16), m.group(2)))
+    if not body:
+        raise AssertionError(f"sass: no function matches {kernel}")
+    loops = []   # (target, branch address) of every backward branch
+    for addr, ins in body:
+        m = re.search(r"\bBRA\s+0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        if any(lo <= a < b <= hi and (a, b) != (lo, hi) for a, b in loops):
+            continue   # not innermost
+        loop = [i for a, i in body if lo <= a <= hi]
+        tests = sum("9.999999682655225389e-21" in i for i in loop)
+        fp32 = sum(bool(re.match(r"(@!?U?P\w+\s+)?(FADD|FMUL|FFMA)(32I)?\b",
+                                 i)) for i in loop)
+        if tests and (best is None or tests > best[0]):
+            best = (tests, fp32)
+    if best is None:
+        raise AssertionError(f"sass: no triangle loop in {kernel}")
+    return best[1] / best[0]
+
+
+def check_dense(sets, clock_hz):
+    """Phase 2: each dense kernel against its plain version on every set,
+    bit for bit (t, idx, u, v and occlusion torch.equal, 0 lanes differ);
+    no inert lane hits. On the sets with `timed`, the wrapper's and the
+    plain version's ms (medians of TIMING_RUNS, events), the kernel's
+    device us a launch (torch.profiler), the bound and the issue floor
+    (tests x sass_fp32_per_test / (132 x 128 x clock_hz)). Returns one
+    record per set and kernel."""
+    import torch
+    from rustlight_tpu_torch.ops import dense_trace as dt
+    per_test = {k: sass_fp32_per_test(f"dense_{k}_kernel")
+                for k in ("closest", "anyhit")}
+    phase("kernels", "FP32-pipe instructions a test (SASS, every path): "
+          f"closest {per_test['closest']:.2f}, any hit "
+          f"{per_test['anyhit']:.2f}")
+    recs = []
+    for label, (rows, rays, kinds, timed) in sets.items():
+        o, d, tnear, tfar = rays
+        for kind in kinds:
+            fn = getattr(dt, f"dense_{kind}")
+            plain = getattr(dt, f"dense_{kind}_ref")
+            got, ref = fn(rows, *rays), plain(rows, *rays)
+            torch.cuda.synchronize()
+            diff = _lanes_differ(got, ref).numel()
+            if diff:
+                raise AssertionError(f"{label} {kind}: {diff} lanes differ "
+                                     "from the plain version")
+            hit = torch.isfinite(got[0]) if kind == "closest" else got
+            if bool(torch.any(hit[~(tnear < tfar)])):
+                raise AssertionError(f"{label} {kind}: an inert lane hit")
+            if not timed:
+                continue
+            n, n_tris = o.shape[0], rows.shape[0]
+            out_bytes = 16 if kind == "closest" else 1
+            bound, bound_by = _bound_ms(
+                n * n_tris, n * (RAY_IN_BYTES + out_bytes) + rows.numel() * 4)
+            rec = {"set": label, "kind": kind, "rays": n, "tris": n_tris,
+                   "hits": int(hit.sum()), "lanes_differ": diff,
+                   "max_abs_err": 0.0,
+                   "ms": _median_ms(lambda: fn(rows, *rays)),
+                   "plain_ms": _median_ms(lambda: plain(rows, *rays)),
+                   "device_us": _device_us(lambda: fn(rows, *rays),
+                                           f"dense_{kind}_kernel"),
+                   "host_us": _host_us(lambda: fn(rows, *rays)),
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "issue_floor_ms": n * n_tris * per_test[kind]
+                   / (132 * 128 * clock_hz) * 1e3}
+            recs.append(rec)
+            phase("kernels", f"{label} {kind}: {n} rays x {n_tris} "
+                  f"triangles, {rec['hits']} hit, 0 lanes differ; wrapper "
+                  f"{rec['ms']:.4f} ms (host {rec['host_us']:.2f} us a "
+                  f"call), device {rec['device_us']:.2f} us, plain "
+                  f"{rec['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+                  f"({bound_by}), issue floor {rec['issue_floor_ms']:.4f} ms")
+    phase("kernels", f"dense kernels = plain versions, bit for bit, on "
+          f"{len(sets)} sets ({', '.join(sets)})")
+    return recs
 
 
 def block_mean_l1(img: np.ndarray) -> tuple:
@@ -1958,20 +2098,31 @@ def main() -> int:
     from rustlight_tpu_torch.models import cornell_box, sphere_grid
     from rustlight_tpu_torch.scene.geometry import (TriMesh,
                                                     build_geometry_tables)
+    from rustlight_tpu_torch.ops import dense_trace as dt
     rng = np.random.default_rng(0)
     sd = cornell_box(CBOX_RES, CBOX_RES).compile(device=dev)
-    cbox_rays = _rays(rng, (-20.0, -20.0, -800.0), (576.0, 568.8, 559.2),
-                      N_RAYS, dev)
-    err_cc, err_ca, times_c, bounds_c = check_kernels(sd.geom.inter_rows,
-                                                      cbox_rays, "cbox")
+    both = ("closest", "anyhit")
+    sets = {"cbox": (sd.geom.inter_rows, _rays(
+        rng, (-20.0, -20.0, -800.0), (576.0, 568.8, 559.2), N_RAYS, dev),
+        both, True)}
     verts = rng.uniform(0.0, 1.0, (3000, 3)).astype(np.float32)
     soup = TriMesh(verts, np.arange(3000, dtype=np.int32).reshape(1000, 3))
     soup_rows = torch.as_tensor(
         build_geometry_tables([soup], [-1]).inter_rows, device=dev)
-    soup_rays = _rays(rng, (-0.2,) * 3, (1.2,) * 3, N_RAYS, dev)
-    err_sc, err_sa, _, _ = check_kernels(soup_rows, soup_rays, "soup1000")
-
+    sets["soup1000"] = (soup_rows, _rays(rng, (-0.2,) * 3, (1.2,) * 3, N_RAYS,
+                                         dev), both, True)
     integ = IntegratorPathTracing(max_depth=CBOX_DEPTH)
+    for label, (kind, rays) in render_wavefronts(sd, integ).items():
+        sets[label] = (sd.geom.inter_rows, rays, (kind,), True)
+    for label, (rows, *rays) in dt.planted_sets().items():
+        sets["planted/" + label] = (
+            torch.as_tensor(rows, device=dev),
+            [torch.as_tensor(x, device=dev) for x in rays], both, False)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()
+    dense_recs = check_dense(sets, float(clock[0]) * 1e6)
+    del sets
     img, wall, warm, n_rays, launches = timed_render("cbox", sd, integ,
                                                      CBOX_SPP)
     l1, floor = block_mean_l1(img)
@@ -2065,18 +2216,26 @@ def main() -> int:
                             "cp": r["cp"], **r[kind]} for r in walk_recs]
 
     kernels = []
-    for name, replaces, err, kind in (
+    for name, replaces, kind in (
             ("dense_closest", "rustlight_tpu/ops/pallas_trace.py:35",
-             max(err_cc, err_sc), "closest"),
+             "closest"),
             ("dense_anyhit", "rustlight_tpu/ops/pallas_trace.py:66",
-             max(err_ca, err_sa), "anyhit")):
+             "anyhit")):
+        # the cbox random set stands for the kernel; every timed set is in
+        # `cases`
+        cases = [r for r in dense_recs if r["kind"] == kind]
+        rec = next(r for r in cases if r["set"] == "cbox")
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES["dense"],
             "replaces": replaces, "launches": cbox_launches[name],
-            "max_abs_err": err, "ms": times_c[f"{kind}_ms"],
-            "plain_ms": times_c[f"{kind}_plain_ms"],
-            "bound_ms": bounds_c[kind][0], "bound_by": bounds_c[kind][1],
-            "library_ms": None})
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "issue_floor_ms": rec["issue_floor_ms"], "library_ms": None,
+            "cases": [{k: r[k] for k in (
+                "set", "rays", "tris", "ms", "plain_ms", "device_us",
+                "host_us", "bound_ms", "issue_floor_ms", "max_abs_err")}
+                for r in cases]})
     for name, lines, kind in (("walk_closest", (636, 1139), "closest"),
                               ("walk_anyhit", (703, 1219), "anyhit")):
         rec, cases = pick(kind)

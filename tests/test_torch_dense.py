@@ -204,11 +204,13 @@ def test_accel_dense_matches_xla_intersect_and_visible():
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """On a card: the CUDA kernels against their plain versions (expected
-    bit-identical; see csrc/dense_trace.cu)."""
+    bit-identical; see csrc/dense_trace.cu), on the Cornell box, the soup
+    and the planted boundary sets of ops/dense_trace.py:planted_sets."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
-    for case in ("cbox", "soup1000"):
-        rows, rays = _case(case)
+    planted = {name: (s[0], s[1:]) for name, s in dt.planted_sets().items()}
+    for case in ("cbox", "soup1000", *planted):
+        rows, rays = planted[case] if case in planted else _case(case)
         args = [torch.as_tensor(x, device="cuda") for x in (rows, *rays)]
         before = dict(dt.LAUNCHES)
         closest = dt.dense_closest(*args)
