@@ -8,7 +8,10 @@ checkout; imports nothing of JAX. Phases, one line each or more:
   0. device: require CUDA; print the card's name and power limit; turn
      TF32 off for matmuls and cuDNN;
   1. build: compile the port's CUDA kernels from csrc/ (sm_90a, one nvcc
-     per source, all at once);
+     per source, all at once); ptxas's registers, shared memory and spills
+     of every kernel (`ptxas` lines), and launch_geometry's static shared
+     memory held to ptxas's for every walk kernel in both its forms, K3/K4's
+     split tensor-core forms and K6's forms at every sub with both tests;
   2. kernels: the dense kernels (K1, K2) against their plain versions, bit
      for bit (0 lanes differ, no near-tie excuse), at 262,144 rays against
      the Cornell box's rows and against a random 1,000-triangle soup, with
@@ -90,11 +93,21 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      rules and against K3's result on the same rays (K7 with the share of
      visits that took the sparse branch and the rays flagged a visit);
      kernel and whole-call times are medians of 10 beside K3's, plain times
-     one run. Then the tensor-core forms of K6 (sub = 2, 4, 8) and K8 (km =
-     8, 2) on the same rays and pairs, each against its plain mxu version
-     and against the _dot4 kernels under _compare_mxu's rules, with the
-     count of lanes outside MXU_T_RTOL beside the plain form's (the cap of
-     _check_mma) and K8's whole pair walk timed. The wide pop
+     one run. K6's production form (P threads a ray, ops/walk_sub.py:
+     PRODUCTION_FORMS) at each sub is held to its one-thread form and to the
+     plain version bit for bit (0 lanes may differ, no near-tie excuse) and
+     the two forms are timed in turns (P1, new, new, P1; `forms` lines);
+     before that, on the planted tiles whose groups stop far apart
+     (ops/walk_sub.py:planted_tiles), both forms of both tests at every sub
+     against the plain version (the tensor-core forms against each other).
+     Then the tensor-core forms of K3 (split over warps by columns, with
+     its one-thread form), K6 (sub = 2, 4, 8; split, ops/walk_sub.py:
+     MMA_FORMS) and K8 (km = 8, 2) on the same rays and pairs, each against its plain
+     mxu version and against the _dot4 kernels under _compare_mxu's rules,
+     with the count of lanes outside MXU_T_RTOL beside the plain form's
+     (the cap of _check_mma) and against the exact t (_exact_cap), each
+     split form against its one-thread tensor-core form bit for bit and
+     timed in turns with it, and K8's whole pair walk timed. The wide pop
      the same way on grid5p7M's tables and the two AO wavefronts of phase 9
      (every tile), beside K5's times. (Run while each scene is alive: the
      grid122k part after phase 8, the grid5p7M part after phase 12.)
@@ -241,7 +254,11 @@ MXU_OPERAND_EPS, MXU_EXCUSED_FRAC = 1e-6, 1e-3
 # divergent set) while they miss the exact t on 0.05x as many lanes as
 # torch.matmul (phase 17's a1 lines). Their operand error is 2.1e-7 to
 # torch.matmul's 1.6e-7. The ratio is 1.5 x the largest measured, and the
-# slack covers sets where the plain version misses on few.
+# slack covers sets where the plain version misses on few. What "f32
+# accuracy" means is held against the exact t (the products in float64):
+# on the lanes where a tensor-core kernel and its plain mxu version hit the
+# same triangle, the kernel may miss MXU_T_RTOL / MXU_T_ATOL of the exact t
+# on at most as many lanes as torch.matmul (_exact_cap).
 MXU_LOOSE_RATIO, MXU_LOOSE_SLACK = 3.3, 32
 TC_TF32_OPS = 495e12        # H100 SXM dense TF32 tensor-core rate
 MMA_PASSES = 6              # TF32 passes a product (tri_test_mma.cuh:mma_f32)
@@ -308,46 +325,80 @@ def _ptxas(pattern) -> str:
                                            if spill else "")
 
 
-def _symbol(kernel, form, count=False) -> str:
+def _symbol(kernel, form, count=False, mma=False) -> str:
     """The mangled-name fragment of `kernel` (a PRODUCTION_FORMS name, or
     walk_floor) in `form` (its one-thread or its split form); `count`: the
-    counted walk's."""
+    counted walk's; `mma`: with the tensor-core test."""
     p, ring = (int(x) for x in form)
     if (p, ring) == (1, 0):
-        return {"walk_closest": f"walk_closest_kernelILb0ELb{int(count)}EE",
-                "walk_anyhit": "walk_anyhit_kernelILb0EE",
+        return {"walk_closest": f"walk_closest_kernelILb{int(mma)}ELb"
+                                f"{int(count)}EE",
+                "walk_anyhit": f"walk_anyhit_kernelILb{int(mma)}EE",
                 "walk_hier_closest": "walk_hier_closest_kernelILb0EE",
                 "walk_hier_anyhit": "walk_hier_anyhit_kernelILb0EE",
                 "walk_floor": "walk_floor_kernelILb0EE"}[kernel]
     if kernel == "walk_closest":
-        return f"walk_closest_split_kernelILb{int(count)}ELi{p}ELb{ring}EE"
-    if kernel in ("walk_anyhit", "walk_floor"):
-        return f"{kernel}_split_kernelILi{p}ELb{ring}EE"
+        return (f"walk_closest_split_kernelILb{int(count)}ELi{p}ELb{ring}"
+                f"ELb{int(mma)}EE")
+    if kernel == "walk_anyhit":
+        return f"walk_anyhit_split_kernelILi{p}ELb{ring}ELb{int(mma)}EE"
+    if kernel == "walk_floor":
+        return f"walk_floor_split_kernelILi{p}ELb{ring}EE"
     return f"{kernel}_split_kernelILi{p}EE"
+
+
+def _sub_symbol(name, sub, form, mma) -> str:
+    """The mangled-name fragment of K6's kernel `name` (walk_sub_closest or
+    walk_sub_anyhit) at `sub` in `form` (threads a ray, staged)."""
+    p, stage = (int(x) for x in form)
+    return f"{name}_kernelILi{sub}ELi{p}ELb{stage}ELb{int(mma)}EE"
+
+
+def _static_of(sym) -> int:
+    hits = [v for k, v in _PTXAS.items() if sym in k]
+    if len(hits) != 1:
+        raise AssertionError(f"ptxas: {len(hits)} kernels match {sym}")
+    return hits[0][1]
 
 
 def check_static_smem():
     """launch_geometry's static shared memory of every walk kernel in both
-    its forms (ops/walk_trace.py:static_smem) against ptxas's report."""
+    its forms (ops/walk_trace.py:static_smem), K3/K4's split form with the
+    tensor-core test too, and of K6 in every form built (ops/walk_sub.py:
+    static_smem), against ptxas's report."""
+    from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
+    checked = 0
     for kernel in (*wk.PRODUCTION_FORMS, "walk_floor"):
         split = wk.PRODUCTION_FORMS.get(kernel,
                                         wk.PRODUCTION_FORMS["walk_closest"])
         for form in (wk.ONE_THREAD_FORM, split):
             for count in ((False, True) if kernel == "walk_closest"
                           else (False,)):
-                sym = _symbol(kernel, form, count)
-                hits = [v for k, v in _PTXAS.items() if sym in k]
-                if len(hits) != 1:
-                    raise AssertionError(f"ptxas: {len(hits)} kernels "
-                                         f"match {sym}")
-                if hits[0][1] != wk.static_smem(kernel, form):
-                    raise AssertionError(
-                        f"{sym}: ptxas {hits[0][1]} B of static shared "
-                        f"memory, launch_geometry "
-                        f"{wk.static_smem(kernel, form)} B")
+                for mma in ((False, True) if kernel in wk._MMA_SPLIT
+                            and not count else (False,)):
+                    sym = _symbol(kernel, form, count, mma)
+                    if _static_of(sym) != wk.static_smem(kernel, form):
+                        raise AssertionError(
+                            f"{sym}: ptxas {_static_of(sym)} B of static "
+                            f"shared memory, launch_geometry "
+                            f"{wk.static_smem(kernel, form)} B")
+                    checked += 1
+    for name in wsub.PRODUCTION_FORMS:
+        for sub in wsub.SUBS:
+            for mma, table in ((False, wsub.PRODUCTION_FORMS),
+                               (True, wsub.MMA_FORMS)):
+                for form in {wk.ONE_THREAD_FORM, table[name][sub]}:
+                    sym = _sub_symbol(name, sub, form, mma)
+                    if _static_of(sym) != wsub.static_smem(sub, form):
+                        raise AssertionError(
+                            f"{sym}: ptxas {_static_of(sym)} B of static "
+                            f"shared memory, launch_geometry "
+                            f"{wsub.static_smem(sub, form)} B")
+                    checked += 1
     phase("ptxas", "launch_geometry's static shared memory = ptxas's on "
-          "every walk kernel in both forms")
+          f"{checked} walk kernels: both forms of every walk kernel, K3/K4's "
+          "split tensor-core forms, K6's forms at every sub with both tests")
 
 
 def ptxas_table():
@@ -410,26 +461,18 @@ def _forms_vs_one(tag, kernels, wt, srt, rows):
     return out
 
 
-def _lanes(rng, tnear, tfar, span):
-    """Lanes k % 7 == 3 inert (tfar = 0), k % 11 == 5 with tnear >= tfar,
-    k % 5 == 1 a finite tfar (in place)."""
-    k = np.arange(tfar.shape[0])
-    tfar[k % 5 == 1] = rng.uniform(0.05, 1.0, (k % 5 == 1).sum()) * span
-    tfar[k % 7 == 3] = 0.0
-    tnear[k % 11 == 5] = 0.5 * span
-    tfar[k % 11 == 5] = 0.25 * span
-
-
 def _rays(rng, lo, hi, n, device):
     """Rays from points in the box [lo, hi] in random directions, with
-    inert, empty and bounded lanes (_lanes)."""
+    inert, empty and bounded lanes (tools/perf/common.py:inert_lanes)."""
     import torch
+    from rustlight_tpu_torch.tools.perf import common
     o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tnear = np.full(n, 1e-4, np.float32)
     tfar = np.full(n, np.inf, np.float32)
-    _lanes(rng, tnear, tfar, float(np.linalg.norm(np.subtract(hi, lo))))
+    common.inert_lanes(rng, tnear, tfar,
+                       float(np.linalg.norm(np.subtract(hi, lo))))
     return [torch.as_tensor(x, device=device) for x in (o, d, tnear, tfar)]
 
 
@@ -754,37 +797,6 @@ def timed_render(label, sd, integ, spp, seed=0):
     return img, wall, warm, n_rays, launches
 
 
-def _wavefronts(sd, rng):
-    """The two walk wavefronts on a grid scene: its camera rays (one
-    origin) and rays from their hits in random directions, with inert,
-    empty and bounded lanes (_lanes)."""
-    import torch
-    from rustlight_tpu_torch.accel import intersect_rays
-    from rustlight_tpu_torch.scene import generate_rays
-    dev = sd.device
-    w, h = sd.camera.width, sd.camera.height
-    ys, xs = np.mgrid[0:h, 0:w]
-    px = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
-    px += rng.uniform(0, 1, px.shape).astype(np.float32)
-    o, d = generate_rays(sd.camera, torch.as_tensor(px, device=dev))
-    o = o.contiguous()
-    n = o.shape[0]
-    tnear = torch.full((n,), 1e-4, device=dev)
-    tfar = torch.full((n,), float("inf"), device=dev)
-    rh = intersect_rays(sd.geom, o, d, tnear, tfar)
-    p = torch.where(rh.hit[:, None], o + d * (rh.t - 1e-3)[:, None], o)
-    d2 = rng.normal(size=(n, 3)).astype(np.float32)
-    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
-    tn2 = np.full(n, 1e-4, np.float32)
-    tf2 = np.full(n, np.inf, np.float32)
-    walk = sd.geom.walk
-    span = float(torch.linalg.norm(walk.world_hi - walk.world_lo))
-    _lanes(rng, tn2, tf2, span)
-    spread = [p.contiguous(), *(torch.as_tensor(x, device=dev)
-                                for x in (d2, tn2, tf2))]
-    return {"camera": [o, d.contiguous(), tnear, tfar], "spread": spread}
-
-
 def check_walk(label, sd, rng):
     """Walk kernels against their plain versions on the scene's two
     wavefronts, sorted by the walk; returns one record per wavefront, and
@@ -792,11 +804,12 @@ def check_walk(label, sd, rng):
     import torch
     from rustlight_tpu_torch.accel import walk
     from rustlight_tpu_torch.ops import walk_trace as wk
+    from rustlight_tpu_torch.tools.perf import common
     wt = sd.geom.walk
     table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
              + wt.hi.numel()) * 4
     out = []
-    waves = _wavefronts(sd, rng)
+    waves = common.walk_wavefronts(sd, rng)
     one = wk.ONE_THREAD_FORM
     for name, rays in waves.items():
         srt = walk._prepare(wt, *rays)[:4]
@@ -862,11 +875,109 @@ def _timed(fn):
 
 def _sched_line(tag, name, rec):
     phase("sched", f"{tag} {name}: " + "; ".join(
-        f"{k}: {rec[k]['note']}, kernel {rec[k]['ms']:.4f} ms (K3/K5 "
-        f"{rec[k]['base_ms']:.4f}), whole call {rec[k]['walk_ms']:.4f} ms, "
-        f"plain {rec[k]['plain_ms']:.1f} ms, bound {rec[k]['bound_ms']:.4f} ms"
-        f" ({rec[k]['bound_by']}), err {rec[k]['max_abs_err']:.3g}"
-        for k in ("closest", "anyhit")))
+        f"{k}: {rec[k]['note']}, kernel {rec[k]['ms']:.4f} ms"
+        + (f" ({rec[k]['form']}; P1 {rec[k]['p1_ms']:.4f})" if "form" in rec[k]
+           else "")
+        + f" (K3/K5 {rec[k]['base_ms']:.4f}), whole call "
+        f"{rec[k]['walk_ms']:.4f} ms, plain {rec[k]['plain_ms']:.1f} ms, "
+        f"bound {rec[k]['bound_ms']:.4f} ms ({rec[k]['bound_by']}), err "
+        f"{rec[k]['max_abs_err']:.3g}" for k in ("closest", "anyhit")))
+
+
+def _sub_form_name(form) -> str:
+    """A K6 form (threads a ray, staged) as text."""
+    p, stage = form
+    return f"P{p}" + (" staged" if stage else "")
+
+
+def _in_turns(fn, one, form) -> dict:
+    """fn(_form=...) timed one-thread, production, production, one-thread
+    (medians of TIMING_RUNS each)."""
+    turns = [_median_ms(lambda f=f: fn(_form=f))
+             for f in (one, form, form, one)]
+    return {"turns_ms": turns, "ms": (turns[1] + turns[2]) / 2,
+            "p1_ms": (turns[0] + turns[3]) / 2}
+
+
+def _sub_forms_vs_one(tag, wt, srt, sub, got, plain):
+    """K6's production form at `sub` (its outputs `got`: closest, any hit)
+    against its one-thread form and against the plain version (`plain`:
+    closest, occlusion), bit for bit: 0 lanes may differ. The two forms
+    timed in turns, with ptxas's lines. Returns {kind: record}."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_sub as wsub
+    from rustlight_tpu_torch.ops.walk_trace import ONE_THREAD_FORM as one
+    out = {}
+    for kind, fn, new, ref in (
+            ("closest", wsub.walk_sub_closest, got[0], plain[0]),
+            ("anyhit", wsub.walk_sub_anyhit, got[1], plain[1])):
+        name = f"walk_sub_{kind}"
+        form = wsub.PRODUCTION_FORMS[name][sub]
+        old = fn(wt, *srt, sub, _form=one)
+        torch.cuda.synchronize()
+        diff = _lanes_differ(new, old).numel()
+        diff_p = _lanes_differ(new, ref).numel()
+        if diff or diff_p:
+            raise AssertionError(f"{tag} {kind}: {_sub_form_name(form)} "
+                                 f"differs from P1 on {diff} lanes and from "
+                                 f"the plain version on {diff_p}")
+        out[kind] = {"form": _sub_form_name(form), "lanes_differ": diff,
+                     **_in_turns(lambda **k: fn(wt, *srt, sub, **k), one,
+                                 None)}
+        phase("forms", f"{tag} {name}: {_sub_form_name(form)} vs P1 and vs "
+              "the plain version: 0 lanes differ; P1, new, new, P1 "
+              + ", ".join(f"{t:.4f}" for t in out[kind]["turns_ms"])
+              + f" ms; P1 {_ptxas(_sub_symbol(name, sub, one, False))}, "
+              f"{_sub_form_name(form)} "
+              f"{_ptxas(_sub_symbol(name, sub, form, False))}")
+    return out
+
+
+def check_sub_planted(dev):
+    """Phase 13: K6's per-group barriers on the planted tiles whose groups
+    stop far apart (ops/walk_sub.py:planted_tiles, 1,024 tiles): at each
+    sub, the groups of each tile's first 32 rays stop after one pair of
+    visits and the others visit every cluster (the plain walk's counts),
+    and both forms of both tests give the plain version's results (the
+    tensor-core forms each other's), bit for bit."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_sub as wsub
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    one = wk.ONE_THREAD_FORM
+    wt, rays = wsub.planted_tiles(dev, tiles=1024)
+    for sub in wsub.SUBS:
+        closest, visits = wk._walk_ref(wt, *rays, False,
+                                       tile=wk.RAY_TILE // sub)
+        per = visits.view(-1, sub)
+        if not (bool((per[:, :sub // 2] == 2).all()) and bool(
+                (per[:, sub // 2:] >= wsub.PLANTED_CLUSTERS).all())):
+            raise AssertionError(f"planted tiles, sub {sub}: the groups do "
+                                 "not stop as planted")
+        occ = wsub.walk_sub_anyhit_ref(wt, *rays, sub)[0]
+        mma = []
+        for form in (one, None):
+            got = (wsub.walk_sub_closest(wt, *rays, sub, _form=form),
+                   wsub.walk_sub_anyhit(wt, *rays, sub, _form=form))
+            mma.append((wsub.walk_sub_closest(wt, *rays, sub, True,
+                                              _form=form),
+                        wsub.walk_sub_anyhit(wt, *rays, sub, True,
+                                             _form=form)))
+            torch.cuda.synchronize()
+            diff = (_lanes_differ(got[0], closest).numel(),
+                    _lanes_differ(got[1], occ).numel())
+            if any(diff):
+                raise AssertionError(f"planted tiles, sub {sub}, form "
+                                     f"{form}: {diff} lanes differ")
+        diff = (_lanes_differ(mma[0][0], mma[1][0]).numel(),
+                _lanes_differ(mma[0][1], mma[1][1]).numel())
+        if any(diff):
+            raise AssertionError(f"planted tiles, sub {sub}: the tensor-core "
+                                 f"forms differ on {diff} lanes")
+    phase("sched", f"planted tiles ({rays[0].shape[0]} rays; half of each "
+          "tile's groups stop after one pair of visits, the others visit "
+          f"all {wsub.PLANTED_CLUSTERS} clusters): K6 at sub "
+          f"{'/'.join(map(str, wsub.SUBS))}, both forms = the plain version "
+          "bit for bit; the tensor-core forms equal")
 
 
 def check_schedules(label, sd, waves):
@@ -949,6 +1060,9 @@ def check_schedules(label, sd, waves):
                      k3[1])
             rec = {"table": label, "wavefront": wname, "schedule": name,
                    "cp": wt.n_clusters, "rays": n, "tie_ids": ties}
+            if "sub" in opt:
+                forms = _sub_forms_vs_one(f"{tag} {name}", wt, srt,
+                                          opt["sub"], got, (pc, pa[0]))
             for kind, counts, err, fn, any_hit, out_b, pms in (
                     ("closest", cc, err_c, closest, False, 16, pms_c),
                     ("anyhit", ca, err_a, anyhit, True, 1, pms_a)):
@@ -956,12 +1070,15 @@ def check_schedules(label, sd, waves):
                 bound, by = _bound_ms(tests, n * (RAY_IN_BYTES + out_b) + table)
                 rec[kind] = {
                     "note": note, "tests": tests, "max_abs_err": err,
-                    "ms": _median_ms(lambda f=fn: f(wt, *srt)),
                     "base_ms": base_ms[kind],
                     "walk_ms": _median_ms(lambda a=any_hit: walk._walk_impl(
                         wt, *rays, a, **opt)),
                     "base_walk_ms": base_walk[any_hit],
                     "plain_ms": pms, "bound_ms": bound, "bound_by": by}
+                if "sub" in opt:
+                    rec[kind].update(forms[kind])
+                else:
+                    rec[kind]["ms"] = _median_ms(lambda f=fn: f(wt, *srt))
             _sched_line(tag, name, rec)
             out[name].append(rec)
         # K8: the pairs of the morton-sorted wavefront, then the whole walk
@@ -1062,7 +1179,8 @@ def _case(rec, kind):
     whole record is in the phase's own line)."""
     return {"table": rec["table"], "wavefront": rec["wavefront"],
             "schedule": rec["schedule"],
-            **{k: rec[kind][k] for k in ("ms", "bound_ms", "max_abs_err")}}
+            **{k: rec[kind][k] for k in ("form", "ms", "p1_ms", "bound_ms",
+                                         "max_abs_err") if k in rec[kind]}}
 
 
 def _images_agree(label, img, ref, pix_frac, pix_rtol, mean_rtol):
@@ -1563,8 +1681,9 @@ def _walk_variants(wt, srt, which):
     """The tensor-core kernel pairs named in `which` on the sorted rays
     `srt`: {name: (closest kernel name, any-hit kernel name, closest(**kw),
     anyhit(**kw), plain mxu closest, plain mxu any hit, rays a counted unit
-    tests)}; a plain version returns its outputs, then the count (visits,
-    or live pairs)."""
+    tests, the split forms' names, or None where the tensor-core visit is
+    one thread a ray)}; a plain version returns its outputs, then the count
+    (visits, or live pairs)."""
     from rustlight_tpu_torch.ops import walk_hier as wh
     from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
@@ -1574,17 +1693,21 @@ def _walk_variants(wt, srt, which):
                  lambda **k: wk.walk_closest(wt, *srt, **k),
                  lambda **k: wk.walk_anyhit(wt, *srt, **k),
                  lambda: wk.walk_closest_ref(wt, *srt, mxu=True),
-                 lambda: wk.walk_anyhit_ref(wt, *srt, mxu=True), R),
+                 lambda: wk.walk_anyhit_ref(wt, *srt, mxu=True), R,
+                 _form_name(wk.PRODUCTION_FORMS["walk_closest"]) + "/"
+                 + _form_name(wk.PRODUCTION_FORMS["walk_anyhit"])),
         "walk_wide": ("walk_closest_wide_mma", "walk_anyhit_wide_mma",
                       lambda **k: wk.walk_closest(wt, *srt, wide=True, **k),
                       lambda **k: wk.walk_anyhit(wt, *srt, wide=True, **k),
                       lambda: wk.walk_closest_ref(wt, *srt, True, True),
-                      lambda: wk.walk_anyhit_ref(wt, *srt, True, True), R),
+                      lambda: wk.walk_anyhit_ref(wt, *srt, True, True), R,
+                      None),
         "walk_hier": ("walk_hier_closest_mma", "walk_hier_anyhit_mma",
                       lambda **k: wh.walk_hier_closest(wt, *srt, **k),
                       lambda **k: wh.walk_hier_anyhit(wt, *srt, **k),
                       lambda: wh.walk_hier_closest_ref(wt, *srt, True),
-                      lambda: wh.walk_hier_anyhit_ref(wt, *srt, True), R)}
+                      lambda: wh.walk_hier_anyhit_ref(wt, *srt, True), R,
+                      None)}
     for sub in wsub.SUBS:
         out[f"sub{sub}"] = (
             "walk_sub_closest_mma", "walk_sub_anyhit_mma",
@@ -1592,7 +1715,9 @@ def _walk_variants(wt, srt, which):
             lambda s=sub, **k: wsub.walk_sub_anyhit(wt, *srt, s, **k),
             lambda s=sub: wsub.walk_sub_closest_ref(wt, *srt, s, mxu=True),
             lambda s=sub: wsub.walk_sub_anyhit_ref(wt, *srt, s, mxu=True),
-            R // sub)
+            R // sub, "/".join(
+                _sub_form_name(wsub.MMA_FORMS[f"walk_sub_{k}"][sub])
+                for k in ("closest", "anyhit")))
     return {k: out[k] for k in which}
 
 
@@ -1604,7 +1729,7 @@ def _pair_variants(wt, pairs, km):
         lambda **k: pt.pair_closest(wt, *pairs, **k),
         lambda **k: pt.pair_anyhit(wt, *pairs, **k),
         lambda: pt.pair_closest_ref(wt, *pairs, mxu=True),
-        lambda: pt.pair_anyhit_ref(wt, *pairs, mxu=True), 1)}
+        lambda: pt.pair_anyhit_ref(wt, *pairs, mxu=True), 1, None)}
 
 
 def _form_counts(tag, rows, rays, dot, plain, add):
@@ -1664,19 +1789,41 @@ def _check_mma(tag, rows, wt, rays, variants, resident, add, in_bytes=None,
     rows per visit. With `forms`, A1's candidate forms are counted on the
     first variant's _dot4 hits (_form_counts). Records go to add(kernel
     name, **record)."""
+    import torch
     from rustlight_tpu_torch.ops import walk_lab as wl
     from rustlight_tpu_torch.ops import walk_trace as wk
+    one = wk.ONE_THREAD_FORM
     n = rays[0].shape[0]
     in_bytes = RAY_IN_BYTES if in_bytes is None else in_bytes
     table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
              + wt.hi.numel()) * 4
     first = forms
-    for name, (cname, aname, closest, anyhit, pc, pa, per) in variants.items():
+    for name, (cname, aname, closest, anyhit, pc, pa, per,
+               split) in variants.items():
         dot_c, dot_a = closest(), anyhit()
         got_c, got_a = closest(mxu=True), anyhit(mxu=True)
         (out_c, pms_c), (out_a, pms_a) = _timed(pc), _timed(pa)
         ref_c, ref_a = out_c[:4], out_a[0]
         at = f"{tag} {name} mma"
+        turns = {}
+        if split:
+            # the split tensor-core forms against the one-thread ones
+            one_c, one_a = closest(mxu=True, _form=one), anyhit(mxu=True,
+                                                                 _form=one)
+            torch.cuda.synchronize()
+            diff = (_lanes_differ(got_c, one_c).numel(),
+                    _lanes_differ(got_a, one_a).numel())
+            if any(diff):
+                raise AssertionError(f"{at}: the split forms ({split}) differ "
+                                     f"from P1 on {diff} lanes")
+            for kname, fn in ((cname, closest), (aname, anyhit)):
+                turns[kname] = _in_turns(
+                    lambda fn=fn, **k: fn(mxu=True, **k), one, None)
+            phase("forms", f"{at}: {split} vs P1: 0 lanes differ; P1, new, "
+                  "new, P1 " + "; ".join(
+                      ", ".join(f"{t:.4f}" for t in turns[k]["turns_ms"])
+                      for k in (cname, aname)) + " ms")
+        cap = _exact_cap(at, rows, rays, got_c, ref_c)
         err_p, exc_p, loose_p = _compare_mxu(
             f"{at} vs plain mxu", rows, rays, got_c, ref_c, got_a, ref_a)
         err_k, exc_k, loose_k = _compare_mxu(
@@ -1711,11 +1858,14 @@ def _check_mma(tag, rows, wt, rays, variants, resident, add, in_bytes=None,
             bound, by, routes = _mma_bound_ms(
                 tests, n * (in_bytes + out_b)
                 + (table if resident else count * HIER_VISIT_BYTES))
-            add(kname, max_abs_err=max(err_p, err_k),
-                ms=_median_ms(lambda: fn(mxu=True)), dot4_ms=b_ms,
+            timing = turns.get(kname) or {
+                "ms": _median_ms(lambda: fn(mxu=True))}
+            add(kname, max_abs_err=max(err_p, err_k), dot4_ms=b_ms,
                 plain_ms=pms, bound_ms=bound, bound_by=by, **routes,
                 tests=tests, excused=max(exc_p, exc_k),
-                loose=max(n_p, n_k), plain_loose=n_r, schedule=name, **where)
+                loose=max(n_p, n_k), plain_loose=n_r, schedule=name,
+                form=split or "P1", exact_outside=cap[0],
+                plain_exact_outside=cap[1], **timing, **where)
             rc = add.last(kname)
             phase("mma", f"{at} {kname}: {tests} tests, {rc['ms']:.4f} ms "
                   f"(_dot4 {b_ms:.4f}), plain {pms:.1f} ms, bound "
@@ -1726,8 +1876,37 @@ def _check_mma(tag, rows, wt, rays, variants, resident, add, in_bytes=None,
               f"{n_p} on the operand-error bound; vs _dot4 kernels {exc_k}, "
               f"{n_k}; plain mxu vs _dot4 kernels {exc_r}, {n_r} ({shared} of "
               f"them the kernel's too; ratio "
-              f"{n_k / max(n_r, 1):.2f}); err {max(err_p, err_k):.3g}"
-              + form_note)
+              f"{n_k / max(n_r, 1):.2f}); outside rtol {MXU_T_RTOL} of the "
+              f"exact t: the kernel {cap[0]}, torch.matmul {cap[1]} (of "
+              f"{cap[2]} lanes); err {max(err_p, err_k):.3g}" + form_note)
+
+
+def _exact_cap(label, rows, rays, got, ref):
+    """The yardstick of f32 accuracy: on the lanes where a tensor-core
+    kernel (`got`, closest hit) and its plain mxu version (`ref`:
+    torch.matmul in full f32) hit the same triangle, the lanes whose t lies
+    outside MXU_T_RTOL / MXU_T_ATOL of the exact t (the products and the
+    quotient in float64 from the same f32 operands). The kernel's may be at
+    most the plain version's. Returns (the kernel's, the plain version's,
+    the lanes)."""
+    import torch
+    o, d = rays[0], rays[1]
+    same = (got[1] == ref[1]) & (got[1] >= 0)
+    nr = rows[got[1][same].long(), 0].double()
+    one = torch.ones_like(nr[:, :1])
+    t_x = (-(torch.cat([o[same].double(), one], 1) * nr).sum(1)
+           / (torch.cat([d[same].double(), 0 * one], 1) * nr).sum(1))
+
+    def outside(t):
+        return int((~((t.double() - t_x).abs()
+                      <= MXU_T_RTOL * t_x.abs() + MXU_T_ATOL)).sum())
+
+    n_k, n_p = outside(got[0][same]), outside(ref[0][same])
+    if n_k > n_p:
+        raise AssertionError(f"{label}: {n_k} lanes outside rtol "
+                             f"{MXU_T_RTOL} of the exact t, torch.matmul "
+                             f"{n_p} on the same {int(same.sum())} lanes")
+    return n_k, n_p, int(same.sum())
 
 
 class _Records(dict):
@@ -2182,6 +2361,7 @@ def main() -> int:
         profile_render(label, gsd, integ, 2, ("walk_",))
     label = GRID_ROWS[0][0]
     gsd, _, _, waves = grids[label]
+    check_sub_planted(dev)
     sched_recs = check_schedules(label, gsd, waves)
     # the tensor-core visit of K3, K6 and K8 where phase 19's renders launch
     # them
@@ -2287,7 +2467,9 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None, "cases": cases})
+            "library_ms": None,
+            **({"form": rec["form"], "p1_ms": rec["p1_ms"]}
+               if "form" in rec else {}), "cases": cases})
     for name, line, kind in (("pair_closest", 108, "closest"),
                              ("pair_anyhit", 155, "anyhit")):
         cases = [_case(r, kind) for km in PAIR_KMS for r in sched_recs[f"pair{km}"]]
@@ -2333,11 +2515,14 @@ def main() -> int:
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": library_ms,
+                **({"form": rec["form"], "p1_ms": rec.get("p1_ms")}
+                   if "form" in rec else {}),
                 "cases": [{k: c[k] for k in (
-                    "table", "wavefront", "schedule", "ms", "dot4_ms",
-                    "walk_ms", "bound_ms",
+                    "table", "wavefront", "schedule", "form", "ms", "p1_ms",
+                    "dot4_ms", "walk_ms", "bound_ms",
                     "tc_route_ms", "f32_route_ms", "max_abs_err", "excused",
-                    "loose") if k in c} for c in cases]}
+                    "loose", "exact_outside", "plain_exact_outside")
+                    if k in c} for c in cases]}
 
     kernels += [
         lab_entry("walk_closest_counted", "lab", f"{ROOFLINE}:58",

@@ -64,6 +64,7 @@ namespace walk {
 constexpr int TILE = 64;          // rays per tile, one thread per ray
 constexpr int WARPS = TILE / 32;
 constexpr int KC = 384;           // triangles per cluster
+constexpr int NB = KC / 8;        // n8 column blocks of a cluster
 constexpr int PARTS = 3;          // TF32 parts of an operand
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -100,29 +101,53 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(b));
 }
 
+// Slot s of the fragments: the ray (ox .. dz, tnear) that lane 8 s + g of
+// the calling thread's row g holds; q picks the component.
+__device__ __forceinline__ void mma_slot(MmaRays& m, int s, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float tnear) {
+  const int q = threadIdx.x & 3;
+  m.tnear[s] = tnear;
+  uint32_t po[PARTS], pd[PARTS];
+  split_tf32(q == 0 ? ox : q == 1 ? oy : q == 2 ? oz : 1.0f, po);
+  split_tf32(q == 0 ? dx : q == 1 ? dy : q == 2 ? dz : 0.0f, pd);
+#pragma unroll
+  for (int k = 0; k < PARTS; ++k) {
+    m.o[k][s] = po[k];
+    m.d[k][s] = pd[k];
+  }
+}
+
 // Every thread of the warp calls this with its own ray.
 __device__ __forceinline__ MmaRays mma_rays(const Ray& ray) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
+  const int g = (threadIdx.x & 31) >> 2;
   MmaRays m;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const int src = 8 * s + g;
-    const float ox = __shfl_sync(FULL, ray.ox, src);
-    const float oy = __shfl_sync(FULL, ray.oy, src);
-    const float oz = __shfl_sync(FULL, ray.oz, src);
-    const float dx = __shfl_sync(FULL, ray.dx, src);
-    const float dy = __shfl_sync(FULL, ray.dy, src);
-    const float dz = __shfl_sync(FULL, ray.dz, src);
-    m.tnear[s] = __shfl_sync(FULL, ray.tnear, src);
-    uint32_t po[PARTS], pd[PARTS];
-    split_tf32(q == 0 ? ox : q == 1 ? oy : q == 2 ? oz : 1.0f, po);
-    split_tf32(q == 0 ? dx : q == 1 ? dy : q == 2 ? dz : 0.0f, pd);
+    mma_slot(m, s, __shfl_sync(FULL, ray.ox, src),
+             __shfl_sync(FULL, ray.oy, src), __shfl_sync(FULL, ray.oz, src),
+             __shfl_sync(FULL, ray.dx, src), __shfl_sync(FULL, ray.dy, src),
+             __shfl_sync(FULL, ray.dz, src),
+             __shfl_sync(FULL, ray.tnear, src));
+  }
+  return m;
+}
+
+// The same fragments for the 32 rays base .. base + 31 of o, d [n, 3] and
+// tnear [n], read from memory: for a warp that does not hold those rays
+// (the split visit below). Bit for bit those of mma_rays.
+__device__ __forceinline__ MmaRays mma_rays_at(const float* __restrict__ o,
+                                               const float* __restrict__ d,
+                                               const float* __restrict__ tnear,
+                                               int base) {
+  const int g = (threadIdx.x & 31) >> 2;
+  MmaRays m;
 #pragma unroll
-    for (int k = 0; k < PARTS; ++k) {
-      m.o[k][s] = po[k];
-      m.d[k][s] = pd[k];
-    }
+  for (int s = 0; s < 4; ++s) {
+    const size_t k = static_cast<size_t>(base + 8 * s + g);
+    mma_slot(m, s, o[3 * k], o[3 * k + 1], o[3 * k + 2], d[3 * k],
+             d[3 * k + 1], d[3 * k + 2], tnear[k]);
   }
   return m;
 }
@@ -221,18 +246,79 @@ __device__ __forceinline__ void mma_step(const MmaRays& m, int mt,
   }
 }
 
+// The split visit's step (split_mma in walk_common.cuh, one cluster for
+// the warp): both row blocks (those with `live` slots) against triangles
+// j0 .. j0 + 7 of the rows at `f`, the products one row kind at a time (N,
+// then U, then V; each product as mma_products forms it), so that the B
+// parts of one kind and the accumulators of four products are live, and
+// a block of 512 threads keeps all of it in its 128 registers a thread.
+// Then tri_test.cuh's test as test_products (IEEE f32, no contraction),
+// and the same updates in the same order as mma_step.
+template <bool ANY>
+__device__ __forceinline__ void mma_step_lean(const MmaRays& m,
+                                              const float* f, int j0,
+                                              const bool (&live)[2],
+                                              const float (&caps)[4],
+                                              MmaBest& b) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  float t[2][4], u[2][4];
+  bool ok[2][4];
+#pragma unroll
+  for (int kind = 0; kind < 3; ++kind) {
+    uint32_t bp[PARTS];
+    split_tf32(f[(3 * (j0 + (lane >> 2)) + kind) * 4 + q], bp);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (!live[mt]) continue;
+      uint32_t ao[PARTS][2], ad[PARTS][2];
+#pragma unroll
+      for (int k = 0; k < PARTS; ++k) {
+        ao[k][0] = m.o[k][2 * mt]; ao[k][1] = m.o[k][2 * mt + 1];
+        ad[k][0] = m.d[k][2 * mt]; ad[k][1] = m.d[k][2 * mt + 1];
+      }
+      float co[4], cd[4];
+      mma_f32(co, ao, bp);
+      mma_f32(cd, ad, bp);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = 2 * mt + (e >> 1);
+        if (kind == 0) {
+          t[mt][e] = __fdiv_rn(-co[e], cd[e]);
+          ok[mt][e] = fabsf(cd[e]) > 1e-20f && t[mt][e] > m.tnear[s] &&
+                      t[mt][e] < caps[s];
+        } else if (kind == 1) {
+          u[mt][e] = __fadd_rn(co[e], __fmul_rn(t[mt][e], cd[e]));
+        } else {
+          const float v = __fadd_rn(co[e], __fmul_rn(t[mt][e], cd[e]));
+          if (ok[mt][e] && u[mt][e] >= 0.0f && v >= 0.0f &&
+              __fadd_rn(u[mt][e], v) <= 1.0f && (ANY || t[mt][e] < b.t[s])) {
+            b.t[s] = t[mt][e]; b.u[s] = u[mt][e]; b.v[s] = v;
+            b.j[s] = j0 + 2 * q + (e & 1);
+          }
+        }
+      }
+    }
+  }
+}
+
 // The whole warp scans, each of its rays against the cluster whose rows
 // start at its own `c_rows`, which is the same for the SPAN (32, 16 or 8)
-// adjacent lanes of an aligned group. On return the calling thread has its
-// own ray's nearest valid hit below `cap` (its own ray's t cap; -inf takes
-// the ray out): j < KC, with t, u, v; j = KC for none. The lowest column
-// wins among equal t. With ANY, j < KC says only that there is a hit.
-template <int SPAN, bool ANY>
+// adjacent lanes of an aligned group, over the column blocks b0 .. b1 - 1
+// (triangles 8 b0 .. 8 b1 - 1; all NB by default). On return the calling
+// thread has its own ray's nearest valid hit below `cap` (its own ray's t
+// cap; -inf takes the ray out) among those columns: j < KC, with t, u, v;
+// j = KC for none. The lowest column wins among equal t. With ANY, j < KC
+// says only that there is a hit. A slot with no cap skips its products,
+// and a warp with none skips the scan. LEAN takes mma_step_lean (the split
+// visit's).
+template <int SPAN, bool ANY, bool LEAN = false>
 __device__ __forceinline__ void mma_scan(const float* c_rows,
                                          const MmaRays& m, float cap,
                                          float& t_out, int& j_out,
-                                         float& u_out, float& v_out) {
+                                         float& u_out, float& v_out,
+                                         int b0 = 0, int b1 = NB) {
   static_assert(SPAN == 32 || SPAN == 16 || SPAN == 8, "SPAN: 32, 16 or 8");
+  static_assert(SPAN == 32 || !LEAN, "the lean step takes one cluster");
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   // a slot (8 rays) takes part when one of its rays has a cap
@@ -251,20 +337,22 @@ __device__ __forceinline__ void mma_scan(const float* c_rows,
   }
   const bool slot[4] = {(live & 0xffu) != 0, (live & 0xff00u) != 0,
                         (live & 0xff0000u) != 0, (live & 0xff000000u) != 0};
-  for (int j0 = 0; j0 < KC; j0 += 8) {
-    if constexpr (SPAN == 32) {
+  const bool live_mt[2] = {slot[0] || slot[1], slot[2] || slot[3]};
+  for (int j0 = 8 * b0; live && j0 < 8 * b1; j0 += 8) {
+    if constexpr (LEAN) {
+      mma_step_lean<ANY>(m, f[0], j0, live_mt, caps, b);
+    } else if constexpr (SPAN == 32) {
       const MmaCols cols = mma_cols(f[0], j0);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
-        if (slot[2 * mt] || slot[2 * mt + 1])
-          mma_step<ANY>(m, mt, cols, j0, 3u, caps, b);
+        if (live_mt[mt]) mma_step<ANY>(m, mt, cols, j0, 3u, caps, b);
     } else {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         const float* fa = f[2 * mt];
         const float* fb = f[2 * mt + 1];
         if (SPAN == 16 || fa == fb) {
-          if (slot[2 * mt] || slot[2 * mt + 1])
+          if (live_mt[mt])
             mma_step<ANY>(m, mt, mma_cols(fa, j0), j0, 3u, caps, b);
         } else {
           if (slot[2 * mt])

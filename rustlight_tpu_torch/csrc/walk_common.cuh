@@ -19,7 +19,8 @@
 // A visit's triangle test has two forms, chosen by a template flag of
 // visit_closest / visit_anyhit: the _dot4 form of tri_test.cuh, one thread a
 // ray (the default, and the bit-identical one), and the tensor-core form of
-// tri_test_mma.cuh, a warp for its 32 rays.
+// tri_test_mma.cuh, a warp for its 32 rays. The split kernels take the
+// split forms of both (split_closest / split_anyhit, split_mma below).
 #pragma once
 
 #include <cstdint>
@@ -330,6 +331,98 @@ __device__ __forceinline__ void split_anyhit(const float4* c_rows,
   if (hit) occ = true;
 }
 
+// ---------------------------------------------- split tensor-core visit
+//
+// The tensor-core test (tri_test_mma.cuh) split over warps by columns. With
+// P threads a ray, the rays of a 32-ray set sit on P consecutive warps. The
+// set's rays fall into groups of GS rays, each with its own cluster (GS =
+// 32: the whole set, as in the tile walk and in K6 at sub 2; 16 or 8: K6 at
+// sub 4 or 8), and the W = GS P / 32 warps of a group split its NB column
+// blocks: its warp wi takes blocks [wi NB / W, (wi + 1) NB / W). Each warp
+// runs mma_scan for all 32 rays of its set (their fragments read from
+// memory) with the caps of its group's rays from mx.cap and -inf for the
+// others, so the products, t, u and v of each column are the same
+// instructions on the same operands as in the one-warp scan, and it keeps
+// each ray's (t, column) minimum over its columns. The ray's W partials
+// then merge through mx.part in column order: t smaller, or t equal and
+// the column lower. That is the serial winner, so the result is the
+// one-warp scan's bit for bit. `sync` is a barrier over the threads that
+// share mx (the block, or one group of K6); the caller writes the caps of
+// its rays (put_cap) and passes a barrier before the call. Every thread of
+// the group calls it; on return each has its own ray's result as mma_scan
+// gives it.
+
+struct MmaPart {
+  float t, u, v;
+  int j;
+};
+
+// Shared memory of the split visit, in the dynamic block after the rows:
+// each ray's cap, and a partial per warp and lane.
+struct MmaScratch {
+  float* cap;       // [TILE]
+  MmaPart* part;    // [NT]
+};
+
+template <int NT>
+__host__ __device__ constexpr int mma_scratch_f4() {
+  return (TILE * sizeof(float) + NT * sizeof(MmaPart)) / sizeof(float4);
+}
+
+__device__ __forceinline__ MmaScratch mma_scratch(float4* at) {
+  return {reinterpret_cast<float*>(at),
+          reinterpret_cast<MmaPart*>(at + TILE / 4)};
+}
+
+struct BlockSync {
+  __device__ void operator()() const { __syncthreads(); }
+};
+
+// The fragments of the calling warp's 32-ray set (warp / P) of the tile.
+template <int P>
+__device__ __forceinline__ MmaRays set_rays(const float* __restrict__ o,
+                                            const float* __restrict__ d,
+                                            const float* __restrict__ tnear) {
+  return mma_rays_at(o, d, tnear,
+                     blockIdx.x * TILE + (threadIdx.x >> 5) / P * 32);
+}
+
+template <int P, int GS, bool ANY, typename Sync>
+__device__ __forceinline__ void split_mma(const float* c_rows,
+                                          const MmaRays& m,
+                                          const MmaScratch& mx, Sync sync,
+                                          float& t, int& j, float& u,
+                                          float& v) {
+  static_assert(GS * P >= 32, "a warp must lie in one group");
+  constexpr int W = GS * P / 32;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int ray_l = (w / P) * 32 + lane;      // the tile ray lane L stands for
+  const float cap = ray_l / GS == w / W ? mx.cap[ray_l] : -CUDART_INF_F;
+  MmaPart q;
+  mma_scan<32, ANY, true>(c_rows, m, cap, q.t, q.j, q.u, q.v,
+                          (w % W) * NB / W, (w % W + 1) * NB / W);
+  mx.part[threadIdx.x] = q;
+  sync();
+  const int r = threadIdx.x / P;
+  const MmaPart* part = mx.part + (r / GS) * W * 32 + (r & 31);
+  t = CUDART_INF_F; j = KC; u = 0.0f; v = 0.0f;
+  for (int k = 0; k < W; ++k) {
+    const MmaPart p = part[k * 32];
+    if (p.t < t || (p.t == t && p.j < j)) {
+      t = p.t; j = p.j; u = p.u; v = p.v;
+    }
+  }
+}
+
+// The caller's half of the split visit: ray threadIdx.x / P's cap, written
+// by its first thread.
+template <int P>
+__device__ __forceinline__ void put_cap(const MmaScratch& mx, bool want,
+                                        float cap) {
+  if (threadIdx.x % P == 0)
+    mx.cap[threadIdx.x / P] = want ? cap : -CUDART_INF_F;
+}
+
 // ------------------------------------------------------ feeding the rows
 //
 // Where a split kernel's visit finds its cluster's rows. Both feeds are
@@ -351,6 +444,12 @@ struct StageFeed {
   __device__ __forceinline__ const float4* take(const float4* rows, int csel,
                                                 bool want) {
     return stage<NT>(rows, csel, want, slot) ? slot : nullptr;
+  }
+  // the same for a visit that every warp reads when one ray wants it (the
+  // split tensor-core visit); its first barrier publishes the caps
+  __device__ __forceinline__ const float4* take_all(const float4* rows,
+                                                    int csel, bool want) {
+    return take(rows, csel, want);
   }
   __device__ void drain() {}
 };
@@ -425,6 +524,12 @@ struct RingFeed {
     const int k = n - 2;
     if (want) mbar_wait(&bar[k & 1], (k >> 1) & 1);
     return slot + (k & 1) * 3 * KC;
+  }
+  // the rows for every thread when any ray of the block wants them (the
+  // barrier publishes the caps), else nullptr
+  __device__ __forceinline__ const float4* take_all(const float4* rows,
+                                                    int csel, bool want) {
+    return __syncthreads_or(want) ? take(rows, csel, true) : nullptr;
   }
   __device__ void drain() {
     if (threadIdx.x == 0)

@@ -5,8 +5,9 @@
 // walk_closest_kernel: one thread a ray, the visit's rows staged at the
 // visit. MMA: the tensor-core form of the visit's triangle test
 // (tri_test_mma.cuh). walk_closest_split_kernel: P threads a ray (the split
-// visit of walk_common.cuh) and, with RING, the ring of cluster rows filled
-// one visit ahead (built as CLOSEST_P and CLOSEST_RING below). COUNT: also
+// visit of walk_common.cuh, of either test) and, with RING, the ring of
+// cluster rows filled one visit ahead (built as CLOSEST_P and CLOSEST_RING
+// below, for both tests). COUNT: also
 // write the tile's visit count, 2 per loop iteration, to every lane of
 // nv_out (rustlight_tpu/tools/perf/roofline.py: _closest_kernel_counted);
 // nv_out is not read otherwise.
@@ -76,11 +77,14 @@ walk_closest_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
 }
 
 // P threads a ray, NT = P x TILE threads a block. Dynamic shared memory:
-// the feed's slots (feed_slots<RING>() x 3 x KC float4), then the heap of
-// Cp entries. Every cluster is popped a visit ahead and handed to the feed
-// (the ring starts its copy then); the visit order, the stop test and the
-// results are walk_closest_kernel's.
-template <bool COUNT, int P, bool RING>
+// the feed's slots (feed_slots<RING>() x 3 x KC float4), with MMA the split
+// tensor-core visit's caps and partials (mma_scratch_f4<NT>() float4), then
+// the heap of Cp entries. Every cluster is popped a visit ahead and handed
+// to the feed (the ring starts its copy then); the visit order, the stop
+// test and the results are walk_closest_kernel's. MMA: the visit is the
+// tensor-core test split over the P warps of each 32-ray set by columns
+// (walk_common.cuh: split_mma), bit for bit walk_closest_kernel<true, ·>'s.
+template <bool COUNT, int P, bool RING, bool MMA = false>
 __global__ void __launch_bounds__(P * TILE)
 walk_closest_split_kernel(const float* __restrict__ lo,
                           const float* __restrict__ hi, int cp, int n_real,
@@ -96,7 +100,10 @@ walk_closest_split_kernel(const float* __restrict__ lo,
   constexpr int NT = P * TILE;
   extern __shared__ float4 s_dyn[];
   __shared__ SplitShared<NT> s;
-  int* s_ent = reinterpret_cast<int*>(s_dyn + feed_slots<RING>() * 3 * KC);
+  float4* s_mma = s_dyn + feed_slots<RING>() * 3 * KC;
+  const MmaScratch mx = mma_scratch(s_mma);
+  int* s_ent =
+      reinterpret_cast<int*>(s_mma + (MMA ? mma_scratch_f4<NT>() : 0));
   auto feed = make_feed<NT, RING>(s_dyn, s.bar);
   feed.init();
   const int i = blockIdx.x * TILE + threadIdx.x / P;
@@ -119,9 +126,25 @@ walk_closest_split_kernel(const float* __restrict__ lo,
     for (int half = 0; half < 2; ++half) {
       feed.prefetch(rows, cnext);
       const bool want = ray.tnear < best_t;
-      if (const float4* c_rows = feed.take(rows, csel, want))
+      if constexpr (MMA) {
+        put_cap<P>(mx, want, best_t);
+        if (const float4* c_rows = feed.take_all(rows, csel, want)) {
+          float t, u, v;
+          int j;
+          split_mma<P, 32, false>(reinterpret_cast<const float*>(c_rows),
+                                  set_rays<P>(o, d, tnear), mx, BlockSync{},
+                                  t, j, u, v);
+          if (j < KC) {
+            best_t = t;
+            best_i = ids[static_cast<size_t>(csel) * KC + j];
+            best_u = u;
+            best_v = v;
+          }
+        }
+      } else if (const float4* c_rows = feed.take(rows, csel, want)) {
         split_closest<P>(c_rows, ids, csel, ray, want, best_t, best_i, best_u,
                          best_v);
+      }
       emin = enext;
       csel = cnext;
       enext = pop_min<NT, true>(s_ent, cp, ID_MASK, s.red);

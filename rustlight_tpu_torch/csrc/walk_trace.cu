@@ -16,11 +16,11 @@
 // One block per 64-ray tile, in the order the caller passes the rays
 // (RAY_TILE of the reference): P x 64 threads, P threads a ray, in the
 // split form that the wrappers launch by default (walk_flat.cuh:
-// walk_closest_split_kernel, walk_anyhit_split_kernel below), or 64, one
-// thread a ray (walk_closest_kernel, walk_anyhit_kernel: the tensor-core
-// visit, and the form the smoke run times beside the split one). The
-// schedule is the reference kernels', so the visit order, and the winner on
-// exact ties, are theirs:
+// walk_closest_split_kernel, walk_anyhit_split_kernel below, with either
+// form of the triangle test), or 64, one thread a ray (walk_closest_kernel,
+// walk_anyhit_kernel: the form the smoke run times beside the split one).
+// The schedule is the reference kernels', so the visit order, and the
+// winner on exact ties, are theirs:
 //   - entry pass (_tile_entries): for every cluster, the minimum over the
 //     tile's rays of the slab entry max(tmin, tnear), valid where
 //     tmax >= entry and entry < tfar; its float bits with the cluster id
@@ -44,7 +44,11 @@
 // with the two-level kernels (walk_hier.cu); the closest-hit kernel itself is
 // the template of walk_flat.cuh, shared with the roofline tools' counted
 // kernel (walk_lab.cu). With mma set, a visit takes the tensor-core form of
-// the triangle test (tri_test_mma.cuh), which is not bit-identical. Arithmetic is IEEE f32 without
+// the triangle test (tri_test_mma.cuh), which is not bit-identical to the
+// _dot4 form; its split visit (walk_common.cuh: split_mma, the set's P
+// warps each taking NB / P column blocks of all 32 rays, merged by (t,
+// column)) is bit-identical to the one-thread tensor-core kernel's, which
+// runs 48 column blocks a warp alone. Arithmetic is IEEE f32 without
 // contraction and min/max propagate NaN as torch.minimum/maximum do, so the
 // results are bit-identical to the plain versions in ops/walk_trace.py.
 //
@@ -131,8 +135,8 @@ walk_anyhit_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
 
 // The split form of walk_anyhit_kernel (walk_closest_split_kernel's
 // layout): any hit is an OR over a ray's P lanes, and a lane stops at its
-// first hit.
-template <int P, bool RING>
+// first hit; MMA: the split tensor-core visit, an OR over the set's warps.
+template <int P, bool RING, bool MMA = false>
 __global__ void __launch_bounds__(P * TILE)
 walk_anyhit_split_kernel(const float* __restrict__ lo,
                          const float* __restrict__ hi, int cp, int n_real,
@@ -145,7 +149,10 @@ walk_anyhit_split_kernel(const float* __restrict__ lo,
   constexpr int NT = P * TILE;
   extern __shared__ float4 s_dyn[];
   __shared__ SplitShared<NT> s;
-  int* s_ent = reinterpret_cast<int*>(s_dyn + feed_slots<RING>() * 3 * KC);
+  float4* s_mma = s_dyn + feed_slots<RING>() * 3 * KC;
+  const MmaScratch mx = mma_scratch(s_mma);
+  int* s_ent =
+      reinterpret_cast<int*>(s_mma + (MMA ? mma_scratch_f4<NT>() : 0));
   auto feed = make_feed<NT, RING>(s_dyn, s.bar);
   feed.init();
   const int i = blockIdx.x * TILE + threadIdx.x / P;
@@ -166,8 +173,19 @@ walk_anyhit_split_kernel(const float* __restrict__ lo,
     for (int half = 0; half < 2; ++half) {
       feed.prefetch(rows, cnext);
       const bool want = !occ && ray.tnear < ray.tfar;
-      if (const float4* c_rows = feed.take(rows, csel, want))
+      if constexpr (MMA) {
+        put_cap<P>(mx, want, ray.tfar);
+        if (const float4* c_rows = feed.take_all(rows, csel, want)) {
+          float t, u, v;
+          int j;
+          split_mma<P, 32, true>(reinterpret_cast<const float*>(c_rows),
+                                 set_rays<P>(o, d, tnear), mx, BlockSync{}, t,
+                                 j, u, v);
+          if (j < KC) occ = true;
+        }
+      } else if (const float4* c_rows = feed.take(rows, csel, want)) {
         split_anyhit<P>(c_rows, ray, want, occ);
+      }
       emin = enext;
       csel = cnext;
       enext = pop_min<NT, true>(s_ent, cp, ID_MASK, s.red);
@@ -315,29 +333,69 @@ walk_anyhit_wide_kernel(const float* __restrict__ lo,
   }
 }
 
+// The kernel of a form: (1, 0) one thread a ray, else the split form built
+// (mma: the split tensor-core visit). RL_LAB_FORMS also builds the split
+// tensor-core visit at P = 2 and 4 with the production feed, and the
+// closest hit's at its P with the other feed, for tools/perf/sub_forms.py;
+// nullptr for a form not built.
+using ClosestKernel = decltype(&walk_closest_kernel<false, false>);
+
+ClosestKernel closest_kernel(int mma, int p, int ring) {
+  if (p == 1 && !ring)
+    return mma ? walk_closest_kernel<true, false>
+               : walk_closest_kernel<false, false>;
+  if (is_form<CLOSEST_P, CLOSEST_RING>(p, ring))
+    return mma ? walk_closest_split_kernel<false, CLOSEST_P, CLOSEST_RING,
+                                           true>
+               : walk_closest_split_kernel<false, CLOSEST_P, CLOSEST_RING,
+                                           false>;
+#ifdef RL_LAB_FORMS
+  if (mma && is_form<4, CLOSEST_RING>(p, ring))
+    return walk_closest_split_kernel<false, 4, CLOSEST_RING, true>;
+  if (mma && is_form<2, CLOSEST_RING>(p, ring))
+    return walk_closest_split_kernel<false, 2, CLOSEST_RING, true>;
+  if (mma && is_form<CLOSEST_P, !CLOSEST_RING>(p, ring))
+    return walk_closest_split_kernel<false, CLOSEST_P, !CLOSEST_RING, true>;
+#endif
+  return nullptr;
+}
+
+using AnyhitKernel = decltype(&walk_anyhit_kernel<false>);
+
+AnyhitKernel anyhit_kernel(int mma, int p, int ring) {
+  if (p == 1 && !ring)
+    return mma ? walk_anyhit_kernel<true> : walk_anyhit_kernel<false>;
+  if (is_form<ANYHIT_P, ANYHIT_RING>(p, ring))
+    return mma ? walk_anyhit_split_kernel<ANYHIT_P, ANYHIT_RING, true>
+               : walk_anyhit_split_kernel<ANYHIT_P, ANYHIT_RING, false>;
+#ifdef RL_LAB_FORMS
+  if (mma && is_form<4, ANYHIT_RING>(p, ring))
+    return walk_anyhit_split_kernel<4, ANYHIT_RING, true>;
+  if (mma && is_form<2, ANYHIT_RING>(p, ring))
+    return walk_anyhit_split_kernel<2, ANYHIT_RING, true>;
+#endif
+  return nullptr;
+}
+
 }  // namespace
 
 // n must be a multiple of 64 (the wrapper pads). mma != 0 takes the
-// tensor-core form of the triangle test (the one-thread form only). p
-// threads a ray and ring name the form: (1, 0) the one-thread-a-ray kernel,
-// else the split form this library builds (walk_flat.cuh: CLOSEST_P and
-// CLOSEST_RING, ANYHIT_P and ANYHIT_RING); smem is the dynamic shared
-// memory the wrapper computed for it (ops/walk_trace.py:launch_geometry).
-// Returns cudaErrorInvalidValue for a form not built.
+// tensor-core form of the triangle test. p threads a ray and ring name the
+// form: (1, 0) the one-thread-a-ray kernel, else the split form this
+// library builds (walk_flat.cuh: CLOSEST_P and CLOSEST_RING, ANYHIT_P and
+// ANYHIT_RING; with mma, the split tensor-core visit); smem is the dynamic
+// shared memory the wrapper computed for it (ops/walk_trace.py:
+// launch_geometry). Returns cudaErrorInvalidValue for a form not built.
 extern "C" int rl_walk_closest(const void* lo, const void* hi, int cp,
                                int n_real, const void* rows, const void* ids,
                                const void* o, const void* d, const void* tnear,
                                const void* tfar, int n, int mma, int p,
                                int ring, int smem, void* t_out, void* tri_out,
                                void* u_out, void* v_out, void* stream) {
-  const bool one = p == 1 && !ring;
-  if (!one && (mma || !is_form<CLOSEST_P, CLOSEST_RING>(p, ring)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = closest_kernel(mma, p, ring);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   return launch_threads(
-      one ? (mma ? walk_closest_kernel<true, false>
-                 : walk_closest_kernel<false, false>)
-          : walk_closest_split_kernel<false, CLOSEST_P, CLOSEST_RING>,
-      n / TILE, p * TILE, static_cast<size_t>(smem), stream,
+      kernel, n / TILE, p * TILE, static_cast<size_t>(smem), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const int*>(ids),
       static_cast<const float*>(o), static_cast<const float*>(d),
@@ -353,13 +411,10 @@ extern "C" int rl_walk_anyhit(const void* lo, const void* hi, int cp,
                               const void* tfar, int n, int mma, int p,
                               int ring, int smem, void* occ_out,
                               void* stream) {
-  const bool one = p == 1 && !ring;
-  if (!one && (mma || !is_form<ANYHIT_P, ANYHIT_RING>(p, ring)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = anyhit_kernel(mma, p, ring);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   return launch_threads(
-      one ? (mma ? walk_anyhit_kernel<true> : walk_anyhit_kernel<false>)
-          : walk_anyhit_split_kernel<ANYHIT_P, ANYHIT_RING>,
-      n / TILE, p * TILE, static_cast<size_t>(smem), stream,
+      kernel, n / TILE, p * TILE, static_cast<size_t>(smem), stream,
       static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
       static_cast<const float4*>(rows), static_cast<const float*>(o),
       static_cast<const float*>(d), static_cast<const float*>(tnear),

@@ -75,11 +75,15 @@ def _run(cmd) -> str:
     return res.stderr
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, defines: Sequence[str] = ()) -> Path:
     """Compile csrc/*.cu for sm_90a into one library unless this set of
-    sources has been built; returns the library path."""
+    sources has been built; returns the library path. `defines` (macro
+    names) build another library beside it: RL_LAB_FORMS, the candidate
+    forms of K6 and of K3/K4's split tensor-core visit
+    (tools/perf/sub_forms.py)."""
     srcs = sorted(CSRC.glob("*.cu"))
-    tag = _tag(srcs + sorted(CSRC.glob("*.cuh")), _NVCC_FLAGS)
+    flags = [*_NVCC_FLAGS, *(f"-D{x}" for x in defines)]
+    tag = _tag(srcs + sorted(CSRC.glob("*.cuh")), flags)
     out = BUILD_DIR / f"libkernels_{tag}.so"
     if out.exists():
         return out
@@ -87,7 +91,7 @@ def build(verbose: bool = False) -> Path:
     work.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objs = [work / (s.stem + ".o") for s in srcs]
-    procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-c",
+    procs = [subprocess.Popen([nvcc, *flags, "-Xptxas", "-v", "-c",
                                "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
@@ -101,7 +105,7 @@ def build(verbose: bool = False) -> Path:
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    logs.append(_run([nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+    logs.append(_run([nvcc, *flags, "-shared", "-o", str(tmp),
                       *map(str, objs)]).strip())
     if verbose:
         print("\n".join(x for x in logs if x))

@@ -35,9 +35,11 @@ counted and floor run in the production form of the closest-hit walk
 floor compares like with like, or with the private `_form=ONE_THREAD_FORM`
 one thread a ray. They keep the _dot4 triangle test and are bit-identical to
 their plain versions; with `mxu=True` they take the tensor-core form (see
-ops/walk_trace.py). The wrappers use the plain versions only for tensors on
-the CPU; a CUDA tensor launches the kernel or raises. Each wrapper adds one
-to `LAUNCHES[name]` where it launches its kernel.
+ops/walk_trace.py) one thread a ray, both, so that they still compare like
+with like (the split tensor-core visit is K3/K4's alone). The wrappers use
+the plain versions only for tensors on the CPU; a CUDA tensor launches the
+kernel or raises. Each wrapper adds one to `LAUNCHES[name]` where it
+launches its kernel.
 """
 from __future__ import annotations
 
@@ -48,9 +50,10 @@ import numpy as np
 import torch
 
 from .native import load_cuda
-from .walk_trace import (K, RAY_TILE, _check, _matmul_products,
-                         _resolve_form, _tiled, _visit_closest, _walk_ref,
-                         form_args, launch_geometry)
+from .walk_trace import (K, ONE_THREAD_FORM, RAY_TILE, _check,
+                         _matmul_products, _resolve_form, _tiled,
+                         _visit_closest, _walk_ref, form_args,
+                         launch_geometry)
 
 # the fused step's constants, as f32 (roofline.py:169-170)
 _FMA_A = (float(np.float32(1.000001)), 0.5)
@@ -206,7 +209,9 @@ def walk_closest_counted(wt, o, d, tnear, tfar, mxu: bool = False, *,
     tables `wt` (at most 2^14 clusters), with the tile's visit count:
     (t, tri, u, v, nv), nv [n] int32."""
     _check(wt, o, d, tnear, tfar)
-    form = _resolve_form("walk_closest", _form, mxu)
+    form = _resolve_form("walk_closest", _form)
+    if mxu:
+        form = ONE_THREAD_FORM
     smem = launch_geometry("walk_closest", form, wt.n_clusters)[1]
     if o.device.type == "cpu":
         return walk_closest_counted_ref(wt, o, d, tnear, tfar, mxu)
@@ -240,7 +245,9 @@ def walk_floor(wt, o, d, tnear, tfar, nv_total: int, mxu: bool = False, *,
     _check(wt, o, d, tnear, tfar)
     if nv_total < 0:
         raise ValueError(f"nv_total must not be negative, got {nv_total}")
-    form = _resolve_form("walk_closest", _form, mxu)
+    form = _resolve_form("walk_closest", _form)
+    if mxu:
+        form = ONE_THREAD_FORM
     smem = launch_geometry("walk_floor", form, 0)[1]
     if o.device.type == "cpu":
         return walk_floor_ref(wt, o, d, tnear, tfar, nv_total, mxu)

@@ -36,12 +36,16 @@ The default kernels (K3/K4 here, K5 in ops/walk_hier.py) run in a split
 form: P threads a ray, each testing every P-th column of a visit's cluster,
 and for K3/K4's any hit a two-slot ring of cluster rows filled a visit ahead
 by Hopper's bulk copy (csrc/walk_common.cuh). `PRODUCTION_FORMS` names each
-kernel's form, `launch_geometry` its threads and dynamic shared memory.
-`_visit_closest_split` / `_visit_anyhit_split` model the split visit in
-torch, for the tests only. The wrappers' private `_form=ONE_THREAD_FORM`
-launches the one-thread-a-ray kernel instead, for chip_smoke.py's
-side-by-side timing and the `cuda` test only; no path of the package
-passes it.
+kernel's form. With `mxu=True` K3/K4 take the same form, whose visit then
+splits the tensor-core test over the P warps of each 32-ray set by column
+blocks, bit for bit the one-thread tensor-core kernel; K5's tensor-core
+visit stays one thread a ray (`_resolve_form`). `launch_geometry` gives a
+form's threads and dynamic shared memory. `_visit_closest_split` /
+`_visit_anyhit_split` model the split visit in torch, and `_merge_parts`
+the tensor-core visit's merge over column slices, for the tests only. The
+wrappers' private `_form=ONE_THREAD_FORM` launches the one-thread-a-ray
+kernel instead, for chip_smoke.py's side-by-side timing and the `cuda` test
+only; no path of the package passes it.
 
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
@@ -88,8 +92,13 @@ ONE_THREAD_FORM = (1, False)
 PRODUCTION_FORMS = {"walk_closest": (8, False), "walk_anyhit": (8, True),
                     "walk_hier_closest": (4, False),
                     "walk_hier_anyhit": (8, False)}
+# the kernels whose split form also takes the tensor-core visit
+_MMA_SPLIT = ("walk_closest", "walk_anyhit")
 # a visit's rows: KC triangles of three float4
 _SLOT_BYTES = K * 3 * 16
+# the split tensor-core visit's shared memory: a cap a ray and a partial
+# (t, u, v, column) a thread (csrc/walk_common.cuh: mma_scratch_f4)
+_MMA_CAP_BYTES, _MMA_PART_BYTES = RAY_TILE * 4, 16
 # static shared memory, bytes, as ptxas reports it (chip_smoke.py holds the
 # two to each other), of each kernel (a PRODUCTION_FORMS name, or the
 # floor) in its one-thread form: the staged rows, the tile's rays, the
@@ -113,24 +122,35 @@ def static_smem(kernel: str, form) -> int:
     return table[kernel]
 
 
-def launch_geometry(kernel: str, form, n_heap: int) -> Tuple[int, int]:
+def mma_scratch_bytes(p: int) -> int:
+    """The split tensor-core visit's dynamic shared memory at p threads a
+    ray: the caps and the partials of p x 64 threads."""
+    return _MMA_CAP_BYTES + _MMA_PART_BYTES * p * RAY_TILE
+
+
+def launch_geometry(kernel: str, form, n_heap: int,
+                    mxu: bool = False) -> Tuple[int, int]:
     """(threads a block, dynamic shared-memory bytes) of `kernel` (a
     PRODUCTION_FORMS name, the counted walk taking "walk_closest", or
     "walk_floor") in `form` (threads a ray, ring) over a heap of n_heap
-    entries (Cp, or Sp for K5; the floor has none); raises ValueError for a
-    form not built or past the card's 232,448 B a block."""
+    entries (Cp, or Sp for K5; the floor has none), with the tensor-core
+    test if `mxu` (the split visit's scratch before the heap); raises
+    ValueError for a form not built or past the card's 232,448 B a block."""
     if kernel not in _ONE_THREAD_STATIC:
         raise ValueError(f"unknown kernel {kernel!r}")
     form = tuple(form)
     split = PRODUCTION_FORMS["walk_closest" if kernel == "walk_floor"
                              else kernel]
-    if form not in (ONE_THREAD_FORM, split):
+    if form not in (ONE_THREAD_FORM, split) or (
+            mxu and form != ONE_THREAD_FORM and kernel not in _MMA_SPLIT):
         raise ValueError(f"{kernel} in form {form} is not built (built: "
-                         f"{ONE_THREAD_FORM}, {split})")
+                         f"{ONE_THREAD_FORM}, {split}"
+                         f"{'' if kernel in _MMA_SPLIT else ' without mxu'})")
     p, ring = form
     heap = 0 if kernel == "walk_floor" else 4 * int(n_heap)
     dyn = heap if form == ONE_THREAD_FORM else (
-        (2 if ring else 1) * _SLOT_BYTES + heap)
+        (2 if ring else 1) * _SLOT_BYTES
+        + (mma_scratch_bytes(p) if mxu else 0) + heap)
     static = static_smem(kernel, form)
     if static + dyn > _MAX_SMEM:
         raise ValueError(f"{kernel} in form {form} needs {static} + {dyn} B "
@@ -138,13 +158,15 @@ def launch_geometry(kernel: str, form, n_heap: int) -> Tuple[int, int]:
     return p * RAY_TILE, dyn
 
 
-def _resolve_form(name: str, form, mxu: bool):
-    """The form a launch of kernel `name` takes: the production one, or the
-    one-thread-a-ray kernel for the tensor-core visit or where the private
-    `form` asks for it (ONE_THREAD_FORM, the only value it takes)."""
+def _resolve_form(name: str, form, mxu: bool = False):
+    """The form a launch of kernel `name` takes: the production one, with
+    either test for K3/K4 (`mxu`: the tensor-core visit split over warps by
+    columns); the one-thread-a-ray kernel for the tensor-core visit of the
+    other kernels (K5, the lab's walks), or where the private `form` asks
+    for it (ONE_THREAD_FORM, the only value it takes)."""
     if form is not None and tuple(form) != ONE_THREAD_FORM:
         raise ValueError(f"_form takes only {ONE_THREAD_FORM}, got {form}")
-    if mxu or form is not None:
+    if form is not None or (mxu and name not in _MMA_SPLIT):
         return ONE_THREAD_FORM
     return PRODUCTION_FORMS[name]
 
@@ -170,24 +192,29 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def bind(lib):
+    """Sets the tile walk's entry points' argument types on a loaded
+    library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rl_walk_closest.argtypes = [p, p, i, i, p, p, p, p, p, p, i, i,
+                                    i, i, i, p, p, p, p, p]
+    lib.rl_walk_closest.restype = i
+    lib.rl_walk_anyhit.argtypes = [p, p, i, i, p, p, p, p, p, i, i, i, i,
+                                   i, p, p]
+    lib.rl_walk_anyhit.restype = i
+    lib.rl_walk_closest_wide.argtypes = [p, p, i, i, p, p, p, p, p, p, i,
+                                         i, p, i, p, p, p, p, p]
+    lib.rl_walk_closest_wide.restype = i
+    lib.rl_walk_anyhit_wide.argtypes = [p, p, i, i, p, p, p, p, p, i, i,
+                                        p, i, p, p]
+    lib.rl_walk_anyhit_wide.restype = i
+    return lib
+
+
 def _load():
     global _LIB
     if _LIB is None:
-        lib = load_cuda()
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rl_walk_closest.argtypes = [p, p, i, i, p, p, p, p, p, p, i, i,
-                                        i, i, i, p, p, p, p, p]
-        lib.rl_walk_closest.restype = i
-        lib.rl_walk_anyhit.argtypes = [p, p, i, i, p, p, p, p, p, i, i, i, i,
-                                       i, p, p]
-        lib.rl_walk_anyhit.restype = i
-        lib.rl_walk_closest_wide.argtypes = [p, p, i, i, p, p, p, p, p, p, i,
-                                             i, p, i, p, p, p, p, p]
-        lib.rl_walk_closest_wide.restype = i
-        lib.rl_walk_anyhit_wide.argtypes = [p, p, i, i, p, p, p, p, p, i, i,
-                                            p, i, p, p]
-        lib.rl_walk_anyhit_wide.restype = i
-        _LIB = lib
+        _LIB = bind(load_cuda())
     return _LIB
 
 
@@ -416,6 +443,30 @@ def _split_scan(t, ok, cap, p: int):
     return bt[..., 0], bj[..., 0]
 
 
+def _merge_parts(t, ok, cap, w: int):
+    """The split tensor-core visit's merge (csrc/walk_common.cuh:split_mma)
+    for rays [A, R] over K columns: slice s of w takes the columns
+    [s K / w, (s + 1) K / w) and keeps its (t, column) minimum among the
+    valid (`ok`) t strictly below `cap` [A, R]; the slices then merge in
+    order, taking a partial whose t is smaller, or equal with a lower
+    column. Returns (t, j) [A, R]; j = K where no column hits (tests
+    only)."""
+    k = t.shape[-1]
+    tm = torch.where(ok & (t < cap[..., None]), t, float("inf"))
+    col = torch.arange(k, device=t.device)
+    bt = torch.full(cap.shape, float("inf"), device=t.device)
+    bj = torch.full(cap.shape, k, dtype=torch.int64, device=t.device)
+    for s in range(w):
+        lo, hi = s * k // w, (s + 1) * k // w
+        st = tm[..., lo:hi].amin(dim=-1)
+        sj = torch.where((tm[..., lo:hi] == st[..., None])
+                         & torch.isfinite(st)[..., None], col[lo:hi],
+                         k).amin(dim=-1)
+        take = (st < bt) | ((st == bt) & (sj < bj))
+        bt, bj = torch.where(take, st, bt), torch.where(take, sj, bj)
+    return bt, bj
+
+
 def _visit_closest_split(rows, ids, csel, o, d, tnear, best, p: int):
     """_visit_closest as the split kernels compute it, with p threads a ray
     (tests only: no path runs it). The triangle test is _test_clusters' with
@@ -598,7 +649,7 @@ def _check_form(form, wide: bool, mxu: bool, name: str, n_heap: int):
             raise ValueError("the wide pop has one form")
         return ONE_THREAD_FORM, (RAY_TILE, 0)
     form = _resolve_form(name, form, mxu)
-    return form, launch_geometry(name, form, n_heap)
+    return form, launch_geometry(name, form, n_heap, mxu)
 
 
 def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,

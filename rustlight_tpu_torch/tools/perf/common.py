@@ -1,5 +1,5 @@
-"""What the laboratory's three tools share: the device, the scene, the
-timing and the record they write."""
+"""What the laboratory's tools share: the device, the scenes and their
+ray sets, the timing and the record they write."""
 from __future__ import annotations
 
 import argparse
@@ -89,6 +89,47 @@ def divergent_rays(rng, n: int, ext: float):
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return o, d
+
+
+def inert_lanes(rng, tnear, tfar, span):
+    """Lanes k % 7 == 3 inert (tfar = 0), k % 11 == 5 with tnear >= tfar,
+    k % 5 == 1 a finite tfar (in place)."""
+    k = np.arange(tfar.shape[0])
+    tfar[k % 5 == 1] = rng.uniform(0.05, 1.0, (k % 5 == 1).sum()) * span
+    tfar[k % 7 == 3] = 0.0
+    tnear[k % 11 == 5] = 0.5 * span
+    tfar[k % 11 == 5] = 0.25 * span
+
+
+def walk_wavefronts(sd, rng):
+    """The two walk wavefronts on a grid scene: its camera rays (one
+    origin) and rays from their hits in random directions, with inert,
+    empty and bounded lanes (inert_lanes). Returns {"camera": [o, d, tnear,
+    tfar], "spread": [...]}."""
+    from ...accel import intersect_rays
+    from ...scene import generate_rays
+    dev = sd.device
+    w, h = sd.camera.width, sd.camera.height
+    ys, xs = np.mgrid[0:h, 0:w]
+    px = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
+    px += rng.uniform(0, 1, px.shape).astype(np.float32)
+    o, d = generate_rays(sd.camera, torch.as_tensor(px, device=dev))
+    o = o.contiguous()
+    n = o.shape[0]
+    tnear = torch.full((n,), 1e-4, device=dev)
+    tfar = torch.full((n,), float("inf"), device=dev)
+    rh = intersect_rays(sd.geom, o, d, tnear, tfar)
+    p = torch.where(rh.hit[:, None], o + d * (rh.t - 1e-3)[:, None], o)
+    d2 = rng.normal(size=(n, 3)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    tn2 = np.full(n, 1e-4, np.float32)
+    tf2 = np.full(n, np.inf, np.float32)
+    walk = sd.geom.walk
+    span = float(torch.linalg.norm(walk.world_hi - walk.world_lo))
+    inert_lanes(rng, tn2, tf2, span)
+    spread = [p.contiguous(), *(torch.as_tensor(x, device=dev)
+                                for x in (d2, tn2, tf2))]
+    return {"camera": [o, d.contiguous(), tnear, tfar], "spread": spread}
 
 
 def to_device(dev, *arrays):

@@ -282,6 +282,33 @@ def test_sub_plain_version_is_the_walk_at_a_smaller_tile(soup):
         last = out[4]
 
 
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_sub_split_order_of_work_matches_pallas_kernels(soup, jax_results,
+                                                        monkeypatch, p):
+    """K6's split form's order of work (each group's walk with the split
+    visit at p threads a ray, ops/walk_trace.py:_visit_closest_split /
+    _visit_anyhit_split) gives the port's plain results bit for bit at
+    every sub, and so agrees with the JAX package's Pallas kernels."""
+    _, wt, rows, o, d = soup
+    live = _ranges(False)[1] > 0
+    want = {sub: _port(wt, o, d, f"sub{sub}") for sub in wsub.SUBS}
+    monkeypatch.setattr(wk, "_visit_closest",
+                        lambda rows, ids, csel, o, d, tnear, best, *_:
+                        wk._visit_closest_split(rows, ids, csel, o, d, tnear,
+                                                best, p))
+    monkeypatch.setattr(wk, "_visit_anyhit",
+                        lambda rows, csel, o, d, tnear, tfar, occ, *_:
+                        wk._visit_anyhit_split(rows, csel, o, d, tnear, tfar,
+                                               occ, p))
+    for sub in wsub.SUBS:
+        got = _port(wt, o, d, f"sub{sub}")
+        for a, b in zip(got[0], want[sub][0]):
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+        np.testing.assert_array_equal(got[1], want[sub][1])
+        _assert_agree(jax_results[f"sub{sub}"], got, live, t_rtol=T_RTOL,
+                      t_atol=0.0, uv_mag=(rows, o, d))
+
+
 def test_wrappers_take_plain_versions_on_cpu(soup):
     _, wt, _, o, d = soup
     tnear, tfar, _ = _ranges(False)

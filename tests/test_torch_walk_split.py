@@ -16,11 +16,26 @@ table the wrappers accept (Cp up to 2^14; K5's Sp at 5.7M triangles) and
 raise past the card's 232,448 B a block, and `PRODUCTION_FORMS` must name
 the forms that csrc/ builds.
 
-A test marked `cuda` holds both built forms (one thread a ray, and the
+The sub-tiled walk K6 (csrc/walk_sub.cu) takes the same split visit at P
+threads a ray in each group: with `_visit_closest_split` /
+`_visit_anyhit_split` in place of the serial visits, the plain walk at a
+tile of 64 / sub rays (ops/walk_sub.py's plain version) must give the same
+results bit for bit at P = 2, 4, 8 and every sub, on the planted ties and
+on tiles whose groups stop far apart (half of them after one pair of
+visits, the other half after visiting every cluster: the named barriers'
+case). The split tensor-core visit merges W column slices in order
+(`_merge_parts`), which keeps the lowest column on tied t.
+`ops/walk_sub.py:launch_geometry` and PRODUCTION_FORMS / MMA_FORMS are
+held to csrc/walk_sub.cu as K3's are to its sources.
+
+Tests marked `cuda` hold both built forms (one thread a ray, and the
 production form of `PRODUCTION_FORMS`) of K3/K4 and K5, and of the lab's
 counted and floor walks, to their plain versions on a card (expected bit
-for bit). It imports nothing of JAX, so on a card without JAX it runs
-with `python -m pytest --noconftest -m cuda tests/test_torch_walk_split.py`.
+for bit); K6's forms at every sub to its plain version; and the split
+tensor-core forms of K3/K4 and K6 to their one-thread tensor-core kernels
+(bit for bit). They import nothing of JAX, so on a card without JAX they
+run with `python -m pytest --noconftest -m cuda
+tests/test_torch_walk_split.py`.
 """
 import re
 from pathlib import Path
@@ -31,6 +46,7 @@ import torch
 
 from rustlight_tpu_torch.ops import walk_hier as wh
 from rustlight_tpu_torch.ops import walk_lab as wl
+from rustlight_tpu_torch.ops import walk_sub as wsub
 from rustlight_tpu_torch.ops import walk_trace as wk
 from rustlight_tpu_torch.scene.geometry import _baldwin_weber_rows
 
@@ -230,9 +246,9 @@ def test_production_forms_match_the_sources():
 
 
 def test_form_keyword_rules():
-    """_form is private and takes only ONE_THREAD_FORM: the tensor-core
-    visit keeps one thread a ray, the wide pop has one form, and on the CPU
-    both forms run the plain walk."""
+    """_form is private and takes only ONE_THREAD_FORM, with either test;
+    the wide pop has one form, and on the CPU both forms run the plain
+    walk."""
     rows, ids, aims = _clusters(3)
 
     class Tables:
@@ -259,6 +275,200 @@ def test_form_keyword_rules():
         wk.walk_anyhit(wt, o, d, tnear, tfar, mxu=True, _form=(8, True))
     with pytest.raises(ValueError, match="one form"):
         wk.walk_anyhit(wt, o, d, tnear, tfar, wide=True, _form=one)
+
+
+class _Tables:
+    """Walk tables of clusters given as rows [C, K, 3, 4] and boxes."""
+
+    def __init__(self, rows, ids, lo, hi):
+        self.n_clusters = self.n_real = rows.shape[0]
+        self.rows = rows.reshape(-1, 3, 4).contiguous()
+        self.ids = ids.reshape(-1).contiguous()
+        self.lo, self.hi = lo.contiguous(), hi.contiguous()
+
+
+def _planted_tables(seed):
+    """The planted-tie clusters of _clusters in one box [-2, 2]^3 each,
+    and TILES tiles of rays half aimed at the ties, flattened."""
+    rows, ids, aims = _clusters(seed)
+    box = torch.full((3, N_CLUSTERS), 2.0)
+    rays = [x.reshape(-1, *x.shape[2:]).contiguous()
+            for x in _tile_rays(seed + 1, aims)]
+    return _Tables(rows, ids, -box, box), rays
+
+
+def _split_walks(monkeypatch, p):
+    """The plain walks with the split visit at p threads a ray."""
+    monkeypatch.setattr(wk, "_visit_closest",
+                        lambda rows, ids, csel, o, d, tnear, best, *_:
+                        wk._visit_closest_split(rows, ids, csel, o, d, tnear,
+                                                best, p))
+    monkeypatch.setattr(wk, "_visit_anyhit",
+                        lambda rows, csel, o, d, tnear, tfar, occ, *_:
+                        wk._visit_anyhit_split(rows, csel, o, d, tnear, tfar,
+                                               occ, p))
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_sub_split_model_equals_plain_walk(monkeypatch, p):
+    """K6's split order of work (each group's walk with the split visit at
+    p threads a ray) equals walk_sub_*_ref bit for bit at every sub, on
+    the planted ties and on tiles whose groups stop far apart."""
+    cases = [_planted_tables(7), wsub.planted_tiles(tiles=TILES)]
+    want = {(c, sub): (wsub.walk_sub_closest_ref(wt, *rays, sub),
+                       wsub.walk_sub_anyhit_ref(wt, *rays, sub))
+            for c, (wt, rays) in enumerate(cases) for sub in wsub.SUBS}
+    _split_walks(monkeypatch, p)
+    for (c, sub), (closest, anyhit) in want.items():
+        wt, rays = cases[c]
+        got = wsub.walk_sub_closest_ref(wt, *rays, sub)
+        assert _same(got[:4], closest[:4]) and got[4] == closest[4]
+        occ, visits = wsub.walk_sub_anyhit_ref(wt, *rays, sub)
+        assert torch.equal(occ, anyhit[0]) and visits == anyhit[1]
+
+
+def test_planted_tiles_stop_far_apart():
+    """The named barriers' case: in every tile the groups of the first 32
+    rays stop after one pair of visits, those of the last 32 visit every
+    cluster, at every sub."""
+    wt, rays = wsub.planted_tiles(tiles=TILES)
+    for sub in wsub.SUBS:
+        (t, tri, _, _), visits = wk._walk_ref(wt, *rays, False,
+                                              tile=RAYS // sub)
+        per = visits.view(TILES, sub)
+        assert bool((per[:, :sub // 2] == 2).all()), sub
+        assert bool((per[:, sub // 2:] >= wsub.PLANTED_CLUSTERS).all()), sub
+        near = (torch.arange(TILES * RAYS) % RAYS) < RAYS // 2
+        assert bool((tri[near] >= 0).all() and (tri[~near] < 0).all())
+        assert bool((tri[near] < K).all())
+
+
+@pytest.mark.parametrize("w", [1, 2, 4, 8])
+def test_tc_merge_keeps_the_lowest_column(w):
+    """The split tensor-core visit's merge over w column slices gives the
+    serial scan's winner, the lowest column on tied t, with ties planted
+    inside and across the slices."""
+    rows, ids, aims = _clusters(11)
+    # the same triangle at columns in two slices of every w
+    for a, b in ((5, 380), (50, 300), (90, 200)):
+        rows[:, b] = rows[:, a]
+    aims = np.concatenate([aims, [_centre(rows[0, a]) for a in (5, 50, 90)]])
+    o, d, tnear, tfar = _tile_rays(12, aims, aimed=0.8)
+    csel = torch.zeros(TILES, dtype=torch.int64)
+    tfar = torch.full_like(tfar, float("inf"))
+    best = (tfar.clone(), torch.full(tfar.shape, -1, dtype=torch.int32),
+            torch.zeros_like(tfar), torch.zeros_like(tfar))
+    want_t, want_i = wk._visit_closest(rows, ids, csel, o, d, tnear, best)[:2]
+    t, _, _, valid = wk._test_clusters(rows[csel], o, d, tnear, tfar)
+    tm = torch.where(valid, t, float("inf"))
+    t2 = torch.topk(tm, 2, dim=-1, largest=False).values
+    assert int((torch.isfinite(t2[..., 0]) & (t2[..., 0] == t2[..., 1]))
+               .sum()) >= 8
+    got_t, got_j = wk._merge_parts(t, valid, tfar, w)
+    hit = got_j < K
+    assert torch.equal(hit, want_i >= 0)
+    assert torch.equal(ids[0][got_j[hit]], want_i[hit])
+    assert torch.equal(got_t[hit].view(torch.int32),
+                       want_t[hit].view(torch.int32))
+
+
+def _centre(row):
+    """A point inside the triangle of Baldwin-Weber row `row` [3, 4]: the
+    solution of N.x = -N3, U.x = -U3 + 1/3, V.x = -V3 + 1/3."""
+    a = row[:, :3].double().numpy()
+    b = -row[:, 3].double().numpy() + np.array([0.0, 1 / 3, 1 / 3])
+    return np.linalg.solve(a, b).astype(np.float32)
+
+
+def test_mxu_resolves_to_the_split_form():
+    """mxu=True takes the production split form in K3/K4 and K6 (the
+    tensor-core visit split over warps by columns); `_form=ONE_THREAD_FORM`
+    still reaches the one-thread kernel; K5's tensor-core visit and the
+    lab's stay one thread a ray."""
+    one = wk.ONE_THREAD_FORM
+    for name in ("walk_closest", "walk_anyhit"):
+        assert wk._resolve_form(name, None, True) == wk.PRODUCTION_FORMS[name]
+        assert wk._resolve_form(name, one, True) == one
+    for name in ("walk_hier_closest", "walk_hier_anyhit"):
+        assert wk._resolve_form(name, None, True) == one
+        assert wk._resolve_form(name, None, False) == wk.PRODUCTION_FORMS[name]
+    for name in ("walk_sub_closest", "walk_sub_anyhit"):
+        for sub in wsub.SUBS:
+            assert wsub._resolve_form(name, sub, None, True) == (
+                wsub.MMA_FORMS[name][sub])
+            assert wsub._resolve_form(name, sub, None, False) == (
+                wsub.PRODUCTION_FORMS[name][sub])
+            assert wsub._resolve_form(name, sub, one, True) == one
+        with pytest.raises(ValueError, match="_form takes only"):
+            wsub._resolve_form(name, 2, (8, False), False)
+    assert wsub.MMA_FORMS["walk_sub_closest"][2][0] > 1
+    # on the CPU every form runs the plain walk
+    wt, rays = _planted_tables(3)
+    for sub in wsub.SUBS:
+        for mxu in (False, True):
+            assert _same(wsub.walk_sub_closest(wt, *rays, sub, mxu,
+                                               _form=one),
+                         wsub.walk_sub_closest(wt, *rays, sub, mxu))
+            assert torch.equal(wsub.walk_sub_anyhit(wt, *rays, sub, mxu,
+                                                    _form=one),
+                               wsub.walk_sub_anyhit(wt, *rays, sub, mxu))
+
+
+def test_sub_launch_geometry():
+    """K6's threads and dynamic shared memory per form: the heaps, the
+    staged slots, the split tensor-core visit's scratch; a tensor-core form
+    whose warp would span groups, or past the card's limit, raises; every
+    production form fits the reference's largest resident table."""
+    cp = wsub.MAX_VMEM_CLUSTERS
+    for sub in wsub.SUBS:
+        assert wsub.launch_geometry(sub, wk.ONE_THREAD_FORM, cp) == (
+            64, 4 * sub * cp)
+        for p in wsub.SPLIT_PS:
+            assert wsub.launch_geometry(sub, (p, False), cp) == (
+                64 * p, 4 * sub * cp)
+            staged = 4 * sub * cp + sub * K * 48
+            if wsub.static_smem(sub, (p, True)) + staged <= MAX_SMEM:
+                assert wsub.launch_geometry(sub, (p, True), cp)[1] == staged
+            if 64 // sub * p < 32:
+                with pytest.raises(ValueError, match="no form"):
+                    wsub.launch_geometry(sub, (p, False), cp, mxu=True)
+            else:
+                assert wsub.launch_geometry(sub, (p, False), cp, True)[1] == (
+                    4 * sub * cp + 256 + 16 * 64 * p)
+        with pytest.raises(ValueError, match="no form"):
+            wsub.launch_geometry(sub, (3, False), cp)
+        with pytest.raises(ValueError, match="shared memory"):
+            wsub.launch_geometry(sub, (8, False), MAX_SMEM // 4 // sub)
+        for table in (wsub.PRODUCTION_FORMS, wsub.MMA_FORMS):
+            for name in table:
+                form = table[name][sub]
+                _, smem = wsub.launch_geometry(sub, form, cp,
+                                               table is wsub.MMA_FORMS)
+                assert wsub.static_smem(sub, form) + smem <= MAX_SMEM
+    # the tile's rays, then two sets of a group's partials a group
+    assert [wsub.static_smem(s, (p, False)) for s in (2, 8)
+            for p in (1, 8)] == [2064, 2176, 2112, 2176]
+
+
+def _forms(name):
+    """csrc/walk_sub.cu's `constexpr SubForm name[3] = {{p, stage}, ...};`
+    as {sub: (p, stage)}."""
+    text = (Path(wk.__file__).parents[1] / "csrc" / "walk_sub.cu").read_text()
+    m = re.search(rf"constexpr SubForm {name}\[3\] = \{{(.*?)\}};", text)
+    assert m, name
+    pairs = re.findall(r"\{(\d+), (true|false)\}", m.group(1))
+    assert len(pairs) == 3, name
+    return {sub: (int(p), st == "true") for sub, (p, st) in
+            zip(wsub.SUBS, pairs)}
+
+
+def test_sub_forms_match_the_sources():
+    """PRODUCTION_FORMS and MMA_FORMS of ops/walk_sub.py name the forms
+    csrc/walk_sub.cu builds."""
+    for kind in ("closest", "anyhit"):
+        name = f"walk_sub_{kind}"
+        assert wsub.PRODUCTION_FORMS[name] == _forms(f"{kind.upper()}_FORMS")
+        assert wsub.MMA_FORMS[name] == _forms(f"{kind.upper()}_MMA_FORMS")
 
 
 @pytest.mark.cuda
@@ -315,3 +525,61 @@ def test_cuda_split_kernels_match_plain_versions():
         assert torch.equal(got[3], hier_occ), form
         assert _same(got[4], counted), form
         assert _same(got[5], floor), form
+
+
+@pytest.mark.cuda
+def test_cuda_sub_and_tc_split_kernels_match():
+    """On a card: K6 in its production form and its one-thread form at
+    every sub against its plain version, bit for bit, on
+    sphere_grid(3000, 16, 16)'s tables and on the planted tiles whose groups stop far
+    apart (the named barriers); the split tensor-core forms of K3/K4 and K6 against
+    their one-thread tensor-core kernels, bit for bit, and each launch
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from rustlight_tpu_torch.accel import walk as tw
+    from rustlight_tpu_torch.models import sphere_grid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = sphere_grid(3000, 16, 16).compile(device="cuda")
+    wt = sd.geom.walk
+    lo, hi = wt.world_lo.cpu().numpy(), wt.world_hi.cpu().numpy()
+    rng = np.random.default_rng(1)
+    n = 4096
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tnear = np.full(n, 1e-4, np.float32)
+    tfar = np.full(n, np.inf, np.float32)
+    tfar[np.arange(n) % 7 == 3] = 0.0
+    rays = [torch.as_tensor(x, device="cuda")
+            for x in (o, d.astype(np.float32), tnear, tfar)]
+    grid = (wt, tw._prepare(wt, *rays)[:4])
+    stop = wsub.planted_tiles("cuda", tiles=TILES)
+    one = wk.ONE_THREAD_FORM
+    for wt_, srt in (grid, stop):
+        for sub in wsub.SUBS:
+            closest = wsub.walk_sub_closest_ref(wt_, *srt, sub)[:4]
+            occ = wsub.walk_sub_anyhit_ref(wt_, *srt, sub)[0]
+            for form in (one, None):
+                before = dict(wsub.LAUNCHES)
+                got = (wsub.walk_sub_closest(wt_, *srt, sub, _form=form),
+                       wsub.walk_sub_anyhit(wt_, *srt, sub, _form=form))
+                torch.cuda.synchronize()
+                assert wsub.LAUNCHES["walk_sub_closest"] == (
+                    before["walk_sub_closest"] + 1)
+                assert _same(got[0], closest), (sub, form)
+                assert torch.equal(got[1], occ), (sub, form)
+            mma = [(wsub.walk_sub_closest(wt_, *srt, sub, True, _form=f),
+                    wsub.walk_sub_anyhit(wt_, *srt, sub, True, _form=f))
+                   for f in (one, None)]
+            torch.cuda.synchronize()
+            assert _same(mma[0][0], mma[1][0]), sub
+            assert torch.equal(mma[0][1], mma[1][1]), sub
+        if wt_ is wt:
+            k3 = [(wk.walk_closest(wt_, *srt, mxu=True, _form=f),
+                   wk.walk_anyhit(wt_, *srt, mxu=True, _form=f))
+                  for f in (one, None)]
+            torch.cuda.synchronize()
+            assert _same(k3[0][0], k3[1][0])
+            assert torch.equal(k3[0][1], k3[1][1])
+            assert int((k3[1][0][1] >= 0).sum()) > n // 8
