@@ -8,10 +8,13 @@ checkout; imports nothing of JAX. Phases, one line each or more:
   0. device: require CUDA; print the card's name and power limit; turn
      TF32 off for matmuls and cuDNN;
   1. build: compile the port's CUDA kernels from csrc/ (sm_90a, one nvcc
-     per source, all at once); ptxas's registers, shared memory and spills
-     of every kernel (`ptxas` lines), and launch_geometry's static shared
-     memory held to ptxas's for every walk kernel in both its forms, K3/K4's
-     split tensor-core forms and K6's forms at every sub with both tests;
+     per source, all at once), and beside them, in a thread, the
+     RL_LAB_FORMS library of K7's and K3w's candidate and laboratory forms
+     (tools/perf/split_forms.py); ptxas's registers, shared memory and
+     spills of every kernel (`ptxas` lines), and launch_geometry's static
+     shared memory held to ptxas's for every walk kernel in both its forms
+     (K7 and K3w included), K3/K4's and K3w's split tensor-core forms and
+     K6's forms at every sub with both tests;
   2. kernels: the dense kernels (K1, K2) against their plain versions, bit
      for bit (0 lanes differ, no near-tie excuse), at 262,144 rays against
      the Cornell box's rows and against a random 1,000-triangle soup, with
@@ -97,9 +100,17 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      PRODUCTION_FORMS) at each sub is held to its one-thread form and to the
      plain version bit for bit (0 lanes may differ, no near-tie excuse) and
      the two forms are timed in turns (P1, new, new, P1; `forms` lines);
-     before that, on the planted tiles whose groups stop far apart
-     (ops/walk_sub.py:planted_tiles), both forms of both tests at every sub
-     against the plain version (the tensor-core forms against each other).
+     so are K7's and the wide pop's production forms (P threads a ray,
+     ops/walk_sparse.py and ops/walk_trace.py:PRODUCTION_FORMS), each held
+     bit for bit to its one-thread form and its plain version, with the
+     bound with the entry pass's slab tests (64 a real cluster and tile)
+     beside the bound in `kernel_cases`, and K7's
+     candidate forms (P = 4, the other feed; tools/perf/split_forms.py)
+     timed the same way; before that, on the planted tiles whose groups
+     stop far apart (ops/walk_sub.py:planted_tiles), both forms of both tests
+     of K6 at every sub against the plain version (the tensor-core forms
+     against each other), and on the planted tiles that flag 16 and 17 rays
+     (ops/walk_sparse.py:planted_tiles) both forms of K7.
      Then the tensor-core forms of K3 (split over warps by columns, with
      its one-thread form), K6 (sub = 2, 4, 8; split, ops/walk_sub.py:
      MMA_FORMS) and K8 (km = 8, 2) on the same rays and pairs, each against its plain
@@ -109,8 +120,16 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      split form against its one-thread tensor-core form bit for bit and
      timed in turns with it, and K8's whole pair walk timed. The wide pop
      the same way on grid5p7M's tables and the two AO wavefronts of phase 9
-     (every tile), beside K5's times. (Run while each scene is alive: the
-     grid122k part after phase 8, the grid5p7M part after phase 12.)
+     (every tile), beside K5's times, its production form with each heap
+     against its one-thread form and the plain version bit for bit and timed
+     in turns, its split tensor-core forms against the one-thread ones with
+     each heap, all of these again with 257 blocks for the 1,024 tiles (a
+     block walking 3 or 4 tiles), and its candidate and laboratory forms
+     (the entry pass
+     alone, the pops alone, the other feed, P = 4;
+     tools/perf/split_forms.py), which split its time into entry pass, pops
+     and visits. (Run while each scene is alive: the grid122k part after
+     phase 8, the grid5p7M part after phase 12.)
  14. main path, schedules: the grid122k render of phase 6 once more for each
      of WalkOptions(sub=2), (sparse=True), (pair=True), the scene uploaded
      with that option from the host tables built once: finite image; that
@@ -167,7 +186,8 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      held to phase 10's image as in 15. (Run with phases 14 and 15.)
 
 Before the last line: a JSON line with each kernel's tables and wavefronts
-(kernel_cases) and the candidate forms' table (a1_forms), the card line
+(kernel_cases), the candidate forms' table (a1_forms) and the split forms'
+records of K7 and K3w (split_forms), the card line
 from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
@@ -205,6 +225,9 @@ ORACLE_PIX_FRAC, ORACLE_PIX_RTOL, ORACLE_MEAN_RTOL = 0.999, 1e-3, 1e-4
 # (NVIDIA's data sheet), and the f32 operations of one ray-triangle test
 PEAK_F32_OPS, PEAK_BYTES_S = 67e12, 3.35e12
 OPS_PER_TEST = 25
+# the f32 operations of one slab test of the entry pass: three axes of two
+# subtractions, two products, a min and a max and the two running limits
+SLAB_OPS = 24
 RAY_IN_BYTES = 32          # o, d, tnear, tfar
 # the AO rows: bench.py's 4.9M-triangle row (bench.py:140, :187-223), and
 # the next sphere grid of its family, the first past 2^14 clusters
@@ -329,6 +352,7 @@ def _symbol(kernel, form, count=False, mma=False) -> str:
     """The mangled-name fragment of `kernel` (a PRODUCTION_FORMS name, or
     walk_floor) in `form` (its one-thread or its split form); `count`: the
     counted walk's; `mma`: with the tensor-core test."""
+    from rustlight_tpu_torch.ops import walk_trace as wk
     p, ring = (int(x) for x in form)
     if (p, ring) == (1, 0):
         return {"walk_closest": f"walk_closest_kernelILb{int(mma)}ELb"
@@ -336,7 +360,15 @@ def _symbol(kernel, form, count=False, mma=False) -> str:
                 "walk_anyhit": f"walk_anyhit_kernelILb{int(mma)}EE",
                 "walk_hier_closest": "walk_hier_closest_kernelILb0EE",
                 "walk_hier_anyhit": "walk_hier_anyhit_kernelILb0EE",
-                "walk_floor": "walk_floor_kernelILb0EE"}[kernel]
+                "walk_floor": "walk_floor_kernelILb0EE",
+                "walk_closest_wide": f"walk_closest_wide_kernelILb{int(mma)}EE",
+                "walk_anyhit_wide": f"walk_anyhit_wide_kernelILb{int(mma)}EE",
+                "walk_sparse_closest": "walk_sparse_closest_kernelE",
+                "walk_sparse_anyhit": "walk_sparse_anyhit_kernelE"}[kernel]
+    if kernel in wk._WIDE:
+        return f"{kernel}_split_kernelILi{p}ELb{ring}ELb{int(mma)}EE"
+    if kernel.startswith("walk_sparse"):
+        return f"{kernel}_split_kernelILi{p}ELb{ring}EE"
     if kernel == "walk_closest":
         return (f"walk_closest_split_kernelILb{int(count)}ELi{p}ELb{ring}"
                 f"ELb{int(mma)}EE")
@@ -363,12 +395,22 @@ def _static_of(sym) -> int:
 
 def check_static_smem():
     """launch_geometry's static shared memory of every walk kernel in both
-    its forms (ops/walk_trace.py:static_smem), K3/K4's split form with the
-    tensor-core test too, and of K6 in every form built (ops/walk_sub.py:
+    its forms (ops/walk_trace.py:static_smem), K3/K4's and K3w's split form
+    with the tensor-core test too, of K6 in every form built
+    (ops/walk_sub.py:static_smem) and of K7 in both (ops/walk_sparse.py:
     static_smem), against ptxas's report."""
+    from rustlight_tpu_torch.ops import walk_sparse as ws
     from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
     checked = 0
+    for name, split in ws.PRODUCTION_FORMS.items():
+        for form in (wk.ONE_THREAD_FORM, split):
+            sym = _symbol(name, form)
+            if _static_of(sym) != ws.static_smem(form):
+                raise AssertionError(
+                    f"{sym}: ptxas {_static_of(sym)} B of static shared "
+                    f"memory, launch_geometry {ws.static_smem(form)} B")
+            checked += 1
     for kernel in (*wk.PRODUCTION_FORMS, "walk_floor"):
         split = wk.PRODUCTION_FORMS.get(kernel,
                                         wk.PRODUCTION_FORMS["walk_closest"])
@@ -398,7 +440,8 @@ def check_static_smem():
                     checked += 1
     phase("ptxas", "launch_geometry's static shared memory = ptxas's on "
           f"{checked} walk kernels: both forms of every walk kernel, K3/K4's "
-          "split tensor-core forms, K6's forms at every sub with both tests")
+          "and K3w's split tensor-core forms, K6's forms at every sub with "
+          "both tests, K7's forms")
 
 
 def ptxas_table():
@@ -558,20 +601,29 @@ def render_wavefronts(sd, integ):
             "shadow": ("anyhit", seen["anyhit"][0])}
 
 
-def _device_us(fn, name, launches=20):
+def _device_us(fn, name, launches=20, tries=5):
     """The kernel `name`'s device time a launch, by torch.profiler over
-    `launches` calls of `fn`."""
+    `launches` calls of `fn`. A profile that recorded no kernel of that name
+    is taken again, up to `tries` profiles in all: on an H100 the profiler
+    has come back empty now and then, twice in a row once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-          and e.count and name in e.key]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count
+              and name in e.key]
+        if ev:
+            break
+        phase("profile", f"{name}: no device events in profile "
+              f"{attempt + 1} of {tries}")
     if len(ev) != 1:
         raise AssertionError(f"profiler: {len(ev)} device kernels match {name}")
     return ev[0].self_device_time_total / ev[0].count
@@ -933,6 +985,122 @@ def _sub_forms_vs_one(tag, wt, srt, sub, got, plain):
     return out
 
 
+def _split_vs_one(tag, name, fn, got, plain):
+    """Kernel `name` (a PRODUCTION_FORMS name of ops/walk_trace.py or
+    ops/walk_sparse.py) in its production form, whose outputs `got` came
+    from fn(), against fn(_form=ONE_THREAD_FORM) and against the plain
+    version's outputs `plain`, bit for bit: 0 lanes may differ. The two
+    forms timed in turns, with ptxas's lines. Returns the record."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_sparse as ws
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    one = wk.ONE_THREAD_FORM
+    form = {**wk.PRODUCTION_FORMS, **ws.PRODUCTION_FORMS}[name]
+    old = fn(_form=one)
+    torch.cuda.synchronize()
+    diff = _lanes_differ(got, old).numel()
+    diff_p = _lanes_differ(got, plain).numel()
+    if diff or diff_p:
+        raise AssertionError(f"{tag} {name}: {_form_name(form)} differs from "
+                             f"P1 on {diff} lanes and from the plain version "
+                             f"on {diff_p}")
+    rec = {"form": _form_name(form), "lanes_differ": 0,
+           **_in_turns(fn, one, None)}
+    phase("forms", f"{tag} {name}: {_form_name(form)} vs P1 and vs the plain "
+          "version: 0 lanes differ; P1, new, new, P1 "
+          + ", ".join(f"{t:.4f}" for t in rec["turns_ms"])
+          + f" ms (ratio {rec['ms'] / rec['p1_ms']:.3f}); P1 "
+          f"{_ptxas(_symbol(name, one))}, {_form_name(form)} "
+          f"{_ptxas(_symbol(name, form))}")
+    return rec
+
+
+def _bound_entry_ms(tests, slab_tests, n_bytes):
+    """The bound with the entry pass's slab tests counted too (64 a real
+    cluster and tile: the entry pass skips the padding): (tests x
+    OPS_PER_TEST + slab tests x SLAB_OPS) / PEAK_F32_OPS, or the bytes'
+    time if larger."""
+    ops_ms = ((tests * OPS_PER_TEST + slab_tests * SLAB_OPS) / PEAK_F32_OPS
+              * 1e3)
+    return max(ops_ms, n_bytes / PEAK_BYTES_S * 1e3)
+
+
+_LAB = {"records": []}
+
+
+def start_lab_build():
+    """Phase 1: nvcc builds the RL_LAB_FORMS library of K7's and K3w's
+    candidate and laboratory forms (tools/perf/split_forms.py) in a thread
+    beside the production library; phase 1 waits for the build, and
+    lab_library() loads it where phase 13 first needs it. A CUDA library
+    loaded while phase 2 profiled cost the profiles their events, so none is
+    loaded before them."""
+    import threading
+    from rustlight_tpu_torch.tools.perf import split_forms
+    t0 = time.time()
+
+    def build():
+        try:
+            _LAB["path"] = split_forms.build_lab()
+            _LAB["seconds"] = time.time() - t0
+        except Exception as e:  # raised again where it is needed
+            _LAB["error"] = e
+
+    _LAB["thread"] = threading.Thread(target=build)
+    _LAB["thread"].start()
+
+
+def wait_lab_build():
+    """Waits for start_lab_build's nvcc, raising its error."""
+    _LAB["thread"].join()
+    if "error" in _LAB:
+        raise _LAB["error"]
+
+
+def lab_library():
+    """(library, ptxas usage) of start_lab_build, loaded at the first
+    call."""
+    from rustlight_tpu_torch.tools.perf import split_forms
+    wait_lab_build()
+    if "lib" not in _LAB:
+        _LAB["lib"] = split_forms.lab_library(_LAB["path"])
+    return _LAB["lib"]
+
+
+def check_sparse_planted(dev):
+    """Phase 13: K7 on the planted tiles whose visits flag exactly 16 rays
+    (a sparse visit) and 17 (a dense one) (ops/walk_sparse.py:
+    planted_tiles, 1,024 tiles): both forms of both tests against the
+    plain version, bit for bit."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_sparse as ws
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    wt, rays = ws.planted_tiles(dev, tiles=1024)
+    tiles = [x.view(-1, wk.RAY_TILE, *x.shape[1:]) for x in rays]
+    _, flags = wk._tile_entries(wt.lo, wt.hi, wt.n_real, *tiles,
+                                with_rays=True)
+    counts = flags.sum(dim=1)
+    if not bool((counts[:, 0] == 16).all() and (counts[:, 1] == 17).all()):
+        raise AssertionError("planted tiles: the visits do not flag 16 and "
+                             "17 rays")
+    closest = ws.walk_sparse_closest_ref(wt, *rays)
+    occ = ws.walk_sparse_anyhit_ref(wt, *rays)[0]
+    for form in (wk.ONE_THREAD_FORM, None):
+        got = (ws.walk_sparse_closest(wt, *rays, _form=form),
+               ws.walk_sparse_anyhit(wt, *rays, _form=form))
+        torch.cuda.synchronize()
+        diff = (_lanes_differ(got[0], closest[:4]).numel(),
+                _lanes_differ(got[1], occ).numel())
+        if any(diff):
+            raise AssertionError(f"planted tiles, K7 form {form}: {diff} "
+                                 "lanes differ")
+    phase("sched", f"planted tiles for K7 ({rays[0].shape[0]} rays; every "
+          "tile flags 16 rays for one cluster and 17 for another): "
+          f"{closest[4]} visits, {closest[5]} sparse, "
+          f"{int((closest[1] >= 0).sum())} hits; both forms of both tests = "
+          "the plain version bit for bit")
+
+
 def check_sub_planted(dev):
     """Phase 13: K6's per-group barriers on the planted tiles whose groups
     stop far apart (ops/walk_sub.py:planted_tiles, 1,024 tiles): at each
@@ -1029,8 +1197,10 @@ def check_schedules(label, sd, waves):
         sparse=True)
     for heap in ("shared", "global"):
         scheds[f"wide/{heap}"] = tile_sched(
-            lambda *a, h=heap: wk.walk_closest(*a, wide=True, heap=h),
-            lambda *a, h=heap: wk.walk_anyhit(*a, wide=True, heap=h),
+            lambda *a, h=heap, **k: wk.walk_closest(*a, wide=True, heap=h,
+                                                    **k),
+            lambda *a, h=heap, **k: wk.walk_anyhit(*a, wide=True, heap=h,
+                                                   **k),
             lambda any_hit, srt: plain_counts(any_hit, srt, wide=True),
             lambda c, tiles: (c[0] * R * K, f"{c[0] / tiles:.2f} visits/tile"),
             wide=True)
@@ -1063,24 +1233,41 @@ def check_schedules(label, sd, waves):
             if "sub" in opt:
                 forms = _sub_forms_vs_one(f"{tag} {name}", wt, srt,
                                           opt["sub"], got, (pc, pa[0]))
+            elif name == "sparse" or name.startswith("wide"):
+                forms = {kind: _split_vs_one(
+                    f"{tag} {name}",
+                    ("walk_sparse_" if name == "sparse" else "walk_")
+                    + kind + ("_wide" if name != "sparse" else ""),
+                    lambda f=f, **k: f(wt, *srt, **k), g, ref_)
+                    for kind, f, g, ref_ in (("closest", closest, got[0], pc),
+                                             ("anyhit", anyhit, got[1],
+                                              pa[0]))}
             for kind, counts, err, fn, any_hit, out_b, pms in (
                     ("closest", cc, err_c, closest, False, 16, pms_c),
                     ("anyhit", ca, err_a, anyhit, True, 1, pms_a)):
                 tests, note = tests_note(counts, tiles)
-                bound, by = _bound_ms(tests, n * (RAY_IN_BYTES + out_b) + table)
+                in_bytes = n * (RAY_IN_BYTES + out_b) + table
+                bound, by = _bound_ms(tests, in_bytes)
                 rec[kind] = {
                     "note": note, "tests": tests, "max_abs_err": err,
                     "base_ms": base_ms[kind],
                     "walk_ms": _median_ms(lambda a=any_hit: walk._walk_impl(
                         wt, *rays, a, **opt)),
                     "base_walk_ms": base_walk[any_hit],
-                    "plain_ms": pms, "bound_ms": bound, "bound_by": by}
-                if "sub" in opt:
+                    "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+                    "bound_entry_ms": _bound_entry_ms(
+                        tests, tiles * wt.n_real * R, in_bytes)}
+                if "sub" in opt or name == "sparse" or name.startswith("wide"):
                     rec[kind].update(forms[kind])
                 else:
                     rec[kind]["ms"] = _median_ms(lambda f=fn: f(wt, *srt))
             _sched_line(tag, name, rec)
             out[name].append(rec)
+            if name == "sparse":
+                # K7's candidate forms (tools/perf/split_forms.py)
+                from rustlight_tpu_torch.tools.perf import split_forms
+                _LAB["records"] += split_forms.sparse_forms(
+                    *lab_library(), wt, srt, TIMING_RUNS, tag)
         # K8: the pairs of the morton-sorted wavefront, then the whole walk
         msrt = walk._prepare(wt, *rays, inc_sort=False)[:4]
         lane_k3 = (walk._walk_impl(wt, *rays, False)[:4],
@@ -1122,35 +1309,108 @@ def check_schedules(label, sd, waves):
     return out
 
 
+# the blocks a wide launch starts in _wide_many_tiles: fewer than the tiles
+# of a wavefront, and no divisor of 1,024, so that blocks walk 3 or 4 tiles
+WIDE_FEW_BLOCKS = 257
+
+
+def _wide_many_tiles(tag, wt, srt, plain_c, plain_a):
+    """K3w with fewer blocks than tiles (ops/walk_trace.py:_WIDE_BLOCKS set
+    to WIDE_FEW_BLOCKS for these launches), so that each block walks several
+    tiles and carries its feed's copies and mbarrier phases from one tile to
+    the next: with each heap and both tests, the production form against the
+    one-thread form bit for bit, with the _dot4 test also against the plain
+    version, with the tensor-core test against the one-thread tensor-core
+    kernel."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    tiles = srt[0].shape[0] // wk.RAY_TILE
+    if tiles <= WIDE_FEW_BLOCKS:
+        raise AssertionError(f"{tag}: {tiles} tiles, no more than "
+                             f"{WIDE_FEW_BLOCKS} blocks")
+    keep, wk._WIDE_BLOCKS = wk._WIDE_BLOCKS, WIDE_FEW_BLOCKS
+    try:
+        for heap in ("shared", "global"):
+            for mxu in (False, True):
+                got = {f: (wk.walk_closest(wt, *srt, wide=True, heap=heap,
+                                           mxu=mxu, _form=f),
+                           wk.walk_anyhit(wt, *srt, wide=True, heap=heap,
+                                          mxu=mxu, _form=f))
+                       for f in (wk.ONE_THREAD_FORM, None)}
+                torch.cuda.synchronize()
+                refs = [got[wk.ONE_THREAD_FORM]] + (
+                    [] if mxu else [(plain_c, plain_a)])
+                diff = [_lanes_differ(got[None][k], ref[k]).numel()
+                        for ref in refs for k in (0, 1)]
+                if any(diff):
+                    raise AssertionError(
+                        f"{tag} wide/{heap}{' mma' if mxu else ''} with "
+                        f"{WIDE_FEW_BLOCKS} blocks: lanes differ (closest, "
+                        f"any) from P1{'' if mxu else ' and plain'}: {diff}")
+    finally:
+        wk._WIDE_BLOCKS = keep
+    phase("forms", f"{tag} wide, {WIDE_FEW_BLOCKS} blocks for {tiles} tiles:"
+          " production vs P1 (and _dot4 vs the plain version), each heap, "
+          "both tests, _dot4 and tensor-core: 0 lanes differ")
+
+
 def check_wide(label, sd, waves):
     """Phase 13 on a table past 2^14 clusters: the wide pop with both heaps
     against its plain version on every tile of the AO integrator's two
-    wavefronts, and against K5's result; beside K5's times. Returns a
-    record per heap and wavefront."""
+    wavefronts, and against K5's result; beside K5's times. The production
+    form with each heap against its one-thread form and the plain version,
+    bit for bit, and timed in turns with it; the split tensor-core forms
+    against the one-thread ones with each heap, bit for bit; the same with
+    fewer blocks than tiles (_wide_many_tiles); then the candidate and
+    laboratory forms (tools/perf/split_forms.py). Returns a
+    record per heap and wavefront, and the laboratory's records."""
+    import torch
     from rustlight_tpu_torch.accel import walk
     from rustlight_tpu_torch.ops import walk_hier as wh
     from rustlight_tpu_torch.ops import walk_trace as wk
+    from rustlight_tpu_torch.tools.perf import split_forms
     wt = sd.geom.walk
     rows = sd.geom.inter_rows
     R, K = wk.RAY_TILE, wk.K
-    out = []
+    one = wk.ONE_THREAD_FORM
+    out, lab = [], []
     for wname, rays in waves.items():
         tag = f"{label}/{wname}"
         srt = walk._prepare(wt, *rays)[:4]
         n = srt[0].shape[0]
+        tiles = n // R
         k5 = (wh.walk_hier_closest(wt, *srt), wh.walk_hier_anyhit(wt, *srt))
         base_ms = {"closest": _median_ms(lambda: wh.walk_hier_closest(wt, *srt)),
                    "anyhit": _median_ms(lambda: wh.walk_hier_anyhit(wt, *srt))}
         ((pc, vc), pms_c) = _timed(lambda: wk._walk_ref(wt, *srt, False, True))
         (((pa,), va), pms_a) = _timed(lambda: wk._walk_ref(wt, *srt, True, True))
         for heap in ("shared", "global"):
-            closest = lambda *a, h=heap: wk.walk_closest(*a, wide=True, heap=h)
-            anyhit = lambda *a, h=heap: wk.walk_anyhit(*a, wide=True, heap=h)
+            closest = lambda *a, h=heap, **k: wk.walk_closest(
+                *a, wide=True, heap=h, **k)
+            anyhit = lambda *a, h=heap, **k: wk.walk_anyhit(
+                *a, wide=True, heap=h, **k)
             got = (closest(wt, *srt), anyhit(wt, *srt))
             err_c, err_a, ties = _compare(f"{tag} wide/{heap}", rows, srt,
                                           got[0], pc, got[1], pa)
             _compare(f"{tag} wide/{heap} vs K5", rows, srt, got[0], k5[0],
                      got[1], k5[1])
+            forms = {kind: _split_vs_one(f"{tag} wide/{heap}",
+                                         f"walk_{kind}_wide",
+                                         lambda f=f, **k: f(wt, *srt, **k),
+                                         g, ref)
+                     for kind, f, g, ref in (("closest", closest, got[0], pc),
+                                             ("anyhit", anyhit, got[1], pa))}
+            mma = [(closest(wt, *srt, mxu=True, _form=f),
+                    anyhit(wt, *srt, mxu=True, _form=f)) for f in (one, None)]
+            torch.cuda.synchronize()
+            diff = (_lanes_differ(mma[0][0], mma[1][0]).numel(),
+                    _lanes_differ(mma[0][1], mma[1][1]).numel())
+            if any(diff):
+                raise AssertionError(f"{tag} wide/{heap}: the split "
+                                     f"tensor-core forms differ from P1 on "
+                                     f"{diff} lanes")
+            phase("forms", f"{tag} wide/{heap} mma: split vs P1: 0 lanes "
+                  "differ")
             rec = {"table": label, "wavefront": wname,
                    "schedule": f"wide/{heap}", "cp": wt.n_clusters, "rays": n,
                    "tie_ids": ties}
@@ -1158,20 +1418,25 @@ def check_wide(label, sd, waves):
                     ("closest", vc, err_c, closest, False, 16, pms_c),
                     ("anyhit", va, err_a, anyhit, True, 1, pms_a)):
                 nv = int(visits.sum())
-                bound, by = _bound_ms(nv * R * K, nv * HIER_VISIT_BYTES
-                                      + n * (RAY_IN_BYTES + out_b))
+                in_bytes = nv * HIER_VISIT_BYTES + n * (RAY_IN_BYTES + out_b)
+                bound, by = _bound_ms(nv * R * K, in_bytes)
                 rec[kind] = {
                     "note": "visits/tile %.2f, p99 %.0f, max %d"
                             % _spread(visits),
                     "tests": nv * R * K, "max_abs_err": err,
-                    "ms": _median_ms(lambda f=fn: f(wt, *srt)),
                     "base_ms": base_ms[kind],
                     "walk_ms": _median_ms(lambda a=any_hit: walk._walk_impl(
                         wt, *rays, a, hier=False)),
-                    "plain_ms": pms, "bound_ms": bound, "bound_by": by}
+                    "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+                    "bound_entry_ms": _bound_entry_ms(
+                        nv * R * K, tiles * wt.n_real * R, in_bytes),
+                    **forms[kind]}
             _sched_line(tag, f"wide/{heap}", rec)
             out.append(rec)
-    return out
+        _wide_many_tiles(tag, wt, srt, pc, pa)
+        lab += split_forms.wide_forms(*lab_library(), wt, srt, TIMING_RUNS,
+                                      tag, visits={False: vc, True: va})
+    return out, lab
 
 
 def _case(rec, kind):
@@ -1180,7 +1445,8 @@ def _case(rec, kind):
     return {"table": rec["table"], "wavefront": rec["wavefront"],
             "schedule": rec["schedule"],
             **{k: rec[kind][k] for k in ("form", "ms", "p1_ms", "bound_ms",
-                                         "max_abs_err") if k in rec[kind]}}
+                                         "bound_entry_ms", "max_abs_err")
+               if k in rec[kind]}}
 
 
 def _images_agree(label, img, ref, pix_frac, pix_rtol, mean_rtol):
@@ -1701,7 +1967,9 @@ def _walk_variants(wt, srt, which):
                       lambda **k: wk.walk_anyhit(wt, *srt, wide=True, **k),
                       lambda: wk.walk_closest_ref(wt, *srt, True, True),
                       lambda: wk.walk_anyhit_ref(wt, *srt, True, True), R,
-                      None),
+                      _form_name(wk.PRODUCTION_FORMS["walk_closest_wide"])
+                      + "/" + _form_name(
+                          wk.PRODUCTION_FORMS["walk_anyhit_wide"])),
         "walk_hier": ("walk_hier_closest_mma", "walk_hier_anyhit_mma",
                       lambda **k: wh.walk_hier_closest(wt, *srt, **k),
                       lambda **k: wh.walk_hier_anyhit(wt, *srt, **k),
@@ -2226,7 +2494,8 @@ def ao_row(dev, label, n_tris):
     wide_recs, mma_recs = [], {}
     if hier:
         waves = ao_wavefronts(sd)
-        wide_recs = check_wide(label, sd, waves)
+        wide_recs, lab = check_wide(label, sd, waves)
+        _LAB["records"] += lab
         # the tensor-core visit where the renders below launch it
         mma_recs = check_mma(label, sd, waves, ("walk_wide", "walk_hier"))
         extra = ao_option_render(
@@ -2268,10 +2537,14 @@ def main() -> int:
 
     from rustlight_tpu_torch.ops import native
     t0 = time.time()
+    start_lab_build()
     lib = native.build(verbose=True)
     phase("build", f"{lib.name} in {time.time() - t0:.2f}s")
     ptxas_table()
     check_static_smem()
+    wait_lab_build()
+    phase("build", f"RL_LAB_FORMS library of K7's and K3w's forms in "
+          f"{_LAB['seconds']:.2f}s (from the start of the build)")
 
     from rustlight_tpu_torch.integrators import IntegratorPathTracing
     from rustlight_tpu_torch.models import cornell_box, sphere_grid
@@ -2362,6 +2635,7 @@ def main() -> int:
     label = GRID_ROWS[0][0]
     gsd, _, _, waves = grids[label]
     check_sub_planted(dev)
+    check_sparse_planted(dev)
     sched_recs = check_schedules(label, gsd, waves)
     # the tensor-core visit of K3, K6 and K8 where phase 19's renders launch
     # them
@@ -2483,16 +2757,19 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None, "cases": cases})
+    from rustlight_tpu_torch.ops import walk_trace as wk
     for name, lines, kind, wave in (
             ("walk_closest_wide", (636, 1139), "closest", "camera"),
             ("walk_anyhit_wide", (703, 1219), "anyhit", "ao")):
         # the wavefront of the row whose render takes the wide pop, heaps
-        # in device memory as that render keeps them
+        # where that render keeps them
         all_recs = wide_recs + sched_recs["wide/shared"] + sched_recs[
             "wide/global"]
         cases = [_case(r, kind) for r in all_recs]
         rec = next(r for r in wide_recs if r["wavefront"] == wave
-                   and r["schedule"] == "wide/global")[kind]
+                   and r["schedule"] == "wide/" + (
+                       "shared" if r["cp"] <= wk._WIDE_SHARED_MAX
+                       else "global"))[kind]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES["walk"],
             "replaces": WALK_REPLACES.format(*lines) + ", wide=True",
@@ -2500,7 +2777,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None, "cases": cases})
+            "library_ms": None, "form": rec["form"], "p1_ms": rec["p1_ms"],
+            "cases": cases})
     def lab_entry(name, source, replaces, launches, library_ms=None,
                   cases=None, wave="divergent", sched=None):
         """A kernel of phases 13 and 17-19: its numbers from the case `wave`
@@ -2571,7 +2849,8 @@ def main() -> int:
     # kernels line stays short
     print(json.dumps({"kernel_cases": {k["name"]: k.pop("cases")
                                        for k in kernels if "cases" in k},
-                      "a1_forms": a1}), flush=True)
+                      "a1_forms": a1, "split_forms": _LAB["records"]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@
 // (walk_sparse.cu, K7).
 //
 // A tile is TILE = 64 rays walked by one block of NT = P x 64 threads: P
-// threads a ray (P = 1 in every kernel but the split ones of walk_flat.cuh,
-// walk_trace.cu and walk_hier.cu), the ray's P threads side by side in a
+// threads a ray (P = 1 in the one-thread kernels, P > 1 in the split ones
+// of every source), the ray's P threads side by side in a
 // warp (ray threadIdx.x / P, lane threadIdx.x % P). Entries are packed: the
 // float bits of a non-negative entry distance with the low mantissa bits
 // replaced by an id (ID_BITS = 14 for clusters or supers, CHILD_BITS = 7 for
@@ -120,6 +120,69 @@ __device__ __forceinline__ float min_entry(const float l[3], const float h[3],
     if (slab_entry(l, h, r, j, cap[j], entry)) e = fminf(e, entry);
   }
   return e;
+}
+
+// ------------------------------------------------ the split entry pass
+//
+// The entry pass of the split K3w and K7 kernels (walk_trace.cu: wide_walk,
+// walk_sparse.cu: sparse_walk), where it is the largest part of the work
+// (Cp x 64 slab tests a tile). A ray's data are two float4, so a slab test
+// reads them with two 16-byte loads, broadcast over the warp, and min/max
+// are PTX's min.NaN / max.NaN, one instruction each: a NaN operand gives
+// the canonical NaN, as nan_min/nan_max do, and other operands give
+// fminf/fmaxf's result. The first axis's running limits start at -inf /
+// +inf and take t0, t1's min and max as they are (nan_max(-inf, x) is x up
+// to a NaN's payload, which no caller reads: a NaN limit fails the test).
+// The same operations in the same order as slab_entry, so the same entry
+// and the same verdict.
+
+struct TileRays4 {
+  float4 o[TILE];     // ox, oy, oz, tnear
+  float4 inv[TILE];   // 1 / dx, 1 / dy, 1 / dz (slab_inv), tfar
+};
+
+// Ray threadIdx.x / P of the tile into s, written by its first thread.
+template <int P>
+__device__ __forceinline__ void load_tile4(const Ray& ray, TileRays4& s) {
+  if (threadIdx.x % P) return;
+  const int k = threadIdx.x / P;
+  s.o[k] = make_float4(ray.ox, ray.oy, ray.oz, ray.tnear);
+  s.inv[k] = make_float4(slab_inv(ray.dx), slab_inv(ray.dy),
+                         slab_inv(ray.dz), ray.tfar);
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// slab_entry of ray (ro, ri) (TileRays4's two float4) below its tfar.
+__device__ __forceinline__ bool slab_entry4(const float l[3], const float h[3],
+                                            float4 ro, float4 ri,
+                                            float& entry) {
+  const float o[3] = {ro.x, ro.y, ro.z}, inv[3] = {ri.x, ri.y, ri.z};
+  float tmin, tmax;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float t0 = __fmul_rn(__fsub_rn(l[ax], o[ax]), inv[ax]);
+    const float t1 = __fmul_rn(__fsub_rn(h[ax], o[ax]), inv[ax]);
+    if (ax == 0) {
+      tmin = min_nan(t0, t1);
+      tmax = max_nan(t0, t1);
+    } else {
+      tmin = max_nan(tmin, min_nan(t0, t1));
+      tmax = min_nan(tmax, max_nan(t0, t1));
+    }
+  }
+  entry = max_nan(tmin, ro.w);
+  return tmax >= entry && entry < ri.w;
 }
 
 // The packed entry of box `id` (id_mask = its id bits) at distance e.
@@ -378,13 +441,14 @@ struct BlockSync {
   __device__ void operator()() const { __syncthreads(); }
 };
 
-// The fragments of the calling warp's 32-ray set (warp / P) of the tile.
+// The fragments of the calling warp's 32-ray set (warp / P) of tile `tile`
+// (the block's own, unless the block walks several tiles).
 template <int P>
 __device__ __forceinline__ MmaRays set_rays(const float* __restrict__ o,
                                             const float* __restrict__ d,
-                                            const float* __restrict__ tnear) {
-  return mma_rays_at(o, d, tnear,
-                     blockIdx.x * TILE + (threadIdx.x >> 5) / P * 32);
+                                            const float* __restrict__ tnear,
+                                            int tile = blockIdx.x) {
+  return mma_rays_at(o, d, tnear, tile * TILE + (threadIdx.x >> 5) / P * 32);
 }
 
 template <int P, int GS, bool ANY, typename Sync>

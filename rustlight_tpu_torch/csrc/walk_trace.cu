@@ -74,16 +74,46 @@
 // a warp whose ray does not want a visit idle through it, and the test's
 // early exits diverge. The entry pass costs Cp x 64 slab tests per tile.
 //
-// The wide pop (the same TPU kernels with wide=True, for tables past 2^14
-// clusters that do not take the two-level walk): entries are the plain bits
-// of max(entry, 0), no id packed. A pop is a block-wide min over (bits,
-// column), so the lowest column wins among equal entries, and clears that
-// one slot; an empty heap pops column 0, as the reference's does, for a
+// The wide pop (K3w: the same TPU kernels with wide=True, _tile_entries
+// :540-541, _pop_min :548-575, for tables past 2^14 clusters, up to 2^17,
+// that do not take the two-level walk): entries are the plain bits of
+// max(entry, 0), no id packed. A pop is a block-wide min over (bits <<
+// 32 | column), so the lowest column wins among equal entries, and clears
+// that one slot; an empty heap pops column 0, as the reference's does, for a
 // visit that can change nothing. The stop test compares the bits
 // unstripped. The heaps of Cp x 4 B are in dynamic shared memory, or, when
 // `heap` is given, in a slice per block of that device buffer; the grid is
 // bounded by the caller and a block walks tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ... so that the buffer stays bounded too.
+//
+// What bounds the wide pop on the card: at 18,816 clusters (grid5p7M) the
+// visits' tests are 0.24 / 0.16 ms of a wavefront's work at 67 TFLOP/s,
+// and the entry pass adds Cp x 64 slab tests a tile (1.2 G, about 0.4 ms),
+// so its work is bound by operations as K3's is. The one-thread form
+// (walk_closest_wide_kernel, walk_anyhit_wide_kernel: 64 threads, two
+// warps) took 15.6 / 10.8 ms on grid5p7M's camera / AO wavefronts (NVIDIA
+// H100 80GB HBM3, 700.00 W; PERF.md section 6): each thread ran 294
+// clusters of the entry pass and read 294 entries a pop, a block-wide min
+// over two warps, then 384 serial tests a visit; a 75 KB heap in shared
+// memory left two such blocks an SM, so it lived in device memory. The split
+// form (wide_walk below) is K3's layout over the wide heap: P = 8 threads a
+// ray, 512 a block, the entry pass and each pop strided over all of them
+// (37 entries a thread at 18,816), the min over 16 warp partials, the pop
+// taken a visit ahead and cleared by the thread that scans the slot, the
+// split visit of either test (walk_common.cuh: split_closest, split_anyhit,
+// split_mma), the rows staged (closest) or in the ring (any hit). The entry
+// pass reads a ray as two float4 and takes min/max as PTX's min.NaN /
+// max.NaN (walk_common.cuh: slab_entry4): 2.4x faster than the one-thread
+// form's arithmetic on the same data, bit for bit. A 75 KB heap in shared
+// memory now still leaves 32 warps an SM (16 with the ring), and took the
+// same time as one in device memory, so the one-thread form's rule stands
+// (ops/walk_trace.py:_WIDE_SHARED_MAX). A pop over the minima of chunks of
+// 32 entries saved at most 6% (PERF.md section 6) and was not kept. Every
+// form is bit for bit the one-thread kernel of its test. Measured on
+// grid5p7M's camera / AO wavefronts (NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md section 6, tools/perf/split_forms.py): 4.6 / 3.5 ms against the
+// one-thread form's 15.7 / 10.8 (heaps in device memory), 33-46% of it the
+// entry pass (1.5-1.6 ms), 9-12% the pops, the rest the visits.
 //
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -199,6 +229,14 @@ walk_anyhit_split_kernel(const float* __restrict__ lo,
 
 // --------------------------------------------------------------- wide pop
 
+// The split forms of the wide pop this library builds (P threads a ray,
+// RING), as ops/walk_trace.py:PRODUCTION_FORMS names them.
+constexpr int WIDE_CLOSEST_P = 8;
+constexpr bool WIDE_CLOSEST_RING = false;
+constexpr int WIDE_ANYHIT_P = 8;
+constexpr bool WIDE_ANYHIT_RING = true;
+
+template <int NT = TILE>
 __device__ __forceinline__ long long block_min64(long long v, long long* red) {
   for (int off = 16; off > 0; off >>= 1)
     v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -206,7 +244,7 @@ __device__ __forceinline__ long long block_min64(long long v, long long* red) {
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   long long r = red[0];
-  for (int w = 1; w < WARPS; ++w) r = min(r, red[w]);
+  for (int w = 1; w < NT / 32; ++w) r = min(r, red[w]);
   return r;
 }
 
@@ -226,17 +264,43 @@ __device__ inline void tile_entries_wide(const float* __restrict__ lo,
   }
 }
 
+// The same by the split kernels' NT threads (slab_entry4); thread c % NT
+// writes entry c.
+template <int NT>
+__device__ inline void tile_entries_wide4(const float* __restrict__ lo,
+                                          const float* __restrict__ hi,
+                                          int cp, int n_real,
+                                          const TileRays4& r, int* heap) {
+  for (int c = threadIdx.x; c < cp; c += NT) {
+    int bits = INF_BITS;
+    if (c < n_real) {
+      const float l[3] = {lo[c], lo[cp + c], lo[2 * cp + c]};
+      const float h[3] = {hi[c], hi[cp + c], hi[2 * cp + c]};
+      float e = CUDART_INF_F;
+      for (int j = 0; j < TILE; ++j) {
+        float entry;
+        if (slab_entry4(l, h, r.o[j], r.inv[j], entry)) e = fminf(e, entry);
+      }
+      bits = pack_entry(e, 0, 0);
+    }
+    heap[c] = bits;
+  }
+}
+
 // Pops the smallest entry, the lowest column among equals: returns its bits
-// and sets csel; an empty heap gives INF_BITS and column 0. The caller puts
-// a barrier between this pop and the next scan.
+// and sets csel; an empty heap gives INF_BITS and column 0. OWNER = false:
+// thread 0 clears the popped slot, and the caller puts a barrier between
+// this pop and the next scan. OWNER = true: the thread that scans the slot
+// (csel % NT) clears it, so the next pop needs no barrier before it.
+template <int NT = TILE, bool OWNER = false>
 __device__ __forceinline__ int pop_min_wide(int* heap, int cp, long long* red,
                                             int& csel) {
   long long m = (static_cast<long long>(INF_BITS) << 32);
-  for (int c = threadIdx.x; c < cp; c += TILE)
+  for (int c = threadIdx.x; c < cp; c += NT)
     m = min(m, (static_cast<long long>(heap[c]) << 32) | c);
-  m = block_min64(m, red);
+  m = block_min64<NT>(m, red);
   csel = static_cast<int>(m & 0xffffffffll);
-  if (threadIdx.x == 0) heap[csel] = INF_BITS;
+  if (threadIdx.x == (OWNER ? csel % NT : 0)) heap[csel] = INF_BITS;
   return static_cast<int>(m >> 32);
 }
 
@@ -333,6 +397,224 @@ walk_anyhit_wide_kernel(const float* __restrict__ lo,
   }
 }
 
+// ------------------------------------------------------ wide pop, split
+
+template <int NT>
+struct WideSplitShared {
+  TileRays4 ray;
+  uint64_t bar[2];
+  long long red[NT / 32];
+};
+
+struct WideArgs {
+  const float* lo;
+  const float* hi;
+  int cp, n_real;
+  const float4* rows;
+  const int* ids;
+  const float* o;
+  const float* d;
+  const float* tnear;
+  const float* tfar;
+  int tiles;
+  int* heap;           // null: the heaps in shared memory
+  float* t_out;
+  int* tri_out;
+  float* u_out;
+  float* v_out;
+  bool* occ_out;
+};
+
+// A block's heap of the split wide walk: its slice of a.heap in device
+// memory, or the dynamic shared memory past the feed's slots (and with MMA
+// the split tensor-core visit's scratch).
+template <int NT, bool RING, bool MMA>
+__device__ __forceinline__ int* wide_heap(const WideArgs& a, float4* s_dyn) {
+  if (a.heap) return a.heap + static_cast<size_t>(blockIdx.x) * a.cp;
+  return reinterpret_cast<int*>(s_dyn + feed_slots<RING>() * 3 * KC +
+                                (MMA ? mma_scratch_f4<NT>() : 0));
+}
+
+// The start of a tile of the split wide walk: once the last tile's walk has
+// ended, the tile's rays into shared memory and the entry pass into the
+// heap. Returns this thread's ray.
+template <int P>
+__device__ __forceinline__ Ray wide_tile_entries(const WideArgs& a, int tile,
+                                                 TileRays4& s_ray, int* heap) {
+  const Ray ray = load_ray(tile * TILE + threadIdx.x / P, a.o, a.d, a.tnear,
+                           a.tfar);
+  __syncthreads();
+  load_tile4<P>(ray, s_ray);
+  __syncthreads();
+  tile_entries_wide4<P * TILE>(a.lo, a.hi, a.cp, a.n_real, s_ray, heap);
+  return ray;
+}
+
+// The split form of the wide walk: walk_closest_split_kernel's layout (P
+// threads a ray, NT = P x TILE, the pop a visit ahead and cleared by the
+// thread that scans the slot, the feed, the split visit of either test)
+// over the wide heap, a block walking tiles blockIdx.x, blockIdx.x +
+// gridDim.x, ... Dynamic shared memory: the feed's slots, with MMA the
+// split tensor-core visit's scratch, then the heap unless it is in device
+// memory (a.heap: Cp ints a block). Thread c % NT writes and scans entry c,
+// so a pop needs no barrier before it. The feed's count of copies runs on
+// across tiles, so its slots' mbarrier phases need no re-arming; each tile
+// drains its copies in flight before the next tile's first barrier.
+template <bool ANY, int P, bool RING, bool MMA>
+__device__ __forceinline__ void wide_walk(const WideArgs& a) {
+  constexpr int NT = P * TILE;
+  extern __shared__ float4 s_dyn[];
+  __shared__ WideSplitShared<NT> s;
+  float4* s_mma = s_dyn + feed_slots<RING>() * 3 * KC;
+  const MmaScratch mx = mma_scratch(s_mma);
+  int* heap = wide_heap<NT, RING, MMA>(a, s_dyn);
+  int* red = reinterpret_cast<int*>(s.red);
+  auto feed = make_feed<NT, RING>(s_dyn, s.bar);
+  feed.init();
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    const Ray ray = wide_tile_entries<P>(a, tile, s.ray, heap);
+    float best_t = ray.tfar, best_u = 0.0f, best_v = 0.0f;
+    int best_i = -1, csel, cnext;
+    bool occ = false;
+    int emin = pop_min_wide<NT, true>(heap, a.cp, s.red, csel);
+    feed.prefetch(a.rows, csel);
+    int enext = pop_min_wide<NT, true>(heap, a.cp, s.red, cnext);
+    int thresh = block_max<NT>(__float_as_int(ray.tfar), red);
+    for (int nv = 0; nv < a.cp && emin < thresh; ++nv) {
+      for (int half = 0; half < 2; ++half) {
+        feed.prefetch(a.rows, cnext);
+        const float cap = ANY ? ray.tfar : best_t;
+        const bool want = !occ && ray.tnear < cap;
+        if constexpr (MMA) {
+          put_cap<P>(mx, want, cap);
+          if (const float4* c_rows = feed.take_all(a.rows, csel, want)) {
+            float t, u, v;
+            int j;
+            split_mma<P, 32, ANY>(reinterpret_cast<const float*>(c_rows),
+                                  set_rays<P>(a.o, a.d, a.tnear, tile), mx,
+                                  BlockSync{}, t, j, u, v);
+            if (j < KC) {
+              if constexpr (ANY) {
+                occ = true;
+              } else {
+                best_t = t;
+                best_i = a.ids[static_cast<size_t>(csel) * KC + j];
+                best_u = u;
+                best_v = v;
+              }
+            }
+          }
+        } else if (const float4* c_rows = feed.take(a.rows, csel, want)) {
+          if constexpr (ANY)
+            split_anyhit<P>(c_rows, ray, want, occ);
+          else
+            split_closest<P>(c_rows, a.ids, csel, ray, want, best_t, best_i,
+                             best_u, best_v);
+        }
+        emin = enext;
+        csel = cnext;
+        enext = pop_min_wide<NT, true>(heap, a.cp, s.red, cnext);
+      }
+      thresh = block_max<NT>(
+          ANY ? (occ ? 0 : __float_as_int(ray.tfar)) : __float_as_int(best_t),
+          red);
+    }
+    feed.drain();
+    if (threadIdx.x % P) continue;
+    const int i = tile * TILE + threadIdx.x / P;
+    if constexpr (ANY)
+      a.occ_out[i] = occ;
+    else
+      write_closest(i, best_t, best_i, best_u, best_v, a.t_out, a.tri_out,
+                    a.u_out, a.v_out);
+  }
+}
+
+template <int P, bool RING, bool MMA>
+__global__ void __launch_bounds__(P * TILE)
+walk_closest_wide_split_kernel(const WideArgs a) {
+  wide_walk<false, P, RING, MMA>(a);
+}
+
+template <int P, bool RING, bool MMA>
+__global__ void __launch_bounds__(P * TILE)
+walk_anyhit_wide_split_kernel(const WideArgs a) {
+  wide_walk<true, P, RING, MMA>(a);
+}
+
+template <bool ANY, int P, bool RING, bool MMA>
+int launch_wide(const WideArgs& a, int blocks, int smem, void* stream) {
+  if constexpr (ANY)
+    return launch_threads(walk_anyhit_wide_split_kernel<P, RING, MMA>, blocks,
+                          P * TILE, static_cast<size_t>(smem), stream, a);
+  else
+    return launch_threads(walk_closest_wide_split_kernel<P, RING, MMA>,
+                          blocks, P * TILE, static_cast<size_t>(smem), stream,
+                          a);
+}
+
+#ifdef RL_LAB_FORMS
+// The laboratory forms of the production split wide walk, with its layout,
+// heap and dynamic shared memory, that split its time
+// (tools/perf/split_forms.py): LAB 1 returns after the entry pass and the
+// first pop; LAB 2 also pops as many visits as visits[tile] says (the
+// plain version's count, which the production walk's equals), with the
+// termination checks' reductions, and tests nothing. Both write the last
+// popped bits (t_out, or occ_out: whether they are finite).
+template <bool ANY, int P, bool RING, int LAB>
+__global__ void __launch_bounds__(P * TILE)
+walk_wide_lab_kernel(const WideArgs a, const int* visits) {
+  constexpr int NT = P * TILE;
+  extern __shared__ float4 s_dyn[];
+  __shared__ WideSplitShared<NT> s;
+  int* heap = wide_heap<NT, RING, false>(a, s_dyn);
+  int* red = reinterpret_cast<int*>(s.red);
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    [[maybe_unused]] const Ray ray =
+        wide_tile_entries<P>(a, tile, s.ray, heap);
+    int csel, cnext;
+    int out = pop_min_wide<NT, true>(heap, a.cp, s.red, csel);
+    if constexpr (LAB == 2) {
+      int enext = pop_min_wide<NT, true>(heap, a.cp, s.red, cnext);
+      int thresh = block_max<NT>(__float_as_int(ray.tfar), red);
+      for (int nv = 0; nv < visits[tile]; nv += 2) {
+        const int emin = pop_min_wide<NT, true>(heap, a.cp, s.red, csel);
+        enext = pop_min_wide<NT, true>(heap, a.cp, s.red, cnext);
+        thresh = block_max<NT>(emin ^ cnext, red);
+      }
+      out = enext ^ thresh;
+    }
+    if (threadIdx.x % P) continue;
+    const int i = tile * TILE + threadIdx.x / P;
+    if constexpr (ANY)
+      a.occ_out[i] = out != INF_BITS;
+    else
+      a.t_out[i] = __int_as_float(out);
+  }
+}
+#endif
+
+// A wide launch in form (p, ring): (1, 0) the one-thread kernels, else the
+// split form this library builds (mma: the split tensor-core visit);
+// RL_LAB_FORMS also builds the _dot4 form at P = 4 and with the other
+// feed. cudaErrorInvalidValue for a form not built.
+template <bool ANY>
+int launch_wide_form(const WideArgs& a, int mma, int p, int ring, int blocks,
+                     int smem, void* stream) {
+  constexpr int WP = ANY ? WIDE_ANYHIT_P : WIDE_CLOSEST_P;
+  constexpr bool WR = ANY ? WIDE_ANYHIT_RING : WIDE_CLOSEST_RING;
+  if (p == WP && (ring != 0) == WR)
+    return mma ? launch_wide<ANY, WP, WR, true>(a, blocks, smem, stream)
+               : launch_wide<ANY, WP, WR, false>(a, blocks, smem, stream);
+#ifdef RL_LAB_FORMS
+  if (!mma && p == WP)
+    return launch_wide<ANY, WP, !WR, false>(a, blocks, smem, stream);
+  if (!mma && p == 4 && (ring != 0) == WR)
+    return launch_wide<ANY, 4, WR, false>(a, blocks, smem, stream);
+#endif
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The kernel of a form: (1, 0) one thread a ray, else the split form built
 // (mma: the split tensor-core visit). RL_LAB_FORMS also builds the split
 // tensor-core visit at P = 2 and 4 with the production feed, and the
@@ -422,39 +704,130 @@ extern "C" int rl_walk_anyhit(const void* lo, const void* hi, int cp,
 }
 
 // The wide pop: `blocks` blocks walk the n / 64 tiles; `heap` is null (heaps
-// in shared memory) or a device buffer of blocks * cp ints.
+// in shared memory) or a device buffer of blocks x Cp ints. (p, ring) name
+// the form as in rl_walk_closest (the split ones: WIDE_CLOSEST_P ...
+// above), and smem is the dynamic shared memory the wrapper computed
+// (ops/walk_trace.py:launch_geometry). Returns cudaErrorInvalidValue for a
+// form not built.
 extern "C" int rl_walk_closest_wide(const void* lo, const void* hi, int cp,
                                     int n_real, const void* rows,
                                     const void* ids, const void* o,
                                     const void* d, const void* tnear,
-                                    const void* tfar, int n, int mma,
-                                    void* heap, int blocks, void* t_out,
-                                    void* tri_out, void* u_out, void* v_out,
-                                    void* stream) {
-  return launch(
-      mma ? walk_closest_wide_kernel<true> : walk_closest_wide_kernel<false>,
-      blocks, heap ? 0 : static_cast<size_t>(cp) * sizeof(int), stream,
-      static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
-      static_cast<const float4*>(rows), static_cast<const int*>(ids),
-      static_cast<const float*>(o), static_cast<const float*>(d),
-      static_cast<const float*>(tnear), static_cast<const float*>(tfar),
-      n / TILE, static_cast<int*>(heap), static_cast<float*>(t_out),
-      static_cast<int*>(tri_out), static_cast<float*>(u_out),
-      static_cast<float*>(v_out));
+                                    const void* tfar, int n, int mma, int p,
+                                    int ring, int smem, void* heap,
+                                    int blocks, void* t_out, void* tri_out,
+                                    void* u_out, void* v_out, void* stream) {
+  if (p == 1 && !ring)
+    return launch(
+        mma ? walk_closest_wide_kernel<true> : walk_closest_wide_kernel<false>,
+        blocks, static_cast<size_t>(smem), stream,
+        static_cast<const float*>(lo), static_cast<const float*>(hi), cp,
+        n_real, static_cast<const float4*>(rows), static_cast<const int*>(ids),
+        static_cast<const float*>(o), static_cast<const float*>(d),
+        static_cast<const float*>(tnear), static_cast<const float*>(tfar),
+        n / TILE, static_cast<int*>(heap), static_cast<float*>(t_out),
+        static_cast<int*>(tri_out), static_cast<float*>(u_out),
+        static_cast<float*>(v_out));
+  const WideArgs a{static_cast<const float*>(lo),
+                   static_cast<const float*>(hi),
+                   cp,
+                   n_real,
+                   static_cast<const float4*>(rows),
+                   static_cast<const int*>(ids),
+                   static_cast<const float*>(o),
+                   static_cast<const float*>(d),
+                   static_cast<const float*>(tnear),
+                   static_cast<const float*>(tfar),
+                   n / TILE,
+                   static_cast<int*>(heap),
+                   static_cast<float*>(t_out),
+                   static_cast<int*>(tri_out),
+                   static_cast<float*>(u_out),
+                   static_cast<float*>(v_out),
+                   nullptr};
+  return launch_wide_form<false>(a, mma, p, ring, blocks, smem, stream);
 }
 
 extern "C" int rl_walk_anyhit_wide(const void* lo, const void* hi, int cp,
                                    int n_real, const void* rows, const void* o,
                                    const void* d, const void* tnear,
-                                   const void* tfar, int n, int mma,
-                                   void* heap, int blocks, void* occ_out,
-                                   void* stream) {
-  return launch(
-      mma ? walk_anyhit_wide_kernel<true> : walk_anyhit_wide_kernel<false>,
-      blocks, heap ? 0 : static_cast<size_t>(cp) * sizeof(int), stream,
-      static_cast<const float*>(lo), static_cast<const float*>(hi), cp, n_real,
-      static_cast<const float4*>(rows), static_cast<const float*>(o),
-      static_cast<const float*>(d), static_cast<const float*>(tnear),
-      static_cast<const float*>(tfar), n / TILE, static_cast<int*>(heap),
-      static_cast<bool*>(occ_out));
+                                   const void* tfar, int n, int mma, int p,
+                                   int ring, int smem, void* heap, int blocks,
+                                   void* occ_out, void* stream) {
+  if (p == 1 && !ring)
+    return launch(
+        mma ? walk_anyhit_wide_kernel<true> : walk_anyhit_wide_kernel<false>,
+        blocks, static_cast<size_t>(smem), stream,
+        static_cast<const float*>(lo), static_cast<const float*>(hi), cp,
+        n_real, static_cast<const float4*>(rows),
+        static_cast<const float*>(o), static_cast<const float*>(d),
+        static_cast<const float*>(tnear), static_cast<const float*>(tfar),
+        n / TILE, static_cast<int*>(heap), static_cast<bool*>(occ_out));
+  const WideArgs a{static_cast<const float*>(lo),
+                   static_cast<const float*>(hi),
+                   cp,
+                   n_real,
+                   static_cast<const float4*>(rows),
+                   nullptr,
+                   static_cast<const float*>(o),
+                   static_cast<const float*>(d),
+                   static_cast<const float*>(tnear),
+                   static_cast<const float*>(tfar),
+                   n / TILE,
+                   static_cast<int*>(heap),
+                   nullptr,
+                   nullptr,
+                   nullptr,
+                   nullptr,
+                   static_cast<bool*>(occ_out)};
+  return launch_wide_form<true>(a, mma, p, ring, blocks, smem, stream);
 }
+
+#ifdef RL_LAB_FORMS
+// The laboratory forms of the production split wide walk (walk_wide_lab_kernel
+// above; lab 1 or 2) over the arguments of rl_walk_closest_wide, `any`
+// choosing the test: `out` is the t_out or occ_out it writes, `visits` the
+// visits of each tile that lab 2 pops.
+extern "C" int rl_walk_wide_lab(int any, int lab, const void* lo,
+                                const void* hi, int cp, int n_real,
+                                const void* o, const void* d,
+                                const void* tnear, const void* tfar, int n,
+                                const void* visits, int smem, void* heap,
+                                int blocks, void* out, void* stream) {
+  WideArgs a{};
+  a.lo = static_cast<const float*>(lo);
+  a.hi = static_cast<const float*>(hi);
+  a.cp = cp;
+  a.n_real = n_real;
+  a.o = static_cast<const float*>(o);
+  a.d = static_cast<const float*>(d);
+  a.tnear = static_cast<const float*>(tnear);
+  a.tfar = static_cast<const float*>(tfar);
+  a.tiles = n / TILE;
+  a.heap = static_cast<int*>(heap);
+  a.t_out = static_cast<float*>(out);
+  a.occ_out = static_cast<bool*>(out);
+  const int* v = static_cast<const int*>(visits);
+  const size_t sm = static_cast<size_t>(smem);
+  if (any) {
+    constexpr int P = WIDE_ANYHIT_P;
+    constexpr bool R = WIDE_ANYHIT_RING;
+    if (lab == 1)
+      return launch_threads(walk_wide_lab_kernel<true, P, R, 1>, blocks,
+                            P * TILE, sm, stream, a, v);
+    if (lab == 2)
+      return launch_threads(walk_wide_lab_kernel<true, P, R, 2>, blocks,
+                            P * TILE, sm, stream, a, v);
+  } else {
+    constexpr int P = WIDE_CLOSEST_P;
+    constexpr bool R = WIDE_CLOSEST_RING;
+    if (lab == 1)
+      return launch_threads(walk_wide_lab_kernel<false, P, R, 1>, blocks,
+                            P * TILE, sm, stream, a, v);
+    if (lab == 2)
+      return launch_threads(walk_wide_lab_kernel<false, P, R, 2>, blocks,
+                            P * TILE, sm, stream, a, v);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif

@@ -75,13 +75,17 @@ def _run(cmd) -> str:
     return res.stderr
 
 
-def build(verbose: bool = False, defines: Sequence[str] = ()) -> Path:
+def build(verbose: bool = False, defines: Sequence[str] = (),
+          sources: Sequence[str] = None) -> Path:
     """Compile csrc/*.cu for sm_90a into one library unless this set of
     sources has been built; returns the library path. `defines` (macro
     names) build another library beside it: RL_LAB_FORMS, the candidate
     forms of K6 and of K3/K4's split tensor-core visit
-    (tools/perf/sub_forms.py)."""
-    srcs = sorted(CSRC.glob("*.cu"))
+    (tools/perf/sub_forms.py), and of K7 and K3w (tools/perf/
+    split_forms.py); `sources` (file names in csrc/) builds such a library
+    of those sources alone."""
+    srcs = sorted(p for p in CSRC.glob("*.cu")
+                  if sources is None or p.name in sources)
     flags = [*_NVCC_FLAGS, *(f"-D{x}" for x in defines)]
     tag = _tag(srcs + sorted(CSRC.glob("*.cuh")), flags)
     out = BUILD_DIR / f"libkernels_{tag}.so"

@@ -16,13 +16,15 @@ same arithmetic, so the kernels are bit-identical to them; they also return
 the number of cluster visits. The wrappers use them only for tensors on the
 CPU; a CUDA tensor launches the kernel or raises.
 
-With `wide=True` the wrappers take the wide pop (the same TPU kernels with
-wide=True: tables past 2^14 clusters that do not take the two-level walk,
-up to MAX_WIDE_CLUSTERS): entries are the plain bits of the entry distance,
-a pop takes the lowest column among the smallest entries and clears that
-one slot, and the per-tile heaps live in shared memory or, past
-_WIDE_SHARED_MAX entries, in a device buffer allocated for the launch. The
-wide kernels count as `walk_closest_wide` / `walk_anyhit_wide`.
+With `wide=True` the wrappers take the wide pop (K3w: the same TPU kernels
+with wide=True, tables past 2^14 clusters that do not take the two-level
+walk, up to MAX_WIDE_CLUSTERS): entries are the plain bits of the entry
+distance, a pop takes the lowest column among the smallest entries and
+clears that one slot, and the per-tile heaps live in shared memory or,
+past _WIDE_SHARED_MAX entries, in a device buffer allocated for the launch.
+The wide kernels count as `walk_closest_wide` / `walk_anyhit_wide` and run
+in K3's split form too (PRODUCTION_FORMS), a block walking several tiles;
+`_pop_min_wide_threads` models their pop over NT threads (tests only).
 
 With `mxu=True` a visit takes the tensor-core form of the triangle test
 (the reference's MXU_TRITEST, pallas_walk.py:591-597; csrc/tri_test_mma.cuh):
@@ -32,20 +34,21 @@ The plain versions form them with one f32 torch.matmul per product
 the kernel to its plain version: hits agree save near ties and edge grazes,
 t within rtol 1e-5. These kernels count as `<name>_mma`.
 
-The default kernels (K3/K4 here, K5 in ops/walk_hier.py) run in a split
-form: P threads a ray, each testing every P-th column of a visit's cluster,
-and for K3/K4's any hit a two-slot ring of cluster rows filled a visit ahead
-by Hopper's bulk copy (csrc/walk_common.cuh). `PRODUCTION_FORMS` names each
-kernel's form. With `mxu=True` K3/K4 take the same form, whose visit then
-splits the tensor-core test over the P warps of each 32-ray set by column
-blocks, bit for bit the one-thread tensor-core kernel; K5's tensor-core
-visit stays one thread a ray (`_resolve_form`). `launch_geometry` gives a
-form's threads and dynamic shared memory. `_visit_closest_split` /
-`_visit_anyhit_split` model the split visit in torch, and `_merge_parts`
-the tensor-core visit's merge over column slices, for the tests only. The
-wrappers' private `_form=ONE_THREAD_FORM` launches the one-thread-a-ray
-kernel instead, for chip_smoke.py's side-by-side timing and the `cuda` test
-only; no path of the package passes it.
+The default kernels (K3/K4 and K3w here, K5 in ops/walk_hier.py) run in a
+split form: P threads a ray, each testing every P-th column of a visit's
+cluster, and for the any hit of K3/K4 and K3w a two-slot ring of cluster
+rows filled a visit ahead by Hopper's bulk copy (csrc/walk_common.cuh).
+`PRODUCTION_FORMS` names each kernel's form. With `mxu=True` K3/K4 and K3w
+take the same form, whose visit then splits the tensor-core test over the P
+warps of each 32-ray set by column blocks, bit for bit the one-thread
+tensor-core kernel; K5's tensor-core visit stays one thread a ray
+(`_resolve_form`). `launch_geometry` gives a form's threads and dynamic
+shared memory. `_visit_closest_split` / `_visit_anyhit_split` model the
+split visit in torch, and `_merge_parts` the tensor-core visit's merge over
+column slices, for the tests only. The wrappers' private
+`_form=ONE_THREAD_FORM` launches the one-thread-a-ray kernel instead, for
+chip_smoke.py's side-by-side timing and the `cuda` test only; no path of
+the package passes it.
 
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
@@ -74,11 +77,12 @@ MAX_WIDE_CLUSTERS = 1 << 17
 _WIDE_BLOCKS = 1024
 # a block's shared memory past the heap, and the card's opt-in limit
 _STATIC_SMEM, _MAX_SMEM = 20496, 227 * 1024
-# the largest heap a wide launch keeps in shared memory unless told to
-# (16 KB: six blocks still share an SM). A larger heap in shared memory
-# leaves too few tiles in flight: at 18,816 clusters (75 KB, two blocks an
-# SM) the kernels took 1.4-1.65x as long on an H100 as with the heaps in
-# device memory.
+# the largest heap a wide launch keeps in shared memory unless told to (16
+# KB): in the one-thread form a larger heap left too few tiles in flight (at
+# 18,816 clusters 1.4-1.65x as long as with the heaps in device memory); the
+# split forms took 0.98-1.03x as long with the heaps in shared memory as in
+# device memory at 18,816 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+# 6), so the same rule holds for them
 _WIDE_SHARED_MAX = 4096
 
 # a kernel's form: (threads a ray, ring of cluster rows); ONE_THREAD_FORM is
@@ -91,9 +95,13 @@ ONE_THREAD_FORM = (1, False)
 # counted and floor walks of ops/walk_lab.py take walk_closest's.
 PRODUCTION_FORMS = {"walk_closest": (8, False), "walk_anyhit": (8, True),
                     "walk_hier_closest": (4, False),
-                    "walk_hier_anyhit": (8, False)}
+                    "walk_hier_anyhit": (8, False),
+                    "walk_closest_wide": (8, False),
+                    "walk_anyhit_wide": (8, True)}
 # the kernels whose split form also takes the tensor-core visit
-_MMA_SPLIT = ("walk_closest", "walk_anyhit")
+_MMA_SPLIT = ("walk_closest", "walk_anyhit", "walk_closest_wide",
+              "walk_anyhit_wide")
+_WIDE = ("walk_closest_wide", "walk_anyhit_wide")
 # a visit's rows: KC triangles of three float4
 _SLOT_BYTES = K * 3 * 16
 # the split tensor-core visit's shared memory: a cap a ray and a partial
@@ -104,14 +112,17 @@ _MMA_CAP_BYTES, _MMA_PART_BYTES = RAY_TILE * 4, 16
 # floor) in its one-thread form: the staged rows, the tile's rays, the
 # partials (K5 also the caps and the children), padded to 16 B ...
 _ONE_THREAD_STATIC = {"walk_closest": _STATIC_SMEM,
-                      "walk_anyhit": _STATIC_SMEM, "walk_hier_closest": 21264, "walk_hier_anyhit": 21264,
-                      "walk_floor": _SLOT_BYTES}
+                      "walk_anyhit": _STATIC_SMEM, "walk_hier_closest": 21264,
+                      "walk_hier_anyhit": 21264, "walk_floor": _SLOT_BYTES,
+                      "walk_closest_wide": _STATIC_SMEM,
+                      "walk_anyhit_wide": _STATIC_SMEM}
 # ... and in its split form: the tile's rays, the ring's two mbarriers and
 # the partials of P x 2 warps (K5 the caps and the children, no
-# mbarriers); the floor's slots are all dynamic
+# mbarriers; K3w 64-bit partials); the floor's slots are all dynamic
 _SPLIT_STATIC = {"walk_closest": 2128, "walk_anyhit": 2128,
                  "walk_hier_closest": 2848, "walk_hier_anyhit": 2880,
-                 "walk_floor": 0}
+                 "walk_floor": 0, "walk_closest_wide": 2192,
+                 "walk_anyhit_wide": 2192}
 
 
 def static_smem(kernel: str, form) -> int:
@@ -128,20 +139,24 @@ def mma_scratch_bytes(p: int) -> int:
     return _MMA_CAP_BYTES + _MMA_PART_BYTES * p * RAY_TILE
 
 
-def launch_geometry(kernel: str, form, n_heap: int,
-                    mxu: bool = False) -> Tuple[int, int]:
+def launch_geometry(kernel: str, form, n_heap: int, mxu: bool = False, *,
+                    lab: bool = False) -> Tuple[int, int]:
     """(threads a block, dynamic shared-memory bytes) of `kernel` (a
     PRODUCTION_FORMS name, the counted walk taking "walk_closest", or
     "walk_floor") in `form` (threads a ray, ring) over a heap of n_heap
-    entries (Cp, or Sp for K5; the floor has none), with the tensor-core
-    test if `mxu` (the split visit's scratch before the heap); raises
-    ValueError for a form not built or past the card's 232,448 B a block."""
+    4-byte entries in shared memory (Cp, or Sp for K5; the floor has none;
+    K3w's heaps in device memory take 0), with
+    the tensor-core test if `mxu` (the split visit's scratch before the
+    heap); raises ValueError for a form not built or past the card's
+    232,448 B a block. `lab` takes any split form a library built with
+    RL_LAB_FORMS may hold (tools/perf/)."""
     if kernel not in _ONE_THREAD_STATIC:
         raise ValueError(f"unknown kernel {kernel!r}")
     form = tuple(form)
     split = PRODUCTION_FORMS["walk_closest" if kernel == "walk_floor"
                              else kernel]
-    if form not in (ONE_THREAD_FORM, split) or (
+    if (form not in (ONE_THREAD_FORM, split) and not (
+            lab and form[0] in (2, 4, 8))) or (
             mxu and form != ONE_THREAD_FORM and kernel not in _MMA_SPLIT):
         raise ValueError(f"{kernel} in form {form} is not built (built: "
                          f"{ONE_THREAD_FORM}, {split}"
@@ -203,10 +218,10 @@ def bind(lib):
                                    i, p, p]
     lib.rl_walk_anyhit.restype = i
     lib.rl_walk_closest_wide.argtypes = [p, p, i, i, p, p, p, p, p, p, i,
-                                         i, p, i, p, p, p, p, p]
+                                         i, i, i, i, p, i, p, p, p, p, p]
     lib.rl_walk_closest_wide.restype = i
-    lib.rl_walk_anyhit_wide.argtypes = [p, p, i, i, p, p, p, p, p, i, i,
-                                        p, i, p, p]
+    lib.rl_walk_anyhit_wide.argtypes = [p, p, i, i, p, p, p, p, p, i, i, i,
+                                        i, i, p, i, p, p]
     lib.rl_walk_anyhit_wide.restype = i
     return lib
 
@@ -336,6 +351,28 @@ def _pop_min(ent, mask: int = _ID_MASK):
     ent = torch.where(ent == bmin[:, None], _INF_BITS, ent)
     csel = torch.clamp(bmin & mask, max=ent.shape[1] - 1).long()
     return bmin, csel, ent
+
+
+def _pop_min_wide_threads(ent, nt: int):
+    """The split wide pop's order of work (csrc/walk_trace.cu:
+    pop_min_wide<NT, true>) on heaps ent [G, C]: thread q of nt takes the
+    least (bits << 32 | column) over its columns c = q (mod nt), then the
+    least over the threads; an empty heap gives column 0. Returns (bits
+    [G], column [G] int64, entries with that slot cleared), as _pop_min(ent,
+    0) (tests only)."""
+    g, cp = ent.shape
+    col = torch.arange(cp, device=ent.device)
+    key = (ent.long() << 32) | col
+    pad = -cp % nt
+    inf_key = torch.full((g, pad), _INF_BITS << 32, dtype=torch.int64,
+                         device=ent.device)
+    per = torch.cat([key, inf_key], 1).reshape(g, -1, nt).amin(dim=1)
+    m = torch.minimum(per.amin(dim=1), torch.full_like(per[:, 0],
+                                                       _INF_BITS << 32))
+    csel = m & 0xFFFFFFFF
+    return (m >> 32).to(torch.int32), csel, ent.scatter(
+        1, csel[:, None], torch.full((g, 1), _INF_BITS, dtype=ent.dtype,
+                                     device=ent.device))
 
 
 def _dot4(x4, r):
@@ -621,35 +658,66 @@ def walk_anyhit_ref(wt, o, d, tnear, tfar, wide: bool = False,
 
 # ------------------------------------------------------------------ wrappers
 
-def _wide_heap(cp: int, n: int, heap, device):
+def _wide_heap(name: str, form, mxu: bool, cp: int, n: int, heap,
+               lab: bool = False):
     """Where a wide launch keeps its per-tile heaps of Cp x 4 B: (blocks,
-    device scratch or None). In shared memory up to _WIDE_SHARED_MAX
-    entries, or with heap = "shared" while the heap and the rest of the
-    block's shared memory fit the card's opt-in limit; else, or with heap =
-    "global", in a slice per block of a device buffer allocated for this
-    launch. A launch starts at most _WIDE_BLOCKS blocks and each walks
-    several tiles, which bounds that buffer."""
-    if heap == "shared" and cp * 4 + _STATIC_SMEM > _MAX_SMEM:
-        raise ValueError(f"a heap of {cp} entries does not fit shared memory")
+    whether in a device buffer, dynamic shared-memory bytes). In shared
+    memory up to _WIDE_SHARED_MAX entries, or with heap = "shared"
+    (ValueError where it does not fit); else, or with heap = "global", in a
+    slice per block of a device buffer allocated for the launch. A launch
+    starts at most _WIDE_BLOCKS blocks and each walks several tiles, which
+    bounds that buffer."""
     blocks = min(n // RAY_TILE, _WIDE_BLOCKS)
-    if heap == "global" or (heap is None and cp > _WIDE_SHARED_MAX):
-        return blocks, torch.empty(blocks * cp, dtype=torch.int32,
-                                   device=device)
-    return blocks, None
+    shared = heap == "shared" or (heap is None and cp <= _WIDE_SHARED_MAX)
+    smem = launch_geometry(name, form, cp if shared else 0, mxu,
+                           lab=lab)[1]
+    return blocks, not shared, smem
 
 
 def _kernel_name(base: str, wide: bool, mxu: bool) -> str:
     return base + ("_wide" if wide else "") + ("_mma" if mxu else "")
 
 
-def _check_form(form, wide: bool, mxu: bool, name: str, n_heap: int):
-    """The form of a launch of kernel `name` and its geometry."""
-    if wide:
-        if form is not None:
-            raise ValueError("the wide pop has one form")
-        return ONE_THREAD_FORM, (RAY_TILE, 0)
-    form = _resolve_form(name, form, mxu)
-    return form, launch_geometry(name, form, n_heap, mxu)
+def launch_wide(lib, any_hit: bool, wt, o, d, tnear, tfar, form,
+                mxu: bool = False, heap: str = None, lab: bool = False):
+    """Launches the wide pop's closest hit (t, tri, u, v) or any hit (occ)
+    on checked CUDA tensors in `form` through library `lib` (bound by
+    `bind`); `lab`: a form only a library built with RL_LAB_FORMS holds
+    (tools/perf/split_forms.py), not counted."""
+    name = "walk_anyhit_wide" if any_hit else "walk_closest_wide"
+    cp, n = int(wt.n_clusters), o.shape[0]
+    blocks, glob, smem = _wide_heap(name, form, mxu, cp, n, heap, lab=lab)
+    if any_hit:
+        outs = (torch.empty(n, dtype=torch.bool, device=o.device),)
+    else:
+        outs = (torch.empty(n, dtype=torch.float32, device=o.device),
+                torch.empty(n, dtype=torch.int32, device=o.device),
+                torch.empty(n, dtype=torch.float32, device=o.device),
+                torch.empty(n, dtype=torch.float32, device=o.device))
+    if not n:
+        return outs[0] if any_hit else outs
+    scratch = (torch.empty(blocks * cp, dtype=torch.int32, device=o.device)
+               if glob else None)
+    head = (wt.lo.data_ptr(), wt.hi.data_ptr(), cp, int(wt.n_real),
+            wt.rows.data_ptr())
+    rays = (o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n,
+            int(mxu), *form_args(form, smem),
+            None if scratch is None else scratch.data_ptr(), blocks,
+            *(x.data_ptr() for x in outs))
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if any_hit:
+            err = lib.rl_walk_anyhit_wide(*head, *rays, stream)
+        else:
+            err = lib.rl_walk_closest_wide(*head, wt.ids.data_ptr(), *rays,
+                                           stream)
+    name = _kernel_name(name[:-5], True, mxu)
+    if err:
+        raise RuntimeError(f"{name} in form {tuple(form)} launch failed: CUDA "
+                           f"error {err}")
+    if not lab:
+        LAUNCHES[name] += 1
+    return outs[0] if any_hit else outs
 
 
 def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
@@ -661,11 +729,18 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
     heaps live (see _wide_heap); `mxu` takes the tensor-core form of the
     triangle test."""
     _check(wt, o, d, tnear, tfar, wide, heap)
-    form, (_, smem) = _check_form(_form, wide, mxu, "walk_closest",
-                                  wt.n_clusters)
+    name = _kernel_name("walk_closest", wide, False)
+    form = _resolve_form(name, _form, mxu)
+    if wide:
+        _wide_heap(name, form, mxu, int(wt.n_clusters), o.shape[0], heap)
+    else:
+        smem = launch_geometry(name, form, wt.n_clusters, mxu)[1]
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_closest_ref(wt, o, d, tnear, tfar, wide, mxu)[:4]
+    if wide:
+        return launch_wide(_load(), False, wt, o, d, tnear, tfar, form, mxu,
+                           heap)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -673,7 +748,7 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
     v = torch.empty_like(t)
     if not n:
         return t, tri, u, v
-    name = _kernel_name("walk_closest", wide, mxu)
+    name = _kernel_name("walk_closest", False, mxu)
     tables = (wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
               int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
               o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n,
@@ -681,14 +756,8 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
     outs = (t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr())
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if wide:
-            blocks, scratch = _wide_heap(int(wt.n_clusters), n, heap, o.device)
-            err = _load().rl_walk_closest_wide(
-                *tables, None if scratch is None else scratch.data_ptr(),
-                blocks, *outs, stream)
-        else:
-            err = _load().rl_walk_closest(*tables, *form_args(form, smem),
-                                          *outs, stream)
+        err = _load().rl_walk_closest(*tables, *form_args(form, smem), *outs,
+                                      stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -701,29 +770,30 @@ def walk_anyhit(wt, o, d, tnear, tfar, wide: bool = False,
     """Any hit of whole 64-ray tiles over walk tables: True = occluded.
     `wide`, `heap` and `mxu` as in walk_closest."""
     _check(wt, o, d, tnear, tfar, wide, heap)
-    form, (_, smem) = _check_form(_form, wide, mxu, "walk_anyhit",
-                                  wt.n_clusters)
+    name = _kernel_name("walk_anyhit", wide, False)
+    form = _resolve_form(name, _form, mxu)
+    if wide:
+        _wide_heap(name, form, mxu, int(wt.n_clusters), o.shape[0], heap)
+    else:
+        smem = launch_geometry(name, form, wt.n_clusters, mxu)[1]
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_anyhit_ref(wt, o, d, tnear, tfar, wide, mxu)[0]
+    if wide:
+        return launch_wide(_load(), True, wt, o, d, tnear, tfar, form, mxu,
+                           heap)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if not n:
         return occ
-    name = _kernel_name("walk_anyhit", wide, mxu)
+    name = _kernel_name("walk_anyhit", False, mxu)
     tables = (wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
               int(wt.n_real), wt.rows.data_ptr(), o.data_ptr(), d.data_ptr(),
               tnear.data_ptr(), tfar.data_ptr(), n, int(mxu))
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if wide:
-            blocks, scratch = _wide_heap(int(wt.n_clusters), n, heap, o.device)
-            err = _load().rl_walk_anyhit_wide(
-                *tables, None if scratch is None else scratch.data_ptr(),
-                blocks, occ.data_ptr(), stream)
-        else:
-            err = _load().rl_walk_anyhit(*tables, *form_args(form, smem),
-                                         occ.data_ptr(), stream)
+        err = _load().rl_walk_anyhit(*tables, *form_args(form, smem),
+                                     occ.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

@@ -309,6 +309,30 @@ def test_sub_split_order_of_work_matches_pallas_kernels(soup, jax_results,
                       t_atol=0.0, uv_mag=(rows, o, d))
 
 
+@pytest.mark.parametrize("p", [4, 8])
+def test_sparse_split_order_of_work_matches_pallas_kernels(
+        soup, jax_results, monkeypatch, p):
+    """K7's split form's order of work for the closest hit (a dense visit at
+    p threads a ray, a sparse one at p x 64 / 16 lanes a flagged ray,
+    ops/walk_sparse.py:_visit_closest_sparse_split) gives the port's plain
+    results bit for bit, and so agrees with the JAX package's Pallas kernels
+    (run once, in the module fixture)."""
+    _, wt, rows, o, d = soup
+    live = _ranges(False)[1] > 0
+    want = _port(wt, o, d, "sparse")
+    monkeypatch.setattr(
+        wk, "_visit_closest",
+        lambda rows, ids, csel, o, d, tnear, best, tested, *_:
+        ws._visit_closest_sparse_split(rows, ids, csel, o, d, tnear, best,
+                                       tested, p))
+    got = _port(wt, o, d, "sparse")
+    for a, b in zip(got[0], want[0]):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    np.testing.assert_array_equal(got[1], want[1])
+    _assert_agree(jax_results["sparse"], got, live, t_rtol=T_RTOL,
+                  t_atol=0.0, uv_mag=(rows, o, d))
+
+
 def test_wrappers_take_plain_versions_on_cpu(soup):
     _, wt, _, o, d = soup
     tnear, tfar, _ = _ranges(False)

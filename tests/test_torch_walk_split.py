@@ -246,9 +246,9 @@ def test_production_forms_match_the_sources():
 
 
 def test_form_keyword_rules():
-    """_form is private and takes only ONE_THREAD_FORM, with either test;
-    the wide pop has one form, and on the CPU both forms run the plain
-    walk."""
+    """_form is private and takes only ONE_THREAD_FORM, with either test
+    and with the wide pop, which has a split form too; on the CPU both
+    forms run the plain walk."""
     rows, ids, aims = _clusters(3)
 
     class Tables:
@@ -273,8 +273,11 @@ def test_form_keyword_rules():
             wk.walk_closest(wt, o, d, tnear, tfar, _form=form)
     with pytest.raises(ValueError, match="_form takes only"):
         wk.walk_anyhit(wt, o, d, tnear, tfar, mxu=True, _form=(8, True))
-    with pytest.raises(ValueError, match="one form"):
-        wk.walk_anyhit(wt, o, d, tnear, tfar, wide=True, _form=one)
+    assert torch.equal(wk.walk_anyhit(wt, o, d, tnear, tfar, wide=True,
+                                      _form=one),
+                       wk.walk_anyhit(wt, o, d, tnear, tfar, wide=True))
+    with pytest.raises(ValueError, match="_form takes only"):
+        wk.walk_anyhit(wt, o, d, tnear, tfar, wide=True, _form=(8, True))
 
 
 class _Tables:
