@@ -9,12 +9,13 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      TF32 off for matmuls and cuDNN;
   1. build: compile the port's CUDA kernels from csrc/ (sm_90a, one nvcc
      per source, all at once), and beside them, in a thread, the
-     RL_LAB_FORMS library of K7's and K3w's candidate and laboratory forms
-     (tools/perf/split_forms.py); ptxas's registers, shared memory and
+     RL_LAB_FORMS library of K7's, K3w's and K8's candidate and laboratory
+     forms (tools/perf/split_forms.py); ptxas's registers, shared memory and
      spills of every kernel (`ptxas` lines), and launch_geometry's static
      shared memory held to ptxas's for every walk kernel in both its forms
-     (K7 and K3w included), K3/K4's and K3w's split tensor-core forms and
-     K6's forms at every sub with both tests;
+     (K7 and K3w included), K3/K4's, K3w's and K5's split tensor-core
+     forms, K6's forms at every sub with both tests and K8's split form
+     with both tests;
   2. kernels: the dense kernels (K1, K2) against their plain versions, bit
      for bit (0 lanes differ, no near-tie excuse), at 262,144 rays against
      the Cornell box's rows and against a random 1,000-triangle soup, with
@@ -100,7 +101,12 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      PRODUCTION_FORMS) at each sub is held to its one-thread form and to the
      plain version bit for bit (0 lanes may differ, no near-tie excuse) and
      the two forms are timed in turns (P1, new, new, P1; `forms` lines);
-     so are K7's and the wide pop's production forms (P threads a ray,
+     so is K8's split form (P threads a pair over runs of one cluster,
+     ops/pair_trace.py:PRODUCTION_FORM) against the parent's warp-a-pair
+     kernels (P1 in its lines), with each kernel's device us a launch and
+     the whole pair walk timed in turns with each, and its candidate forms
+     (P = 4, 4 runs a block, 4 runs with a ring) timed the same way; and
+     K7's and the wide pop's production forms (P threads a ray,
      ops/walk_sparse.py and ops/walk_trace.py:PRODUCTION_FORMS), each held
      bit for bit to its one-thread form and its plain version, with the
      bound with the entry pass's slab tests (64 a real cluster and tile)
@@ -113,12 +119,14 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      (ops/walk_sparse.py:planted_tiles) both forms of K7.
      Then the tensor-core forms of K3 (split over warps by columns, with
      its one-thread form), K6 (sub = 2, 4, 8; split, ops/walk_sub.py:
-     MMA_FORMS) and K8 (km = 8, 2) on the same rays and pairs, each against its plain
+     MMA_FORMS) and K8 (km = 8, 2; split as K3's over the same runs) on the
+     same rays and pairs, each against its plain
      mxu version and against the _dot4 kernels under _compare_mxu's rules,
      with the count of lanes outside MXU_T_RTOL beside the plain form's
      (the cap of _check_mma) and against the exact t (_exact_cap), each
      split form against its one-thread tensor-core form bit for bit and
-     timed in turns with it, and K8's whole pair walk timed. The wide pop
+     timed in turns with it, and K8's whole pair walk timed in turns with
+     the one-thread form. The wide pop and K5's split tensor-core form
      the same way on grid5p7M's tables and the two AO wavefronts of phase 9
      (every tile), beside K5's times, its production form with each heap
      against its one-thread form and the plain version bit for bit and timed
@@ -134,7 +142,9 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      of WalkOptions(sub=2), (sparse=True), (pair=True), the scene uploaded
      with that option from the host tables built once: finite image; that
      schedule's kernels launched and no other trace kernel (pair: also the
-     tile walk of its fallback); against phase 6's image of the same seed
+     tile walk of its fallback), and no yardstick form (K5's and K8's
+     wrappers count those apart, P1_LAUNCHES, `<name>_p1` in the
+     launches); against phase 6's image of the same seed
      99.9% of pixels within 1e-3 (relative), means within 1e-4; a profile
      of a warm 2 spp render each, and the default schedule timed once more;
  15. main path, wide: the grid5p7M AO render of phase 10 with
@@ -180,14 +190,15 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      WalkOptions(mxu_tritest=True), with (sub=2, mxu_tritest=True) and with
      (pair=True, mxu_tritest=True), each held to phase 6's image as in 14,
      only that schedule's tensor-core kernels launching (the pair walk's
-     also K3's, for its fallback), a warm 2 spp render of each profiled;
-     and, on grid5p7M, the AO render of
-     phase 10 with mxu_tritest on the two-level walk and on the wide pop,
+     also K3's, for its fallback; no yardstick form), a warm 2 spp render
+     of each profiled; and, on grid5p7M, the AO render of
+     phase 10 with mxu_tritest on the two-level walk (K5's split
+     tensor-core form) and on the wide pop,
      held to phase 10's image as in 15. (Run with phases 14 and 15.)
 
 Before the last line: a JSON line with each kernel's tables and wavefronts
 (kernel_cases), the candidate forms' table (a1_forms) and the split forms'
-records of K7 and K3w (split_forms), the card line
+records of K7, K3w and K8 (split_forms), the card line
 from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
@@ -331,6 +342,13 @@ def _form_name(form) -> str:
     return f"P{p}" + ("+ring" if ring else "")
 
 
+def _pair_form_name(form) -> str:
+    """A split form of K8 (threads a pair, runs a block, ring) as text."""
+    p, runs, ring = form
+    return f"P{p}" + (f" x{runs} runs" if runs > 1 else "") + (
+        "+ring" if ring else "")
+
+
 _PTXAS = {}
 
 
@@ -358,8 +376,9 @@ def _symbol(kernel, form, count=False, mma=False) -> str:
         return {"walk_closest": f"walk_closest_kernelILb{int(mma)}ELb"
                                 f"{int(count)}EE",
                 "walk_anyhit": f"walk_anyhit_kernelILb{int(mma)}EE",
-                "walk_hier_closest": "walk_hier_closest_kernelILb0EE",
-                "walk_hier_anyhit": "walk_hier_anyhit_kernelILb0EE",
+                "walk_hier_closest": f"walk_hier_closest_kernelILb"
+                                     f"{int(mma)}EE",
+                "walk_hier_anyhit": f"walk_hier_anyhit_kernelILb{int(mma)}EE",
                 "walk_floor": "walk_floor_kernelILb0EE",
                 "walk_closest_wide": f"walk_closest_wide_kernelILb{int(mma)}EE",
                 "walk_anyhit_wide": f"walk_anyhit_wide_kernelILb{int(mma)}EE",
@@ -376,7 +395,20 @@ def _symbol(kernel, form, count=False, mma=False) -> str:
         return f"walk_anyhit_split_kernelILi{p}ELb{ring}ELb{int(mma)}EE"
     if kernel == "walk_floor":
         return f"walk_floor_split_kernelILi{p}ELb{ring}EE"
-    return f"{kernel}_split_kernelILi{p}EE"
+    return f"{kernel}_split_kernelILi{p}ELb{int(mma)}EE"
+
+
+def _pair_symbol(any_hit, mma, form) -> str:
+    """The mangled-name fragment of K8's kernel for `any_hit` with the
+    tensor-core test `mma` in `form`: a split form (threads a pair, runs a
+    block, ring), or ONE_THREAD_FORM for the parent's kernels."""
+    if len(form) == 2:
+        return ("pair_mma_kernelILb1EE" if mma and any_hit else
+                "pair_mma_kernelILb0EE" if mma else
+                "pair_anyhit_kernel" if any_hit else "pair_closest_kernel")
+    p, runs, ring = (int(x) for x in form)
+    return (f"pair_split_kernelILb{int(any_hit)}ELb{int(mma)}ELi{p}ELi{runs}"
+            f"ELb{ring}EE")
 
 
 def _sub_symbol(name, sub, form, mma) -> str:
@@ -395,10 +427,11 @@ def _static_of(sym) -> int:
 
 def check_static_smem():
     """launch_geometry's static shared memory of every walk kernel in both
-    its forms (ops/walk_trace.py:static_smem), K3/K4's and K3w's split form
-    with the tensor-core test too, of K6 in every form built
-    (ops/walk_sub.py:static_smem) and of K7 in both (ops/walk_sparse.py:
-    static_smem), against ptxas's report."""
+    its forms (ops/walk_trace.py:static_smem), K3/K4's, K3w's and K5's
+    split form with the tensor-core test too, of K6 in every form built
+    (ops/walk_sub.py:static_smem), of K7 in both (ops/walk_sparse.py:
+    static_smem) and of K8's split form with both tests
+    (ops/pair_trace.py:SPLIT_STATIC), against ptxas's report."""
     from rustlight_tpu_torch.ops import walk_sparse as ws
     from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
@@ -426,6 +459,16 @@ def check_static_smem():
                             f"shared memory, launch_geometry "
                             f"{wk.static_smem(kernel, form)} B")
                     checked += 1
+    from rustlight_tpu_torch.ops import pair_trace as pt
+    for any_hit in (False, True):
+        for mma in (False, True):
+            sym = _pair_symbol(any_hit, mma,
+                               pt.MMA_FORM if mma else pt.PRODUCTION_FORM)
+            if _static_of(sym) != pt.SPLIT_STATIC:
+                raise AssertionError(
+                    f"{sym}: ptxas {_static_of(sym)} B of static shared "
+                    f"memory, ops/pair_trace.py {pt.SPLIT_STATIC} B")
+            checked += 1
     for name in wsub.PRODUCTION_FORMS:
         for sub in wsub.SUBS:
             for mma, table in ((False, wsub.PRODUCTION_FORMS),
@@ -439,9 +482,9 @@ def check_static_smem():
                             f"{wsub.static_smem(sub, form)} B")
                     checked += 1
     phase("ptxas", "launch_geometry's static shared memory = ptxas's on "
-          f"{checked} walk kernels: both forms of every walk kernel, K3/K4's "
-          "and K3w's split tensor-core forms, K6's forms at every sub with "
-          "both tests, K7's forms")
+          f"{checked} kernels: both forms of every walk kernel, K3/K4's, "
+          "K3w's and K5's split tensor-core forms, K6's forms at every sub "
+          "with both tests, K7's forms, K8's split form with both tests")
 
 
 def ptxas_table():
@@ -821,7 +864,14 @@ def _reset_launches():
 
 
 def _launches():
-    return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
+    """Every module's launch counts by kernel name, and `<name>_p1` for the
+    yardstick forms that K5's and K8's wrappers count apart (P1_LAUNCHES):
+    a main path launches none of them, which `_only` checks."""
+    out = {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
+    for m in _launch_modules():
+        out.update({f"{k}_p1": v
+                    for k, v in getattr(m, "P1_LAUNCHES", {}).items()})
+    return out
 
 
 def timed_render(label, sd, integ, spp, seed=0):
@@ -1015,6 +1065,60 @@ def _split_vs_one(tag, name, fn, got, plain):
     return rec
 
 
+def _pair_forms_vs_parent(tag, wt, pairs, got, plain, rays, km):
+    """K8's production split form (its outputs `got`: closest, any hit)
+    against the parent's warp-a-pair kernels (`_form=ONE_THREAD_FORM`) and
+    against the plain version (`plain`: closest, occlusion), bit for bit: 0
+    lanes may differ. The two forms timed in turns (wrapper ms, the layout's
+    sort included, and the whole pair walk of the wavefront `rays`), each
+    kernel's device us a launch (torch.profiler), and ptxas's lines.
+    Returns {kind: record}."""
+    import torch
+    from rustlight_tpu_torch.accel import pair_walk as pw
+    from rustlight_tpu_torch.ops import pair_trace as pt
+    from rustlight_tpu_torch.ops.walk_trace import ONE_THREAD_FORM as one
+    form = pt.PRODUCTION_FORM
+    out = {}
+    for kind, fn, new, ref, any_hit in (
+            ("closest", pt.pair_closest, got[0], plain[0], False),
+            ("anyhit", pt.pair_anyhit, got[1], plain[1], True)):
+        old = fn(wt, *pairs, _form=one)
+        torch.cuda.synchronize()
+        diff = _lanes_differ(new, old).numel()
+        diff_p = _lanes_differ(new, ref).numel()
+        if diff or diff_p:
+            raise AssertionError(f"{tag} {kind}: {_pair_form_name(form)} "
+                                 f"differs from the parent's kernel on {diff}"
+                                 f" lanes and from the plain version on "
+                                 f"{diff_p}")
+        rec = {"form": _pair_form_name(form), "lanes_differ": 0,
+               **_in_turns(lambda **k: fn(wt, *pairs, **k), one, None)}
+        whole = _in_turns(lambda a=any_hit, **k: pw._pairs_impl(
+            wt, *rays, a, km, **k), one, None)
+        rec.update(walk_ms=whole["ms"], walk_p1_ms=whole["p1_ms"],
+                   walk_turns_ms=whole["turns_ms"],
+                   device_us=_device_us(lambda: fn(wt, *pairs),
+                                        "pair_split_kernel"),
+                   p1_device_us=_device_us(
+                       lambda: fn(wt, *pairs, _form=one),
+                       f"pair_{kind}_kernel"))
+        out[kind] = rec
+        phase("forms", f"{tag} pair_{kind}: {rec['form']} vs the parent's "
+              "kernel (P1) and vs the plain version: 0 lanes differ; P1, "
+              "new, new, P1 " + ", ".join(f"{t:.4f}" for t in
+                                          rec["turns_ms"])
+              + f" ms (ratio {rec['ms'] / rec['p1_ms']:.3f}); device "
+              f"{rec['device_us']:.2f} us a launch, P1 "
+              f"{rec['p1_device_us']:.2f} (ratio "
+              f"{rec['device_us'] / rec['p1_device_us']:.3f}); whole pair "
+              "walk P1, new, new, P1 " + ", ".join(
+                  f"{t:.4f}" for t in whole["turns_ms"]) + " ms (ratio "
+              f"{whole['ms'] / whole['p1_ms']:.3f}); P1 "
+              f"{_ptxas(_pair_symbol(any_hit, False, one))}, "
+              f"{rec['form']} {_ptxas(_pair_symbol(any_hit, False, form))}")
+    return out
+
+
 def _bound_entry_ms(tests, slab_tests, n_bytes):
     """The bound with the entry pass's slab tests counted too (64 a real
     cluster and tile: the entry pass skips the padding): (tests x
@@ -1029,8 +1133,8 @@ _LAB = {"records": []}
 
 
 def start_lab_build():
-    """Phase 1: nvcc builds the RL_LAB_FORMS library of K7's and K3w's
-    candidate and laboratory forms (tools/perf/split_forms.py) in a thread
+    """Phase 1: nvcc builds the RL_LAB_FORMS library of K7's, K3w's and
+    K8's candidate and laboratory forms (tools/perf/split_forms.py) in a thread
     beside the production library; phase 1 waits for the build, and
     lab_library() loads it where phase 13 first needs it. A CUDA library
     loaded while phase 2 profiled cost the profiles their events, so none is
@@ -1289,23 +1393,27 @@ def check_schedules(label, sd, waves):
             rec = {"table": label, "wavefront": wname,
                    "schedule": f"pair{km}", "cp": wt.n_clusters, "rays": n,
                    "tie_ids": ties}
-            for kind, err, fn, any_hit, out_b, pms in (
-                    ("closest", err_c, pt.pair_closest, False, 16, pms_c),
-                    ("anyhit", err_a, pt.pair_anyhit, True, 1, pms_a)):
+            forms = _pair_forms_vs_parent(f"{tag} pair{km}", wt, pairs, got,
+                                          (pc[:4], pa[0]), rays, km)
+            for kind, err, any_hit, out_b, pms in (
+                    ("closest", err_c, False, 16, pms_c),
+                    ("anyhit", err_a, True, 1, pms_a)):
                 bound, by = _bound_ms(live * K,
                                       m * (PAIR_IN_BYTES + out_b) + table)
                 rec[kind] = {
                     "note": f"{live} live of {m} pairs, {100 * over:.1f}% of "
                             "rays overflow",
                     "tests": live * K, "max_abs_err": err,
-                    "ms": _median_ms(lambda f=fn: f(wt, *pairs)),
                     "base_ms": base_ms[kind],
-                    "walk_ms": _median_ms(lambda a=any_hit: pw._pairs_impl(
-                        wt, *rays, a, km)),
                     "base_walk_ms": base_walk[any_hit],
-                    "plain_ms": pms, "bound_ms": bound, "bound_by": by}
+                    "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+                    **forms[kind]}
             _sched_line(tag, f"pair km={km}", rec)
             out[f"pair{km}"].append(rec)
+            # K8's candidate forms (tools/perf/split_forms.py)
+            from rustlight_tpu_torch.tools.perf import split_forms
+            _LAB["records"] += split_forms.pair_forms(
+                *lab_library(), wt, pairs, TIMING_RUNS, f"{tag} km={km}")
     return out
 
 
@@ -1444,7 +1552,9 @@ def _case(rec, kind):
     whole record is in the phase's own line)."""
     return {"table": rec["table"], "wavefront": rec["wavefront"],
             "schedule": rec["schedule"],
-            **{k: rec[kind][k] for k in ("form", "ms", "p1_ms", "bound_ms",
+            **{k: rec[kind][k] for k in ("form", "ms", "p1_ms", "device_us",
+                                         "p1_device_us", "walk_ms",
+                                         "walk_p1_ms", "bound_ms",
                                          "bound_entry_ms", "max_abs_err")
                if k in rec[kind]}}
 
@@ -1947,9 +2057,8 @@ def _walk_variants(wt, srt, which):
     """The tensor-core kernel pairs named in `which` on the sorted rays
     `srt`: {name: (closest kernel name, any-hit kernel name, closest(**kw),
     anyhit(**kw), plain mxu closest, plain mxu any hit, rays a counted unit
-    tests, the split forms' names, or None where the tensor-core visit is
-    one thread a ray)}; a plain version returns its outputs, then the count
-    (visits, or live pairs)."""
+    tests, the split forms' names)}; a plain version returns its outputs,
+    then the count (visits, or live pairs)."""
     from rustlight_tpu_torch.ops import walk_hier as wh
     from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
@@ -1975,7 +2084,9 @@ def _walk_variants(wt, srt, which):
                       lambda **k: wh.walk_hier_anyhit(wt, *srt, **k),
                       lambda: wh.walk_hier_closest_ref(wt, *srt, True),
                       lambda: wh.walk_hier_anyhit_ref(wt, *srt, True), R,
-                      None)}
+                      _form_name(wk.PRODUCTION_FORMS["walk_hier_closest"])
+                      + "/" + _form_name(
+                          wk.PRODUCTION_FORMS["walk_hier_anyhit"]))}
     for sub in wsub.SUBS:
         out[f"sub{sub}"] = (
             "walk_sub_closest_mma", "walk_sub_anyhit_mma",
@@ -1990,14 +2101,16 @@ def _walk_variants(wt, srt, which):
 
 
 def _pair_variants(wt, pairs, km):
-    """The tensor-core pair kernels on one set of pairs, as _walk_variants."""
+    """The tensor-core pair kernels on one set of pairs, as _walk_variants
+    (the split form against the parent's one-thread tensor-core kernel)."""
     from rustlight_tpu_torch.ops import pair_trace as pt
     return {f"pair{km}": (
         "pair_closest_mma", "pair_anyhit_mma",
         lambda **k: pt.pair_closest(wt, *pairs, **k),
         lambda **k: pt.pair_anyhit(wt, *pairs, **k),
         lambda: pt.pair_closest_ref(wt, *pairs, mxu=True),
-        lambda: pt.pair_anyhit_ref(wt, *pairs, mxu=True), 1, None)}
+        lambda: pt.pair_anyhit_ref(wt, *pairs, mxu=True), 1,
+        _pair_form_name(pt.MMA_FORM))}
 
 
 def _form_counts(tag, rows, rays, dot, plain, add):
@@ -2192,10 +2305,12 @@ def check_mma(label, sd, waves, which, pairs=False):
     path gives them: on the scene's own table and wavefronts, sorted by the
     walk (_check_mma); with `pairs` also K8's at each of PAIR_KMS on the
     pairs of the morton-sorted wavefront, as phase 13 makes them, with the
-    whole pair walk's time. Returns {kernel name: [a record per case]}."""
+    whole pair walk timed in turns with the parent's tensor-core kernel.
+    Returns {kernel name: [a record per case]}."""
     from rustlight_tpu_torch.accel import pair_walk as pw
     from rustlight_tpu_torch.accel import walk
     from rustlight_tpu_torch.accel.walk import FLAT_MAX_CLUSTERS
+    from rustlight_tpu_torch.ops.walk_trace import ONE_THREAD_FORM as one
     wt = sd.geom.walk
     rows = sd.geom.inter_rows
     resident = wt.n_clusters <= FLAT_MAX_CLUSTERS
@@ -2217,11 +2332,15 @@ def check_mma(label, sd, waves, which, pairs=False):
             for kname, any_hit in (("pair_closest_mma", False),
                                    ("pair_anyhit_mma", True)):
                 rec = recs.last(kname)
-                rec["walk_ms"] = _median_ms(lambda a=any_hit: pw._pairs_impl(
-                    wt_mxu, *rays, a, km))
+                whole = _in_turns(lambda a=any_hit, **k: pw._pairs_impl(
+                    wt_mxu, *rays, a, km, **k), one, None)
+                rec.update(walk_ms=whole["ms"], walk_p1_ms=whole["p1_ms"],
+                           walk_turns_ms=whole["turns_ms"])
                 phase("mma", f"{tag} pair{km} {kname}: the kernel with its "
-                      f"cluster runs' sort {rec['ms']:.4f} ms, the whole pair "
-                      f"walk {rec['walk_ms']:.4f} ms")
+                      f"cluster runs' sort {rec['ms']:.4f} ms (P1 "
+                      f"{rec['p1_ms']:.4f}), the whole pair walk in turns "
+                      "with P1: " + ", ".join(
+                          f"{t:.4f}" for t in whole["turns_ms"]) + " ms")
     return recs
 
 
@@ -2543,7 +2662,7 @@ def main() -> int:
     ptxas_table()
     check_static_smem()
     wait_lab_build()
-    phase("build", f"RL_LAB_FORMS library of K7's and K3w's forms in "
+    phase("build", f"RL_LAB_FORMS library of K7's, K3w's and K8's forms in "
           f"{_LAB['seconds']:.2f}s (from the start of the build)")
 
     from rustlight_tpu_torch.integrators import IntegratorPathTracing
@@ -2756,7 +2875,10 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None, "cases": cases})
+            "library_ms": None, "form": rec["form"], "p1_ms": rec["p1_ms"],
+            "device_us": rec["device_us"],
+            "p1_device_us": rec["p1_device_us"], "walk_ms": rec["walk_ms"],
+            "walk_p1_ms": rec["walk_p1_ms"], "cases": cases})
     from rustlight_tpu_torch.ops import walk_trace as wk
     for name, lines, kind, wave in (
             ("walk_closest_wide", (636, 1139), "closest", "camera"),
@@ -2797,7 +2919,7 @@ def main() -> int:
                    if "form" in rec else {}),
                 "cases": [{k: c[k] for k in (
                     "table", "wavefront", "schedule", "form", "ms", "p1_ms",
-                    "dot4_ms", "walk_ms", "bound_ms",
+                    "dot4_ms", "walk_ms", "walk_p1_ms", "bound_ms",
                     "tc_route_ms", "f32_route_ms", "max_abs_err", "excused",
                     "loose", "exact_outside", "plain_exact_outside")
                     if k in c} for c in cases]}

@@ -81,9 +81,12 @@ def _make_pairs(wt, o, d, tnear, tfar, km: int):
             pcid.contiguous()), cutoff
 
 
-def _pairs_impl(wt, o, d, tnear, tfar, any_hit: bool, km: int = None):
+def _pairs_impl(wt, o, d, tnear, tfar, any_hit: bool, km: int = None, *,
+                _form=None):
     """Closest hit (RayHit) or occlusion ([n] bool) of a wavefront by pairs
-    over device walk tables; km defaults to the tables' option."""
+    over device walk tables; km defaults to the tables' option. `_form`
+    goes to the pair kernels (ops/pair_trace.py; chip_smoke.py times the
+    whole walk with each form)."""
     check_resident(wt, "the pair walk")
     if km is None:
         km = wt.options.km
@@ -108,7 +111,8 @@ def _pairs_impl(wt, o, d, tnear, tfar, any_hit: bool, km: int = None):
 
     mxu = bool(wt.options.mxu_tritest)
     if any_hit:
-        occ = pair_anyhit(wt, *pairs, mxu=mxu)[:m].reshape(n, km).any(dim=1)
+        occ = pair_anyhit(wt, *pairs, mxu=mxu, _form=_form)[:m].reshape(
+            n, km).any(dim=1)
         # an overflowing ray not yet occluded may be blocked by a cluster
         # off its shortlist
         fb = ~occ & overflow
@@ -117,7 +121,7 @@ def _pairs_impl(wt, o, d, tnear, tfar, any_hit: bool, km: int = None):
         return _unsort(occ | (fb & occ_fb), order, n)
 
     t, tri, u, v = (x[:m].reshape(n, km)
-                    for x in pair_closest(wt, *pairs, mxu=mxu))
+                    for x in pair_closest(wt, *pairs, mxu=mxu, _form=_form))
     tm = torch.where(tri >= 0, t, float("inf"))
     bt = tm.amin(dim=1)
     first = tm == bt[:, None]

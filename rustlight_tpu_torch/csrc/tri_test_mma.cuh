@@ -152,6 +152,26 @@ __device__ __forceinline__ MmaRays mma_rays_at(const float* __restrict__ o,
   return m;
 }
 
+// The same for the 32 rays idx[0 .. 31] (an entry below 0 stands for ray
+// `fallback`): for rays laid out through an index (the pair walk's
+// cluster runs). Bit for bit those of mma_rays over the same rays.
+__device__ __forceinline__ MmaRays mma_rays_idx(const float* __restrict__ o,
+                                                const float* __restrict__ d,
+                                                const float* __restrict__ tnear,
+                                                const int* __restrict__ idx,
+                                                int fallback) {
+  const int g = (threadIdx.x & 31) >> 2;
+  MmaRays m;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int i = idx[8 * s + g];
+    const size_t k = static_cast<size_t>(i >= 0 ? i : fallback);
+    mma_slot(m, s, o[3 * k], o[3 * k + 1], o[3 * k + 2], d[3 * k],
+             d[3 * k + 1], d[3 * k + 2], tnear[k]);
+  }
+  return m;
+}
+
 // The B fragments of triangles j0 .. j0 + 7 of the cluster whose rows
 // ([KC][3][4] floats, staged or in the table) start at `f`: per row kind,
 // its parts.

@@ -534,6 +534,39 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// Thread 0's half of a bulk copy of cluster c's 3 x KC float4 (18,432 B)
+// into `slot`, completing on the mbarrier `bar` (one arrival, the issuer's
+// expect_tx, and the bytes). The caller has ended every read of the slot
+// (a barrier) and the slot's last copy has completed; the fence orders
+// those reads (generic proxy) before the copy (async proxy).
+__device__ __forceinline__ void bulk_rows(float4* slot, uint64_t* bar,
+                                          const float4* rows, int c) {
+  constexpr uint32_t BYTES = 3 * KC * sizeof(float4);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(BYTES)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slot)),
+      "l"(rows + static_cast<size_t>(c) * (3 * KC)), "r"(BYTES),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Thread 0 sets up n mbarriers of one arrival each.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int n) {
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < n; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_u32(&bar[k]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+}
+
 // A two-slot ring of cluster rows in shared memory, filled one visit ahead
 // by Hopper's bulk asynchronous copy: thread 0 issues one
 // cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes for the
@@ -552,33 +585,12 @@ struct RingFeed {
   float4* slot;       // two slots of 3 x KC float4
   uint64_t* bar;      // two mbarriers
   int n = 0;          // copies issued
-  static constexpr uint32_t BYTES = 3 * KC * sizeof(float4);
-  __device__ void init() {
-    if (threadIdx.x == 0) {
-      for (int k = 0; k < 2; ++k)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                         smem_u32(&bar[k]))
-                     : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-  }
+  __device__ void init() { mbar_init(bar, 2); }
   __device__ __forceinline__ void prefetch(const float4* rows, int c) {
     if (threadIdx.x == 0) {
       const int s = n & 1;
       if (n >= 2) mbar_wait(&bar[s], ((n - 2) >> 1) & 1);
-      // the slot's last reads (generic proxy) before the copy (async proxy)
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-              smem_u32(&bar[s])),
-          "r"(BYTES)
-          : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slot + s * 3 * KC)),
-          "l"(rows + static_cast<size_t>(c) * (3 * KC)), "r"(BYTES),
-          "r"(smem_u32(&bar[s]))
-          : "memory");
+      bulk_rows(slot + s * 3 * KC, &bar[s], rows, c);
     }
     ++n;
   }

@@ -14,10 +14,10 @@
 // One block per 64-ray tile, in the order the caller passes the rays: P x
 // 64 threads, P threads a ray, in the split form the wrappers launch by
 // default (walk_hier_closest_split_kernel at HIER_CLOSEST_P,
-// walk_hier_anyhit_split_kernel at HIER_ANYHIT_P), or 64, one thread a ray
-// (the tensor-core visit, and the form the smoke run times beside the split
-// one). The schedule is the reference's, so the
-// visit order, and the winner on exact ties, are its:
+// walk_hier_anyhit_split_kernel at HIER_ANYHIT_P, with either test), or 64,
+// one thread a ray (the form the smoke run times beside the split one). The
+// schedule is the reference's, so the visit order, and the winner on exact
+// ties, are its:
 //   - super entry pass: the one-level entry pass (walk_common.cuh) over
 //     slo/shi with n_real = n_sup and 14 id bits, capped by the static tfar,
 //     into Sp ints of dynamic shared memory (1 KB at 18,816 clusters, 4 KB
@@ -38,7 +38,9 @@
 //     as the reference does;
 //   - visits: as the one-level walk's (the cluster's 384 triangles in
 //     shared memory, tested in column order, or by P threads a ray and a
-//     (t, column) min; any hit against tfar).
+//     (t, column) min; any hit against tfar; with mma the tensor-core
+//     test, one thread a ray or, in the split form, split over the P warps
+//     of each 32-ray set by column blocks, as in the one-level walk).
 //
 // What bounds it: past 2^14 clusters the tables are more than 302 MB of rows
 // and 25 MB of ids (347 MB and 29 MB at the 5.7M-triangle sphere grid's
@@ -55,7 +57,12 @@
 // and child entries live in shared memory, rays that cannot improve skip
 // the tests, and a visit no ray of the block needs skips its copy. With mma
 // set, a visit takes the tensor-core form of the triangle test
-// (tri_test_mma.cuh), which is not bit-identical.
+// (tri_test_mma.cuh), which is not bit-identical to the _dot4 form; its
+// split form (walk_common.cuh: split_mma over the staged rows, each ray's
+// cap at the visit in the split visit's scratch) is bit-identical to the
+// one-thread tensor-core kernel's, whose warp scans all 48 column blocks
+// alone; on an H100 it took 0.75-0.91x the one-thread kernel's time (the
+// any hit keeps one block an SM at 120 registers; PERF.md section 6).
 //
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -224,7 +231,10 @@ constexpr int HIER_CLOSEST_P = 4;
 constexpr int HIER_ANYHIT_P = 8;
 
 // The static shared memory of the split kernels; the dynamic part is the
-// stage's slot, then the super heap (Sp ints).
+// stage's slot, with MMA the split tensor-core visit's scratch, then the
+// super heap (Sp ints). The scratch's caps (mx.cap: each ray's best t at
+// the visit) are not HierSplitShared::cap (each ray's cap when the super
+// opened, which child_entries reads).
 template <int NT>
 struct HierSplitShared {
   TileRays ray;
@@ -236,8 +246,10 @@ struct HierSplitShared {
 // P threads a ray (the split visit of walk_common.cuh). Inside a super's
 // child loop every child is popped a visit ahead, as in the one-level split
 // kernels. The visit order, the stop tests and the results are
-// walk_hier_closest_kernel's.
-template <int P>
+// walk_hier_closest_kernel's. MMA: the tensor-core test split over the P
+// warps of each 32-ray set by column blocks (split_mma), bit for bit
+// walk_hier_closest_kernel<true>'s.
+template <int P, bool MMA>
 __global__ void __launch_bounds__(P * TILE)
 walk_hier_closest_split_kernel(const float* __restrict__ slo,
                                const float* __restrict__ shi, int sp,
@@ -256,7 +268,9 @@ walk_hier_closest_split_kernel(const float* __restrict__ slo,
   constexpr int NT = P * TILE;
   extern __shared__ float4 s_dyn[];
   __shared__ HierSplitShared<NT> s;
-  int* s_sup = reinterpret_cast<int*>(s_dyn + 3 * KC);
+  const MmaScratch mx = mma_scratch(s_dyn + 3 * KC);
+  int* s_sup = reinterpret_cast<int*>(s_dyn + 3 * KC +
+                                      (MMA ? mma_scratch_f4<NT>() : 0));
   StageFeed<NT> feed{s_dyn};
   const int i = blockIdx.x * TILE + threadIdx.x / P;
   const Ray ray = load_ray(i, o, d, tnear, tfar);
@@ -283,9 +297,25 @@ walk_hier_closest_split_kernel(const float* __restrict__ slo,
     for (int ni = 0; ni < SUP && (cemin & ~CHILD_MASK) < th; ++ni) {
       for (int half = 0; half < 2; ++half) {
         const bool want = ray.tnear < best_t;
-        if (const float4* c_rows = feed.take(rows, csel, want))
+        if constexpr (MMA) {
+          put_cap<P>(mx, want, best_t);
+          if (const float4* c_rows = feed.take_all(rows, csel, want)) {
+            float t, u, v;
+            int j;
+            split_mma<P, 32, false>(reinterpret_cast<const float*>(c_rows),
+                                    set_rays<P>(o, d, tnear), mx,
+                                    BlockSync{}, t, j, u, v);
+            if (j < KC) {
+              best_t = t;
+              best_i = ids[static_cast<size_t>(csel) * KC + j];
+              best_u = u;
+              best_v = v;
+            }
+          }
+        } else if (const float4* c_rows = feed.take(rows, csel, want)) {
           split_closest<P>(c_rows, ids, csel, ray, want, best_t, best_i,
                            best_u, best_v);
+        }
         cemin = cenext;
         csel = cnext;
         cenext = pop_min<NT, true>(s.child, SUP, CHILD_MASK, s.red);
@@ -301,7 +331,7 @@ walk_hier_closest_split_kernel(const float* __restrict__ slo,
                   v_out);
 }
 
-template <int P>
+template <int P, bool MMA>
 __global__ void __launch_bounds__(P * TILE)
 walk_hier_anyhit_split_kernel(const float* __restrict__ slo,
                               const float* __restrict__ shi, int sp,
@@ -316,7 +346,9 @@ walk_hier_anyhit_split_kernel(const float* __restrict__ slo,
   constexpr int NT = P * TILE;
   extern __shared__ float4 s_dyn[];
   __shared__ HierSplitShared<NT> s;
-  int* s_sup = reinterpret_cast<int*>(s_dyn + 3 * KC);
+  const MmaScratch mx = mma_scratch(s_dyn + 3 * KC);
+  int* s_sup = reinterpret_cast<int*>(s_dyn + 3 * KC +
+                                      (MMA ? mma_scratch_f4<NT>() : 0));
   StageFeed<NT> feed{s_dyn};
   const int i = blockIdx.x * TILE + threadIdx.x / P;
   const Ray ray = load_ray(i, o, d, tnear, tfar);
@@ -342,8 +374,19 @@ walk_hier_anyhit_split_kernel(const float* __restrict__ slo,
     for (int ni = 0; ni < SUP && (cemin & ~CHILD_MASK) < th; ++ni) {
       for (int half = 0; half < 2; ++half) {
         const bool want = !occ && ray.tnear < ray.tfar;
-        if (const float4* c_rows = feed.take(rows, csel, want))
+        if constexpr (MMA) {
+          put_cap<P>(mx, want, ray.tfar);
+          if (const float4* c_rows = feed.take_all(rows, csel, want)) {
+            float t, u, v;
+            int j;
+            split_mma<P, 32, true>(reinterpret_cast<const float*>(c_rows),
+                                   set_rays<P>(o, d, tnear), mx, BlockSync{},
+                                   t, j, u, v);
+            if (j < KC) occ = true;
+          }
+        } else if (const float4* c_rows = feed.take(rows, csel, want)) {
           split_anyhit<P>(c_rows, ray, want, occ);
+        }
         cemin = cenext;
         csel = cnext;
         cenext = pop_min<NT, true>(s.child, SUP, CHILD_MASK, s.red);
@@ -360,12 +403,12 @@ walk_hier_anyhit_split_kernel(const float* __restrict__ slo,
 }  // namespace
 
 // n must be a multiple of 64 (the wrapper pads). mma != 0 takes the
-// tensor-core form of the triangle test (tri_test_mma.cuh; the one-thread
-// form only). p threads a ray and ring name the form as in walk_trace.cu:
-// (1, 0) the one-thread-a-ray kernel, else the split form built here (at
-// HIER_CLOSEST_P or HIER_ANYHIT_P, no ring), with smem from
-// ops/walk_trace.py:launch_geometry; cudaErrorInvalidValue for a form not
-// built.
+// tensor-core form of the triangle test (tri_test_mma.cuh). p threads a ray
+// and ring name the form as in walk_trace.cu: (1, 0) the one-thread-a-ray
+// kernel, else the split form built here (at HIER_CLOSEST_P or
+// HIER_ANYHIT_P, no ring; with mma, the split tensor-core visit), with smem
+// from ops/walk_trace.py:launch_geometry; cudaErrorInvalidValue for a form
+// not built.
 extern "C" int rl_walk_hier_closest(const void* slo, const void* shi, int sp,
                                     int n_sup, const void* lo, const void* hi,
                                     int cp, int n_real, const void* rows,
@@ -376,12 +419,13 @@ extern "C" int rl_walk_hier_closest(const void* slo, const void* shi, int sp,
                                     void* tri_out, void* u_out, void* v_out,
                                     void* stream) {
   const bool one = p == 1 && !ring;
-  if (!one && (mma || !is_form<HIER_CLOSEST_P, false>(p, ring)))
+  if (!one && !is_form<HIER_CLOSEST_P, false>(p, ring))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_threads(
       one ? (mma ? walk_hier_closest_kernel<true>
                  : walk_hier_closest_kernel<false>)
-          : walk_hier_closest_split_kernel<HIER_CLOSEST_P>,
+          : (mma ? walk_hier_closest_split_kernel<HIER_CLOSEST_P, true>
+                 : walk_hier_closest_split_kernel<HIER_CLOSEST_P, false>),
       n / TILE, p * TILE, static_cast<size_t>(smem), stream,
       static_cast<const float*>(slo), static_cast<const float*>(shi), sp,
       n_sup, static_cast<const float*>(lo), static_cast<const float*>(hi), cp,
@@ -400,12 +444,13 @@ extern "C" int rl_walk_hier_anyhit(const void* slo, const void* shi, int sp,
                                    int mma, int p, int ring, int smem,
                                    void* occ_out, void* stream) {
   const bool one = p == 1 && !ring;
-  if (!one && (mma || !is_form<HIER_ANYHIT_P, false>(p, ring)))
+  if (!one && !is_form<HIER_ANYHIT_P, false>(p, ring))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_threads(
       one ? (mma ? walk_hier_anyhit_kernel<true>
                  : walk_hier_anyhit_kernel<false>)
-          : walk_hier_anyhit_split_kernel<HIER_ANYHIT_P>,
+          : (mma ? walk_hier_anyhit_split_kernel<HIER_ANYHIT_P, true>
+                 : walk_hier_anyhit_split_kernel<HIER_ANYHIT_P, false>),
       n / TILE, p * TILE, static_cast<size_t>(smem), stream,
       static_cast<const float*>(slo), static_cast<const float*>(shi), sp,
       n_sup, static_cast<const float*>(lo), static_cast<const float*>(hi), cp,

@@ -22,12 +22,14 @@ for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 With `mxu=True` a visit takes the tensor-core form of the triangle test (see
 ops/walk_trace.py), not bit-identical; those kernels count as `<name>_mma`.
 The default kernels run in a split form of ops/walk_trace.py (P threads a
-ray, the rows staged at the visit: PRODUCTION_FORMS); the private
-`_form=ONE_THREAD_FORM` launches the one-thread-a-ray kernel, for
-chip_smoke.py's side-by-side timing and the `cuda` test only.
+ray, the rows staged at the visit: PRODUCTION_FORMS), with either test (the
+tensor-core visit split over the P warps of each 32-ray set by column
+blocks); the private `_form=ONE_THREAD_FORM` launches the one-thread-a-ray
+kernel, for chip_smoke.py's side-by-side timing and the `cuda` tests only.
 
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
-adds the lanes it was handed with tfar > 0 to `counting_rays()`.
+to `P1_LAUNCHES[name]` too where that is the one-thread kernel, and adds
+the lanes it was handed with tfar > 0 to `counting_rays()`.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ from .native import count_rays, load_cuda
 from .walk_trace import (K, _ID_BITS, _ID_MASK, _check_arrays, _min_entry,
                          _pack_entries, _pop_min, _resolve_form, _slab_inv,
                          _sortable_max, _tile_entries, _tiled, _visit_anyhit,
-                         _visit_closest, form_args, launch_geometry)
+                         _visit_closest, ONE_THREAD_FORM, form_args,
+                         launch_geometry)
 
 # clusters per super and the child-id bits of a packed child entry: the
 # reference's SUP and _CHILD_BITS (pallas_walk.py:74-75)
@@ -51,6 +54,7 @@ MAX_CLUSTERS = 1 << 17
 
 LAUNCHES = {"walk_hier_closest": 0, "walk_hier_anyhit": 0,
             "walk_hier_closest_mma": 0, "walk_hier_anyhit_mma": 0}
+P1_LAUNCHES = dict(LAUNCHES)
 
 _LIB = None
 
@@ -58,6 +62,13 @@ _LIB = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        P1_LAUNCHES[k] = 0
+
+
+def _count(name: str, form) -> None:
+    LAUNCHES[name] += 1
+    if tuple(form) == ONE_THREAD_FORM:
+        P1_LAUNCHES[name] += 1
 
 
 def _load():
@@ -214,7 +225,7 @@ def walk_hier_anyhit_ref(wt, o, d, tnear, tfar, mxu: bool = False):
 
 def _form_geometry(name: str, wt, form, mxu: bool):
     form = _resolve_form(name, form, mxu)
-    return form, launch_geometry(name, form, wt.n_sup_pad)[1]
+    return form, launch_geometry(name, form, wt.n_sup_pad, mxu)[1]
 
 
 def walk_hier_closest(wt, o, d, tnear, tfar, mxu: bool = False, *,
@@ -246,7 +257,7 @@ def walk_hier_closest(wt, o, d, tnear, tfar, mxu: bool = False, *,
         if err:
             raise RuntimeError(
                 f"walk_hier_closest launch failed: CUDA error {err}")
-        LAUNCHES["walk_hier_closest" + ("_mma" if mxu else "")] += 1
+        _count("walk_hier_closest" + ("_mma" if mxu else ""), form)
     return t, tri, u, v
 
 
@@ -274,5 +285,5 @@ def walk_hier_anyhit(wt, o, d, tnear, tfar, mxu: bool = False, *,
         if err:
             raise RuntimeError(
                 f"walk_hier_anyhit launch failed: CUDA error {err}")
-        LAUNCHES["walk_hier_anyhit" + ("_mma" if mxu else "")] += 1
+        _count("walk_hier_anyhit" + ("_mma" if mxu else ""), form)
     return occ

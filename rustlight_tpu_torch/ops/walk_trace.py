@@ -38,11 +38,11 @@ The default kernels (K3/K4 and K3w here, K5 in ops/walk_hier.py) run in a
 split form: P threads a ray, each testing every P-th column of a visit's
 cluster, and for the any hit of K3/K4 and K3w a two-slot ring of cluster
 rows filled a visit ahead by Hopper's bulk copy (csrc/walk_common.cuh).
-`PRODUCTION_FORMS` names each kernel's form. With `mxu=True` K3/K4 and K3w
-take the same form, whose visit then splits the tensor-core test over the P
-warps of each 32-ray set by column blocks, bit for bit the one-thread
-tensor-core kernel; K5's tensor-core visit stays one thread a ray
-(`_resolve_form`). `launch_geometry` gives a form's threads and dynamic
+`PRODUCTION_FORMS` names each kernel's form. With `mxu=True` K3/K4, K3w and
+K5 take the same form, whose visit then splits the tensor-core test over
+the P warps of each 32-ray set by column blocks, bit for bit the one-thread
+tensor-core kernel (`_resolve_form`; the lab's walks keep the one-thread
+tensor-core visit). `launch_geometry` gives a form's threads and dynamic
 shared memory. `_visit_closest_split` / `_visit_anyhit_split` model the
 split visit in torch, and `_merge_parts` the tensor-core visit's merge over
 column slices, for the tests only. The wrappers' private
@@ -100,7 +100,7 @@ PRODUCTION_FORMS = {"walk_closest": (8, False), "walk_anyhit": (8, True),
                     "walk_anyhit_wide": (8, True)}
 # the kernels whose split form also takes the tensor-core visit
 _MMA_SPLIT = ("walk_closest", "walk_anyhit", "walk_closest_wide",
-              "walk_anyhit_wide")
+              "walk_anyhit_wide", "walk_hier_closest", "walk_hier_anyhit")
 _WIDE = ("walk_closest_wide", "walk_anyhit_wide")
 # a visit's rows: KC triangles of three float4
 _SLOT_BYTES = K * 3 * 16
@@ -175,10 +175,10 @@ def launch_geometry(kernel: str, form, n_heap: int, mxu: bool = False, *,
 
 def _resolve_form(name: str, form, mxu: bool = False):
     """The form a launch of kernel `name` takes: the production one, with
-    either test for K3/K4 (`mxu`: the tensor-core visit split over warps by
-    columns); the one-thread-a-ray kernel for the tensor-core visit of the
-    other kernels (K5, the lab's walks), or where the private `form` asks
-    for it (ONE_THREAD_FORM, the only value it takes)."""
+    either test for K3/K4, K3w and K5 (`mxu`: the tensor-core visit split
+    over warps by columns); the one-thread-a-ray kernel for the tensor-core
+    visit of the lab's walks, or where the private `form` asks for it
+    (ONE_THREAD_FORM, the only value it takes)."""
     if form is not None and tuple(form) != ONE_THREAD_FORM:
         raise ValueError(f"_form takes only {ONE_THREAD_FORM}, got {form}")
     if form is not None or (mxu and name not in _MMA_SPLIT):

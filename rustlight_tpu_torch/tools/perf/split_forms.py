@@ -1,21 +1,28 @@
-"""The candidate and laboratory forms of the split sparse-visit walk K7 and
-of the split wide pop K3w, each against the one-thread form of its kernel:
-the instrument that chose ops/walk_sparse.py:PRODUCTION_FORMS, the wide
-entries of ops/walk_trace.py:PRODUCTION_FORMS and _WIDE_SHARED_MAX.
+"""The candidate and laboratory forms of the split sparse-visit walk K7, of
+the split wide pop K3w and of the split pair kernels K8, each against the
+one-thread form of its kernel (K8: the parent's kernels): the instrument
+that chose ops/walk_sparse.py:PRODUCTION_FORMS, the wide entries of
+ops/walk_trace.py:PRODUCTION_FORMS and _WIDE_SHARED_MAX, and
+ops/pair_trace.py:PRODUCTION_FORM.
 
     python -m rustlight_tpu_torch.tools.perf.split_forms [--runs 10]
-        [--kernels sparse wide]
+        [--kernels sparse wide pair]
 
-It builds csrc/walk_trace.cu and walk_sparse.cu with RL_LAB_FORMS into a
-library beside the production one (ops/native.py), which also holds: K7 at
-P = 4 and with the other feed (the ring for the closest hit, the staged
-rows for the any hit); K3w's _dot4 form at P = 4 and with the other feed,
-and its laboratory forms (csrc/walk_trace.cu: walk_wide_lab_kernel): the
-entry pass alone (lab 1), the pops alone (lab 2: as many pops a tile, with
-the termination checks' reductions, as the production walk visits, which
-is the plain version's count). K7 runs on grid122k
+It builds csrc/walk_trace.cu, walk_sparse.cu and pair_trace.cu with
+RL_LAB_FORMS into a library beside the production one (ops/native.py),
+which also holds: K7 at P = 4 and with the other feed (the ring for the
+closest hit, the staged rows for the any hit); K3w's _dot4 form at P = 4
+and with the other feed, and its laboratory forms (csrc/walk_trace.cu:
+walk_wide_lab_kernel): the entry pass alone (lab 1), the pops alone (lab 2:
+as many pops a tile, with the termination checks' reductions, as the
+production walk visits, which is the plain version's count); K8's
+ops/pair_trace.py:LAB_FORMS (P = 4; 4 runs a block; 4 runs a block with a
+ring of two slots) and LAB_MMA_FORMS (the tensor-core test at P = 8, 4, 2,
+1 warps a 32-pair set), timed as kernels alone. K7 and K8 run on grid122k
 (sphere_grid(122_000, 256, 256), bench.py:132-134) and its two walk
-wavefronts (tools/perf/common.py:walk_wavefronts, seed 0); K3w on the
+wavefronts (tools/perf/common.py:walk_wavefronts, seed 0; K8 on their
+pairs at km = 8 after the morton sort, as accel/pair_walk.py makes them);
+K3w on the
 5.7M-triangle sphere grid of chip_smoke.py's grid5p7M
 (sphere_grid_mesh(5_000_000, n_theta=18), 18,816 clusters) with 65,536
 coherent and divergent rays (common.py), both sorted by the walk. Each form
@@ -39,13 +46,14 @@ import torch
 
 from ...accel.walk import walk_tables_to
 from ...ops import native
+from ...ops import pair_trace as pt
 from ...ops import walk_sparse as ws
 from ...ops import walk_trace as wk
 from ...ops.walk_trace import ONE_THREAD_FORM
 from . import common
 from .sub_forms import _differ, _line, _turns
 
-LAB_SOURCES = ("walk_trace.cu", "walk_sparse.cu")
+LAB_SOURCES = ("walk_trace.cu", "walk_sparse.cu", "pair_trace.cu")
 GRID, WIDE_TRIS, WIDE_THETA, WIDE_RAYS = 122_000, 5_000_000, 18, 65_536
 
 
@@ -58,7 +66,7 @@ def lab_library(path=None):
     """The RL_LAB_FORMS library of LAB_SOURCES (built at `path`, else built
     now), loaded and bound: (lib, ptxas's usage)."""
     path = build_lab() if path is None else path
-    lib = wk.bind(ws.bind(ctypes.CDLL(str(path))))
+    lib = pt.bind(wk.bind(ws.bind(ctypes.CDLL(str(path)))))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rl_walk_wide_lab.argtypes = [i, i, p, p, i, i, p, p, p, p, i, p, i,
                                      p, i, p, p]
@@ -132,6 +140,58 @@ def sparse_forms(lib, usage, wt, srt, runs: int, tag: str) -> list:
             print(f"{tag} K7 {kind} P{form[0]}{' ring' if form[1] else ''}"
                   f"{' (production)' if form == prod else ''}: P1, form, "
                   "form, P1 " + _line(rec), flush=True)
+    return out
+
+
+def pair_forms(lib, usage, wt, pairs, runs: int, tag: str) -> list:
+    """K8's production split forms and the laboratory's against the
+    parent's kernels on `pairs` (o, d, tnear, tcap, cid): PRODUCTION_FORM
+    and LAB_FORMS against the warp-a-pair _dot4 kernels, MMA_FORM and
+    LAB_MMA_FORMS against the one-thread tensor-core kernel, each bit for
+    bit, timed in turns (parent, form, form, parent). The kernels alone: the
+    layouts (runs of RUN, and the parent's runs of _RUN) are made once, so
+    the times are the device's, not the layout's sort. One record a form,
+    printed."""
+    dev = pairs[0].device
+    n_real = int(wt.n_real)
+    perm = pt._cluster_runs(n_real, pairs[4], pt.RUN)
+    perm32 = pt._cluster_runs(n_real, pairs[4])
+    out = []
+    for any_hit, kind in ((False, "closest"), (True, "anyhit")):
+        for mxu, prod, cands in ((False, pt.PRODUCTION_FORM, pt.LAB_FORMS),
+                                 (True, pt.MMA_FORM, pt.LAB_MMA_FORMS)):
+
+            def run(f, any_hit=any_hit, mxu=mxu):
+                if f == ONE_THREAD_FORM:
+                    if mxu:
+                        return pt._pair_mma_parent(wt, *pairs, any_hit,
+                                                   perm=perm32)
+                    return pt._pair_dot4_parent(wt, *pairs, any_hit)
+                return pt.launch_split(lib, any_hit, wt, *pairs, f, mxu,
+                                       lab=True, perm=perm)
+
+            ref = run(ONE_THREAD_FORM)
+            for form in (prod, *cands):
+                diff = _differ(run(form), ref)
+                torch.cuda.synchronize()
+                if diff:
+                    raise AssertionError(f"{tag} K8 {kind} mxu={mxu} form "
+                                         f"{form}: {diff} lanes differ from "
+                                         "the parent's")
+                p, nr, ring = form
+                rec = _rec(usage, f"pair_split_kernelILb{int(any_hit)}ELb"
+                           f"{int(mxu)}ELi{p}ELi{nr}ELb{int(ring)}EE",
+                           set=tag, kernel="K8", kind=kind, mxu=mxu, p=p,
+                           runs=nr, ring=ring, production=form == prod,
+                           **_turns(run, ONE_THREAD_FORM, form, runs, dev),
+                           dyn_smem=pt.launch_geometry(form, mxu,
+                                                       lab=True)[1])
+                out.append(rec)
+                print(f"{tag} K8 {kind}{' mxu' if mxu else ''} P{p} {nr} "
+                      f"run(s) a block{' ring' if ring else ''}"
+                      f"{' (production)' if rec['production'] else ''}, "
+                      "kernel alone: parent, form, form, parent "
+                      + _line(rec), flush=True)
     return out
 
 
@@ -209,24 +269,31 @@ def wide_forms(lib, usage, wt, srt, runs: int, tag: str,
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--runs", type=int, default=10)
-    p.add_argument("--kernels", nargs="+", default=["sparse", "wide"],
-                   choices=("sparse", "wide"))
+    p.add_argument("--kernels", nargs="+", default=["sparse", "wide", "pair"],
+                   choices=("sparse", "wide", "pair"))
     p.add_argument("--out", default=str(common.OUT_DIR
                                         / "split_forms_h100.json"))
     args = p.parse_args(argv)
     dev = common.pick_device("cuda")
     lib, usage = lab_library()
     out = {**common.device_record(dev), "runs": args.runs, "forms": []}
-    if "sparse" in args.kernels:
+    if {"sparse", "pair"} & set(args.kernels):
+        from ...accel.pair_walk import KM, _make_pairs
         from ...accel.walk import _prepare
         from ...models import sphere_grid
         sd = sphere_grid(GRID, 256, 256).compile(device=dev)
         wt = sd.geom.walk
         for wname, rays in common.walk_wavefronts(
                 sd, np.random.default_rng(0)).items():
-            srt = _prepare(wt, *rays)[:4]
-            out["forms"] += sparse_forms(lib, usage, wt, srt, args.runs,
-                                         f"grid122k/{wname}")
+            if "sparse" in args.kernels:
+                srt = _prepare(wt, *rays)[:4]
+                out["forms"] += sparse_forms(lib, usage, wt, srt, args.runs,
+                                             f"grid122k/{wname}")
+            if "pair" in args.kernels:
+                msrt = _prepare(wt, *rays, inc_sort=False)[:4]
+                out["forms"] += pair_forms(
+                    lib, usage, wt, _make_pairs(wt, *msrt, KM)[0], args.runs,
+                    f"grid122k/{wname} km={KM}")
         del sd, wt
     if "wide" in args.kernels:
         geom, ext = common.lab_scene(WIDE_TRIS, WIDE_THETA)

@@ -275,3 +275,12 @@ def test_cuda_hier_kernels_match_plain_versions(grid):
     for a, b in zip(closest, wh.walk_hier_closest_ref(wt, o, d, tnear, tfar)):
         assert torch.equal(a, b)
     assert torch.equal(occ, wh.walk_hier_anyhit_ref(wt, o, d, tnear, tfar)[0])
+    # the split tensor-core forms against the one-thread ones: 0 lanes differ
+    one = wk.ONE_THREAD_FORM
+    for a, b in zip(wh.walk_hier_closest(wt, o, d, tnear, tfar, True),
+                    wh.walk_hier_closest(wt, o, d, tnear, tfar, True,
+                                         _form=one)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(wh.walk_hier_anyhit(wt, o, d, tnear, tfar, True),
+                       wh.walk_hier_anyhit(wt, o, d, tnear, tfar, True,
+                                           _form=one))

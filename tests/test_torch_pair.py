@@ -243,9 +243,21 @@ def test_cuda_pair_kernels_match_plain_versions(soup, km):
     assert pt.LAUNCHES["pair_closest"] == before["pair_closest"] + 1
     assert pt.LAUNCHES["pair_anyhit"] == before["pair_anyhit"] + 1
     assert torch.equal(occ, pt.pair_anyhit_ref(wt, *pairs)[0])
+    # the parent's warp-a-pair kernels, and the split tensor-core form
+    # against the parent's one-thread one: 0 lanes differ
+    one = wk.ONE_THREAD_FORM
+    assert torch.equal(pt.pair_anyhit(wt, *pairs, _form=one), occ)
+    assert torch.equal(pt.pair_anyhit(wt, *pairs, True),
+                       pt.pair_anyhit(wt, *pairs, True, _form=one))
     pairs[3] = rep(tfar)
     for a, b in zip(out, pt.pair_closest_ref(wt, *pairs)):
         assert torch.equal(a, b)
+    for a, b in zip(out, pt.pair_closest(wt, *pairs, _form=one)):
+        assert torch.equal(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(pt.pair_closest(wt, *pairs, True),
+                    pt.pair_closest(wt, *pairs, True, _form=one)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     # and the whole pair walk, fallback included, against the tile walk
     rh = pw.intersect_pairs(wt, o, d, tnear, tfar, km=km)
     ref = tw._walk_impl(wt, o, d, tnear, tfar, False)

@@ -384,17 +384,17 @@ def _centre(row):
 
 
 def test_mxu_resolves_to_the_split_form():
-    """mxu=True takes the production split form in K3/K4 and K6 (the
+    """mxu=True takes the production split form in K3/K4, K5 and K6 (the
     tensor-core visit split over warps by columns); `_form=ONE_THREAD_FORM`
-    still reaches the one-thread kernel; K5's tensor-core visit and the
-    lab's stay one thread a ray."""
+    still reaches the one-thread kernel; the lab's tensor-core visit stays
+    one thread a ray."""
     one = wk.ONE_THREAD_FORM
-    for name in ("walk_closest", "walk_anyhit"):
+    for name in ("walk_closest", "walk_anyhit", "walk_hier_closest",
+                 "walk_hier_anyhit"):
         assert wk._resolve_form(name, None, True) == wk.PRODUCTION_FORMS[name]
-        assert wk._resolve_form(name, one, True) == one
-    for name in ("walk_hier_closest", "walk_hier_anyhit"):
-        assert wk._resolve_form(name, None, True) == one
         assert wk._resolve_form(name, None, False) == wk.PRODUCTION_FORMS[name]
+        assert wk._resolve_form(name, one, True) == one
+    assert wk.PRODUCTION_FORMS["walk_hier_closest"][0] > 1
     for name in ("walk_sub_closest", "walk_sub_anyhit"):
         for sub in wsub.SUBS:
             assert wsub._resolve_form(name, sub, None, True) == (
