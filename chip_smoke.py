@@ -216,6 +216,21 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      128 spp and the path tracer (depth 8) on veach_mis(256, 192) at 128
      spp, each with its K1/K2 launches and the device busy share of a warm
      8 spp render under torch.profiler.
+ 21. gate, the light tracer and the medium: the rows cbox_path/path,
+     cbox_path/light, cbox_medium/path, cbox_medium/light and
+     cbox_medium_single/path-single of tools/regression.py:46-83 at its
+     settings (cornell_box(128, 128), for the two medium scenes in an
+     infinite medium of sigma_s 0.0025; the path tracer and the light
+     tracer at max_depth = hard_cap = 8, path-single at max_depth = hard_cap
+     = 2, min_depth 1, single scattering; 32 spp, seed 0): the path rows
+     through the per-pass route, as the stored rows were made, the light
+     rows through render_splat; each metric held as in phase 20, only
+     K1/K2 launched; cbox_medium/path once more through compute_block
+     (statistical) under the same limits; the five rows on the card
+     against the CPU at 32x32, 4 spp, under phase 20's bounds; then,
+     timed as in phase 20 (but the warm-up at 8 spp), the light tracer on
+     cornell_box(512, 512) and the path tracer through compute_block in the
+     medium at 512x512, both at 32 spp and depth 8.
 
 Before the last line: a JSON line with each kernel's tables and wavefronts
 (kernel_cases), the candidate forms' table (a1_forms) and the split forms'
@@ -223,6 +238,8 @@ records of K7, K3w and K8 (split_forms), the card line
 from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
+The K1/K2 launches of phases 20 and 21's full-width renders are added to
+K1/K2's in the kernels line.
 """
 from __future__ import annotations
 
@@ -232,6 +249,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -339,6 +357,12 @@ GATE_METRICS = ("l1", "l2", "mape", "dssim")
 GATE_CPU_SPP, GATE_PROFILE_SPP = 4, 8
 DIRECT_RES, DIRECT_SPP = 512, 128
 VEACH_RES, VEACH_SPP, VEACH_DEPTH = (256, 192), 128, 8
+# phase 21: the rows of tools/regression.py:46-83 on the scenes cbox and
+# cbox_medium (:51-54), their integrators' depth (:91-94), and the
+# full-width renders at the bench's cbox width, at 32 spp: at 128 spp the
+# whole run took 933 s of its 1,200 s on an H100 (700 W) with a slow host
+MEDIUM_SIGMA_S, SLICE_DEPTH = 0.0025, 8
+SLICE_RES, SLICE_SPP = 512, 32
 
 
 def phase(name, msg):
@@ -829,6 +853,17 @@ def block_mean_l1(img: np.ndarray) -> tuple:
     return float(np.abs(bm - ref["blockmean"]).mean()), float(ref["floor_l1"])
 
 
+def _render(sd, integ, spp, seed=0, persistent=None):
+    """One render of `integ` on `sd`: a splatting integrator through
+    render_splat (as the reference's meta.py:_render_once dispatches),
+    any other through render (`persistent` as render takes it)."""
+    from rustlight_tpu_torch.integrators import (SplattingIntegrator, render,
+                                                 render_splat)
+    if isinstance(integ, SplattingIntegrator):
+        return render_splat(sd, integ, spp, seed=seed)
+    return render(sd, integ, spp=spp, seed=seed, persistent=persistent)
+
+
 def _profile(fn):
     """torch.profiler over one call of `fn`: (wall s, the device kernels'
     key averages, longest total first)."""
@@ -858,10 +893,9 @@ def profile_render(label, sd, integ, spp, names, top=12):
     stream, so kernel times do not overlap). Returns (busy share, share of
     the device time spent in kernels matching `names`)."""
     import torch
-    from rustlight_tpu_torch.integrators import render
-    render(sd, integ, spp=spp, seed=1)
+    _render(sd, integ, spp, seed=1)
     torch.cuda.synchronize()
-    wall, kern = _profile(lambda: render(sd, integ, spp=spp, seed=1))
+    wall, kern = _profile(lambda: _render(sd, integ, spp, seed=1))
     if not kern:
         phase("profile", f"{label}: torch.profiler recorded no device kernels")
         return None, None
@@ -906,20 +940,19 @@ def _launches():
     return out
 
 
-def timed_render(label, sd, integ, spp, seed=0):
-    """Warm-up render (seed 0), then a timed one (`seed`) with launch counts
-    reset just before and read just after. Returns (image, wall s, warm-up
-    s, rays, launches)."""
+def timed_render(label, sd, integ, spp, seed=0, warm_spp=None):
+    """Warm-up render (seed 0; `warm_spp` samples, by default `spp`), then a
+    timed one (`seed`) with launch counts reset just before and read just
+    after. Returns (image, wall s, warm-up s, rays, launches)."""
     import torch
-    from rustlight_tpu_torch.integrators import render
     from rustlight_tpu_torch.ops.native import counting_rays
     t0 = time.time()
-    render(sd, integ, spp=spp, seed=0)
+    _render(sd, integ, spp if warm_spp is None else warm_spp, seed=0)
     warm = time.time() - t0
     _reset_launches()
     with counting_rays(sd.device) as rays:
         t0 = time.time()
-        film = render(sd, integ, spp=spp, seed=seed)
+        film = _render(sd, integ, spp, seed=seed)
         torch.cuda.synchronize()
         wall = time.time() - t0
         n_rays = int(rays)
@@ -2669,36 +2702,100 @@ def ao_row(dev, label, n_tris):
         k: launches[k] + extra[k] for k in launches}
 
 
+class _Row(NamedTuple):
+    """A regression row of tools/regression.py gated on the card: its
+    scene (a maker of width and height), its size, the size of its card
+    against CPU check (None: none), its integrator maker, the route
+    (`persistent` as render takes it) and what the route means for the
+    stored row."""
+    name: str
+    tech: str
+    make: Any
+    res: tuple
+    small: Any
+    integ: Any
+    persistent: Any
+    route: str
+
+
+def _cbox_medium(w, h):
+    """tools/regression.py's cbox_medium scene: the Cornell box in an
+    infinite medium of sigma_s 0.0025 (sigma_a 0, isotropic)."""
+    from rustlight_tpu_torch.models import cornell_box
+    from rustlight_tpu_torch.scene import make_volume
+    sc = cornell_box(w, h)
+    sc.volume = make_volume(sigma_s=(MEDIUM_SIGMA_S,) * 3)
+    return sc
+
+
 def _gate_rows():
     """The regression rows cbox_direct and veach_mis of tools/
-    regression.py:59-75 with the gate of :13-16; each row's scene and
-    integrator by name."""
+    regression.py:59-75 with the gate of :13-16 (phase 20)."""
     from rustlight_tpu_torch.integrators import (IntegratorDirect,
                                                  IntegratorPathTracing)
     from rustlight_tpu_torch.models import cornell_box, veach_mis
-    return {
-        "cbox_direct": (lambda w, h: cornell_box(w, h), (128, 128), (32, 32),
-                        lambda: IntegratorDirect(nb_bsdf_samples=1,
-                                                 nb_light_samples=1),
-                        "direct", "sample for sample: the per-pass route, "
-                        "as the stored row's"),
-        "veach_mis": (lambda w, h: veach_mis(w, h), (128, 96), (32, 24),
-                      lambda: IntegratorPathTracing(max_depth=VEACH_DEPTH,
-                                                    hard_cap=VEACH_DEPTH),
-                      "path", "statistical: compute_block, while the stored "
-                      "row came from the reference's per-pass route"),
-    }
+    return [
+        _Row("cbox_direct", "direct", cornell_box, (128, 128), (32, 32),
+             lambda: IntegratorDirect(nb_bsdf_samples=1, nb_light_samples=1),
+             None, "sample for sample: the per-pass route, as the stored "
+             "row's"),
+        _Row("veach_mis", "path", veach_mis, (128, 96), (32, 24),
+             lambda: IntegratorPathTracing(max_depth=VEACH_DEPTH,
+                                           hard_cap=VEACH_DEPTH),
+             None, "statistical: compute_block, while the stored row came "
+             "from the reference's per-pass route"),
+    ]
 
 
-def _card_vs_cpu(label, make_scene, res, integ, spp, dev):
+def _slice_rows():
+    """The rows cbox_path/path, cbox_path/light, cbox_medium/path,
+    cbox_medium/light and cbox_medium_single/path-single of tools/
+    regression.py:46-83 at its integrators (:91-94, :127-129), and
+    cbox_medium/path once more through compute_block (phase 21)."""
+    from rustlight_tpu_torch.integrators import (IntegratorLightTracing,
+                                                 IntegratorPathTracing)
+    from rustlight_tpu_torch.models import cornell_box
+
+    def path():
+        return IntegratorPathTracing(max_depth=SLICE_DEPTH,
+                                     hard_cap=SLICE_DEPTH)
+
+    def light():
+        return IntegratorLightTracing(max_depth=SLICE_DEPTH,
+                                      hard_cap=SLICE_DEPTH)
+
+    def single():
+        return IntegratorPathTracing(max_depth=2, hard_cap=2, min_depth=1,
+                                     single_scattering=True)
+    res, small = (128, 128), (32, 32)
+    pp = "sample for sample: the per-pass route, as the stored row's"
+    splat = ("render_splat, the stored row's route; its scatter-add order "
+             "differs")
+    return [
+        _Row("cbox_path", "path", cornell_box, res, small, path, False, pp),
+        _Row("cbox_path", "light", cornell_box, res, small, light, None,
+             splat),
+        _Row("cbox_medium", "path", _cbox_medium, res, small, path, False,
+             pp),
+        _Row("cbox_medium", "light", _cbox_medium, res, small, light, None,
+             splat),
+        _Row("cbox_medium_single", "path-single", _cbox_medium, res, small,
+             single, False, pp),
+        _Row("cbox_medium", "path", _cbox_medium, res, None, path, True,
+             "statistical: compute_block, while the stored row came from "
+             "the reference's per-pass route"),
+    ]
+
+
+def _card_vs_cpu(label, make_scene, res, integ, spp, dev, persistent=None):
     """The same render (seed 0) on the card and on the CPU: at least
     SCHED_PIX_FRAC of the pixels within SCHED_PIX_RTOL (relative), means
     within SCHED_MEAN_RTOL."""
-    from rustlight_tpu_torch.integrators import render
     imgs = {}
     for where in (dev, "cpu"):
         sd = make_scene(*res).compile(device=where)
-        imgs[str(where)] = render(sd, integ, spp=spp, seed=0)["primal"]
+        imgs[str(where)] = _render(sd, integ, spp, seed=0,
+                                   persistent=persistent)["primal"]
     a, b = imgs[str(dev)], imgs["cpu"]
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-4)
     frac = float((rel.max(-1) <= SCHED_PIX_RTOL).mean())
@@ -2743,48 +2840,82 @@ def _oracle_configs():
     ]
 
 
-def gate_phase(dev, card):
-    """Phase 20. Returns the dense kernels' launches of the two full-width
-    renders (counts reset just before each timed render, read just
-    after)."""
+def _gate_row(row: _Row, dev):
+    """Render a row on the card at GATE_SPP, seed 0, with only K1/K2
+    launched; hold l1, l2, mape and dssim against regress/refs/<row>.exr
+    to stored * GATE_STORED + GATE_FLOOR * floor (regress/results.json,
+    regress/floors.json); then the card against the CPU at the row's small
+    size."""
     import torch
-    from rustlight_tpu_torch.integrators import (IntegratorDirect,
-                                                 IntegratorPathTracing,
-                                                 render)
-    from rustlight_tpu_torch.models import cornell_box, veach_mis
     from rustlight_tpu_torch.utils.image import read_exr
     from rustlight_tpu_torch.utils.metrics import metric_scalar
     regress = os.path.join(ROOT, "regress")
     with open(os.path.join(regress, "results.json")) as f:
-        stored = json.load(f)
+        row_rec = json.load(f)[f"{row.name}/{row.tech}"]
     with open(os.path.join(regress, "floors.json")) as f:
-        floors = json.load(f)
-    rows = _gate_rows()
-    for name, (make, res, small, integ, tech, route) in rows.items():
-        sd = make(*res).compile(device=dev)
-        _reset_launches()
-        t0 = time.time()
-        img = render(sd, integ(), spp=GATE_SPP, seed=0)["primal"]
-        torch.cuda.synchronize()
-        secs = time.time() - t0
-        launched = {k: v for k, v in _launches().items() if v}
-        _only(f"gate {name}", _launches(), ("dense_closest", "dense_anyhit"))
-        if img.shape != (res[1], res[0], 3) or not np.all(np.isfinite(img)):
-            raise AssertionError(f"gate {name}: bad image {img.shape}")
-        ref = read_exr(os.path.join(regress, "refs", f"{name}.exr"))
-        row, floor = stored[f"{name}/{tech}"], floors[name]
-        got = {m: metric_scalar(ref, img, m) for m in GATE_METRICS}
-        limit = {m: row[m] * GATE_STORED + GATE_FLOOR * floor[m]
-                 for m in GATE_METRICS}
-        phase("gate", f"{name}/{tech} {res[0]}x{res[1]} {GATE_SPP} spp seed 0"
-              f" against regress/refs/{name}.exr ({route}): " + ", ".join(
-                  f"{m} {got[m]:.6g} (limit {limit[m]:.6g}, stored "
-                  f"{row[m]:.6g})" for m in GATE_METRICS)
-              + f"; {secs:.3f}s, launches {launched}")
-        bad = [m for m in GATE_METRICS if not got[m] <= limit[m]]
-        if bad:
-            raise AssertionError(f"gate {name}/{tech}: {bad} over the limit")
-        _card_vs_cpu(name, make, small, integ(), GATE_CPU_SPP, dev)
+        floor = json.load(f)[row.name]
+    sd = row.make(*row.res).compile(device=dev)
+    _reset_launches()
+    t0 = time.time()
+    img = _render(sd, row.integ(), GATE_SPP, seed=0,
+                  persistent=row.persistent)["primal"]
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launched = {k: v for k, v in _launches().items() if v}
+    label = f"{row.name}/{row.tech}"
+    _only(f"gate {label}", _launches(), ("dense_closest", "dense_anyhit"))
+    if img.shape != (row.res[1], row.res[0], 3) or not np.all(
+            np.isfinite(img)):
+        raise AssertionError(f"gate {label}: bad image {img.shape}")
+    ref = read_exr(os.path.join(regress, "refs", f"{row.name}.exr"))
+    got = {m: metric_scalar(ref, img, m) for m in GATE_METRICS}
+    limit = {m: row_rec[m] * GATE_STORED + GATE_FLOOR * floor[m]
+             for m in GATE_METRICS}
+    phase("gate", f"{label} {row.res[0]}x{row.res[1]} {GATE_SPP} spp seed 0"
+          f" against regress/refs/{row.name}.exr ({row.route}): " + ", ".join(
+              f"{m} {got[m]:.6g} (limit {limit[m]:.6g}, stored "
+              f"{row_rec[m]:.6g}, {abs(got[m] - row_rec[m]) / row_rec[m]:.2g}"
+              " relative)" for m in GATE_METRICS)
+          + f"; {secs:.3f}s, launches {launched}")
+    bad = [m for m in GATE_METRICS if not got[m] <= limit[m]]
+    if bad:
+        raise AssertionError(f"gate {label}: {bad} over the limit")
+    if row.small is not None:
+        _card_vs_cpu(label, row.make, row.small, row.integ(), GATE_CPU_SPP,
+                     dev, row.persistent)
+
+
+def _full_width(label, sd, integ, spp, card, dense, warm_spp=None):
+    """A render timed as phase 3 (warm-up, of `warm_spp` samples if given,
+    then counts reset and rays counted over a timed render) with only K1/K2
+    launched, their launches added to `dense`, and the device busy share
+    of a warm GATE_PROFILE_SPP render under torch.profiler."""
+    img, wall, warm, n_rays, launches = timed_render(label, sd, integ, spp,
+                                                     warm_spp=warm_spp)
+    _only(f"gate {label}", launches, tuple(dense))
+    for k in dense:
+        dense[k] += launches[k]
+    busy, ours = profile_render(label, sd, integ, GATE_PROFILE_SPP,
+                                ("dense_",), top=6)
+    busy_s = "not measured" if busy is None else f"{100 * busy:.1f}%"
+    phase("gate", f"{label} {spp} spp: warm-up {warm:.3f}s"
+          + ("" if warm_spp is None else f" ({warm_spp} spp)") + ", timed "
+          f"{wall:.3f}s, {n_rays} rays, {n_rays / wall / 1e6:.3f} "
+          f"Mrays/s, mean {img.mean():.6f}, device busy {busy_s} (of a "
+          f"warm {GATE_PROFILE_SPP} spp render), K1 dense_closest "
+          f"{launches['dense_closest']} and K2 dense_anyhit "
+          f"{launches['dense_anyhit']} launches | {card}")
+
+
+def gate_phase(dev, card):
+    """Phase 20. Returns the dense kernels' launches of the two full-width
+    renders (counts reset just before each timed render, read just
+    after)."""
+    from rustlight_tpu_torch.integrators import (IntegratorDirect,
+                                                 IntegratorPathTracing)
+    from rustlight_tpu_torch.models import cornell_box, veach_mis
+    for row in _gate_rows():
+        _gate_row(row, dev)
     for cname, ov, extra, tex, depth in _oracle_configs():
         def make(w, h, ov=ov, extra=extra, tex=tex):
             sc = cornell_box(w, h, mat_overrides=ov)
@@ -2796,27 +2927,37 @@ def gate_phase(dev, card):
                      IntegratorPathTracing(max_depth=depth), GATE_CPU_SPP,
                      dev)
     dense = {"dense_closest": 0, "dense_anyhit": 0}
-    for label, sd, integ, spp in (
-            (f"direct cbox {DIRECT_RES}x{DIRECT_RES}",
-             cornell_box(DIRECT_RES, DIRECT_RES).compile(device=dev),
-             IntegratorDirect(1, 1), DIRECT_SPP),
-            (f"path veach_mis {VEACH_RES[0]}x{VEACH_RES[1]} depth "
-             f"{VEACH_DEPTH}", veach_mis(*VEACH_RES).compile(device=dev),
-             IntegratorPathTracing(max_depth=VEACH_DEPTH), VEACH_SPP)):
-        img, wall, warm, n_rays, launches = timed_render(label, sd, integ,
-                                                         spp)
-        _only(f"gate {label}", launches, tuple(dense))
-        for k in dense:
-            dense[k] += launches[k]
-        busy, ours = profile_render(label, sd, integ, GATE_PROFILE_SPP,
-                                    ("dense_",), top=6)
-        busy_s = "not measured" if busy is None else f"{100 * busy:.1f}%"
-        phase("gate", f"{label} {spp} spp: warm-up {warm:.3f}s, timed "
-              f"{wall:.3f}s, {n_rays} rays, {n_rays / wall / 1e6:.3f} "
-              f"Mrays/s, mean {img.mean():.6f}, device busy {busy_s} (of a "
-              f"warm {GATE_PROFILE_SPP} spp render), K1 dense_closest "
-              f"{launches['dense_closest']} and K2 dense_anyhit "
-              f"{launches['dense_anyhit']} launches | {card}")
+    _full_width(f"direct cbox {DIRECT_RES}x{DIRECT_RES}",
+                cornell_box(DIRECT_RES, DIRECT_RES).compile(device=dev),
+                IntegratorDirect(1, 1), DIRECT_SPP, card, dense)
+    _full_width(f"path veach_mis {VEACH_RES[0]}x{VEACH_RES[1]} depth "
+                f"{VEACH_DEPTH}", veach_mis(*VEACH_RES).compile(device=dev),
+                IntegratorPathTracing(max_depth=VEACH_DEPTH), VEACH_SPP, card,
+                dense)
+    return dense
+
+
+def slice_phase(dev, card):
+    """Phase 21. Returns the dense kernels' launches of its two full-width
+    renders. Their warm-ups take GATE_PROFILE_SPP samples: a pass of the
+    light tracer and an iteration of compute_block are the same work at
+    any spp, and the run stays well inside its time limit."""
+    from rustlight_tpu_torch.integrators import (IntegratorLightTracing,
+                                                 IntegratorPathTracing)
+    from rustlight_tpu_torch.models import cornell_box
+    for row in _slice_rows():
+        _gate_row(row, dev)
+    dense = {"dense_closest": 0, "dense_anyhit": 0}
+    _full_width(f"light cbox {SLICE_RES}x{SLICE_RES} depth {SLICE_DEPTH}",
+                cornell_box(SLICE_RES, SLICE_RES).compile(device=dev),
+                IntegratorLightTracing(max_depth=SLICE_DEPTH,
+                                       hard_cap=SLICE_DEPTH), SLICE_SPP, card,
+                dense, warm_spp=GATE_PROFILE_SPP)
+    _full_width(f"path cbox_medium {SLICE_RES}x{SLICE_RES} depth "
+                f"{SLICE_DEPTH} (compute_block)",
+                _cbox_medium(SLICE_RES, SLICE_RES).compile(device=dev),
+                IntegratorPathTracing(max_depth=SLICE_DEPTH), SLICE_SPP, card,
+                dense, warm_spp=GATE_PROFILE_SPP)
     return dense
 
 
@@ -2963,6 +3104,8 @@ def main() -> int:
                     lab_recs["mma_form_visits"])
     lab_launches = lab_path(dev)
     gate_launches = gate_phase(dev, card)
+    for k, v in slice_phase(dev, card).items():
+        gate_launches[k] += v
 
     def pick(kind):
         """The K3-size spread wavefront stands for a walk kernel; every

@@ -4,16 +4,20 @@ Usage: python -m rustlight_tpu_torch.cli cbox -n 64 -o out.exr path -m 6
        python -m rustlight_tpu_torch.cli cbox -n 4 -o ao.pfm ao -d 2
        python -m rustlight_tpu_torch.cli cbox -n 32 -o d.exr direct -b 1 -l 1
        python -m rustlight_tpu_torch.cli veach_mis -n 32 -o v.exr path -m 8
+       python -m rustlight_tpu_torch.cli cbox -n 8 -o l.exr light -m 8
+       python -m rustlight_tpu_torch.cli cbox -m 0.0025 -n 8 -o m.exr path -m 8
 
 Flags keep the reference CLI's names. Ported so far: the built-in `cbox`
 and `veach_mis` scenes, the `path` integrator with -m/-n/-r/-x/-s
-(strategies all, bsdf, emitter), the `ao` integrator with -d/--distance
-(`inf` for no limit) and -c/--normal-correction, the `direct` integrator
-with -b/--nb-bsdf-samples and -l/--nb-light-samples, -n/--nbsamples,
--o/--output (.pfm, .exr, .png),
--s/--scale-image and -r/--random-number-generator independent[:seed].
+(strategies all, bsdf, emitter, naive; -x single scattering), the
+`light-tracing` (`light`) integrator with -m/-n/-r and -s all | surface |
+volume, the `ao` integrator with -d/--distance (`inf` for no limit) and
+-c/--normal-correction, the `direct` integrator with -b/--nb-bsdf-samples
+and -l/--nb-light-samples, -n/--nbsamples, -o/--output (.pfm, .exr, .png),
+-s/--scale-image, -m/--medium sigma_s[:sigma_a[:g]] (an infinite
+homogeneous medium) and -r/--random-number-generator independent[:seed].
 `--device` names the torch device to render on. The reference's other
-global flags (-a -e -t -m -l -x --progress --resume --adaptive --guiding
+global flags (-a -e -t -l -x --progress --resume --adaptive --guiding
 --aovs --feature-aovs --profile) are declared with its defaults: a flag
 left at its default is accepted, any other value exits with code 1 and
 "<flag> is not ported yet". So does every other scene, sampler or
@@ -26,7 +30,7 @@ import sys
 import time
 
 # integrator subcommands of the reference CLI that have no port yet
-_NOT_PORTED = ("light-tracing", "light", "vpl",
+_NOT_PORTED = ("vpl",
                "vol-primitivies", "vol-primitives", "plane-single",
                "uncorrelated-plane-single", "point-normal", "gradient-path",
                "gradient-path-explicit", "pssmlt", "erpt", "smcmc")
@@ -43,7 +47,6 @@ _NOT_PORTED_FLAGS = (
     (("--profile",), dict(metavar="OUT.json", default=None)),
     (("-t", "--threads"), dict(type=int, default=None)),
     (("-e", "--equal-time"), dict(type=float, default=None)),
-    (("-m", "--medium"), dict(default="0.0")),
     (("-l", "--log"), dict(default=None)),
     (("-x", "--xtra-options"),
      dict(action="append", default=[],
@@ -58,6 +61,12 @@ def _inf_or(s, conv=int):
     return conv(s)
 
 
+def _add_path_length(p):
+    p.add_argument("-m", "--max-depth", default="inf")
+    p.add_argument("-n", "--min-depth", default="0")
+    p.add_argument("-r", "--rr-depth", default="0")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="rustlight_tpu_torch",
                                  description=__doc__.splitlines()[0])
@@ -67,18 +76,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-s", "--scale-image", type=float, default=1.0)
     ap.add_argument("-r", "--random-number-generator", default="independent",
                     help="independent[:seed]")
+    ap.add_argument("-m", "--medium", default="0.0",
+                    help="sigma_s[:sigma_a[:g]] for an infinite homogeneous "
+                    "medium")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (cuda, cuda:1, cpu)")
     for names, kw in _NOT_PORTED_FLAGS:
         ap.add_argument(*names, **kw, help="not ported yet")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser("path")
-    p.add_argument("-m", "--max-depth", default="inf")
-    p.add_argument("-n", "--min-depth", default="0")
-    p.add_argument("-r", "--rr-depth", default="0")
+    _add_path_length(p)
     p.add_argument("-x", "--single-scattering", action="store_true")
     p.add_argument("-s", "--strategy", default="all",
-                   choices=["all", "bsdf", "emitter"])
+                   choices=["all", "bsdf", "emitter", "naive"])
+    p = sub.add_parser("light-tracing", aliases=["light"])
+    _add_path_length(p)
+    p.add_argument("-s", "--strategy", default="all",
+                   choices=["all", "surface", "volume"])
     p = sub.add_parser("ao")
     p.add_argument("-d", "--distance", default="1.0")
     p.add_argument("-c", "--normal-correction", action="store_true")
@@ -93,16 +107,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_integrator(args):
     from .integrators import (IntegratorAO, IntegratorDirect,
-                              IntegratorPathTracing)
+                              IntegratorLightTracing, IntegratorPathTracing)
     if args.command == "ao":
         return IntegratorAO(max_distance=_inf_or(args.distance, float),
                             normal_correction=args.normal_correction)
     if args.command == "direct":
         return IntegratorDirect(args.nb_bsdf_samples, args.nb_light_samples)
-    return IntegratorPathTracing(
-        min_depth=_inf_or(args.min_depth), max_depth=_inf_or(args.max_depth),
-        rr_depth=_inf_or(args.rr_depth), strategy=args.strategy,
-        single_scattering=args.single_scattering)
+    pl = dict(min_depth=_inf_or(args.min_depth),
+              max_depth=_inf_or(args.max_depth),
+              rr_depth=_inf_or(args.rr_depth))
+    if args.command in ("light-tracing", "light"):
+        return IntegratorLightTracing(
+            render_surface=args.strategy in ("all", "surface"),
+            render_volume=args.strategy in ("all", "volume"), **pl)
+    return IntegratorPathTracing(strategy=args.strategy,
+                                 single_scattering=args.single_scattering,
+                                 **pl)
+
+
+def _medium(spec):
+    """-m sigma_s[:sigma_a[:g]]: a gray infinite medium, or None when
+    sigma_s is 0."""
+    from .scene import make_volume
+    parts = str(spec).split(":")
+    sigma_s = float(parts[0])
+    if not sigma_s > 0.0:
+        return None
+    sigma_a = float(parts[1]) if len(parts) > 1 else 0.0
+    g = float(parts[2]) if len(parts) > 2 else 0.0
+    return make_volume(sigma_s=(sigma_s,) * 3, sigma_a=(sigma_a,) * 3, g=g)
 
 
 def main(argv=None) -> int:
@@ -112,7 +145,7 @@ def main(argv=None) -> int:
         dest = names[-1].lstrip("-").replace("-", "_")
         if getattr(args, dest) != ap.get_default(dest):
             raise SystemExit(f"{names[-1]} is not ported yet")
-    if args.command not in ("path", "ao", "direct"):
+    if args.command in _NOT_PORTED:
         raise SystemExit(f"integrator {args.command!r} is not ported yet")
     if args.scene not in ("cbox", "veach_mis"):
         raise SystemExit(f"scene {args.scene!r} is not ported yet")
@@ -121,7 +154,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"sampler {rng!r} is not ported yet")
     seed = int(rng.split(":")[1]) if ":" in rng else 0
 
-    from .integrators import render
+    from .integrators import SplattingIntegrator, render, render_splat
     from .models import cornell_box, veach_mis
 
     t0 = time.time()
@@ -131,10 +164,14 @@ def main(argv=None) -> int:
     cam = scene.camera
     scene.camera = cam._replace(width=int(cam.width * args.scale_image),
                                 height=int(cam.height * args.scale_image))
+    scene.volume = _medium(args.medium)
     sd = scene.compile(device=args.device)
     integ = build_integrator(args)
     t1 = time.time()
-    film = render(sd, integ, args.nbsamples, seed=seed)
+    # a splatting integrator renders through render_splat, as the
+    # reference's _render_once dispatches
+    run = render_splat if isinstance(integ, SplattingIntegrator) else render
+    film = run(sd, integ, args.nbsamples, seed=seed)
     t2 = time.time()
     film.save(args.output)
     print(f"scene {t1 - t0:.2f}s, render {t2 - t1:.2f}s "

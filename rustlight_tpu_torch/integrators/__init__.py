@@ -1,5 +1,7 @@
 from .ao import IntegratorAO
-from .common import render, mis_power, mis_balance
+from .common import (render, render_splat, mis_power, mis_balance,
+                     SplattingIntegrator)
 from .direct import IntegratorDirect
+from .light import IntegratorLightTracing
 from .path import (IntegratorPathTracing, STRATEGY_ALL, STRATEGY_BSDF,
-                   STRATEGY_EMITTER)
+                   STRATEGY_EMITTER, STRATEGY_NAIVE)

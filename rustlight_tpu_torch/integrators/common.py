@@ -3,17 +3,29 @@ rustlight_tpu/integrators/common.py:render.
 
 Integrators with `compute_block` (the path tracer) render every pixel's
 spp samples in one persistent wavefront. Integrators with only
-`compute_pixel` (ambient occlusion) take the per-pass route: one wavefront
-of every pixel per sample, in passes of `spp_per_pass`. The variance AOVs
-and the stratified sampler are not ported yet and raise.
+`compute_pixel` (ambient occlusion, direct), and the path tracer when the
+caller asks for it, take the per-pass route: one wavefront of every pixel
+per sample, in passes of `spp_per_pass`; `variance=True` takes it too and
+adds the `mean` and `variance` AOVs. Splatting integrators (the light
+tracer) render through `render_splat` into a scatter-added film. The
+stratified sampler is not ported yet and raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..utils.film import Film
+from ..utils.film import Film, accumulate_safe, splat_add
 from ..utils.rng import make_stream, stream_fold
+
+
+class SplattingIntegrator:
+    """Base for image-space splatting integrators (light tracing):
+    `trace_paths(scene, n, stream) -> (pixel_ids, values)`, contributions
+    that `render_splat` scatter-adds into the film."""
+
+    def trace_paths(self, scene, n: int, stream):
+        raise NotImplementedError
 
 
 def mis_power(pdf_a, pdf_b):
@@ -37,13 +49,6 @@ def _pixel_grid(width, height):
     return np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int32)
 
 
-def _guarded(li):
-    """Zero the pixels whose sum is non-finite or negative, as the
-    reference guards its splats (accumulate_safe, mod.rs:160-175)."""
-    ok = torch.all(torch.isfinite(li), dim=-1) & torch.all(li >= 0.0, dim=-1)
-    return torch.where(ok[:, None], li, 0.0)
-
-
 def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
            sampler: str = "independent", persistent: bool = None,
            variance: bool = False) -> Film:
@@ -56,12 +61,16 @@ def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
     stream_fold(make_stream(seed), s), passes of min(spp_per_pass, spp)
     samples, spp rounded up to whole passes and the sum divided by that
     count, as the reference does. Non-finite or negative sums (per sample on
-    the per-pass route) are zeroed. An integrator with `prepare(scene)` has
-    it called once, before either route, as the reference does."""
-    if variance or sampler != "independent":
+    the per-pass route) are zeroed. `variance=True` forces the per-pass
+    route and adds the `mean` AOV (the primal) and the `variance` AOV (the
+    unbiased per-sample variance from the sums of li and li^2). An
+    integrator with `prepare(scene)` has it called once, before either
+    route, as the reference does."""
+    if sampler != "independent":
         raise NotImplementedError(
-            "only the independent sampler without variance AOVs is ported "
-            "so far (no variance or stratified)")
+            "only the independent sampler is ported so far (no stratified)")
+    if variance:
+        persistent = False
     if hasattr(integrator, "prepare"):
         integrator.prepare(scene)
     cam = scene.camera
@@ -70,25 +79,65 @@ def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
     pix = torch.as_tensor(_pixel_grid(w, h), device=device)
     base = make_stream(seed, device)
     if hasattr(integrator, "compute_block") and persistent is not False:
-        acc = _guarded(integrator.compute_block(scene, pix,
-                                                stream_fold(base, 0), spp))
+        acc = accumulate_safe(integrator.compute_block(
+            scene, pix, stream_fold(base, 0), spp))
         n_samples = spp
     elif hasattr(integrator, "compute_pixel"):
         chunk = max(1, min(spp_per_pass, spp))
         acc = torch.zeros((h * w, 3), dtype=torch.float32, device=device)
+        acc2 = acc if variance else None
         n_samples = 0
         while n_samples < spp:
             part = torch.zeros_like(acc)
+            part2 = part
             for k in range(chunk):
-                li = integrator.compute_pixel(
-                    scene, pix, stream_fold(base, n_samples + k))
-                part = part + _guarded(li)
+                li = accumulate_safe(integrator.compute_pixel(
+                    scene, pix, stream_fold(base, n_samples + k)))
+                if variance:
+                    part2 = part2 + li * li
+                part = part + li
             acc = acc + part
+            if variance:
+                acc2 = acc2 + part2
             n_samples += chunk
     else:
         raise NotImplementedError(
             f"{type(integrator).__name__} has no ported render route")
     img = (acc.reshape(h, w, 3) / n_samples).cpu().numpy()
+    film = Film(w, h)
+    film.buffers["primal"] = img
+    if variance:
+        m2 = acc2.reshape(h, w, 3).cpu().numpy() - n_samples * img * img
+        film.buffers["mean"] = img
+        film.buffers["variance"] = np.maximum(m2 / max(n_samples - 1, 1), 0.0)
+    return film
+
+
+def render_splat(scene, integrator: SplattingIntegrator, spp: int,
+                 seed: int = 0) -> Film:
+    """Render with a splatting integrator on the scene's device.
+
+    spp * w * h light paths in passes of min(total, w * h); pass p uses
+    stream_fold(make_stream(seed), p). A pass's splats that are non-finite
+    or negative are zeroed, the rest scatter-added (`index_add_`) into a
+    film of its own, which is added to the sum as the reference groups its
+    sum; the sum is scaled by w * h / paths at the end."""
+    cam = scene.camera
+    w, h = cam.width, cam.height
+    total = spp * w * h
+    n = min(total, w * h)
+    device = scene.device
+    base = make_stream(seed, device)
+    acc = torch.zeros((h * w, 3), dtype=torch.float32, device=device)
+    done = 0
+    p = 0
+    while done < total:
+        pids, vals = integrator.trace_paths(scene, n, stream_fold(base, p))
+        acc = acc + splat_add(torch.zeros_like(acc), pids,
+                              accumulate_safe(vals))
+        done += n
+        p += 1
+    img = acc.reshape(h, w, 3).cpu().numpy() * (w * h / done)
     film = Film(w, h)
     film.buffers["primal"] = img
     return film

@@ -1,29 +1,41 @@
-"""Wavefront path tracer with NEE + MIS; port of the persistent-wavefront
-route of rustlight_tpu/integrators/path.py (`compute_block`).
+"""Wavefront path tracer with NEE + MIS; port of
+rustlight_tpu/integrators/path.py (`compute_pixel`, the per-pass route, and
+`compute_block`, the persistent wavefront).
 
 Semantics mirrored: BSDF-directional and light-NEE strategies combined by
 the balance heuristic; `strategy` all | bsdf | emitter filters them (the
-sensor edge always contributes); emission with k edges gated by
+sensor edge always contributes); `naive` samples the cosine hemisphere on
+non-delta surfaces, with no NEE and no MIS; emission with k edges gated by
 min_depth <= k-1; expansion stops at max_depth edges; Russian roulette from
 rr_depth with survival min(max(throughput), 0.95). A vertex whose BSDF
 has a delta lobe (glass, smooth metal or substrate) takes no NEE, and the
 emission found after a delta bounce has weight 1. Camera paths use the
 importance transport, as the reference's call sites do.
 
-Each iteration draws its uniforms in the reference's order and shapes, for
-every lane: u_pix (n,2), u_sel (n,), u_pos (n,2), u_nrr (n,) only with
-NEE Russian roulette on, u_bsdf (n,2), u_rr (n,). The streams are bit-exact
-with the reference's, so the two packages render sample for sample alike.
+In a scene with a homogeneous medium (`scene.volume`), each segment
+samples a free-flight distance (`tfar = 1e8` where the ray misses: the
+medium is infinite). A lane that scatters makes a medium vertex: NEE with
+the phase function and the shadow segment's transmittance, and a phase
+bounce. `single_scattering` keeps the medium vertices only: a surface hit
+adds its emission and ends the path.
 
-Loop shape: the reference's `while_loop` tests `any(alive | done < spp)`
-before every iteration; read on the host, that test would cost a device
-sync per iteration. Here the loop runs CHECK_EVERY iterations between two
-tests and never passes the reference's iteration cap. An iteration after
-the last sample has finished changes no accumulator, so the result is
-the reference's.
+Each iteration draws its uniforms in the reference's order and shapes, for
+every lane: u_pix (n,2) (compute_block only; compute_pixel draws it once),
+u_med (n,) only with a medium, u_sel (n,), u_pos (n,2), u_nrr (n,) only
+with NEE Russian roulette on, u_bsdf (n,2), u_rr (n,). The streams are
+bit-exact with the reference's, so the two packages render sample for
+sample alike.
+
+Loop shape: the reference's `while_loop`s test `any(alive)` (any(alive |
+done < spp) in compute_block) before every iteration; read on the host,
+that test would cost a device sync per iteration. Here the loops run
+CHECK_EVERY iterations between two tests and never pass the reference's
+iteration cap. An iteration with no path in flight changes no
+accumulator, so the result is the reference's.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -34,17 +46,38 @@ from ..bsdfs.table import TRANSPORT_IMPORTANCE
 from ..scene import (fill_hit, generate_rays, sample_light, direct_pdf_tri,
                      emitted_radiance)
 from ..scene.scene import offset_ray_origin
+from ..scene.volume import (phase_eval, phase_sample, transmittance,
+                            volume_sample_distance)
 from ..utils.frame import to_world, to_local
 from ..utils.rng import stream_next, stream_next2d
 from ..utils.vec import channel_max
+from ..utils.warps import cosine_sample_hemisphere
 from .common import mis_balance
 
 STRATEGY_ALL = "all"
 STRATEGY_BSDF = "bsdf"
 STRATEGY_EMITTER = "emitter"
+# cosine-hemisphere sampling, no BSDF importance sampling and no NEE: the
+# reference's NaiveSamplingStrategy, the importance-sampling oracle
+STRATEGY_NAIVE = "naive"
 
 # iterations between two host-side checks of the loop condition
 CHECK_EVERY = 8
+
+
+class _PathState(NamedTuple):
+    """Per-pass state: one path a lane."""
+    stream: Any
+    o: Any            # [n, 3] current ray origin (previous vertex)
+    d: Any            # [n, 3] current ray direction
+    throughput: Any   # [n, 3]
+    radiance: Any     # [n, 3]
+    alive: Any        # [n]
+    depth: Any        # 0-d int32: edges completed (the reference's k)
+    prev_pdf: Any     # [n] solid-angle pdf of the directional strategy
+    prev_delta: Any   # [n] previous bounce was a delta lobe (or the sensor)
+    prev_nee: Any     # [n] NEE was possible at the previous vertex
+    prev_occ: Any     # [n] this lane's most recent NEE shadow ray was blocked
 
 
 class _PersistentState(NamedTuple):
@@ -65,6 +98,21 @@ class _PersistentState(NamedTuple):
     prev_occ: Any
 
 
+class _Vertex(NamedTuple):
+    """What one segment and its vertex give a lane (see `_vertex`)."""
+    stream: Any
+    radiance: Any     # [n, 3] the path's radiance with this vertex's terms
+    thr: Any          # [n, 3] throughput after the segment's medium weight
+    alive: Any        # [n] the path goes on
+    o: Any            # [n, 3] next ray origin
+    d: Any            # [n, 3] next ray direction
+    throughput: Any   # [n, 3] throughput after the bounce and roulette
+    pdf_dir: Any
+    is_delta: Any
+    nee_possible: Any
+    prev_occ: Any
+
+
 class IntegratorPathTracing:
     def __init__(self, min_depth: Optional[int] = None,
                  max_depth: Optional[int] = None,
@@ -73,8 +121,9 @@ class IntegratorPathTracing:
                  single_scattering: bool = False,
                  nee_rr="default",
                  hard_cap: int = 64):
-        if strategy not in (STRATEGY_ALL, STRATEGY_BSDF, STRATEGY_EMITTER):
-            raise NotImplementedError(f"strategy {strategy!r} is not ported yet")
+        if strategy not in (STRATEGY_ALL, STRATEGY_BSDF, STRATEGY_EMITTER,
+                            STRATEGY_NAIVE):
+            raise ValueError(f"unknown strategy {strategy!r}")
         self.min_depth = min_depth or 0
         self.max_depth = max_depth
         self.rr_depth = rr_depth
@@ -94,6 +143,49 @@ class IntegratorPathTracing:
         if self.nee_rr == "default":
             return 0.25 if scene.geom.walk is not None else None
         return self.nee_rr
+
+    def compute_pixel(self, scene, pix, stream):
+        """One sample of every pixel: the radiance of one path a lane,
+        [n, 3]. The loop runs at most hard_cap iterations."""
+        n = pix.shape[0]
+        dev = pix.device
+        u_pix, stream = stream_next2d(stream, (n,))
+        o, d = generate_rays(scene.camera, pix.to(torch.float32) + u_pix)
+        s = _PathState(
+            stream=stream, o=o, d=d,
+            throughput=torch.ones((n, 3), dtype=torch.float32, device=dev),
+            radiance=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+            alive=torch.ones(n, dtype=torch.bool, device=dev),
+            depth=torch.zeros((), dtype=torch.int32, device=dev),
+            prev_pdf=torch.ones(n, dtype=torch.float32, device=dev),
+            prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
+            prev_nee=torch.zeros(n, dtype=torch.bool, device=dev),
+            prev_occ=torch.zeros(n, dtype=torch.bool, device=dev),
+        )
+        nee_rr = self._nee_rr_for(scene)
+        k = 0
+        while k < self.hard_cap:
+            if not bool(torch.any(s.alive)):
+                break
+            for _ in range(min(CHECK_EVERY, self.hard_cap - k)):
+                v = self._vertex(scene, s.o, s.d, s.throughput, s.radiance,
+                                 s.alive, s.depth, s.prev_pdf, s.prev_delta,
+                                 s.prev_nee, s.prev_occ, s.stream, nee_rr,
+                                 self.max_depth)
+                an = v.alive[:, None]
+                s = _PathState(
+                    stream=v.stream,
+                    o=torch.where(an, v.o, s.o),
+                    d=torch.where(an, v.d, s.d),
+                    throughput=torch.where(an, v.throughput, s.throughput),
+                    radiance=v.radiance, alive=v.alive, depth=s.depth + 1,
+                    prev_pdf=torch.where(v.alive, v.pdf_dir, s.prev_pdf),
+                    prev_delta=torch.where(v.alive, v.is_delta, s.prev_delta),
+                    prev_nee=torch.where(v.alive, v.nee_possible, s.prev_nee),
+                    prev_occ=v.prev_occ,
+                )
+            k += min(CHECK_EVERY, self.hard_cap - k)
+        return s.radiance
 
     def compute_block(self, scene, pix, stream, spp: int):
         """All `spp` samples of every pixel in one persistent wavefront.
@@ -127,35 +219,95 @@ class IntegratorPathTracing:
 
     def _step(self, scene, pixf, s: _PersistentState, spp: int, nee_rr):
         n = pixf.shape[0]
-        use_nee = self.strategy in (STRATEGY_ALL, STRATEGY_EMITTER)
-        mis_on = self.strategy == STRATEGY_ALL
-        keep_bsdf_hits = self.strategy in (STRATEGY_ALL, STRATEGY_BSDF)
-        stream = s.stream
-
         # ---- respawn: dead lanes with samples left start a new path
-        u_pix, stream = stream_next2d(stream, (n,))
+        u_pix, stream = stream_next2d(s.stream, (n,))
         o0, d0 = generate_rays(scene.camera, pixf + u_pix)
         need = (~s.alive) & (s.done < spp)
         nm = need[:, None]
         o = torch.where(nm, o0, s.o)
         d = torch.where(nm, d0, s.d)
-        thr = torch.where(nm, 1.0, s.throughput)
-        rad_path = torch.where(nm, 0.0, s.rad_path)
-        depth = torch.where(need, 0, s.depth)
         prev_pdf = torch.where(need, 1.0, s.prev_pdf)
         prev_delta = need | s.prev_delta
         prev_nee = (~need) & s.prev_nee
-        prev_occ = (~need) & s.prev_occ
         alive = s.alive | need
+        # the reference caps a path at hard_cap edges when max_depth is None,
+        # so that no path is still in flight at it_cap
+        v = self._vertex(scene, o, d, torch.where(nm, 1.0, s.throughput),
+                         torch.where(nm, 0.0, s.rad_path), alive,
+                         torch.where(need, 0, s.depth), prev_pdf, prev_delta,
+                         prev_nee, (~need) & s.prev_occ, stream, nee_rr,
+                         self.hard_cap if self.max_depth is None
+                         else self.max_depth)
+
+        # ---- sample bookkeeping: paths that just ended bank their sum
+        finished = alive & (~v.alive)
+        an = v.alive[:, None]
+        return _PersistentState(
+            stream=v.stream,
+            o=torch.where(an, v.o, o),
+            d=torch.where(an, v.d, d),
+            throughput=torch.where(an, v.throughput, v.thr),
+            rad_path=v.radiance,
+            accum=s.accum + torch.where(finished[:, None], v.radiance, 0.0),
+            alive=v.alive, done=s.done + finished.to(torch.int32),
+            depth=torch.where(need, 0, s.depth) + 1,
+            prev_pdf=torch.where(v.alive, v.pdf_dir, prev_pdf),
+            prev_delta=torch.where(v.alive, v.is_delta, prev_delta),
+            prev_nee=torch.where(v.alive, v.nee_possible, prev_nee),
+            prev_occ=v.prev_occ,
+        )
+
+    def _naive_bounce(self, scene, hit, smooth, u_bsdf, bs):
+        """STRATEGY_NAIVE: cosine-hemisphere sampling on the wi side, weight
+        f * cos / pdf with pdf = |cos| / pi. Delta materials keep BSDF
+        sampling: a cosine draw never lands on a delta lobe."""
+        wo_n = cosine_sample_hemisphere(u_bsdf)
+        sz = torch.where(hit.wi[:, 2] < 0.0, -1.0, 1.0)
+        wo_n = torch.cat([wo_n[:, :2], wo_n[:, 2:3] * sz[:, None]], dim=-1)
+        pdf_n = torch.abs(wo_n[:, 2]) / math.pi
+        f_n = bsdf_eval(scene.materials, hit.mat, hit.uv, hit.wi, wo_n,
+                        TRANSPORT_IMPORTANCE)
+        w_n = f_n / torch.clamp(pdf_n, min=1e-12)[:, None]
+        use_n = ~smooth
+        return (torch.where(use_n[:, None], wo_n, bs.wo),
+                torch.where(use_n[:, None], w_n, bs.weight),
+                torch.where(use_n, pdf_n, bs.pdf),
+                use_n.logical_not() & bs.is_delta,
+                torch.where(use_n, pdf_n > 0.0, bs.valid))
+
+    def _vertex(self, scene, o, d, thr0, rad, alive, depth, prev_pdf,
+                prev_delta, prev_nee, prev_occ, stream, nee_rr,
+                depth_cap) -> _Vertex:
+        """One segment from o along d and the vertex it ends at, for every
+        lane: the medium's free flight, the emission found, NEE, the bounce
+        and Russian roulette. `depth` (edges completed, [n] or 0-d) gates
+        the terms; a vertex expands while depth + 1 < depth_cap (None: no
+        cap here)."""
+        n = o.shape[0]
+        use_nee = self.strategy in (STRATEGY_ALL, STRATEGY_EMITTER)
+        mis_on = self.strategy == STRATEGY_ALL
+        keep_bsdf_hits = self.strategy != STRATEGY_EMITTER
+        vol = scene.volume
 
         # dead lanes trace inert (tfar = 0) rays, which the kernel skips
         rh = intersect_rays(scene.geom, o, d,
                             tfar=torch.where(alive, float("inf"), 0.0))
         hit = fill_hit(scene, o, d, rh)
 
+        # ---- medium: free-flight sampling along the segment
+        if vol is not None:
+            u_med, stream = stream_next(stream, (n,))
+            sd = volume_sample_distance(vol, torch.where(rh.hit, rh.t, 1e8),
+                                        u_med)
+            scattered = alive & (~sd.exited)
+            thr = thr0 * sd.w
+            p_scatter = o + d * sd.t[:, None]
+        else:
+            scattered = torch.zeros_like(alive)
+            thr = thr0
+        lane_hit = alive & hit.valid & (~scattered)
+
         # ---- emission picked up through the BSDF/sensor edge
-        lane_hit = alive & hit.valid
-        min_ok = depth >= self.min_depth
         le = emitted_radiance(scene.emitters, scene.geom, hit.tri, d)
         pdf_light = direct_pdf_tri(scene.emitters, hit.tri, o, hit.p, hit.n_g, d)
         if mis_on:
@@ -163,31 +315,39 @@ class IntegratorPathTracing:
                                 mis_balance(prev_pdf, pdf_light))
         else:
             w_hit = torch.ones_like(prev_pdf)
-        add = lane_hit & min_ok
+        add = lane_hit & (depth >= self.min_depth)
         if not keep_bsdf_hits:   # the sensor edge always contributes
             add = add & (depth == 0)
-        rad_path = rad_path + torch.where(add[:, None],
-                                          thr * le * w_hit[:, None], 0.0)
+        rad = rad + torch.where(add[:, None], thr * le * w_hit[:, None], 0.0)
 
         smooth = bsdf_is_smooth(scene.materials, hit.mat)
+        # single scattering: a surface vertex adds its emission and ends
         lane_surface = (torch.zeros_like(lane_hit) if self.single_scattering
                         else lane_hit)
-        depth_cap = self.hard_cap if self.max_depth is None else self.max_depth
-        can_expand = lane_surface & (depth + 1 < depth_cap)
+        can_expand = lane_surface | scattered
+        if depth_cap is not None:
+            can_expand = can_expand & (depth + 1 < depth_cap)
+        p_v = hit.p if vol is None else torch.where(scattered[:, None],
+                                                    p_scatter, hit.p)
 
         # ---- NEE (light strategy); u_sel/u_pos are drawn in every case
         u_sel, stream = stream_next(stream, (n,))
         u_pos, stream = stream_next2d(stream, (n,))
         if use_nee:
-            ls = sample_light(scene.emitters, scene.geom, hit.p, u_sel, u_pos)
+            ls = sample_light(scene.emitters, scene.geom, p_v, u_sel, u_pos)
             wo_l = to_local(hit.frame, ls.d)
             f = bsdf_eval(scene.materials, hit.mat, hit.uv, hit.wi, wo_l,
                           TRANSPORT_IMPORTANCE)
-            pdf_s = bsdf_pdf(scene.materials, hit.mat, hit.uv, hit.wi, wo_l,
-                             TRANSPORT_IMPORTANCE)
+            pdf_other = bsdf_pdf(scene.materials, hit.mat, hit.uv, hit.wi,
+                                 wo_l, TRANSPORT_IMPORTANCE)
             p_shadow = offset_ray_origin(hit.p, hit.n_g, ls.d)
-            pre_ok = (can_expand & (~smooth) & ls.valid
-                      & ((depth + 1) >= self.min_depth))
+            if vol is not None:
+                ph = phase_eval(vol.phase_g, -d, ls.d)
+                f = torch.where(scattered[:, None], ph[:, None], f)
+                pdf_other = torch.where(scattered, ph, pdf_other)
+                p_shadow = torch.where(scattered[:, None], p_v, p_shadow)
+            pre_ok = (can_expand & (scattered | (lane_surface & (~smooth)))
+                      & ls.valid & ((depth + 1) >= self.min_depth))
             nee_scale = None
             if nee_rr is not None:
                 u_nrr, stream = stream_next(stream, (n,))
@@ -197,22 +357,40 @@ class IntegratorPathTracing:
             # lanes that cannot contribute shoot an inert (tfar = 0) ray
             vis = visible(scene.geom, p_shadow, ls.p, mask=pre_ok)
             if mis_on:
-                w_nee = torch.where(ls.is_delta, 1.0, mis_balance(ls.pdf, pdf_s))
+                w_nee = torch.where(ls.is_delta, 1.0,
+                                    mis_balance(ls.pdf, pdf_other))
             else:
                 w_nee = torch.ones_like(ls.pdf)
             nee_ok = pre_ok & vis
             prev_occ = torch.where(pre_ok, ~vis, prev_occ)
-            contrib = thr * f * ls.weight * w_nee[:, None]
+            contrib = thr * f
+            if vol is not None:
+                contrib = contrib * transmittance(vol, ls.dist)
+            contrib = contrib * ls.weight * w_nee[:, None]
             if nee_scale is not None:
                 contrib = contrib * nee_scale
-            rad_path = rad_path + torch.where(nee_ok[:, None], contrib, 0.0)
+            rad = rad + torch.where(nee_ok[:, None], contrib, 0.0)
 
-        # ---- directional bounce
+        # ---- directional bounce: BSDF at surfaces, phase in the medium
         u_bsdf, stream = stream_next2d(stream, (n,))
         bs = bsdf_sample(scene.materials, hit.mat, hit.uv, hit.wi, u_bsdf,
                          TRANSPORT_IMPORTANCE)
-        wo_world = to_world(hit.frame, bs.wo)
-        throughput = thr * bs.weight
+        if self.strategy == STRATEGY_NAIVE:
+            wo, weight, pdf_dir, is_delta, valid_dir = self._naive_bounce(
+                scene, hit, smooth, u_bsdf, bs)
+        else:
+            wo, weight, pdf_dir, is_delta, valid_dir = (
+                bs.wo, bs.weight, bs.pdf, bs.is_delta, bs.valid)
+        wo_world = to_world(hit.frame, wo)
+        if vol is not None:
+            d_ph, w_ph, pdf_ph = phase_sample(vol.phase_g, -d, u_bsdf)
+            sc = scattered[:, None]
+            wo_world = torch.where(sc, d_ph, wo_world)
+            weight = torch.where(sc, w_ph, weight)
+            pdf_dir = torch.where(scattered, pdf_ph, pdf_dir)
+            is_delta = (~scattered) & is_delta
+            valid_dir = torch.where(scattered, pdf_ph > 0.0, valid_dir)
+        throughput = thr * weight
 
         # ---- Russian roulette
         u_rr, stream = stream_next(stream, (n,))
@@ -226,25 +404,14 @@ class IntegratorPathTracing:
                                1.0 / torch.clamp(rr_p, min=1e-8), 1.0)
             throughput = throughput * rr_w[:, None]
 
-        alive_new = (can_expand & bs.valid & rr_keep
+        alive_new = (can_expand & valid_dir & rr_keep
                      & (channel_max(throughput) > 0.0))
         o_new = offset_ray_origin(hit.p, hit.n_g, wo_world)
-        nee_possible = (~smooth) if use_nee else torch.zeros_like(smooth)
-
-        # ---- sample bookkeeping: paths that just ended bank their sum
-        finished = alive & (~alive_new)
-        accum = s.accum + torch.where(finished[:, None], rad_path, 0.0)
-        done = s.done + finished.to(torch.int32)
-        an = alive_new[:, None]
-        return _PersistentState(
-            stream=stream,
-            o=torch.where(an, o_new, o),
-            d=torch.where(an, wo_world, d),
-            throughput=torch.where(an, throughput, thr),
-            rad_path=rad_path, accum=accum,
-            alive=alive_new, done=done, depth=depth + 1,
-            prev_pdf=torch.where(alive_new, bs.pdf, prev_pdf),
-            prev_delta=torch.where(alive_new, bs.is_delta, prev_delta),
-            prev_nee=torch.where(alive_new, nee_possible, prev_nee),
-            prev_occ=prev_occ,
-        )
+        if vol is not None:
+            o_new = torch.where(scattered[:, None], p_v, o_new)
+        nee_possible = ((scattered | (~smooth)) if use_nee
+                        else torch.zeros_like(smooth))
+        return _Vertex(stream=stream, radiance=rad, thr=thr, alive=alive_new,
+                       o=o_new, d=wo_world, throughput=throughput,
+                       pdf_dir=pdf_dir, is_delta=is_delta,
+                       nee_possible=nee_possible, prev_occ=prev_occ)

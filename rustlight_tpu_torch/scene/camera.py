@@ -1,7 +1,9 @@
 """Perspective pinhole camera; port of rustlight_tpu/scene/camera.py.
 
 Matrices are built host-side in numpy exactly as the reference builds them;
-`camera_to` uploads them, and `generate_rays` is batched torch.
+`camera_to` uploads them. `generate_rays` and its adjoint `sample_direct`
+(world point -> pixel and importance, for the light tracer's splats) are
+batched torch.
 """
 from __future__ import annotations
 
@@ -149,3 +151,35 @@ def generate_rays(cam: Camera, px) -> Tuple[Any, Any]:
     d_world = _transform_vector(cam.to_world, d)
     o = cam.position.expand(d_world.shape)
     return o, d_world
+
+
+def sample_direct(cam: Camera, p):
+    """Splat world points p [n, 3] onto the image plane (the adjoint of
+    `generate_rays`). Returns (importance [n]: W_e / dist^2, 0 off screen or
+    behind; pixel [n, 2]: continuous coordinates)."""
+    ref_p = _transform_point(cam.to_local, p)
+    z_ok = ref_p[..., 2] > 0.0
+
+    screen = _transform_point(cam.camera_to_sample, ref_p)
+    sx, sy = screen[..., 0], screen[..., 1]
+    on_screen = (sx >= 0.0) & (sx <= 1.0) & (sy >= 0.0) & (sy <= 1.0)
+    pixel = torch.stack([sx * cam.width, sy * cam.height], dim=-1)
+
+    dist = torch.sqrt(ref_p[..., 0] * ref_p[..., 0]
+                      + ref_p[..., 1] * ref_p[..., 1]
+                      + ref_p[..., 2] * ref_p[..., 2])
+    inv_dist = 1.0 / torch.clamp(dist, min=1e-20)
+    local_d = ref_p * inv_dist[..., None]
+
+    cos_theta = local_d[..., 2]
+    inv_ct = 1.0 / torch.clamp(cos_theta, min=1e-20)
+    px_plane = local_d[..., 0] * inv_ct
+    py_plane = local_d[..., 1] * inv_ct
+    rmin, rmax = cam.image_rect_min, cam.image_rect_max
+    in_rect = ((px_plane >= rmin[0]) & (px_plane <= rmax[0])
+               & (py_plane >= rmin[1]) & (py_plane <= rmax[1]))
+    area = (rmax[0] - rmin[0]) * (rmax[1] - rmin[1])
+    importance = (1.0 / area) * inv_ct ** 3
+    valid = z_ok & on_screen & in_rect & (cos_theta > 0.0)
+    w = torch.where(valid, importance * inv_dist * inv_dist, 0.0)
+    return w, pixel

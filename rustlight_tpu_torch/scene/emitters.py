@@ -6,10 +6,14 @@ max of its flux) is spread over its triangles by area, so the area pdf of a
 sampled point is sel_pdf(mesh)/mesh_area, as in the reference. Point,
 directional, point-normal and environment atoms, and uv-dependent emission,
 are not ported yet: building or uploading them raises NotImplementedError.
+`sample_position` and `sample_emission_direction` start the light tracer's
+paths on the triangle atoms.
 """
 from __future__ import annotations
 
 from typing import Any, List, NamedTuple
+
+import math
 
 import numpy as np
 import torch
@@ -17,8 +21,9 @@ import torch
 from ..utils.distribution import (Distribution1D, build_distribution_1d_np,
                                   distribution_to, pdf_discrete_1d,
                                   sample_discrete_1d)
+from ..utils.frame import make_frame, to_world
 from ..utils.vec import dot, length
-from ..utils.warps import uniform_sample_triangle
+from ..utils.warps import cosine_sample_hemisphere, uniform_sample_triangle
 
 ATOM_TRI = 0   # the reference's other atom kinds (1-4) are not ported
 
@@ -47,6 +52,17 @@ class LightSample(NamedTuple):
     is_delta: Any  # [n] bool
     valid: Any     # [n]
     tri: Any       # [n] sampled triangle (-1 otherwise)
+
+
+class PositionSample(NamedTuple):
+    """Emission origin of a light path (reference SampledPosition + flux)."""
+    p: Any         # [n, 3]
+    n: Any         # [n, 3]
+    pdf_area: Any  # [n]
+    weight: Any    # [n, 3] flux estimate (Phi / pdf, selection included)
+    kind: Any      # [n] atom kind
+    atom: Any      # [n] atom id
+    valid: Any     # [n]
 
 
 def build_emitter_tables(meshes, mesh_emitter_id: List[int], t_pad: int,
@@ -180,3 +196,34 @@ def emitted_radiance(em: EmitterTables, geom, tri_id, d):
     t = torch.clamp(tri_id, min=0)
     front = dot(geom.n_g[t], -d) > 0.0
     return torch.where((front & (tri_id >= 0))[:, None], em.tri_emission[t], 0.0)
+
+
+def sample_position(em: EmitterTables, geom, u_sel, u_pos) -> PositionSample:
+    """Emission origin for light paths: an atom by flux, a uniform point on
+    its triangle; weight Phi = Le * pi / pdf_area with the selection pdf
+    folded in."""
+    atom = sample_discrete_1d(em.atom_cdf, u_sel)
+    sel_pdf = pdf_discrete_1d(em.atom_cdf, atom)
+    kind = em.atom_kind[atom]
+    tri = em.atom_ref[atom]
+    b = uniform_sample_triangle(u_pos)
+    p = geom.v0[tri] + b[..., 0:1] * geom.e1[tri] + b[..., 1:2] * geom.e2[tri]
+    pdf_area = sel_pdf / torch.clamp(geom.area[tri], min=1e-20)
+    weight = em.tri_emission[tri] * (
+        math.pi / torch.clamp(pdf_area, min=1e-30))[:, None]
+    valid = sel_pdf > 0.0
+    return PositionSample(p=p, n=geom.n_g[tri], pdf_area=pdf_area,
+                          weight=torch.where(valid[:, None], weight, 0.0),
+                          kind=kind, atom=atom, valid=valid)
+
+
+def sample_emission_direction(em: EmitterTables, ps: PositionSample, u):
+    """Cosine-weighted direction about the origin's normal (perfect
+    importance sampling of a diffuse emitter, weight 1).
+    Returns (d_world [n, 3], pdf [n], weight [n, 3])."""
+    d_loc = cosine_sample_hemisphere(u)
+    d = to_world(make_frame(ps.n), d_loc)
+    pdf = torch.clamp(d_loc[..., 2], min=0.0) / math.pi
+    weight = torch.where((d_loc[..., 2] >= 0.0)[:, None], 1.0, 0.0) \
+        * torch.ones_like(ps.p)
+    return d, pdf, weight

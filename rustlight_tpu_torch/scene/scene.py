@@ -5,7 +5,7 @@ rustlight_tpu/scene/scene.py.
 does (kept as `SceneData.host`), then `from_numpy_scene` uploads them to
 `device`. `from_numpy_scene` also takes the JAX package's compiled numpy
 scene (`sd.host.data`), read by attribute, so both packages can render the
-very same tables.
+very same tables, the homogeneous medium included.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from ..utils.vec import dot
 from .camera import Camera, camera_to
 from .emitters import build_emitter_tables, emitters_to
 from .geometry import TriMesh, build_geometry_tables, geometry_to, scene_bounds
+from .volume import HomogeneousVolume, volume_to
 
 
 class SceneData(NamedTuple):
@@ -30,6 +31,7 @@ class SceneData(NamedTuple):
     emitters: Any
     host: Optional[Any] = None       # the numpy SceneData this was built from
     use_shading_normals: bool = True
+    volume: Optional[HomogeneousVolume] = None   # infinite medium, on device
 
     @property
     def device(self) -> torch.device:
@@ -43,6 +45,7 @@ class Scene:
     meshes: List[TriMesh] = field(default_factory=list)
     materials: List[MaterialDesc] = field(default_factory=list)
     textures: Optional[np.ndarray] = None   # [k, th, tw, 3] bitmap atlas
+    volume: Optional[HomogeneousVolume] = None   # numpy (make_volume)
 
     def add_material(self, desc: MaterialDesc) -> int:
         self.materials.append(desc)
@@ -79,7 +82,8 @@ class Scene:
                             materials=build_material_table(
                                 materials, textures=self.textures),
                             emitters=emitters,
-                            use_shading_normals=use_shading_normals)
+                            use_shading_normals=use_shading_normals,
+                            volume=self.volume)
         return from_numpy_scene(host_sd, device, walk_options)
 
 
@@ -90,10 +94,9 @@ def from_numpy_scene(host_sd, device, walk_options=None) -> SceneData:
     `sd.host.data`; it is read by attribute only. The material table comes
     with its texture atlas. Walk tables come along
     (the JAX package's converted to this package's layout); the JAX
-    package's clustered tables are ignored. `walk_options` sets the walk's
-    schedule (accel/walk.py: WalkOptions)."""
-    if getattr(host_sd, "volume", None) is not None:
-        raise NotImplementedError("participating media are not ported yet")
+    package's clustered tables are ignored. The medium's sigmas and phase g
+    are read as plain numbers. `walk_options` sets the walk's schedule
+    (accel/walk.py: WalkOptions)."""
     if getattr(host_sd, "ats", None) is not None:
         raise NotImplementedError("ATS light sampling is not ported yet")
     device = torch.device(device)
@@ -104,6 +107,8 @@ def from_numpy_scene(host_sd, device, walk_options=None) -> SceneData:
         emitters=emitters_to(host_sd.emitters, device),
         host=host_sd,
         use_shading_normals=bool(host_sd.use_shading_normals),
+        volume=(None if getattr(host_sd, "volume", None) is None
+                else volume_to(host_sd.volume, device)),
     )
 
 

@@ -1,11 +1,13 @@
-"""Film plane / AOV buffers; port of the Film of rustlight_tpu/utils/film.py.
+"""Film plane / AOV buffers; port of rustlight_tpu/utils/film.py.
 Images are written by extension through the port's utils/image.py (.pfm,
-.exr, .png/.jpg)."""
+.exr, .png/.jpg). `splat_add` scatter-adds lane contributions into a
+device film with `index_add_`."""
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from . import image as _image
 from .image import write_pfm  # noqa: F401  (the PFM writer, as before)
@@ -24,3 +26,18 @@ class Film:
 
     def __getitem__(self, name: str) -> np.ndarray:
         return self.buffers[name]
+
+
+def splat_add(film, pixel_ids, values):
+    """Scatter-add lane contributions into a [h*w, c] device film, in
+    place, and return it. pixel_ids [n] linear ids (y*width + x) in
+    [0, h*w); values [n, c]. Duplicate ids accumulate."""
+    return film.index_add_(0, pixel_ids.long(), values)
+
+
+def accumulate_safe(values):
+    """Zero the splats (or per-sample sums) that are non-finite or negative
+    in any channel (reference accumulate_safe)."""
+    ok = torch.all(torch.isfinite(values) & (values >= 0.0), dim=-1,
+                   keepdim=True)
+    return torch.where(ok, values, 0.0)
