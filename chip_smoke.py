@@ -231,6 +231,29 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      timed as in phase 20 (but the warm-up at 8 spp), the light tracer on
      cornell_box(512, 512) and the path tracer through compute_block in the
      medium at 512x512, both at 32 spp and depth 8.
+ 22. the example scenes: (a) examples/cbox.pbrt, instances.pbrt,
+     caustic.pbrt, envglass.xml and fog_box.xml through the port's
+     load_scene, compiled on the card, their triangle counts and tiers
+     checked (dense: K1/K2; walk: K3), and an OBJ written from fog_box's
+     meshes loaded back through the native OBJ parser (built with g++;
+     `obj.PARSES` must count it); (b) each example scene shrunk with
+     resize_camera to 32 pixels wide, 4 spp, seed 0: the path tracer
+     (depth 8, compute_block) on all five, direct on envglass and fog_box,
+     the light tracer on fog_box and envglass, and the point + directional
+     scene, the env-glass scene and the two uv-emission boxes (HSV,
+     texture) of tests/test_oracle.py rebuilt with the port's classes, each
+     on the card against the CPU: 99.9% of pixels within 1e-3 (relative),
+     means within 1e-4, only K1/K2 on the dense scenes and only K3 on the
+     walk scenes launched; (c) the white furnace, furnace_scene(256, 256,
+     albedo 0.5) (8,064 triangles, K3), the path tracer at max_depth 6
+     with no roulette, 32 spp: the center patch within 0.015 of 0.5, the
+     corner within 1e-3 of 1 (tests/test_integrators.py:25-35 scaled to the
+     film); (d) envglass 512x384, fog_box 384x288 and caustic 448x336, the
+     path tracer (depth 8, compute_block) at 16 spp after a 1 spp warm-up,
+     timed as phase 20 (Mrays/s, wall, K1/K2/K3 launches), and the device
+     busy share of one 2 spp profile of envglass; (e) `python -m
+     rustlight_tpu_torch.cli examples/envglass.xml -n 2 path -m 8` in a
+     subprocess: exit 0 and a finite 512x384 image.
 
 Before the last line: a JSON line with each kernel's tables and wavefronts
 (kernel_cases), the candidate forms' table (a1_forms) and the split forms'
@@ -238,8 +261,9 @@ records of K7, K3w and K8 (split_forms), the card line
 from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
-The K1/K2 launches of phases 20 and 21's full-width renders are added to
-K1/K2's in the kernels line.
+The K1/K2 launches of phases 20 and 21's full-width renders, and the
+K1/K2/K3 launches of phase 22's, are added to K1/K2's and K3's in the
+kernels line.
 """
 from __future__ import annotations
 
@@ -363,6 +387,16 @@ VEACH_RES, VEACH_SPP, VEACH_DEPTH = (256, 192), 128, 8
 # whole run took 933 s of its 1,200 s on an H100 (700 W) with a slow host
 MEDIUM_SIGMA_S, SLICE_DEPTH = 0.0025, 8
 SLICE_RES, SLICE_SPP = 512, 32
+# phase 22: the example scenes, their triangle counts and walk tier; the
+# card against the CPU at EX_WIDTH pixels wide (the file's aspect kept),
+# EX_SPP, depth EX_DEPTH; the furnace; the full-width renders
+EXAMPLES = (("cbox.pbrt", 40, False), ("instances.pbrt", 52, False),
+            ("caustic.pbrt", 2216, True), ("envglass.xml", 5954, True),
+            ("fog_box.xml", 2000, True))
+EX_WIDTH, EX_SPP, EX_DEPTH = 32, 4, 8
+FURNACE_RES, FURNACE_SPP, FURNACE_DEPTH = 256, 32, 6
+EX_FULL = ("envglass.xml", "fog_box.xml", "caustic.pbrt")
+EX_FULL_SPP, EX_WARM_SPP, EX_PROFILE_SPP = 16, 1, 2
 
 
 def phase(name, msg):
@@ -2787,28 +2821,39 @@ def _slice_rows():
     ]
 
 
-def _card_vs_cpu(label, make_scene, res, integ, spp, dev, persistent=None):
+def _card_vs_cpu(label, make_scene, res, integ, spp, dev, persistent=None,
+                 tag="gate", walk=None):
     """The same render (seed 0) on the card and on the CPU: at least
     SCHED_PIX_FRAC of the pixels within SCHED_PIX_RTOL (relative), means
-    within SCHED_MEAN_RTOL."""
+    within SCHED_MEAN_RTOL. With `tag` "examples" (phase 22) the card's
+    render may launch only its tier's kernels: the walk's if `walk` (by
+    default the compiled scene's tier), else the dense ones."""
     imgs = {}
     for where in (dev, "cpu"):
         sd = make_scene(*res).compile(device=where)
+        tier = sd.geom.walk is not None
+        if tag == "examples" and walk is not None and tier != walk:
+            raise AssertionError(f"{tag} {label}: tier")
+        _reset_launches()
         imgs[str(where)] = _render(sd, integ, spp, seed=0,
                                    persistent=persistent)["primal"]
+        if tag == "examples" and where == dev:
+            _only(f"{tag} {label}", _launches(),
+                  ("walk_closest", "walk_anyhit") if tier
+                  else ("dense_closest", "dense_anyhit"))
     a, b = imgs[str(dev)], imgs["cpu"]
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-4)
     frac = float((rel.max(-1) <= SCHED_PIX_RTOL).mean())
     mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
-    phase("gate", f"{label} {res[0]}x{res[1]} {spp} spp, card vs CPU: card "
+    phase(tag, f"{label} {res[0]}x{res[1]} {spp} spp, card vs CPU: card "
           f"mean {a.mean():.7f}, CPU mean {b.mean():.7f}, {100 * frac:.3f}% "
           f"of pixels within {SCHED_PIX_RTOL}, means differ by "
           f"{mean_rel:.3g} (limits {100 * SCHED_PIX_FRAC:.1f}%, "
           f"{SCHED_MEAN_RTOL})")
     if not (np.all(np.isfinite(a)) and b.mean() > 0):
-        raise AssertionError(f"gate {label}: bad images")
+        raise AssertionError(f"{tag} {label}: bad images")
     if frac < SCHED_PIX_FRAC or mean_rel > SCHED_MEAN_RTOL:
-        raise AssertionError(f"gate {label}: card and CPU renders disagree")
+        raise AssertionError(f"{tag} {label}: card and CPU renders disagree")
 
 
 def _oracle_configs():
@@ -2961,6 +3006,221 @@ def slice_phase(dev, card):
     return dense
 
 
+def _example(name, width=None):
+    """The port's host scene of examples/<name>, its camera re-derived for
+    `width` pixels wide (the file's aspect kept) when given."""
+    from rustlight_tpu_torch.scene import resize_camera
+    from rustlight_tpu_torch.scene.loaders import load_scene
+    sc = load_scene(os.path.join(ROOT, "examples", name))
+    if width is not None:
+        cam = sc.camera
+        sc.camera = resize_camera(cam, width,
+                                  round(width * cam.height / cam.width))
+    return sc
+
+
+def _oracle_scenes():
+    """tests/test_oracle.py's point + directional scene (:250-268), env-glass
+    scene (:181-206) and uv-emission boxes (:305-321) with the port's
+    classes: (name, scene maker of width and height, max_depth)."""
+    from rustlight_tpu_torch import bsdfs as b
+    from rustlight_tpu_torch.models import cornell_box
+    from rustlight_tpu_torch.scene import (Scene, look_at, make_camera,
+                                           make_quad, make_sphere)
+
+    def point_dir(w, h):
+        sc = Scene()
+        m = sc.add_material(b.diffuse((0.6, 0.55, 0.5)))
+        sc.add_mesh(make_quad((-5, 0, -5), (5, 0, -5), (5, 0, 5), (-5, 0, 5),
+                              material=m))
+        sc.add_mesh(make_quad((-5, 0, -5), (-5, 4, -5), (5, 4, -5),
+                              (5, 0, -5), material=m))
+        sc.point_lights.append(((0.0, 3.0, 1.0), (8.0, 7.0, 6.0)))
+        sc.directional_lights.append(((0.3, -1.0, 0.2), (0.6, 0.7, 0.8)))
+        sc.camera = make_camera(w, h, fov=60.0, to_world=look_at(
+            (0, 2.5, 6), (0, 1, 0), (0, 1, 0)))
+        return sc
+
+    def env_glass(w, h):
+        rng = np.random.default_rng(5)
+        env = 0.3 + 0.4 * rng.random((12, 24, 3))
+        env[3:5, 6:9] = (12.0, 10.0, 8.0)
+        sc = Scene()
+        mg = sc.add_material(b.glass())
+        mm = sc.add_material(b.metal(alpha=0.0))
+        md = sc.add_material(b.diffuse((0.5, 0.45, 0.4)))
+        sc.add_mesh(make_sphere((-1.2, 1.0, 0), 1.0, material=mg))
+        sc.add_mesh(make_sphere((1.2, 1.0, 0), 1.0, material=mm))
+        sc.add_mesh(make_quad((-20, 0, -20), (20, 0, -20), (20, 0, 20),
+                              (-20, 0, 20), material=md))
+        sc.env_image = env.astype(np.float32)
+        sc.camera = make_camera(w, h, fov=55.0, to_world=look_at(
+            (0, 1.6, -6), (0, 1, 0), (0, 1, 0)))
+        return sc
+
+    def uv_box(kind):
+        def make(w, h):
+            sc = cornell_box(w, h)
+            for m in sc.meshes:
+                if m.is_light:
+                    m.emission_kind = kind
+                    m.emission_scale = 15.0
+                    m.emission_tex = 0
+            if kind == 2:
+                yy, xx = np.mgrid[0:16, 0:16].astype(np.float32) / 15.0
+                sc.textures = np.stack([xx, yy, 0.5 * (1 - xx)], -1)[None]
+            return sc
+        return make
+    return [("point+dir", point_dir, 4), ("env-glass", env_glass, 6),
+            ("uv-emission HSV", uv_box(1), 3),
+            ("uv-emission texture", uv_box(2), 3)]
+
+
+def _obj_round_trip(dev):
+    """Phase 22 (a): fog_box's meshes written to an OBJ under build/ and
+    loaded back through load_scene; the native parser must have read it."""
+    from rustlight_tpu_torch.scene.loaders import load_scene
+    from rustlight_tpu_torch.scene.loaders import obj
+    out = os.path.join(ROOT, "build", "examples")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "fog_box.obj")
+    lines, base = [], 1
+    meshes = _example("fog_box.xml").meshes
+    for m in meshes:
+        lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in m.vertices]
+        lines += [f"f {a + base} {b + base} {c + base}" for a, b, c in m.indices]
+        base += len(m.vertices)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    before = obj.PARSES["native"]
+    t0 = time.time()
+    sd = load_scene(path).compile(device=dev)
+    n = sum(m.n_triangles for m in meshes)
+    if obj.PARSES["native"] != before + 1:
+        raise AssertionError(f"examples: the native OBJ parser did not run "
+                             f"({obj.PARSES})")
+    if sd.geom.n_tris != n or sd.geom.walk is None:
+        raise AssertionError("examples: the OBJ round trip lost triangles")
+    phase("examples", f"(a) {path} ({n} triangles) through the native OBJ "
+          f"parser and compiled in {time.time() - t0:.3f}s; parses "
+          f"{obj.PARSES}")
+
+
+def examples_check(dev):
+    """Phase 22 (a)-(c): load and tier, the card against the CPU on every
+    example and oracle scene, the furnace."""
+    import torch
+    from rustlight_tpu_torch.integrators import (IntegratorDirect,
+                                                 IntegratorLightTracing,
+                                                 IntegratorPathTracing)
+    from rustlight_tpu_torch.models import furnace_scene
+    walks = {}
+    for name, n_tris, walk in EXAMPLES:
+        t0 = time.time()
+        sd = _example(name).compile(device=dev)
+        torch.cuda.synchronize()
+        wt = sd.geom.walk
+        if sd.geom.n_tris != n_tris or (wt is not None) != walk:
+            raise AssertionError(f"examples {name}: {sd.geom.n_tris} "
+                                 f"triangles, walk {wt is not None}")
+        walks[name] = walk
+        phase("examples", f"(a) {name}: {n_tris} triangles, "
+              + (f"walk (K3), Cp {wt.n_clusters} ({wt.n_real} real)"
+                 if walk else "dense (K1/K2)")
+              + f", atoms {sorted(sd.emitters.kinds)} "
+              f"({sd.emitters.n_atoms}), film {sd.camera.width}x"
+              f"{sd.camera.height}, load + compile {time.time() - t0:.3f}s")
+    _obj_round_trip(dev)
+
+    def path():
+        return IntegratorPathTracing(max_depth=EX_DEPTH)
+    cases = [(name, path) for name, _, _ in EXAMPLES]
+    cases += [(name, lambda: IntegratorDirect(1, 1))
+              for name in ("envglass.xml", "fog_box.xml")]
+    cases += [(name, lambda: IntegratorLightTracing(max_depth=EX_DEPTH,
+                                                    hard_cap=EX_DEPTH))
+              for name in ("fog_box.xml", "envglass.xml")]
+    for name, integ in cases:
+        sc = _example(name, EX_WIDTH)
+        res = (sc.camera.width, sc.camera.height)
+        _card_vs_cpu(f"(b) {name} {type(integ()).__name__}",
+                     lambda w, h, name=name: _example(name, w), res, integ(),
+                     EX_SPP, dev, True, "examples", walks[name])
+    for name, make, depth in _oracle_scenes():
+        _card_vs_cpu(f"(b) {name} path depth {depth}", make,
+                     (EX_WIDTH, EX_WIDTH), IntegratorPathTracing(
+                         max_depth=depth), EX_SPP, dev, True, "examples")
+
+    sd = furnace_scene(FURNACE_RES, FURNACE_RES, albedo=0.5).compile(
+        device=dev)
+    _reset_launches()
+    t0 = time.time()
+    img = _render(sd, IntegratorPathTracing(max_depth=FURNACE_DEPTH,
+                                            rr_depth=None), FURNACE_SPP,
+                  seed=1)["primal"]
+    secs = time.time() - t0
+    _only("examples furnace", _launches(), ("walk_closest", "walk_anyhit"))
+    lo, hi = round(8 * FURNACE_RES / 24), round(16 * FURNACE_RES / 24)
+    center, corner = float(img[lo:hi, lo:hi].mean()), float(img[0, 0].mean())
+    phase("examples", f"(c) furnace {FURNACE_RES}x{FURNACE_RES} "
+          f"({sd.geom.n_tris} triangles) {FURNACE_SPP} spp depth "
+          f"{FURNACE_DEPTH}: center [{lo}:{hi}] {center:.6f} (0.5 +- 0.015), "
+          f"corner {corner:.7f} (1 +- 1e-3), {secs:.3f}s")
+    if not (abs(center - 0.5) < 0.015 and abs(corner - 1.0) < 1e-3):
+        raise AssertionError("examples: the furnace is off its answer")
+
+
+def examples_phase(dev, card):
+    """Phase 22. Returns the K1/K2/K3 launches of its full-width renders
+    (counts reset just before each timed render, read just after)."""
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing
+    from rustlight_tpu_torch.utils.image import read_exr
+    examples_check(dev)
+    launched = {k: 0 for k in ("dense_closest", "dense_anyhit",
+                               "walk_closest", "walk_anyhit")}
+    integ = IntegratorPathTracing(max_depth=EX_DEPTH)
+    for name in EX_FULL:
+        sd = _example(name).compile(device=dev)
+        img, wall, warm, n_rays, launches = timed_render(
+            name, sd, integ, EX_FULL_SPP, warm_spp=EX_WARM_SPP)
+        _only(f"examples {name}", launches, ("walk_closest", "walk_anyhit"))
+        for k in launched:
+            launched[k] += launches[k]
+        busy_s = ""
+        if name == EX_FULL[0]:
+            busy, _ = profile_render(name, sd, integ, EX_PROFILE_SPP,
+                                     ("walk_",), top=6)
+            busy_s = (", device busy " + ("not measured" if busy is None
+                                          else f"{100 * busy:.1f}%")
+                      + f" (of a warm {EX_PROFILE_SPP} spp render)")
+        phase("examples", f"(d) {name} {sd.camera.width}x{sd.camera.height} "
+              f"path depth {EX_DEPTH} {EX_FULL_SPP} spp: warm-up {warm:.3f}s "
+              f"({EX_WARM_SPP} spp), timed {wall:.3f}s, {n_rays} rays, "
+              f"{n_rays / wall / 1e6:.3f} Mrays/s, mean {img.mean():.6f}"
+              f"{busy_s}, K3 walk_closest {launches['walk_closest']} and "
+              f"walk_anyhit {launches['walk_anyhit']}, K1/K2 "
+              f"{launches['dense_closest']}/{launches['dense_anyhit']} "
+              f"launches | {card}")
+    out = os.path.join(ROOT, "build", "examples", "envglass.exr")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "rustlight_tpu_torch.cli",
+         os.path.join("examples", "envglass.xml"), "-n", "2", "-o", out,
+         "path", "-m", "8"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"examples: the CLI exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    img = read_exr(out)
+    if img.shape != (384, 512, 3) or not np.all(np.isfinite(img)):
+        raise AssertionError(f"examples: the CLI's image {img.shape}")
+    phase("examples", f"(e) the CLI on examples/envglass.xml, 2 spp: exit 0 "
+          f"in {time.time() - t0:.2f}s, {img.shape[1]}x{img.shape[0]}, mean "
+          f"{img.mean():.6f}; {run.stdout.strip()}")
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3106,6 +3366,11 @@ def main() -> int:
     gate_launches = gate_phase(dev, card)
     for k, v in slice_phase(dev, card).items():
         gate_launches[k] += v
+    ex_launches = examples_phase(dev, card)
+    for k in ("dense_closest", "dense_anyhit"):
+        gate_launches[k] += ex_launches[k]
+    for k in ("walk_closest", "walk_anyhit"):
+        walk_launches[k] += ex_launches[k]
 
     def pick(kind):
         """The K3-size spread wavefront stands for a walk kernel; every

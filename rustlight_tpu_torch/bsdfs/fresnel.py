@@ -4,6 +4,54 @@ from __future__ import annotations
 
 import torch
 
+# Named IORs (reference src/bsdfs/glass.rs:6-34, the Mitsuba table): scene
+# files may give a dielectric's IOR by material name.
+NAMED_IOR = {
+    "vacuum": 1.0,
+    "helium": 1.000036,
+    "hydrogen": 1.000132,
+    "air": 1.000277,
+    "carbon dioxide": 1.00045,
+    "water": 1.3330,
+    "acetone": 1.36,
+    "ethanol": 1.361,
+    "carbon tetrachloride": 1.461,
+    "glycerol": 1.4729,
+    "benzene": 1.501,
+    "silicone oil": 1.52045,
+    "bromine": 1.661,
+    "water ice": 1.31,
+    "fused quartz": 1.458,
+    "pyrex": 1.470,
+    "acrylic glass": 1.49,
+    "polypropylene": 1.49,
+    "bk7": 1.5046,
+    "sodium chloride": 1.544,
+    "amber": 1.55,
+    "pet": 1.5750,
+    "diamond": 2.419,
+}
+
+
+def resolve_ior(value, default: float) -> float:
+    """A number or numeric string -> float; a material name -> its
+    NAMED_IOR entry (case-insensitive); None or a non-positive number ->
+    default. An unknown name raises ValueError."""
+    if value is None:
+        return float(default)
+    if isinstance(value, (int, float)):
+        return float(value) if value > 0 else float(default)
+    s = str(value).strip()
+    try:
+        v = float(s)
+        return v if v > 0 else float(default)
+    except ValueError:
+        key = s.lower()
+        if key not in NAMED_IOR:
+            raise ValueError(f"unknown named IOR {s!r} (glass.rs:6-34 "
+                             f"table: {sorted(NAMED_IOR)})") from None
+        return NAMED_IOR[key]
+
 
 def fresnel_dielectric(cos_i, eta):
     """Unpolarized dielectric Fresnel.

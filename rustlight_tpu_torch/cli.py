@@ -1,27 +1,30 @@
 """Command-line renderer: the ported subset of rustlight_tpu/cli.py.
 
 Usage: python -m rustlight_tpu_torch.cli cbox -n 64 -o out.exr path -m 6
-       python -m rustlight_tpu_torch.cli cbox -n 4 -o ao.pfm ao -d 2
-       python -m rustlight_tpu_torch.cli cbox -n 32 -o d.exr direct -b 1 -l 1
-       python -m rustlight_tpu_torch.cli veach_mis -n 32 -o v.exr path -m 8
+       python -m rustlight_tpu_torch.cli examples/envglass.xml -n 16 -o e.exr path -m 8
+       python -m rustlight_tpu_torch.cli examples/caustic.pbrt -n 16 -o c.exr direct
+       python -m rustlight_tpu_torch.cli mesh.obj -n 4 -o ao.pfm ao -d 2
        python -m rustlight_tpu_torch.cli cbox -n 8 -o l.exr light -m 8
        python -m rustlight_tpu_torch.cli cbox -m 0.0025 -n 8 -o m.exr path -m 8
 
-Flags keep the reference CLI's names. Ported so far: the built-in `cbox`
-and `veach_mis` scenes, the `path` integrator with -m/-n/-r/-x/-s
+Flags keep the reference CLI's names. Ported so far: scene files (.pbrt,
+.xml and .obj, through scene/loaders) and the built-in `cbox`, `veach_mis`
+and `door_box` scenes; the `path` integrator with -m/-n/-r/-x/-s
 (strategies all, bsdf, emitter, naive; -x single scattering), the
 `light-tracing` (`light`) integrator with -m/-n/-r and -s all | surface |
 volume, the `ao` integrator with -d/--distance (`inf` for no limit) and
 -c/--normal-correction, the `direct` integrator with -b/--nb-bsdf-samples
 and -l/--nb-light-samples, -n/--nbsamples, -o/--output (.pfm, .exr, .png),
--s/--scale-image, -m/--medium sigma_s[:sigma_a[:g]] (an infinite
-homogeneous medium) and -r/--random-number-generator independent[:seed].
-`--device` names the torch device to render on. The reference's other
-global flags (-a -e -t -l -x --progress --resume --adaptive --guiding
---aovs --feature-aovs --profile) are declared with its defaults: a flag
-left at its default is accepted, any other value exits with code 1 and
-"<flag> is not ported yet". So does every other scene, sampler or
-integrator subcommand of the reference.
+-s/--scale-image (the camera re-derived for the new size),
+-m/--medium sigma_s[:sigma_a[:g]] (an infinite homogeneous medium),
+-r/--random-number-generator independent[:seed], and -x/--xtra-options
+no-shading, hvs-light and texture-light (butterfly.jpg from the working
+directory, else a procedural ramp). `--device` names the torch device to
+render on. The reference's other global flags (-a -e -t -l --progress
+--resume --adaptive --guiding --aovs --feature-aovs --profile, and -x ats)
+are declared with its defaults: a flag left at its default is accepted,
+any other value exits with code 1 and "<flag> is not ported yet". So does
+every other sampler or integrator subcommand of the reference.
 """
 from __future__ import annotations
 
@@ -48,10 +51,10 @@ _NOT_PORTED_FLAGS = (
     (("-t", "--threads"), dict(type=int, default=None)),
     (("-e", "--equal-time"), dict(type=float, default=None)),
     (("-l", "--log"), dict(default=None)),
-    (("-x", "--xtra-options"),
-     dict(action="append", default=[],
-          choices=["ats", "no-shading", "hvs-light", "texture-light"])),
 )
+# -x values of the reference CLI that have no port yet
+_NOT_PORTED_XTRA = ("ats",)
+_BUILTIN = ("cbox", "veach_mis", "door_box")
 
 
 def _inf_or(s, conv=int):
@@ -70,7 +73,8 @@ def _add_path_length(p):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="rustlight_tpu_torch",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("scene", help="builtin scene: cbox, veach_mis")
+    ap.add_argument("scene", help="scene file (.pbrt/.xml/.obj) or a "
+                    "builtin: " + ", ".join(_BUILTIN))
     ap.add_argument("-n", "--nbsamples", type=int, default=1)
     ap.add_argument("-o", "--output", default="out.pfm")
     ap.add_argument("-s", "--scale-image", type=float, default=1.0)
@@ -83,6 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to render on (cuda, cuda:1, cpu)")
     for names, kw in _NOT_PORTED_FLAGS:
         ap.add_argument(*names, **kw, help="not ported yet")
+    ap.add_argument("-x", "--xtra-options", action="append", default=[],
+                    choices=["ats", "no-shading", "hvs-light",
+                             "texture-light"],
+                    help="ats is not ported yet")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser("path")
     _add_path_length(p)
@@ -138,6 +146,63 @@ def _medium(spec):
     return make_volume(sigma_s=(sigma_s,) * 3, sigma_a=(sigma_a,) * 3, g=g)
 
 
+def _uv_emission(scene, hsv: bool) -> None:
+    """-x hvs-light / texture-light: every light's emission becomes the HSV
+    ramp or a texture (butterfly.jpg from the working directory as the
+    reference has it, else a procedural two-color ramp), scaled by the
+    luminance of its color (reference cli.rs:409-429)."""
+    import numpy as np
+    lum = np.array([0.212671, 0.715160, 0.072169], np.float32)
+    tex_id = -1
+    if not hsv:
+        try:
+            from .utils import image as rimage
+            img = np.asarray(rimage.load("butterfly.jpg"), np.float32)
+        except OSError:       # missing or unreadable (PIL's errors are OSError)
+            yy, xx = np.mgrid[0:64, 0:64].astype(np.float32) / 63.0
+            img = np.stack([xx, yy, 0.5 * (1 - xx)], -1)
+        if scene.textures is None:
+            scene.textures = img[None]
+        else:
+            th = max(scene.textures.shape[1], img.shape[0])
+            tw = max(scene.textures.shape[2], img.shape[1])
+
+            def pad(a):
+                out = np.zeros((a.shape[0], th, tw, 3), np.float32)
+                out[:, :a.shape[1], :a.shape[2]] = a
+                return out
+            scene.textures = np.concatenate([pad(scene.textures),
+                                             pad(img[None])], 0)
+        tex_id = scene.textures.shape[0] - 1
+    for m in scene.meshes:
+        if m.is_light:
+            m.emission_scale = float((m.emission * lum).sum()) or 1.0
+            m.emission_kind = 1 if hsv else 2
+            m.emission_tex = tex_id
+
+
+def load_scene_arg(args):
+    """The host scene of the scene argument, with -s, -m and -x applied."""
+    from .models import cornell_box, door_box, veach_mis
+    from .scene import resize_camera
+    from .scene.loaders import load_scene
+    builtin = {"cbox": cornell_box, "veach_mis": veach_mis,
+               "door_box": door_box}
+    scene = (builtin[args.scene]() if args.scene in builtin
+             else load_scene(args.scene))
+    if args.scale_image != 1.0:
+        cam = scene.camera
+        scene.camera = resize_camera(cam, int(cam.width * args.scale_image),
+                                     int(cam.height * args.scale_image))
+    medium = _medium(args.medium)
+    if medium is not None:
+        scene.volume = medium
+    hsv = "hvs-light" in args.xtra_options
+    if hsv or "texture-light" in args.xtra_options:
+        _uv_emission(scene, hsv)
+    return scene
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -145,27 +210,21 @@ def main(argv=None) -> int:
         dest = names[-1].lstrip("-").replace("-", "_")
         if getattr(args, dest) != ap.get_default(dest):
             raise SystemExit(f"{names[-1]} is not ported yet")
+    if any(x in _NOT_PORTED_XTRA for x in args.xtra_options):
+        raise SystemExit("--xtra-options is not ported yet")
     if args.command in _NOT_PORTED:
         raise SystemExit(f"integrator {args.command!r} is not ported yet")
-    if args.scene not in ("cbox", "veach_mis"):
-        raise SystemExit(f"scene {args.scene!r} is not ported yet")
     rng = args.random_number_generator
     if rng.split(":")[0] != "independent":
         raise SystemExit(f"sampler {rng!r} is not ported yet")
     seed = int(rng.split(":")[1]) if ":" in rng else 0
 
     from .integrators import SplattingIntegrator, render, render_splat
-    from .models import cornell_box, veach_mis
 
     t0 = time.time()
-    scene = cornell_box() if args.scene == "cbox" else veach_mis()
-    # image scale (reference Camera::scale_image): the sample-space mapping
-    # is resolution independent, so only the pixel grid changes
-    cam = scene.camera
-    scene.camera = cam._replace(width=int(cam.width * args.scale_image),
-                                height=int(cam.height * args.scale_image))
-    scene.volume = _medium(args.medium)
-    sd = scene.compile(device=args.device)
+    scene = load_scene_arg(args)
+    sd = scene.compile(device=args.device, use_shading_normals=(
+        "no-shading" not in args.xtra_options))
     integ = build_integrator(args)
     t1 = time.time()
     # a splatting integrator renders through render_splat, as the

@@ -6,10 +6,9 @@ N light samples and M BSDF samples combined with the power heuristic, one
 sample of every pixel a call (the per-pass route of `render`). It draws its
 uniforms in the reference's order and shapes: u_pix (n, 2), then per light
 sample u_sel (n,) and u_pos (n, 2), then per BSDF sample u_b (n, 2), so the
-two packages render sample for sample alike. Environment emitters are not
-ported (`emitters_to` refuses them), so the reference's env terms, which
-are zero without one, are left out; a scene that has one is refused here
-too.
+two packages render sample for sample alike. Escaped primary rays see the
+environment, and an escaped BSDF sample picks it up under the power
+heuristic against the environment's NEE pdf.
 """
 from __future__ import annotations
 
@@ -18,8 +17,8 @@ import torch
 from ..accel import intersect_rays, visible
 from ..bsdfs import bsdf_eval, bsdf_is_smooth, bsdf_pdf, bsdf_sample
 from ..bsdfs.table import TRANSPORT_IMPORTANCE
-from ..scene import (direct_pdf_tri, emitted_radiance, fill_hit,
-                     generate_rays, sample_light)
+from ..scene import (direct_pdf_tri, emitted_radiance, env_direction_pdf,
+                     env_radiance, fill_hit, generate_rays, sample_light)
 from ..scene.scene import offset_ray_origin
 from ..utils.frame import to_local, to_world
 from ..utils.rng import stream_next, stream_next2d
@@ -33,20 +32,18 @@ class IntegratorDirect:
 
     def compute_pixel(self, scene, pix, stream):
         """One direct-lighting sample of every pixel in pix [n, 2]: [n, 3]."""
-        if scene.emitters.has_env:
-            raise NotImplementedError("environment emitters are not ported "
-                                      "yet")
         n = pix.shape[0]
         u_pix, stream = stream_next2d(stream, (n,))
         o, d = generate_rays(scene.camera, pix.to(torch.float32) + u_pix)
         rh = intersect_rays(scene.geom, o, d)
         hit = fill_hit(scene, o, d, rh)
 
-        # directly visible emission
+        # escaped primary rays see the environment; directly visible emission
+        li = torch.where((~hit.valid)[:, None],
+                         env_radiance(scene.emitters, d), 0.0)
         front = hit.valid & (hit.wi[..., 2] > 0.0)
-        li = torch.where(front[:, None],
-                         emitted_radiance(scene.emitters, scene.geom, hit.tri,
-                                          d), 0.0)
+        li = li + torch.where(front[:, None], emitted_radiance(
+            scene.emitters, scene.geom, hit.tri, d, uv=hit.uv), 0.0)
 
         w_nb_b = 1.0 / self.nb_bsdf_samples if self.nb_bsdf_samples else 0.0
         w_nb_l = 1.0 / self.nb_light_samples if self.nb_light_samples else 0.0
@@ -83,7 +80,8 @@ class IntegratorDirect:
             hit2 = fill_hit(scene, o2, d2, rh2)
 
             # hit an area light (emitted_radiance checks the front side)
-            le2 = emitted_radiance(scene.emitters, scene.geom, hit2.tri, d2)
+            le2 = emitted_radiance(scene.emitters, scene.geom, hit2.tri, d2,
+                                   uv=hit2.uv)
             pdf_l = direct_pdf_tri(scene.emitters, hit2.tri, o2, hit2.p,
                                    hit2.n_g, d2)
             w = torch.where(bs.is_delta, 1.0,
@@ -91,4 +89,14 @@ class IntegratorDirect:
             ok = front & bs.valid & hit2.valid
             li = li + torch.where(ok[:, None],
                                   bs.weight * le2 * (w * w_nb_b)[:, None], 0.0)
+
+            # escaped toward the environment
+            if scene.emitters.has_env:
+                pdf_env = env_direction_pdf(scene.emitters, d2)
+                w_env = torch.where(bs.is_delta, 1.0, mis_power(
+                    bs.pdf * w_nb_b, pdf_env * w_nb_l))
+                ok_env = front & bs.valid & (~hit2.valid)
+                li = li + torch.where(
+                    ok_env[:, None], bs.weight * env_radiance(
+                        scene.emitters, d2) * (w_env * w_nb_b)[:, None], 0.0)
         return li

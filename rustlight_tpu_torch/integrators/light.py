@@ -1,8 +1,10 @@
 """Adjoint particle tracing (light tracing) with camera splatting; port of
 rustlight_tpu/integrators/light.py.
 
-Light paths start on an emitter (`sample_position`, flux weight
-Le * pi / pdf), bounce by BSDF sampling, and at every vertex connect to the
+Light paths start on an emitter atom of any kind (`sample_position`: a
+triangle's flux weight is Le * pi / pdf; point, directional, point-normal
+and environment atoms start as the reference starts them, and only
+triangle atoms splat their vertex 0), bounce by BSDF sampling, and at every vertex connect to the
 pinhole camera: the splat is flux * W_e * f(wi, w_cam; Radiance) * the
 shading-normal correction (emitter vertices splat flux * W_e * cos / pi).
 `render_splat` scatter-adds the splats into the film and scales it by

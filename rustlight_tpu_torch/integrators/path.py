@@ -9,8 +9,12 @@ non-delta surfaces, with no NEE and no MIS; emission with k edges gated by
 min_depth <= k-1; expansion stops at max_depth edges; Russian roulette from
 rr_depth with survival min(max(throughput), 0.95). A vertex whose BSDF
 has a delta lobe (glass, smooth metal or substrate) takes no NEE, and the
-emission found after a delta bounce has weight 1. Camera paths use the
-importance transport, as the reference's call sites do.
+emission found after a delta bounce has weight 1. A ray that escapes the
+scene picks up the environment's radiance, weighted against the
+environment's NEE pdf as an emitter hit is; NEE samples every atom kind
+(triangles, point, directional and point-normal lights, the environment),
+at surface and medium vertices alike. Camera paths use the importance
+transport, as the reference's call sites do.
 
 In a scene with a homogeneous medium (`scene.volume`), each segment
 samples a free-flight distance (`tfar = 1e8` where the ray misses: the
@@ -44,7 +48,7 @@ from ..accel import intersect_rays, visible
 from ..bsdfs import bsdf_eval, bsdf_pdf, bsdf_sample, bsdf_is_smooth
 from ..bsdfs.table import TRANSPORT_IMPORTANCE
 from ..scene import (fill_hit, generate_rays, sample_light, direct_pdf_tri,
-                     emitted_radiance)
+                     emitted_radiance, env_direction_pdf, env_radiance)
 from ..scene.scene import offset_ray_origin
 from ..scene.volume import (phase_eval, phase_sample, transmittance,
                             volume_sample_distance)
@@ -308,17 +312,29 @@ class IntegratorPathTracing:
         lane_hit = alive & hit.valid & (~scattered)
 
         # ---- emission picked up through the BSDF/sensor edge
-        le = emitted_radiance(scene.emitters, scene.geom, hit.tri, d)
+        le = emitted_radiance(scene.emitters, scene.geom, hit.tri, d,
+                              uv=hit.uv)
         pdf_light = direct_pdf_tri(scene.emitters, hit.tri, o, hit.p, hit.n_g, d)
-        if mis_on:
-            w_hit = torch.where(prev_delta | (~prev_nee), 1.0,
-                                mis_balance(prev_pdf, pdf_light))
-        else:
-            w_hit = torch.ones_like(prev_pdf)
-        add = lane_hit & (depth >= self.min_depth)
+
+        def mis_hit(pdf_nee):
+            """The directional strategy's weight against NEE's pdf."""
+            if not mis_on:
+                return torch.ones_like(prev_pdf)
+            return torch.where(prev_delta | (~prev_nee), 1.0,
+                               mis_balance(prev_pdf, pdf_nee))
+        senses = depth >= self.min_depth
         if not keep_bsdf_hits:   # the sensor edge always contributes
-            add = add & (depth == 0)
-        rad = rad + torch.where(add[:, None], thr * le * w_hit[:, None], 0.0)
+            senses = senses & (depth == 0)
+        rad = rad + torch.where((lane_hit & senses)[:, None],
+                                thr * le * mis_hit(pdf_light)[:, None], 0.0)
+
+        # ---- escaped rays: the environment
+        if scene.emitters.has_env:
+            esc = alive & (~hit.valid) & (~scattered)
+            le_env = env_radiance(scene.emitters, d)
+            w_env = mis_hit(env_direction_pdf(scene.emitters, d))
+            rad = rad + torch.where((esc & senses)[:, None],
+                                    thr * le_env * w_env[:, None], 0.0)
 
         smooth = bsdf_is_smooth(scene.materials, hit.mat)
         # single scattering: a surface vertex adds its emission and ends

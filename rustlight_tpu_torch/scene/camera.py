@@ -108,6 +108,14 @@ def make_camera(width: int, height: int, fov: float, to_world: np.ndarray,
     )
 
 
+def resize_camera(cam: Camera, width: int, height: int) -> Camera:
+    """The camera re-derived for a new film size from its construction
+    parameters, so that the projection follows the new aspect ratio
+    (replacing width and height alone would keep the old one)."""
+    return make_camera(width, height, cam.fov, np.asarray(cam.to_world),
+                       fov_axis=cam.fov_axis, flip=cam.flip)
+
+
 def camera_to(cam, device) -> Camera:
     """Upload a numpy camera (this module's or the JAX package's, read by
     attribute) to `device`."""

@@ -23,8 +23,7 @@ CLUSTER_THRESHOLD = 1024
 
 @dataclass
 class TriMesh:
-    """Host-side indexed triangle mesh with constant-color emission (the
-    reference's HSV and texture emission kinds are not ported yet)."""
+    """Host-side indexed triangle mesh."""
     vertices: np.ndarray            # [v, 3] f32
     indices: np.ndarray             # [t, 3] int32
     normals: Optional[np.ndarray] = None   # [v, 3]
@@ -32,6 +31,11 @@ class TriMesh:
     material: int = 0
     emission: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     name: str = ""
+    # the reference's EmissionType (geometry.rs:99-104): 0 = the constant
+    # color `emission`, 1 = HSV ramp over u, 2 = texture atlas slot
+    emission_kind: int = 0
+    emission_scale: float = 1.0
+    emission_tex: int = -1          # index into the scene texture atlas
 
     def __post_init__(self):
         self.vertices = np.asarray(self.vertices, np.float32)
@@ -48,7 +52,22 @@ class TriMesh:
 
     @property
     def is_light(self) -> bool:
+        if self.emission_kind != 0:
+            return self.emission_scale > 0.0
         return bool(np.any(self.emission > 0.0))
+
+    def mean_emission(self, textures=None) -> np.ndarray:
+        """Representative Le for the flux and the atom weights: the HSV
+        ramp's mean over u, or the texture's mean, times the scale; the
+        exact uv-dependent value is applied where emission is evaluated."""
+        if self.emission_kind == 1:
+            return np.asarray([0.5, 0.5, 0.0], np.float32) * self.emission_scale
+        if self.emission_kind == 2:
+            if textures is not None and 0 <= self.emission_tex < len(textures):
+                return (np.asarray(textures[self.emission_tex], np.float32)
+                        .mean(axis=(0, 1)) * self.emission_scale)
+            return np.full(3, self.emission_scale, np.float32)
+        return self.emission
 
     def triangle_areas(self) -> np.ndarray:
         v, i = self.vertices, self.indices
@@ -59,9 +78,19 @@ class TriMesh:
     def total_area(self) -> float:
         return float(self.triangle_areas().sum())
 
-    def flux(self) -> np.ndarray:
-        """Emitter flux = area * Le * pi (constant-color emission)."""
-        return self.total_area() * self.emission * np.pi
+    def flux(self, textures=None) -> np.ndarray:
+        """Emitter flux = area * Le * pi."""
+        return self.total_area() * self.mean_emission(textures) * np.pi
+
+    def compute_vertex_normals(self) -> None:
+        """Area-weighted vertex normals (for smooth shading when absent)."""
+        v, i = self.vertices, self.indices
+        fn = np.cross(v[i[:, 1]] - v[i[:, 0]], v[i[:, 2]] - v[i[:, 0]])
+        n = np.zeros_like(v)
+        for k in range(3):
+            np.add.at(n, i[:, k], fn)
+        norm = np.linalg.norm(n, axis=-1, keepdims=True)
+        self.normals = n / np.maximum(norm, 1e-20)
 
 
 class GeometryTables(NamedTuple):
@@ -195,6 +224,30 @@ def make_quad(p0, p1, p2, p3, material=0, emission=(0, 0, 0), name="") -> TriMes
     uv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
     return TriMesh(verts, idx, uvs=uv, material=material,
                    emission=np.asarray(emission, np.float32), name=name)
+
+
+def make_box(lo, hi, material=0, name="") -> TriMesh:
+    """Axis-aligned box with outward normals."""
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    x0, y0, z0 = lo
+    x1, y1, z1 = hi
+    quads = [
+        ([x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0]),   # -z
+        ([x1, y0, z1], [x0, y0, z1], [x0, y1, z1], [x1, y1, z1]),   # +z
+        ([x0, y0, z1], [x0, y0, z0], [x0, y1, z0], [x0, y1, z1]),   # -x
+        ([x1, y0, z0], [x1, y0, z1], [x1, y1, z1], [x1, y1, z0]),   # +x
+        ([x0, y0, z1], [x1, y0, z1], [x1, y0, z0], [x0, y0, z0]),   # -y
+        ([x0, y1, z0], [x1, y1, z0], [x1, y1, z1], [x0, y1, z1]),   # +y
+    ]
+    verts, idx = [], []
+    for q in quads:
+        base = len(verts)
+        verts.extend(q)
+        idx.append([base, base + 1, base + 2])
+        idx.append([base, base + 2, base + 3])
+    return TriMesh(np.asarray(verts, np.float32), np.asarray(idx, np.int32),
+                   material=material, name=name)
 
 
 def make_sphere(center, radius, material=0, emission=(0, 0, 0),

@@ -5,12 +5,13 @@ rustlight_tpu/scene/scene.py.
 does (kept as `SceneData.host`), then `from_numpy_scene` uploads them to
 `device`. `from_numpy_scene` also takes the JAX package's compiled numpy
 scene (`sd.host.data`), read by attribute, so both packages can render the
-very same tables, the homogeneous medium included.
+very same tables, the homogeneous medium, the point, directional,
+point-normal and environment lights and uv-dependent emission included.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +45,11 @@ class Scene:
     camera: Camera = None
     meshes: List[TriMesh] = field(default_factory=list)
     materials: List[MaterialDesc] = field(default_factory=list)
+    point_lights: List[Tuple] = field(default_factory=list)  # (pos, intensity)
+    directional_lights: List[Tuple] = field(default_factory=list)  # (dir, I)
+    point_normal_lights: List[Tuple] = field(default_factory=list)  # (p, n, I)
+    env_constant: Optional[np.ndarray] = None
+    env_image: Optional[np.ndarray] = None     # [h, w, 3] lat-long map
     textures: Optional[np.ndarray] = None   # [k, th, tw, 3] bitmap atlas
     volume: Optional[HomogeneousVolume] = None   # numpy (make_volume)
 
@@ -75,9 +81,13 @@ class Scene:
         if self.camera is not None:
             cam_p = np.asarray(self.camera.position)
             radius = max(radius, float(np.linalg.norm(cam_p - center)))
-        emitters = build_emitter_tables(self.meshes, mesh_emitter_id,
-                                        geom.n_pad, bsphere_center=center,
-                                        bsphere_radius=radius)
+        emitters = build_emitter_tables(
+            self.meshes, mesh_emitter_id, geom.n_pad,
+            points=self.point_lights, directionals=self.directional_lights,
+            point_normals=self.point_normal_lights,
+            env_constant=self.env_constant, env_image=self.env_image,
+            bsphere_center=center, bsphere_radius=radius,
+            textures=self.textures)
         host_sd = SceneData(camera=self.camera, geom=geom,
                             materials=build_material_table(
                                 materials, textures=self.textures),
@@ -94,8 +104,10 @@ def from_numpy_scene(host_sd, device, walk_options=None) -> SceneData:
     `sd.host.data`; it is read by attribute only. The material table comes
     with its texture atlas. Walk tables come along
     (the JAX package's converted to this package's layout); the JAX
-    package's clustered tables are ignored. The medium's sigmas and phase g
-    are read as plain numbers. `walk_options` sets the walk's schedule
+    package's clustered tables are ignored. The emitter tables come whole:
+    every atom kind, the environment's image and CDF, the uv-dependent
+    emission columns. The medium's sigmas and phase g are read as plain
+    numbers. `walk_options` sets the walk's schedule
     (accel/walk.py: WalkOptions)."""
     if getattr(host_sd, "ats", None) is not None:
         raise NotImplementedError("ATS light sampling is not ported yet")

@@ -1,9 +1,13 @@
-"""Discrete distributions as flat CDF tables; port of the 1D part of
+"""Discrete and continuous distributions as flat CDF tables; port of
 rustlight_tpu/utils/distribution.py.
 
 CDF layout matches the reference: cdf has n+1 entries, cdf[0] = 0,
 cdf[n] = 1, pdf(i) = cdf[i+1] - cdf[i], func_int = mean(func). Building is
-numpy at scene-compile time; sampling is a batched `searchsorted`.
+numpy at scene-compile time; sampling is a batched `searchsorted`. The 2D
+distribution (an environment map's luminance) keeps the reference's index
+rules: `searchsorted(side="right") - 1` on the marginal, and the count of
+`ccdf <= u` over the sampled row of the conditional, so that both packages
+pick the same cells.
 """
 from __future__ import annotations
 
@@ -19,8 +23,17 @@ class Distribution1D(NamedTuple):
     func_int: object  # scalar f32 (mean of func, as in the reference)
 
 
+class Distribution2D(NamedTuple):
+    """Marginal over rows x conditional over columns."""
+    marginal_cdf: object      # [h+1]
+    conditional_cdf: object   # [h, w+1]
+    func: object              # [h, w]
+    marginal_func: object     # [h] row integrals
+    marginal_int: object      # scalar
+
+
 def build_distribution_1d_np(func) -> Distribution1D:
-    """Host-side (numpy) build."""
+    """Host-side (numpy) build; a leading axis builds one table a row."""
     func = np.asarray(func, dtype=np.float32)
     n = func.shape[-1]
     csum = np.cumsum(func / n, axis=-1)
@@ -32,13 +45,32 @@ def build_distribution_1d_np(func) -> Distribution1D:
     return Distribution1D(cdf=cdf, func=func, func_int=total[..., 0])
 
 
+def build_distribution_2d_np(f) -> Distribution2D:
+    """f [h, w] nonnegative (an environment map's luminance * sin theta)."""
+    f = np.asarray(f, dtype=np.float32)
+    cond = build_distribution_1d_np(f)
+    row_int = cond.func_int
+    marg = build_distribution_1d_np(row_int)
+    return Distribution2D(
+        marginal_cdf=marg.cdf, conditional_cdf=cond.cdf, func=f,
+        marginal_func=row_int, marginal_int=marg.func_int)
+
+
+def _t(x, device):
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
 def distribution_to(dist: Distribution1D, device) -> Distribution1D:
     """Upload a numpy-built distribution to `device`."""
-    return Distribution1D(
-        cdf=torch.as_tensor(np.asarray(dist.cdf, np.float32), device=device),
-        func=torch.as_tensor(np.asarray(dist.func, np.float32), device=device),
-        func_int=torch.as_tensor(np.asarray(dist.func_int, np.float32),
-                                 device=device))
+    return Distribution1D(cdf=_t(dist.cdf, device), func=_t(dist.func, device),
+                          func_int=_t(dist.func_int, device))
+
+
+def distribution_2d_to(d2, device) -> Distribution2D:
+    """Upload a numpy-built 2D distribution (this module's or the JAX
+    package's, read by attribute) to `device`."""
+    return Distribution2D(*(_t(getattr(d2, f), device)
+                            for f in Distribution2D._fields))
 
 
 def sample_discrete_1d(dist: Distribution1D, u):
@@ -49,3 +81,42 @@ def sample_discrete_1d(dist: Distribution1D, u):
 
 def pdf_discrete_1d(dist: Distribution1D, idx):
     return dist.cdf[idx + 1] - dist.cdf[idx]
+
+
+def sample_continuous_1d(dist: Distribution1D, u):
+    """u [...] -> (continuous position in [0, n), index, remapped u)."""
+    idx = sample_discrete_1d(dist, u)
+    c0 = dist.cdf[idx]
+    p = pdf_discrete_1d(dist, idx)
+    dv = u - c0
+    dv = torch.where(p > 0.0, dv / torch.where(p > 0.0, p, 1.0), dv)
+    return idx.to(torch.float32) + dv, idx, dv
+
+
+def sample_continuous_2d(d2: Distribution2D, uv):
+    """uv [..., 2] -> (x, y) continuous positions in [0, w) x [0, h)."""
+    h, w = d2.func.shape
+    ux, uy = uv[..., 0], uv[..., 1]
+    yi = torch.clamp(torch.searchsorted(d2.marginal_cdf, uy.contiguous(),
+                                      right=True) - 1,
+                     0, h - 1)
+    my0 = d2.marginal_cdf[yi]
+    mp = d2.marginal_cdf[yi + 1] - my0
+    dy = uy - my0
+    dy = torch.where(mp > 0.0, dy / torch.where(mp > 0.0, mp, 1.0), dy)
+    y = yi.to(torch.float32) + dy
+
+    ccdf = d2.conditional_cdf[yi]                  # [..., w+1]
+    xi = torch.clamp(torch.sum(ccdf <= ux[..., None], dim=-1) - 1, 0, w - 1)
+    cx0 = torch.gather(ccdf, -1, xi[..., None])[..., 0]
+    cp = torch.gather(ccdf, -1, xi[..., None] + 1)[..., 0] - cx0
+    dx = ux - cx0
+    dx = torch.where(cp > 0.0, dx / torch.where(cp > 0.0, cp, 1.0), dx)
+    x = xi.to(torch.float32) + dx
+    return torch.stack([x, y], dim=-1)
+
+
+def pdf_2d(d2: Distribution2D, xi, yi):
+    """Discrete cell density: func[y, x] / marginal_int."""
+    safe = torch.where(d2.marginal_int > 0.0, d2.marginal_int, 1.0)
+    return d2.func[yi, xi] / safe

@@ -14,6 +14,7 @@
     `light-tracing` subcommands take the reference's flags.
 """
 import argparse
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -24,6 +25,7 @@ from rustlight_tpu.cli import build_parser as jax_build_parser
 from rustlight_tpu_torch import cli
 from rustlight_tpu_torch.integrators import render
 
+ROOT = Path(__file__).resolve().parents[1]
 # global flags both CLIs implement
 PORTED = {"help", "nbsamples", "output", "scale_image",
           "random_number_generator", "medium"}
@@ -201,3 +203,93 @@ def test_cli_builds_the_reference_integrators():
     np.testing.assert_array_equal(vol.sigma_s, np.full(3, 0.5, np.float32))
     np.testing.assert_array_equal(vol.sigma_a, np.full(3, 0.25, np.float32))
     assert vol.phase_g == np.float32(0.3)
+
+
+@pytest.mark.parametrize("argv, shape, floor", [
+    (["examples/envglass.xml", "-s", "0.03125", "path", "-m", "4"], (12, 16),
+     1e-3),
+    (["examples/caustic.pbrt", "-s", "0.0357143", "direct"], (12, 16), 1e-3),
+    (["examples/fog_box.xml", "-s", "0.0416667", "light", "-m", "4"],
+     (12, 16), 1e-3),
+    (["door_box", "-s", "0.4", "path", "-m", "8"], (12, 16), 0.0),
+    (["tmp.obj", "-s", "0.03125", "ao", "-d", "inf"], (16, 16), 1e-3)],
+    ids=["xml", "pbrt", "xml-medium-light", "door_box", "obj"])
+def test_cli_renders_scene_files(tmp_path, argv, shape, floor):
+    """Each scene-file kind (and door_box) through the port's CLI on the
+    CPU, at a film of about 16x12: a finite image both packages read
+    alike. The OBJ scene (a tmp box, no lights) renders `ao`; door_box is
+    lit only through its doorway, so 2 spp may find little light."""
+    from rustlight_tpu.utils.image import read_exr as jax_read_exr
+    from rustlight_tpu_torch.utils.image import read_exr
+    if argv[0] == "tmp.obj":
+        (tmp_path / "tmp.obj").write_text(
+            "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nv 0 0 1\nv 1 0 1\n"
+            "f 1 2 3 4\nf 1 5 6 2\n")
+        argv = [str(tmp_path / "tmp.obj")] + argv[1:]
+    else:
+        argv = [argv[0] if argv[0] == "door_box"
+                else str(ROOT / argv[0])] + argv[1:]
+    out = tmp_path / "out.exr"
+    assert cli.main([argv[0], "-n", "2", "-o", str(out), "--device", "cpu",
+                     *argv[1:]]) == 0
+    img = read_exr(out)
+    assert img.shape == shape + (3,)
+    assert np.all(np.isfinite(img)) and img.mean() > floor
+    np.testing.assert_array_equal(img, jax_read_exr(out))
+
+
+def test_scale_image_rederives_the_camera():
+    """-s keeps the file's aspect ratio through resize_camera, and -m keeps
+    a loaded medium unless it sets one."""
+    from rustlight_tpu_torch.scene import resize_camera
+    from rustlight_tpu_torch.scene.loaders import load_scene
+    path = str(ROOT / "examples" / "fog_box.xml")
+    sc = cli.load_scene_arg(cli.build_parser().parse_args(
+        [path, "-s", "0.125", "path"]))
+    want = resize_camera(load_scene(path).camera, 48, 36)
+    assert (sc.camera.width, sc.camera.height) == (48, 36)
+    np.testing.assert_array_equal(sc.camera.sample_to_camera,
+                                  want.sample_to_camera)
+    assert sc.volume is not None and sc.volume.phase_g == np.float32(0.4)
+    sc = cli.load_scene_arg(cli.build_parser().parse_args(
+        [path, "-m", "0.5", "path"]))
+    assert float(sc.volume.sigma_s[0]) == 0.5
+
+
+@pytest.mark.parametrize("xtra", [["no-shading"], ["hvs-light"],
+                                  ["texture-light"]])
+def test_cli_xtra_options(tmp_path, xtra):
+    """-x no-shading renders without shading normals (a different image on
+    envglass's spheres); hvs-light and texture-light turn the cbox light's
+    emission into the HSV ramp or a texture (the procedural ramp: no
+    butterfly.jpg in the working directory), scaled by its luminance."""
+    from rustlight_tpu_torch.utils.image import read_exr
+    scene = (str(ROOT / "examples" / "envglass.xml") if xtra == ["no-shading"]
+             else "cbox")
+    scale = "0.03125" if xtra == ["no-shading"] else "0.0625"
+    imgs = []
+    for x in ([], xtra):
+        out = tmp_path / f"{len(x)}.exr"
+        argv = [scene, "-n", "2", "-s", scale, "-o", str(out), "--device",
+                "cpu"]
+        for v in x:
+            argv += ["-x", v]
+        assert cli.main(argv + ["path", "-m", "3"]) == 0
+        imgs.append(read_exr(out))
+    assert np.all(np.isfinite(imgs[1])) and imgs[1].mean() > 1e-3
+    assert not np.array_equal(imgs[0], imgs[1])
+    args = cli.build_parser().parse_args(
+        ["cbox", *sum((["-x", v] for v in xtra), []), "path"])
+    sc = cli.load_scene_arg(args)
+    lights = [m for m in sc.meshes if m.is_light]
+    kind = {"no-shading": 0, "hvs-light": 1, "texture-light": 2}[xtra[0]]
+    assert lights and all(m.emission_kind == kind for m in lights)
+    if kind == 2:
+        assert sc.textures.shape[0] == 1 and lights[0].emission_tex == 0
+
+
+def test_cli_refuses_ats():
+    with pytest.raises(SystemExit) as e:
+        cli.main(["cbox", "-x", "no-shading", "-x", "ats", "--device", "cpu",
+                  "path"])
+    assert e.value.code == "--xtra-options is not ported yet"

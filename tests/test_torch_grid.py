@@ -43,9 +43,12 @@ def jax_scene():
 
 def _assert_tables_equal(jtab, ttab, fields):
     for f in fields:
+        if f == "kinds":   # the port's set of the atom kinds present
+            assert ttab.kinds == set(np.asarray(jtab.atom_kind).tolist())
+            continue
         a, b = getattr(jtab, f), getattr(ttab, f)
-        if f == "atom_cdf":
-            for g in ("cdf", "func", "func_int"):
+        if f in ("atom_cdf", "env_cdf"):
+            for g in b._fields:
                 np.testing.assert_array_equal(getattr(a, g), getattr(b, g))
             continue
         if a is None and b is None:

@@ -61,9 +61,12 @@ def test_cbox_tables_equal_jax(group):
     jtab = getattr(jax_cornell_box(16, 16).compile().host.data, group)
     ttab = getattr(cornell_box(16, 16).compile(device="cpu").host, group)
     for f in ttab._fields:
+        if f == "kinds":   # the port's set of the atom kinds present
+            assert ttab.kinds == set(np.asarray(jtab.atom_kind).tolist())
+            continue
         a, b = getattr(jtab, f), getattr(ttab, f)
-        if f == "atom_cdf":
-            for g in ("cdf", "func", "func_int"):
+        if f in ("atom_cdf", "env_cdf"):
+            for g in b._fields:
                 np.testing.assert_array_equal(getattr(a, g), getattr(b, g))
             continue
         if a is None and b is None:
@@ -215,11 +218,8 @@ def test_offset_ray_origin():
 def test_unported_features_raise():
     from rustlight_tpu_torch.scene.geometry import (
         TriMesh, build_geometry_tables, geometry_to)
-    sc = jax_cornell_box(8, 8)
-    sc.point_lights.append(((278.0, 500.0, 278.0), (1.0, 1.0, 1.0)))
-    with pytest.raises(NotImplementedError):
-        tscene.from_numpy_scene(sc.compile().host.data, "cpu")
-    # ATS light sampling is not ported (the medium is)
+    # ATS light sampling is not ported (the medium and every other emitter
+    # atom kind are)
     with pytest.raises(NotImplementedError, match="ATS"):
         tscene.from_numpy_scene(
             jax_cornell_box(8, 8).compile(use_ats=True).host.data, "cpu")
