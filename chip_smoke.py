@@ -213,7 +213,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      card against CPU: 99.9% of pixels within 1e-3 (relative), means
      within 1e-4; then, timed as phase 3 (warm-up, then counts reset and
      rays counted over a timed render), direct on cornell_box(512, 512) at
-     128 spp and the path tracer (depth 8) on veach_mis(256, 192) at 128
+     32 spp and the path tracer (depth 8) on veach_mis(256, 192) at 32
      spp, each with its K1/K2 launches and the device busy share of a warm
      8 spp render under torch.profiler.
  21. gate, the light tracer and the medium: the rows cbox_path/path,
@@ -230,7 +230,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      against the CPU at 32x32, 4 spp, under phase 20's bounds; then,
      timed as in phase 20 (but the warm-up at 8 spp), the light tracer on
      cornell_box(512, 512) and the path tracer through compute_block in the
-     medium at 512x512, both at 32 spp and depth 8.
+     medium at 512x512, both at 16 spp and depth 8.
  22. the example scenes: (a) examples/cbox.pbrt, instances.pbrt,
      caustic.pbrt, envglass.xml and fog_box.xml through the port's
      load_scene, compiled on the card, their triangle counts and tiers
@@ -249,11 +249,25 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      with no roulette, 32 spp: the center patch within 0.015 of 0.5, the
      corner within 1e-3 of 1 (tests/test_integrators.py:25-35 scaled to the
      film); (d) envglass 512x384, fog_box 384x288 and caustic 448x336, the
-     path tracer (depth 8, compute_block) at 16 spp after a 1 spp warm-up,
+     path tracer (depth 8, compute_block) at 8 spp after a 1 spp warm-up,
      timed as phase 20 (Mrays/s, wall, K1/K2/K3 launches), and the device
      busy share of one 2 spp profile of envglass; (e) `python -m
      rustlight_tpu_torch.cli examples/envglass.xml -n 2 path -m 8` in a
      subprocess: exit 0 and a finite 512x384 image.
+ 23. VPL and the volumetric estimators: (a) the rows cbox_path/vpl,
+     cbox_medium_single/{point-normal, plane-single, plane-single-unc} and
+     cbox_medium_prims/{bre, beams, planes, vrl} of tools/regression.py:
+     46-88 at its settings (cornell_box(128, 128), in the medium of sigma_s
+     0.0025 but for VPL; 32 spp, the primitives 8; seed 0; the per-pass
+     route, as the stored rows), each metric held as in phase 20, only K1/K2
+     launched (K1 alone for BRE and beams, which trace no shadow ray);
+     (b) each row on the card against the CPU at 32x32, 4 spp, under phase
+     20's bounds, and so point-normal with the phase connection and with
+     the best and pn_taylor_tr strategies; (c) timed as phase 20 (warm-up
+     at 1 spp, the profile at 2 spp), at 512x512: VPL on cbox at 8 spp,
+     point-normal (tr, equiangular) at 32 spp, beams and VRL at 4 spp on
+     cbox_medium, with the peak of allocated device memory and K1/K2's
+     share of the profiled device time.
 
 Before the last line: a JSON line with each kernel's tables and wavefronts
 (kernel_cases), the candidate forms' table (a1_forms) and the split forms'
@@ -261,7 +275,7 @@ records of K7, K3w and K8 (split_forms), the card line
 from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
-The K1/K2 launches of phases 20 and 21's full-width renders, and the
+The K1/K2 launches of phases 20, 21 and 23's full-width renders, and the
 K1/K2/K3 launches of phase 22's, are added to K1/K2's and K3's in the
 kernels line.
 """
@@ -379,14 +393,17 @@ WALK_REPLACES = ("rustlight_tpu/accel/pallas_walk.py:{} (K3), "
 GATE_SPP, GATE_STORED, GATE_FLOOR = 32, 1.3, 1.5
 GATE_METRICS = ("l1", "l2", "mape", "dssim")
 GATE_CPU_SPP, GATE_PROFILE_SPP = 4, 8
-DIRECT_RES, DIRECT_SPP = 512, 128
-VEACH_RES, VEACH_SPP, VEACH_DEPTH = (256, 192), 128, 8
+# (the full-width spp were 128 until phase 23 came: the whole run stays
+# well inside its 1,200 s)
+DIRECT_RES, DIRECT_SPP = 512, 32
+VEACH_RES, VEACH_SPP, VEACH_DEPTH = (256, 192), 32, 8
 # phase 21: the rows of tools/regression.py:46-83 on the scenes cbox and
 # cbox_medium (:51-54), their integrators' depth (:91-94), and the
-# full-width renders at the bench's cbox width, at 32 spp: at 128 spp the
-# whole run took 933 s of its 1,200 s on an H100 (700 W) with a slow host
+# full-width renders at the bench's cbox width, at 16 spp: at 128 spp the
+# whole run took 933 s of its 1,200 s on an H100 (700 W) with a slow host,
+# and phase 23 took the room of the next cut from 32
 MEDIUM_SIGMA_S, SLICE_DEPTH = 0.0025, 8
-SLICE_RES, SLICE_SPP = 512, 32
+SLICE_RES, SLICE_SPP = 512, 16
 # phase 22: the example scenes, their triangle counts and walk tier; the
 # card against the CPU at EX_WIDTH pixels wide (the file's aspect kept),
 # EX_SPP, depth EX_DEPTH; the furnace; the full-width renders
@@ -396,7 +413,16 @@ EXAMPLES = (("cbox.pbrt", 40, False), ("instances.pbrt", 52, False),
 EX_WIDTH, EX_SPP, EX_DEPTH = 32, 4, 8
 FURNACE_RES, FURNACE_SPP, FURNACE_DEPTH = 256, 32, 6
 EX_FULL = ("envglass.xml", "fog_box.xml", "caustic.pbrt")
-EX_FULL_SPP, EX_WARM_SPP, EX_PROFILE_SPP = 16, 1, 2
+EX_FULL_SPP, EX_WARM_SPP, EX_PROFILE_SPP = 8, 1, 2   # 16 before phase 23
+# phase 23: the VPL and volumetric rows of tools/regression.py:46-88 (their
+# integrators :100, :124-139; the primitives' rows at 8 spp), two more
+# point-normal forms card against CPU, and the full-width renders at the
+# bench's cbox width: (label, scene, technique, spp)
+VOL_RES, VOL_WARM_SPP, VOL_PROFILE_SPP = 512, 1, 2
+VOL_FULL = (("vpl", "cbox", "vpl", 8), ("point-normal", "cbox_medium",
+                                       "point-normal", 32),
+            ("beams", "cbox_medium", "beams", 4),
+            ("vrl", "cbox_medium", "vrl", 4))
 
 
 def phase(name, msg):
@@ -2740,8 +2766,8 @@ class _Row(NamedTuple):
     """A regression row of tools/regression.py gated on the card: its
     scene (a maker of width and height), its size, the size of its card
     against CPU check (None: none), its integrator maker, the route
-    (`persistent` as render takes it) and what the route means for the
-    stored row."""
+    (`persistent` as render takes it), what the route means for the
+    stored row, its spp and the kernels its render launches."""
     name: str
     tech: str
     make: Any
@@ -2750,6 +2776,8 @@ class _Row(NamedTuple):
     integ: Any
     persistent: Any
     route: str
+    spp: int = GATE_SPP
+    kernels: tuple = ("dense_closest", "dense_anyhit")
 
 
 def _cbox_medium(w, h):
@@ -2886,11 +2914,11 @@ def _oracle_configs():
 
 
 def _gate_row(row: _Row, dev):
-    """Render a row on the card at GATE_SPP, seed 0, with only K1/K2
-    launched; hold l1, l2, mape and dssim against regress/refs/<row>.exr
-    to stored * GATE_STORED + GATE_FLOOR * floor (regress/results.json,
-    regress/floors.json); then the card against the CPU at the row's small
-    size."""
+    """Render a row on the card at its spp, seed 0, with only its kernels
+    (K1/K2) launched; hold l1, l2, mape and dssim against
+    regress/refs/<row>.exr to stored * GATE_STORED + GATE_FLOOR * floor
+    (regress/results.json, regress/floors.json); then the card against the
+    CPU at the row's small size."""
     import torch
     from rustlight_tpu_torch.utils.image import read_exr
     from rustlight_tpu_torch.utils.metrics import metric_scalar
@@ -2902,13 +2930,13 @@ def _gate_row(row: _Row, dev):
     sd = row.make(*row.res).compile(device=dev)
     _reset_launches()
     t0 = time.time()
-    img = _render(sd, row.integ(), GATE_SPP, seed=0,
+    img = _render(sd, row.integ(), row.spp, seed=0,
                   persistent=row.persistent)["primal"]
     torch.cuda.synchronize()
     secs = time.time() - t0
     launched = {k: v for k, v in _launches().items() if v}
     label = f"{row.name}/{row.tech}"
-    _only(f"gate {label}", _launches(), ("dense_closest", "dense_anyhit"))
+    _only(f"gate {label}", _launches(), row.kernels)
     if img.shape != (row.res[1], row.res[0], 3) or not np.all(
             np.isfinite(img)):
         raise AssertionError(f"gate {label}: bad image {img.shape}")
@@ -2916,7 +2944,7 @@ def _gate_row(row: _Row, dev):
     got = {m: metric_scalar(ref, img, m) for m in GATE_METRICS}
     limit = {m: row_rec[m] * GATE_STORED + GATE_FLOOR * floor[m]
              for m in GATE_METRICS}
-    phase("gate", f"{label} {row.res[0]}x{row.res[1]} {GATE_SPP} spp seed 0"
+    phase("gate", f"{label} {row.res[0]}x{row.res[1]} {row.spp} spp seed 0"
           f" against regress/refs/{row.name}.exr ({row.route}): " + ", ".join(
               f"{m} {got[m]:.6g} (limit {limit[m]:.6g}, stored "
               f"{row_rec[m]:.6g}, {abs(got[m] - row_rec[m]) / row_rec[m]:.2g}"
@@ -2930,26 +2958,33 @@ def _gate_row(row: _Row, dev):
                      dev, row.persistent)
 
 
-def _full_width(label, sd, integ, spp, card, dense, warm_spp=None):
+def _full_width(label, sd, integ, spp, card, dense, warm_spp=None,
+                kernels=None, profile_spp=GATE_PROFILE_SPP, tag="gate"):
     """A render timed as phase 3 (warm-up, of `warm_spp` samples if given,
-    then counts reset and rays counted over a timed render) with only K1/K2
-    launched, their launches added to `dense`, and the device busy share
-    of a warm GATE_PROFILE_SPP render under torch.profiler."""
+    then counts reset and rays counted over a timed render) with only
+    `kernels` launched (by default K1/K2), their launches added to
+    `dense`, the peak of allocated device memory over the timed render,
+    and the device busy share of a warm `profile_spp` render under
+    torch.profiler. Returns (busy share, K1/K2's share of device time)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
     img, wall, warm, n_rays, launches = timed_render(label, sd, integ, spp,
                                                      warm_spp=warm_spp)
-    _only(f"gate {label}", launches, tuple(dense))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _only(f"{tag} {label}", launches, kernels or tuple(dense))
     for k in dense:
         dense[k] += launches[k]
-    busy, ours = profile_render(label, sd, integ, GATE_PROFILE_SPP,
-                                ("dense_",), top=6)
+    busy, ours = profile_render(label, sd, integ, profile_spp, ("dense_",),
+                                top=6)
     busy_s = "not measured" if busy is None else f"{100 * busy:.1f}%"
-    phase("gate", f"{label} {spp} spp: warm-up {warm:.3f}s"
+    phase(tag, f"{label} {spp} spp: warm-up {warm:.3f}s"
           + ("" if warm_spp is None else f" ({warm_spp} spp)") + ", timed "
           f"{wall:.3f}s, {n_rays} rays, {n_rays / wall / 1e6:.3f} "
-          f"Mrays/s, mean {img.mean():.6f}, device busy {busy_s} (of a "
-          f"warm {GATE_PROFILE_SPP} spp render), K1 dense_closest "
-          f"{launches['dense_closest']} and K2 dense_anyhit "
-          f"{launches['dense_anyhit']} launches | {card}")
+          f"Mrays/s, mean {img.mean():.6f}, peak device memory "
+          f"{peak:.2f} GiB, device busy {busy_s} (of a warm {profile_spp} "
+          f"spp render), K1 dense_closest {launches['dense_closest']} and "
+          f"K2 dense_anyhit {launches['dense_anyhit']} launches | {card}")
+    return busy, ours
 
 
 def gate_phase(dev, card):
@@ -3003,6 +3038,90 @@ def slice_phase(dev, card):
                 _cbox_medium(SLICE_RES, SLICE_RES).compile(device=dev),
                 IntegratorPathTracing(max_depth=SLICE_DEPTH), SLICE_SPP, card,
                 dense, warm_spp=GATE_PROFILE_SPP)
+    return dense
+
+
+def _volume_integrators():
+    """tools/regression.py's integrators of phase 23's rows (:100,
+    :124-139), by technique."""
+    from rustlight_tpu_torch.integrators import (IntegratorPointNormal,
+                                                 IntegratorSinglePlane,
+                                                 IntegratorVolPrimitives,
+                                                 IntegratorVPL)
+
+    def prims(p):
+        return lambda: IntegratorVolPrimitives(
+            nb_primitive=1024, max_depth=6, hard_cap=6, primitives=p,
+            radius=8.0)
+    return {
+        "vpl": lambda: IntegratorVPL(nb_vpl=256, max_depth=6, hard_cap=6),
+        "point-normal": lambda: IntegratorPointNormal(
+            strategies=("tr", "equiangular")),
+        "plane-single": lambda: IntegratorSinglePlane(nb_primitive=256,
+                                                      strategy="average"),
+        "plane-single-unc": lambda: IntegratorSinglePlane(
+            nb_primitive=256, strategy="average", uncorrelated=True),
+        **{p: prims(p) for p in ("bre", "beams", "planes", "vrl")}}
+
+
+def _volume_rows():
+    """The rows cbox_path/vpl, cbox_medium_single/{point-normal,
+    plane-single, plane-single-unc} and cbox_medium_prims/{bre, beams,
+    planes, vrl} of tools/regression.py:46-88 (phase 23): the per-pass
+    route, as the stored rows; the primitives at 8 spp; BRE and beams
+    trace no shadow ray (K1 only)."""
+    from rustlight_tpu_torch.models import cornell_box
+    integ = _volume_integrators()
+    res, small = (128, 128), (32, 32)
+    pp = "sample for sample: the per-pass route, as the stored row's"
+    rows = [_Row("cbox_path", "vpl", cornell_box, res, small, integ["vpl"],
+                 None, pp)]
+    rows += [_Row("cbox_medium_single", t, _cbox_medium, res, small, integ[t],
+                  None, pp) for t in ("point-normal", "plane-single",
+                                      "plane-single-unc")]
+    rows += [_Row("cbox_medium_prims", p, _cbox_medium, res, small, integ[p],
+                  None, pp, spp=8,
+                  kernels=(("dense_closest",) if p in ("bre", "beams")
+                           else ("dense_closest", "dense_anyhit")))
+             for p in ("bre", "beams", "planes", "vrl")]
+    return rows
+
+
+def volume_phase(dev, card):
+    """Phase 23. Returns the dense kernels' launches of its full-width
+    renders (counts reset just before each timed render, read just
+    after)."""
+    from rustlight_tpu_torch.integrators import IntegratorPointNormal
+    from rustlight_tpu_torch.models import cornell_box
+    for row in _volume_rows():
+        _gate_row(row, dev)
+    # point-normal's phase connection and its product samplers, card
+    # against CPU only (no stored row)
+    for label, kw in (
+            ("point-normal phase connection", dict(
+                strategies=("tr", "equiangular"), connection="phase")),
+            ("point-normal tr+equiangular+best+pn_taylor_tr", dict(
+                strategies=("tr", "equiangular", "best", "pn_taylor_tr")))):
+        _card_vs_cpu(f"cbox_medium_single/{label}", _cbox_medium, (32, 32),
+                     IntegratorPointNormal(**kw), GATE_CPU_SPP, dev,
+                     tag="volume")
+    dense = {"dense_closest": 0, "dense_anyhit": 0}
+    integ = _volume_integrators()
+    shares = []
+    for label, scene, tech, spp in VOL_FULL:
+        make = cornell_box if scene == "cbox" else _cbox_medium
+        busy, ours = _full_width(
+            f"{label} {scene} {VOL_RES}x{VOL_RES}",
+            make(VOL_RES, VOL_RES).compile(device=dev), integ[tech](), spp,
+            card, dense, warm_spp=VOL_WARM_SPP,
+            kernels=(("dense_closest",) if tech in ("bre", "beams")
+                     else ("dense_closest", "dense_anyhit")),
+            profile_spp=VOL_PROFILE_SPP, tag="volume")
+        shares.append(f"{label} " + ("not measured" if ours is None else
+                                     f"{100 * ours:.1f}%"))
+    phase("volume", "K1/K2's share of device time in the full-width "
+          "renders' profiles (the rest: the gathers' and the light paths' "
+          "elementwise kernels, the RNG): " + ", ".join(shares))
     return dense
 
 
@@ -3369,6 +3488,8 @@ def main() -> int:
     ex_launches = examples_phase(dev, card)
     for k in ("dense_closest", "dense_anyhit"):
         gate_launches[k] += ex_launches[k]
+    for k, v in volume_phase(dev, card).items():
+        gate_launches[k] += v
     for k in ("walk_closest", "walk_anyhit"):
         walk_launches[k] += ex_launches[k]
 

@@ -6,6 +6,8 @@ Usage: python -m rustlight_tpu_torch.cli cbox -n 64 -o out.exr path -m 6
        python -m rustlight_tpu_torch.cli mesh.obj -n 4 -o ao.pfm ao -d 2
        python -m rustlight_tpu_torch.cli cbox -n 8 -o l.exr light -m 8
        python -m rustlight_tpu_torch.cli cbox -m 0.0025 -n 8 -o m.exr path -m 8
+       python -m rustlight_tpu_torch.cli cbox -n 8 -o v.exr vpl -m 6 -n2 256
+       python -m rustlight_tpu_torch.cli cbox -m 0.0025 -n 8 -o p.exr point-normal
 
 Flags keep the reference CLI's names. Ported so far: scene files (.pbrt,
 .xml and .obj, through scene/loaders) and the built-in `cbox`, `veach_mis`
@@ -14,7 +16,15 @@ and `door_box` scenes; the `path` integrator with -m/-n/-r/-x/-s
 `light-tracing` (`light`) integrator with -m/-n/-r and -s all | surface |
 volume, the `ao` integrator with -d/--distance (`inf` for no limit) and
 -c/--normal-correction, the `direct` integrator with -b/--nb-bsdf-samples
-and -l/--nb-light-samples, -n/--nbsamples, -o/--output (.pfm, .exr, .png),
+and -l/--nb-light-samples, `vpl` (-m/-n/-r, -b/--clamping, -n2/--nb-vpl),
+`vol-primitives` (`vol-primitivies`; -m/-n/-r, -n2/--nb-primitive,
+-p bre | beams | planes | vrl), `plane-single` and
+`uncorrelated-plane-single` (-n2/--nb-primitive, -s uv | ut | vt | average
+| discrete_mis | ualpha | cmis) and `point-normal` (-s and its strategy
+names, -w/--warps, -W L | B, -z/--disable-aa, -k/--splitting, which takes
+the reference's ATS traversal only with ATS tables, and -x/--use-mis,
+parsed and unused as in the reference; these last four need -m); and the
+global flags -n/--nbsamples, -o/--output (.pfm, .exr, .png),
 -s/--scale-image (the camera re-derived for the new size),
 -m/--medium sigma_s[:sigma_a[:g]] (an infinite homogeneous medium),
 -r/--random-number-generator independent[:seed], and -x/--xtra-options
@@ -33,10 +43,34 @@ import sys
 import time
 
 # integrator subcommands of the reference CLI that have no port yet
-_NOT_PORTED = ("vpl",
-               "vol-primitivies", "vol-primitives", "plane-single",
-               "uncorrelated-plane-single", "point-normal", "gradient-path",
-               "gradient-path-explicit", "pssmlt", "erpt", "smcmc")
+_NOT_PORTED = ("gradient-path", "gradient-path-explicit", "pssmlt", "erpt",
+               "smcmc")
+# point-normal's -s names and the strategies they take
+# (rustlight_tpu/cli.py:284-306); any other name takes tr and equiangular
+_PN_STRATEGIES = {
+    "tr_ex": ("tr", "equiangular"),
+    "tr": ("tr",),
+    "ex": ("equiangular",),
+    "eq_ex": ("equiangular",),
+    "ex_clamp": ("eq_clamp",),
+    "eq_clamped_ex": ("eq_clamp",),
+    "eq_warp_ex": ("warp",),
+    "eq_tr_taylor_ex": ("taylor_tr",),
+    "eq_phase_taylor_ex": ("taylor_phase",),
+    "pn_ex": ("pn",),
+    "eq_best_ex": ("best",),
+    "pn_best_ex": ("pn_best",),
+    "pn_warp_ex": ("pn", "warp"),
+    "pn_tr_taylor_ex": ("pn_taylor_tr",),
+    "pn_phase_taylor_ex": ("pn_taylor_phase",),
+    "all": ("tr", "equiangular", "eq_clamp"),
+    # the phase connection (a name ending in _phase)
+    "eq_phase": ("equiangular",),
+    "tr_phase": ("tr",),
+    "eq_clamped_phase": ("eq_clamp",),
+}
+_PLANE_STRATEGIES = ["uv", "ut", "vt", "average", "discrete_mis", "ualpha",
+                     "cmis"]
 # global flags of the reference CLI that have no port yet, with its names
 # and defaults (rustlight_tpu/cli.py:44-89)
 _NOT_PORTED_FLAGS = (
@@ -107,6 +141,30 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("direct")
     p.add_argument("-b", "--nb-bsdf-samples", type=int, default=1)
     p.add_argument("-l", "--nb-light-samples", type=int, default=1)
+    p = sub.add_parser("vpl")
+    _add_path_length(p)
+    p.add_argument("-b", "--clamping", type=float, default=0.0)
+    p.add_argument("-n2", "--nb-vpl", type=int, default=128)
+    p = sub.add_parser("vol-primitivies", aliases=["vol-primitives"])
+    _add_path_length(p)
+    p.add_argument("-n2", "--nb-primitive", type=int, default=128)
+    p.add_argument("-p", "--primitives", default="BRE",
+                   choices=["BRE", "Beams", "Planes", "VRL",
+                            "bre", "beams", "planes", "vrl"])
+    for name in ("plane-single", "uncorrelated-plane-single"):
+        p = sub.add_parser(name)
+        p.add_argument("-n2", "--nb-primitive", type=int, default=128)
+        p.add_argument("-s", "--strategy", default="average",
+                       choices=_PLANE_STRATEGIES)
+    p = sub.add_parser("point-normal")
+    p.add_argument("-k", "--splitting", type=float, default=None)
+    p.add_argument("-x", "--use-mis", action="store_true")
+    p.add_argument("-z", "--disable-aa", action="store_true")
+    p.add_argument("-s", "--strategy", default="tr_ex")
+    p.add_argument("-w", "--warps", default="T",
+                   help="warp chain chars from {T,P,N}")
+    p.add_argument("-W", "--warps-strategy", default="L",
+                   choices=["L", "B"], help="Linear | Bezier wrap")
     for name in _NOT_PORTED:
         q = sub.add_parser(name)
         q.add_argument("rest", nargs=argparse.REMAINDER)
@@ -114,8 +172,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_integrator(args):
+    """The integrator of the subcommand, with the reference CLI's arguments
+    (rustlight_tpu/cli.py:244-316)."""
     from .integrators import (IntegratorAO, IntegratorDirect,
-                              IntegratorLightTracing, IntegratorPathTracing)
+                              IntegratorLightTracing, IntegratorPathTracing,
+                              IntegratorPointNormal, IntegratorSinglePlane,
+                              IntegratorVolPrimitives, IntegratorVPL)
+    cmd = args.command
+    if cmd in ("plane-single", "uncorrelated-plane-single"):
+        return IntegratorSinglePlane(
+            nb_primitive=args.nb_primitive,
+            strategy={"discrete_mis": "dmis"}.get(args.strategy,
+                                                  args.strategy),
+            uncorrelated=cmd.startswith("uncorrelated"))
+    if cmd == "point-normal":
+        # -x (use-mis) is parsed and unused, as in the reference
+        return IntegratorPointNormal(
+            strategies=_PN_STRATEGIES.get(args.strategy,
+                                          ("tr", "equiangular")),
+            splitting=args.splitting, warps=args.warps,
+            use_aa=not args.disable_aa,
+            connection="phase" if args.strategy.endswith("_phase") else "ex",
+            warps_strategy="bezier" if args.warps_strategy == "B"
+            else "linear")
     if args.command == "ao":
         return IntegratorAO(max_distance=_inf_or(args.distance, float),
                             normal_correction=args.normal_correction)
@@ -124,6 +203,14 @@ def build_integrator(args):
     pl = dict(min_depth=_inf_or(args.min_depth),
               max_depth=_inf_or(args.max_depth),
               rr_depth=_inf_or(args.rr_depth))
+    if cmd == "vpl":
+        return IntegratorVPL(nb_vpl=args.nb_vpl, max_depth=pl["max_depth"],
+                             rr_depth=pl["rr_depth"],
+                             clamping_factor=args.clamping or None)
+    if cmd in ("vol-primitivies", "vol-primitives"):
+        return IntegratorVolPrimitives(
+            nb_primitive=args.nb_primitive, max_depth=pl["max_depth"],
+            rr_depth=pl["rr_depth"], primitives=args.primitives.lower())
     if args.command in ("light-tracing", "light"):
         return IntegratorLightTracing(
             render_surface=args.strategy in ("all", "surface"),

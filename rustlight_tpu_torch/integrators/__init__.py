@@ -5,3 +5,7 @@ from .direct import IntegratorDirect
 from .light import IntegratorLightTracing
 from .path import (IntegratorPathTracing, STRATEGY_ALL, STRATEGY_BSDF,
                    STRATEGY_EMITTER, STRATEGY_NAIVE)
+from .plane_single import IntegratorSinglePlane
+from .point_normal import IntegratorPointNormal
+from .vol_primitives import IntegratorVolPrimitives
+from .vpl import IntegratorVPL

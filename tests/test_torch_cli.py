@@ -11,7 +11,12 @@
   - the light tracer, the medium (-m), single scattering (path -x) and the
     naive strategy (path -s naive) render at 32x32 on the CPU to .exr
     files that both packages read alike, and the `path` and
-    `light-tracing` subcommands take the reference's flags.
+    `light-tracing` subcommands take the reference's flags;
+  - `vpl`, `vol-primitives` (`vol-primitivies`), `plane-single`,
+    `uncorrelated-plane-single` and `point-normal` take the reference's
+    flags, build the reference's integrators (point-normal's strategy
+    table name by name) and render cbox 8x8 at 1 spp on the CPU; point-
+    normal's -k without ATS tables renders the image it renders without.
 """
 import argparse
 from pathlib import Path
@@ -293,3 +298,88 @@ def test_cli_refuses_ats():
         cli.main(["cbox", "-x", "no-shading", "-x", "ats", "--device", "cpu",
                   "path"])
     assert e.value.code == "--xtra-options is not ported yet"
+
+
+NEW_COMMANDS = ("vpl", "vol-primitivies", "vol-primitives", "plane-single",
+                "uncorrelated-plane-single", "point-normal")
+
+
+def _subflags(ap, command):
+    sub = next(a for a in ap._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {a.dest: (a.option_strings, a.default, a.type, a.choices)
+            for a in sub.choices[command]._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("command", NEW_COMMANDS)
+def test_volumetric_and_vpl_flags_match_the_reference(command):
+    assert _subflags(cli.build_parser(), command) == _subflags(
+        jax_build_parser(), command)
+
+
+PN_NAMES = sorted(cli._PN_STRATEGIES) + ["kulla"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["vpl"], ["vpl", "-m", "4", "-r", "2", "-b", "0.5", "-n2", "64"],
+    ["vol-primitivies"], ["vol-primitives", "-p", "Beams", "-n2", "64",
+                          "-m", "5"],
+    ["vol-primitives", "-p", "planes"], ["vol-primitives", "-p", "VRL"],
+    ["plane-single"], ["uncorrelated-plane-single", "-n2", "32"],
+    *(["plane-single", "-s", s] for s in cli._PLANE_STRATEGIES),
+    ["uncorrelated-plane-single", "-s", "discrete_mis"],
+    ["point-normal", "-w", "TPN", "-W", "B", "-z", "-k", "0.5", "-x"],
+    *(["point-normal", "-s", s] for s in PN_NAMES)],
+    ids=lambda a: "-".join(a))
+def test_cli_builds_the_reference_volumetric_integrators(argv):
+    from rustlight_tpu.cli import build_integrator as jax_build_integrator
+    ours = cli.build_integrator(cli.build_parser().parse_args(["cbox", *argv]))
+    theirs = jax_build_integrator(jax_build_parser().parse_args(
+        ["cbox", *argv]))
+    assert type(ours).__name__ == type(theirs).__name__
+    ours = {k: v for k, v in vars(ours).items() if not k.startswith("_")}
+    assert ours == {k: vars(theirs)[k] for k in ours}
+    if argv[0] == "point-normal" and len(argv) == 3:
+        want = {"kulla": ("tr", "equiangular")}.get(argv[2])
+        assert ours["strategies"] == (want or cli._PN_STRATEGIES[argv[2]])
+
+
+@pytest.mark.parametrize("argv", [
+    ["vpl", "-m", "4", "-n2", "32"],
+    ["-m", "0.0025", "vpl", "-m", "4", "-n2", "32"],
+    *(["-m", "0.0025", "vol-primitives", "-p", p, "-m", "4", "-n2", "64"]
+      for p in ("bre", "beams", "planes", "vrl")),
+    ["-m", "0.0025", "plane-single", "-n2", "32"],
+    ["-m", "0.0025", "uncorrelated-plane-single", "-s", "cmis"],
+    ["-m", "0.0025", "point-normal", "-s", "pn_best_ex", "-W", "B"]],
+    ids=lambda a: "-".join(a))
+def test_cli_renders_the_volumetric_integrators(tmp_path, argv):
+    """cbox 8x8, 1 spp on the CPU: a finite image that both packages read
+    alike (the small radius of the reference CLI's primitives leaves BRE
+    and beams nearly black at this size)."""
+    from rustlight_tpu.utils.image import read_exr as jax_read_exr
+    from rustlight_tpu_torch.utils.image import read_exr
+    out = tmp_path / "out.exr"
+    assert cli.main(["cbox", "-n", "1", "-s", "0.015625", "-o", str(out),
+                     "--device", "cpu", *argv]) == 0
+    img = read_exr(out)
+    assert img.shape == (8, 8, 3) and np.all(np.isfinite(img))
+    assert img.min() >= 0.0
+    np.testing.assert_array_equal(img, jax_read_exr(out))
+
+
+def test_point_normal_splitting_without_ats_renders_the_ordinary_route(
+        tmp_path):
+    """-k takes the ATS traversal only with ATS tables (rustlight_tpu/
+    integrators/point_normal.py: compute_pixel); without them the image is
+    the one rendered without -k."""
+    from rustlight_tpu_torch.utils.image import read_exr
+    imgs = []
+    for k in ([], ["-k", "0.5"]):
+        out = tmp_path / f"pn{len(k)}.exr"
+        assert cli.main(["cbox", "-n", "1", "-s", "0.015625", "-m", "0.0025",
+                         "-o", str(out), "--device", "cpu", "point-normal",
+                         *k]) == 0
+        imgs.append(read_exr(out))
+    assert imgs[0].mean() > 0
+    np.testing.assert_array_equal(imgs[0], imgs[1])

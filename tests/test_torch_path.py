@@ -153,7 +153,7 @@ def test_cli_renders_a_pfm(tmp_path):
     np.testing.assert_array_equal(read_pfm(tmp_path / "again.pfm"), img)
 
 
-@pytest.mark.parametrize("argv", [["cbox", "pssmlt"], ["cbox", "vpl"],
+@pytest.mark.parametrize("argv", [["cbox", "pssmlt"], ["cbox", "erpt"],
                                   ["cbox", "-r", "stratified", "path"]])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
