@@ -30,11 +30,11 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      FP32-pipe instructions a test in the kernel's SASS (cuobjdump, every
      path) / (132 SMs x 128 lanes x clocks.max.sm);
   3. main path, cbox: render(cornell_box(512, 512), path tracer depth 6,
-     128 spp) twice (warm-up, then timed), with launch counts reset just
+     128 spp) after a warm-up (8 spp), with launch counts reset just
      before the timed render; the image must be finite and within 4x the
      measured floor of regress/bench_ref.npz on 8x8 block means, and both
      dense kernels must have launched;
-  4. profile, cbox: torch.profiler over one warm 8 spp render;
+  4. profile, cbox: torch.profiler over one warm 2 spp render;
   5. walk kernels (K3/K4): on sphere_grid(122_000) (C = 512 clusters, the
      K3 row) and sphere_grid(516_000) (C = 2,048, the K4 row), two
      65,536-ray wavefronts (the scene's camera rays, a point origin; rays
@@ -58,7 +58,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      once through the walk and once through the dense kernels over all
      131k triangles: 99.9% of pixels within 1e-3 (relative), means within
      1e-4 (relative);
-  8. profile, grid122k and grid516k: torch.profiler over one warm 2 spp
+  8. profile, grid122k and grid516k: torch.profiler over one warm 1 spp
      render each;
   9-12, for each AO row: grid4p9M, the scene of bench.py:187-223
      (sphere_grid_mesh(4_200_000, n_theta=18): 8,000 spheres, 4,896,000
@@ -146,7 +146,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      wrappers count those apart, P1_LAUNCHES, `<name>_p1` in the
      launches); against phase 6's image of the same seed
      99.9% of pixels within 1e-3 (relative), means within 1e-4; a profile
-     of a warm 2 spp render each, and the default schedule timed once more;
+     of a warm 1 spp render each, and the default schedule timed once more;
  15. main path, wide: the grid5p7M AO render of phase 10 with
      WalkOptions(hier=False): 524,288 rays, the wide kernels the only trace
      kernels, 99.9% of pixels equal to phase 10's image, means within 1e-3;
@@ -190,7 +190,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      WalkOptions(mxu_tritest=True), with (sub=2, mxu_tritest=True) and with
      (pair=True, mxu_tritest=True), each held to phase 6's image as in 14,
      only that schedule's tensor-core kernels launching (the pair walk's
-     also K3's, for its fallback; no yardstick form), a warm 2 spp render
+     also K3's, for its fallback; no yardstick form), a warm 1 spp render
      of each profiled; and, on grid5p7M, the AO render of
      phase 10 with mxu_tritest on the two-level walk (K5's split
      tensor-core form) and on the wide pop,
@@ -215,8 +215,9 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      rays counted over a timed render), direct on cornell_box(512, 512) at
      32 spp and the path tracer (depth 8) on veach_mis(256, 192) at 32
      spp, each with its K1/K2 launches and the device busy share of a warm
-     8 spp render under torch.profiler.
- 21. gate, the light tracer and the medium: the rows cbox_path/path,
+     2 spp render under torch.profiler.
+ 21. gate, AO, the light tracer and the medium: the rows cbox_ao/ao (the
+     AO integrator's defaults), cbox_path/path,
      cbox_path/light, cbox_medium/path, cbox_medium/light and
      cbox_medium_single/path-single of tools/regression.py:46-83 at its
      settings (cornell_box(128, 128), for the two medium scenes in an
@@ -228,7 +229,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      K1/K2 launched; cbox_medium/path once more through compute_block
      (statistical) under the same limits; the five rows on the card
      against the CPU at 32x32, 4 spp, under phase 20's bounds; then,
-     timed as in phase 20 (but the warm-up at 8 spp), the light tracer on
+     timed as in phase 20 (but the warm-up at 2 spp), the light tracer on
      cornell_box(512, 512) and the path tracer through compute_block in the
      medium at 512x512, both at 16 spp and depth 8.
  22. the example scenes: (a) examples/cbox.pbrt, instances.pbrt,
@@ -251,7 +252,7 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      film); (d) envglass 512x384, fog_box 384x288 and caustic 448x336, the
      path tracer (depth 8, compute_block) at 8 spp after a 1 spp warm-up,
      timed as phase 20 (Mrays/s, wall, K1/K2/K3 launches), and the device
-     busy share of one 2 spp profile of envglass; (e) `python -m
+     busy share of one 1 spp profile of envglass; (e) `python -m
      rustlight_tpu_torch.cli examples/envglass.xml -n 2 path -m 8` in a
      subprocess: exit 0 and a finite 512x384 image.
  23. VPL and the volumetric estimators: (a) the rows cbox_path/vpl,
@@ -264,19 +265,39 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      (b) each row on the card against the CPU at 32x32, 4 spp, under phase
      20's bounds, and so point-normal with the phase connection and with
      the best and pn_taylor_tr strategies; (c) timed as phase 20 (warm-up
-     at 1 spp, the profile at 2 spp), at 512x512: VPL on cbox at 8 spp,
+     at 1 spp, the profile at 1 spp), at 512x512: VPL on cbox at 8 spp,
      point-normal (tr, equiangular) at 32 spp, beams and VRL at 4 spp on
      cbox_medium, with the peak of allocated device memory and K1/K2's
      share of the profiled device time.
+ 24. gradient domain and MCMC: (a) the rows cbox_path/gradient-path (the
+     reconnection shift), gradient-path-explicit (the random-replay
+     shift), pssmlt (65,536 chains, 16,384 normalization samples, the path
+     tracer at depth 8) and erpt (nb_mc 2, 16 chain samples, depth 6) of
+     tools/regression.py:46-124 at its settings (cornell_box(128, 128), 32
+     spp, seed 0; the gradient tracers at max_depth 6), each through the
+     integrator's own render, each metric held as in phase 20, only K1/K2
+     launched; (b) each row's integrator on the card against the CPU at
+     32x32, 4 spp: the gradient tracers' lanes (each lane's own values of
+     a pass) agree on at least 99.9% of the (pass, lane) pairs, their raw
+     films (primal_raw, gradient_x, gradient_y) within 1e-3 on every pixel
+     no diverged lane reaches, the means under phase 20's bound (a
+     gradient's against its mean absolute value); the MCMC tracers record
+     their chains: at least 99.9% of the (chain, step) decisions equal,
+     and every pixel that no chain splatted after its first step whose
+     decision or proposal's tf (its seed's first) differs within 1e-3; (c)
+     each of the four at 512x512 (GM_FULL's spp; ERPT with one round of 4
+     chain steps), timed as phase 23 (warm-up at 1 spp, the profile at 1
+     spp), with its K1/K2 launches, peak device memory and busy share.
 
-Before the last line: a JSON line with each kernel's tables and wavefronts
+Every line ends with the seconds since the run started. Before the last
+line: a JSON line with each kernel's tables and wavefronts
 (kernel_cases), the candidate forms' table (a1_forms) and the split forms'
 records of K7, K3w and K8 (split_forms), the card line
 from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
-The K1/K2 launches of phases 20, 21 and 23's full-width renders, and the
-K1/K2/K3 launches of phase 22's, are added to K1/K2's and K3's in the
+The K1/K2 launches of phases 20, 21, 23 and 24's full-width renders, and
+the K1/K2/K3 launches of phase 22's, are added to K1/K2's and K3's in the
 kernels line.
 """
 from __future__ import annotations
@@ -295,6 +316,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 N_RAYS = 262_144
 CBOX_RES, CBOX_SPP, CBOX_DEPTH = 512, 128, 6
+# the whole run's 1,200 s: phase 3's warm-up and phase 4's profile at these
+# spp (128 and 8 until phase 24 came), phases 8, 14, 16 and 19's profiles at
+# SCHED_PROFILE_SPP (2 until then); torch.profiler's host-side processing
+# grows with the launches it records (PERF.md, section 6)
+CBOX_WARM_SPP, CBOX_PROFILE_SPP, SCHED_PROFILE_SPP = 8, 2, 1
 TIMING_RUNS = 10
 PLAIN_RUNS = 1
 # ids may differ only where the two nearest valid t are this close (relative)
@@ -392,7 +418,7 @@ WALK_REPLACES = ("rustlight_tpu/accel/pallas_walk.py:{} (K3), "
 # the full-width renders
 GATE_SPP, GATE_STORED, GATE_FLOOR = 32, 1.3, 1.5
 GATE_METRICS = ("l1", "l2", "mape", "dssim")
-GATE_CPU_SPP, GATE_PROFILE_SPP = 4, 8
+GATE_CPU_SPP, GATE_PROFILE_SPP = 4, 2     # the profiles at 8 before phase 24
 # (the full-width spp were 128 until phase 23 came: the whole run stays
 # well inside its 1,200 s)
 DIRECT_RES, DIRECT_SPP = 512, 32
@@ -413,20 +439,46 @@ EXAMPLES = (("cbox.pbrt", 40, False), ("instances.pbrt", 52, False),
 EX_WIDTH, EX_SPP, EX_DEPTH = 32, 4, 8
 FURNACE_RES, FURNACE_SPP, FURNACE_DEPTH = 256, 32, 6
 EX_FULL = ("envglass.xml", "fog_box.xml", "caustic.pbrt")
-EX_FULL_SPP, EX_WARM_SPP, EX_PROFILE_SPP = 8, 1, 2   # 16 before phase 23
+# EX_FULL_SPP 16 before phase 23; EX_PROFILE_SPP 2 before phase 24
+EX_FULL_SPP, EX_WARM_SPP, EX_PROFILE_SPP = 8, 1, 1
 # phase 23: the VPL and volumetric rows of tools/regression.py:46-88 (their
 # integrators :100, :124-139; the primitives' rows at 8 spp), two more
 # point-normal forms card against CPU, and the full-width renders at the
 # bench's cbox width: (label, scene, technique, spp)
-VOL_RES, VOL_WARM_SPP, VOL_PROFILE_SPP = 512, 1, 2
+VOL_RES, VOL_WARM_SPP, VOL_PROFILE_SPP = 512, 1, 1   # profiles 2 before 24
 VOL_FULL = (("vpl", "cbox", "vpl", 8), ("point-normal", "cbox_medium",
                                        "point-normal", 32),
             ("beams", "cbox_medium", "beams", 4),
             ("vrl", "cbox_medium", "vrl", 4))
+# phase 24: the gradient-domain and MCMC rows of tools/regression.py:46-83
+# (their integrators :105-124); the card against the CPU at GATE_CPU_SPP on
+# 32x32: the gradient tracers' (pass, lane) pairs agreeing on at least
+# GRAD_LANES of them, the raw buffers within SCHED_PIX_RTOL on the pixels
+# that no diverged lane reaches, the means as phase 20's (a gradient
+# buffer's mean, near 0, against its mean absolute value); the MCMC
+# tracers' (chain, step) decisions equal on at least MCMC_DECISIONS of them
+# and the pixels that no diverged chain splatted within SCHED_PIX_RTOL
+# (index_add_ sums a pixel's k splats in any order: a relative change of
+# about k x 6e-8, k < 2,000 here); the full-width renders (technique,
+# spp), timed as phase 23
+GM_RES, GM_WARM_SPP, GM_PROFILE_SPP = 512, 1, 1
+GM_FULL = (("gradient-path", 4), ("gradient-path-explicit", 4),
+           ("pssmlt", 8), ("erpt", 8))
+# ERPT's work does not grow with spp (nb_mc rounds of chain_samples steps
+# over every pixel): at full width one round of 4 steps, so that its
+# profile (torch.profiler's host-side processing grows with the launches
+# it records) stays near the others'
+GM_FULL_ERPT = dict(nb_mc=1, chain_samples=4)
+GRAD_BUFFERS = ("primal", "gradient_x", "gradient_y")
+GRAD_LANES, MCMC_DECISIONS = 0.999, 0.999
+
+
+_T0 = time.time()
 
 
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """A line of the run: [name] msg, then the seconds since the start."""
+    print(f"[{name}] {msg} (+{time.time() - _T0:.1f}s)", flush=True)
 
 
 def _median_ms(fn, runs=TIMING_RUNS) -> float:
@@ -914,13 +966,16 @@ def block_mean_l1(img: np.ndarray) -> tuple:
 
 
 def _render(sd, integ, spp, seed=0, persistent=None):
-    """One render of `integ` on `sd`: a splatting integrator through
-    render_splat (as the reference's meta.py:_render_once dispatches),
-    any other through render (`persistent` as render takes it)."""
+    """One render of `integ` on `sd`, as the reference's meta.py:
+    _render_once dispatches: a splatting integrator through render_splat,
+    a self-driving one (gradient domain, MCMC) through its own render, any
+    other through render (`persistent` as render takes it)."""
     from rustlight_tpu_torch.integrators import (SplattingIntegrator, render,
                                                  render_splat)
     if isinstance(integ, SplattingIntegrator):
         return render_splat(sd, integ, spp, seed=seed)
+    if hasattr(integ, "render"):
+        return integ.render(sd, spp, seed=seed)
     return render(sd, integ, spp=spp, seed=seed, persistent=persistent)
 
 
@@ -1740,7 +1795,7 @@ def schedule_renders(label, gsd, integ, ref_img, ref_rays, ref_wall):
                       SCHED_MEAN_RTOL)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        profile_render(tag, sd, integ, 2, ("walk_", "pair_"))
+        profile_render(tag, sd, integ, SCHED_PROFILE_SPP, ("walk_", "pair_"))
     # the default schedule once more: host time drifts within a run
     _, wall, _, _, _ = timed_render(label, gsd, integ, GRID_SPP)
     phase("main", f"{label} default schedule again: timed {wall:.3f}s, "
@@ -2810,11 +2865,12 @@ def _gate_rows():
 
 
 def _slice_rows():
-    """The rows cbox_path/path, cbox_path/light, cbox_medium/path,
-    cbox_medium/light and cbox_medium_single/path-single of tools/
-    regression.py:46-83 at its integrators (:91-94, :127-129), and
+    """The rows cbox_ao/ao, cbox_path/path, cbox_path/light,
+    cbox_medium/path, cbox_medium/light and cbox_medium_single/path-single
+    of tools/regression.py:46-83 at its integrators (:91-94, :127-129), and
     cbox_medium/path once more through compute_block (phase 21)."""
-    from rustlight_tpu_torch.integrators import (IntegratorLightTracing,
+    from rustlight_tpu_torch.integrators import (IntegratorAO,
+                                                 IntegratorLightTracing,
                                                  IntegratorPathTracing)
     from rustlight_tpu_torch.models import cornell_box
 
@@ -2834,6 +2890,8 @@ def _slice_rows():
     splat = ("render_splat, the stored row's route; its scatter-add order "
              "differs")
     return [
+        _Row("cbox_ao", "ao", cornell_box, res, small, IntegratorAO, None,
+             pp),
         _Row("cbox_path", "path", cornell_box, res, small, path, False, pp),
         _Row("cbox_path", "light", cornell_box, res, small, light, None,
              splat),
@@ -3125,6 +3183,220 @@ def volume_phase(dev, card):
     return dense
 
 
+def _gm_integrators():
+    """tools/regression.py's integrators of phase 24's rows (:105-124), by
+    technique."""
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing
+    from rustlight_tpu_torch.integrators.gradient import (
+        IntegratorGradientPath, IntegratorGradientPathReconnect)
+    from rustlight_tpu_torch.integrators.mcmc import (IntegratorERPT,
+                                                      IntegratorPSSMLT)
+    return {
+        "gradient-path": lambda: IntegratorGradientPathReconnect(max_depth=6),
+        "gradient-path-explicit": lambda: IntegratorGradientPath(max_depth=6),
+        "pssmlt": lambda: IntegratorPSSMLT(
+            IntegratorPathTracing(max_depth=8, hard_cap=8),
+            nb_samples_norm=16384, nb_chains=65536),
+        "erpt": lambda **kw: IntegratorERPT(
+            IntegratorPathTracing(max_depth=6, hard_cap=6), **{
+                **dict(nb_mc=2, chain_samples=16, nb_samples_norm=16384),
+                **kw})}
+
+
+def _agree_buffer(tag, label, name, a, b, signed):
+    """Phase 20's pixel bounds on one buffer, card `a` against CPU `b`
+    (at least SCHED_PIX_FRAC of the pixels within SCHED_PIX_RTOL, relative
+    with a 1e-4 floor; the means within SCHED_MEAN_RTOL of the CPU's mean,
+    or for a `signed` buffer of its mean absolute value). Returns the
+    line's text."""
+    if not (np.all(np.isfinite(a)) and np.abs(b).mean() > 0):
+        raise AssertionError(f"{tag} {label} {name}: bad images")
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-4)
+    frac = float((rel.max(-1) <= SCHED_PIX_RTOL).mean())
+    scale = float(np.abs(b).mean()) if signed else float(b.mean())
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / scale
+    if frac < SCHED_PIX_FRAC or mean_rel > SCHED_MEAN_RTOL:
+        raise AssertionError(f"{tag} {label} {name}: card and CPU disagree "
+                             f"({100 * frac:.3f}%, {mean_rel:.3g})")
+    return (f"{name} {100 * frac:.3f}% within {SCHED_PIX_RTOL}, means "
+            f"{a.mean():.7f} / {b.mean():.7f} ({mean_rel:.3g} of "
+            f"{'its mean |x|' if signed else 'the mean'})")
+
+
+def _gradient_lanes(integ, sd, s):
+    """Each lane's own values of pass s (stream_fold(make_stream(0), s))
+    before the film's rolls, [n, k] on the host: the reconnection shift's
+    l_main, l_off, l_grad and very_direct; the random-replay shift's base
+    and four offset evaluations of the same primary samples."""
+    import torch
+    from rustlight_tpu_torch.integrators.common import _pixel_grid
+    from rustlight_tpu_torch.integrators.gradient.path import _OFFSETS
+    from rustlight_tpu_torch.utils.rng import (make_stream, stream_fold,
+                                               stream_next)
+    w, h = sd.camera.width, sd.camera.height
+    pix = torch.as_tensor(_pixel_grid(w, h), device=sd.device)
+    stream = stream_fold(make_stream(0, sd.device), s)
+    if hasattr(integ, "compute_pixel_gradient"):
+        l_main, l_off, l_grad, vd = integ.compute_pixel_gradient(
+            sd, pix, stream, integ.has_delta(sd))
+        vals = [l_main, *l_off, *l_grad, vd]
+    else:
+        u, _ = stream_next(stream, (w * h, integ.pss_dims))
+        vals = [integ._eval(sd, pix, u)] + [integ._eval(sd, torch.stack([
+            torch.clamp(pix[:, 0] + dx, 0, w - 1),
+            torch.clamp(pix[:, 1] + dy, 0, h - 1)], -1), u)
+            for dy, dx, _, _ in _OFFSETS]
+    return torch.cat(vals, 1).cpu().numpy()
+
+
+def _gradient_card_vs_cpu(label, make_integ, dev):
+    """A gradient tracer at 32x32, GATE_CPU_SPP passes, seed 0 on the card
+    and on the CPU. A lane of a pass diverged where any of its own values
+    (_gradient_lanes) is off by more than SCHED_PIX_RTOL (relative, 1e-4
+    floor): at least GRAD_LANES of the (pass, lane) pairs may not; the
+    films' primal_raw, gradient_x and gradient_y within SCHED_PIX_RTOL on
+    every pixel that no diverged lane reaches (the lane and its four
+    offset pixels); the reconstructed primal's and the gradients' means as
+    phase 20's (a gradient's against its mean absolute value). The
+    reconnection shift's rays graze edges: a hit point's last bit can
+    flip a lane, and the Poisson solve spreads it over its neighbours."""
+    from rustlight_tpu_torch.models import cornell_box
+    films, lanes = {}, {}
+    for where in (dev, "cpu"):
+        sd = cornell_box(32, 32).compile(device=where)
+        integ = make_integ()
+        films[str(where)] = integ.render(sd, GATE_CPU_SPP, seed=0)
+        lanes[str(where)] = [_gradient_lanes(integ, sd, s)
+                             for s in range(GATE_CPU_SPP)]
+    keep = np.ones((32, 32), bool)
+    n_div = 0
+    for a, b in zip(lanes[str(dev)], lanes["cpu"]):
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-4)
+        div = (rel.max(-1) > SCHED_PIX_RTOL).reshape(32, 32)
+        n_div += int(div.sum())
+        for y, x in zip(*np.nonzero(div)):
+            for dy, dx in ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)):
+                if 0 <= y + dy < 32 and 0 <= x + dx < 32:
+                    keep[y + dy, x + dx] = False
+    total = GATE_CPU_SPP * 32 * 32
+    fa, fb = films[str(dev)], films["cpu"]
+    worst = {k: float((np.abs(fa[k] - fb[k]) / np.maximum(
+        np.abs(fb[k]), 1e-4)).max(-1)[keep].max())
+        for k in ("primal_raw", "gradient_x", "gradient_y")}
+    means = {}
+    for k in GRAD_BUFFERS:
+        scale = float(np.abs(fb[k]).mean()) if k != "primal" else float(
+            fb[k].mean())
+        means[k] = abs(float(fa[k].mean()) - float(fb[k].mean())) / scale
+    rel_p = np.abs(fa["primal"] - fb["primal"]) / np.maximum(
+        np.abs(fb["primal"]), 1e-4)
+    phase("gm", f"{label} 32x32 {GATE_CPU_SPP} spp, card vs CPU: "
+          f"{n_div} of {total} (pass, lane) pairs diverged (limit "
+          f"{100 * (1 - GRAD_LANES):.1f}%); on the {int(keep.sum())} pixels "
+          "no diverged lane reaches, worst relative difference " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (limit {SCHED_PIX_RTOL}); means off by " + ", ".join(
+              f"{k} {v:.3g}" for k, v in means.items())
+          + f" (limit {SCHED_MEAN_RTOL}); the reconstructed primal "
+          f"{100 * float((rel_p.max(-1) <= SCHED_PIX_RTOL).mean()):.3f}% of "
+          f"pixels within {SCHED_PIX_RTOL}")
+    if (n_div > (1 - GRAD_LANES) * total or max(worst.values()) >
+            SCHED_PIX_RTOL or max(means.values()) > SCHED_MEAN_RTOL):
+        raise AssertionError(f"gm {label}: card and CPU disagree")
+
+
+def _diverged_pixels(a, b):
+    """The pixels that a chain splatted, on either side, from its first
+    step whose decision differs or whose tf differs by more than
+    SCHED_PIX_RTOL (the initial state's tf first: a step's proposal's
+    after). `a`, `b`: (accepts [runs, steps, lanes], visits [runs, steps +
+    1, lanes] with the flush last, tfs [runs, steps + 1, lanes] with the
+    initial state's first). Returns (pixels, diverged chains)."""
+    (acc_a, vis_a, tf_a), (acc_b, vis_b, tf_b) = a, b
+    off = np.abs(tf_a - tf_b) > SCHED_PIX_RTOL * np.maximum(np.abs(tf_b),
+                                                            1e-4)
+    # step t diverges where its decision or its proposal differs; a
+    # chain whose initial state differs diverges at step 0
+    diff = (acc_a != acc_b) | off[:, 1:]
+    diff[:, 0] |= off[:, 0]
+    out, chains = set(), 0
+    for r, lane in zip(*np.nonzero(diff.any(1))):
+        t = int(np.argmax(diff[r, :, lane]))
+        out.update(vis_a[r, t:, lane].tolist())
+        out.update(vis_b[r, t:, lane].tolist())
+        chains += 1
+    return out, chains
+
+
+def _mcmc_card_vs_cpu(label, make_integ, dev):
+    """An MCMC tracer at 32x32, GATE_CPU_SPP, seed 0 on the card and on the
+    CPU, both recording their chains: at least MCMC_DECISIONS of the
+    (chain, step) decisions equal, and the pixels that no diverged chain
+    splatted (_diverged_pixels) within SCHED_PIX_RTOL (relative, 1e-4
+    floor)."""
+    from rustlight_tpu_torch.models import cornell_box
+    run, rec = {}, {}
+    for where in (dev, "cpu"):
+        integ = make_integ()
+        integ.record_accepts = True
+        run[str(where)] = integ.render(
+            cornell_box(32, 32).compile(device=where), GATE_CPU_SPP,
+            seed=0)["primal"]
+        rec[str(where)] = (integ.accepts, integ.visits, integ.tfs)
+    a, b = run[str(dev)], run["cpu"]
+    if not (np.all(np.isfinite(a)) and b.mean() > 0):
+        raise AssertionError(f"gm {label}: bad images")
+    acc_a, acc_b = rec[str(dev)][0], rec["cpu"][0]
+    same = float((acc_a == acc_b).mean())
+    touched, chains = _diverged_pixels(rec[str(dev)], rec["cpu"])
+    keep = np.ones(32 * 32, bool)
+    keep[sorted(touched)] = False
+    rel = (np.abs(a - b) / np.maximum(np.abs(b), 1e-4)).max(-1).reshape(-1)
+    worst = float(rel[keep].max())
+    phase("gm", f"{label} 32x32 {GATE_CPU_SPP} spp, card vs CPU: "
+          f"{acc_a.size} decisions ({100 * acc_a.mean():.2f}% accepted), "
+          f"{100 * same:.4f}% equal (limit {100 * MCMC_DECISIONS:.1f}%); "
+          f"{chains} of {acc_a.shape[0] * acc_a.shape[2]} chains diverged, "
+          f"{int(keep.sum())} of 1024 pixels none of them touched, worst "
+          f"relative difference there {worst:.3g} (limit {SCHED_PIX_RTOL}); "
+          f"means {a.mean():.7f} / {b.mean():.7f}")
+    if same < MCMC_DECISIONS or worst > SCHED_PIX_RTOL:
+        raise AssertionError(f"gm {label}: card and CPU disagree")
+
+
+def gradient_mcmc_phase(dev, card):
+    """Phase 24. Returns the dense kernels' launches of its full-width
+    renders (counts reset just before each timed render, read just
+    after)."""
+    from rustlight_tpu_torch.models import cornell_box
+    integ = _gm_integrators()
+    route = ("the stored row's integrator and route; sample for sample on "
+             "the gradient rows, the chains' decisions within an ulp's "
+             "flips on the MCMC rows")
+    for tech in integ:
+        _gate_row(_Row("cbox_path", tech, cornell_box, (128, 128), None,
+                       integ[tech], None, route), dev)
+    for tech in ("gradient-path", "gradient-path-explicit"):
+        _gradient_card_vs_cpu(f"cbox_path/{tech}", integ[tech], dev)
+    for tech in ("pssmlt", "erpt"):
+        _mcmc_card_vs_cpu(f"cbox_path/{tech}", integ[tech], dev)
+    dense = {"dense_closest": 0, "dense_anyhit": 0}
+    shares = []
+    for tech, spp in GM_FULL:
+        kw = GM_FULL_ERPT if tech == "erpt" else {}
+        busy, ours = _full_width(
+            f"{tech} cbox {GM_RES}x{GM_RES}" + "".join(
+                f" {k} {v}" for k, v in kw.items()),
+            cornell_box(GM_RES, GM_RES).compile(device=dev), integ[tech](**kw),
+            spp, card, dense, warm_spp=GM_WARM_SPP,
+            profile_spp=GM_PROFILE_SPP, tag="gm")
+        shares.append(f"{tech} " + ("not measured" if ours is None else
+                                    f"{100 * ours:.1f}%"))
+    phase("gm", "K1/K2's share of device time in the full-width renders' "
+          "profiles: " + ", ".join(shares))
+    return dense
+
+
 def _example(name, width=None):
     """The port's host scene of examples/<name>, its camera re-derived for
     `width` pixels wide (the file's aspect kept) when given."""
@@ -3397,8 +3669,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.split()
     dense_recs = check_dense(sets, float(clock[0]) * 1e6)
     del sets
-    img, wall, warm, n_rays, launches = timed_render("cbox", sd, integ,
-                                                     CBOX_SPP)
+    img, wall, warm, n_rays, launches = timed_render(
+        "cbox", sd, integ, CBOX_SPP, warm_spp=CBOX_WARM_SPP)
     l1, floor = block_mean_l1(img)
     if not l1 <= GATE_MARGIN * floor:
         raise AssertionError(f"render: block-mean l1 {l1:.6f} > "
@@ -3412,7 +3684,7 @@ def main() -> int:
           f"rays, {n_rays / wall / 1e6:.3f} Mrays/s, mean {img.mean():.6f}, "
           f"block-mean l1 {l1:.6f} (limit {GATE_MARGIN * floor:.6f}), "
           f"launches { {k: v for k, v in launches.items() if v} }")
-    profile_render("cbox", sd, integ, 8, ("dense_",))
+    profile_render("cbox", sd, integ, CBOX_PROFILE_SPP, ("dense_",))
     del sd
 
     walk_recs, grids = [], {}
@@ -3453,7 +3725,7 @@ def main() -> int:
                  ORACLE_PIX_FRAC, ORACLE_PIX_RTOL, ORACLE_MEAN_RTOL)
     del osd
     for label, (gsd, _, _, _) in grids.items():
-        profile_render(label, gsd, integ, 2, ("walk_",))
+        profile_render(label, gsd, integ, SCHED_PROFILE_SPP, ("walk_",))
     label = GRID_ROWS[0][0]
     gsd, _, _, waves = grids[label]
     check_sub_planted(dev)
@@ -3489,6 +3761,8 @@ def main() -> int:
     for k in ("dense_closest", "dense_anyhit"):
         gate_launches[k] += ex_launches[k]
     for k, v in volume_phase(dev, card).items():
+        gate_launches[k] += v
+    for k, v in gradient_mcmc_phase(dev, card).items():
         gate_launches[k] += v
     for k in ("walk_closest", "walk_anyhit"):
         walk_launches[k] += ex_launches[k]

@@ -23,18 +23,24 @@ and -l/--nb-light-samples, `vpl` (-m/-n/-r, -b/--clamping, -n2/--nb-vpl),
 | discrete_mis | ualpha | cmis) and `point-normal` (-s and its strategy
 names, -w/--warps, -W L | B, -z/--disable-aa, -k/--splitting, which takes
 the reference's ATS traversal only with ATS tables, and -x/--use-mis,
-parsed and unused as in the reference; these last four need -m); and the
-global flags -n/--nbsamples, -o/--output (.pfm, .exr, .png),
--s/--scale-image (the camera re-derived for the new size),
--m/--medium sigma_s[:sigma_a[:g]] (an infinite homogeneous medium),
--r/--random-number-generator independent[:seed], and -x/--xtra-options
-no-shading, hvs-light and texture-light (butterfly.jpg from the working
-directory, else a procedural ramp). `--device` names the torch device to
-render on. The reference's other global flags (-a -e -t -l --progress
---resume --adaptive --guiding --aovs --feature-aovs --profile, and -x ats)
-are declared with its defaults: a flag left at its default is accepted,
-any other value exits with code 1 and "<flag> is not ported yet". So does
-every other sampler or integrator subcommand of the reference.
+parsed and unused as in the reference; these last four need -m); the
+gradient-domain path tracers `gradient-path` (the reconnection shift;
+-m/-n/-r, -i/--iterations, --strategy-recons uniform | weighted | bagging)
+and `gradient-path-explicit` (the random-replay shift; the same and
+--min-survival); `pssmlt` (-m/-n/-r, -s, -p/--large-prob,
+-b/--nb-samples-norm) and `erpt` (-m/-n/-r, -s, -k/--stratified,
+-e2/--nb-mc, -c/--chain-samples); and the global flags -n/--nbsamples,
+-o/--output (.pfm, .exr, .png), -s/--scale-image (the camera re-derived
+for the new size), -m/--medium sigma_s[:sigma_a[:g]] (an infinite
+homogeneous medium), -r/--random-number-generator independent[:seed] |
+stratified, --aovs (every buffer of the film as <output>_<name>.<ext>)
+and -x/--xtra-options no-shading, hvs-light and texture-light
+(butterfly.jpg from the working directory, else a procedural ramp).
+`--device` names the torch device to render on. The reference's other
+global flags (-a -e -t -l --progress --resume --adaptive --guiding
+--feature-aovs --profile, and -x ats) are declared with its defaults: a
+flag left at its default is accepted, any other value exits with code 1
+and "<flag> is not ported yet". So does the reference's `smcmc`.
 """
 from __future__ import annotations
 
@@ -43,8 +49,7 @@ import sys
 import time
 
 # integrator subcommands of the reference CLI that have no port yet
-_NOT_PORTED = ("gradient-path", "gradient-path-explicit", "pssmlt", "erpt",
-               "smcmc")
+_NOT_PORTED = ("smcmc",)
 # point-normal's -s names and the strategies they take
 # (rustlight_tpu/cli.py:284-306); any other name takes tr and equiangular
 _PN_STRATEGIES = {
@@ -79,7 +84,6 @@ _NOT_PORTED_FLAGS = (
     (("--resume",), dict(action="store_true")),
     (("--adaptive",), dict(action="store_true")),
     (("--guiding",), dict(action="store_true")),
-    (("--aovs",), dict(action="store_true")),
     (("--feature-aovs",), dict(action="store_true")),
     (("--profile",), dict(metavar="OUT.json", default=None)),
     (("-t", "--threads"), dict(type=int, default=None)),
@@ -113,7 +117,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-o", "--output", default="out.pfm")
     ap.add_argument("-s", "--scale-image", type=float, default=1.0)
     ap.add_argument("-r", "--random-number-generator", default="independent",
-                    help="independent[:seed]")
+                    help="independent[:seed] | stratified")
+    ap.add_argument("--aovs", action="store_true",
+                    help="also write every buffer of the film as "
+                    "<output>_<name>.<ext>")
     ap.add_argument("-m", "--medium", default="0.0",
                     help="sigma_s[:sigma_a[:g]] for an infinite homogeneous "
                     "medium")
@@ -165,6 +172,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="warp chain chars from {T,P,N}")
     p.add_argument("-W", "--warps-strategy", default="L",
                    choices=["L", "B"], help="Linear | Bezier wrap")
+    for name in ("gradient-path", "gradient-path-explicit"):
+        p = sub.add_parser(name)
+        _add_path_length(p)
+        p.add_argument("-i", "--iterations", type=int, default=50)
+        p.add_argument("--strategy-recons", default="uniform",
+                       choices=["uniform", "weighted", "bagging"])
+    p.add_argument("--min-survival", type=float, default=1.0)
+    p = sub.add_parser("pssmlt")
+    _add_path_length(p)
+    p.add_argument("-s", "--strategy", default="all")
+    p.add_argument("-p", "--large-prob", type=float, default=0.3)
+    p.add_argument("-b", "--nb-samples-norm", type=int, default=100000)
+    p = sub.add_parser("erpt")
+    _add_path_length(p)
+    p.add_argument("-k", "--stratified", action="store_true")
+    p.add_argument("-s", "--strategy", default="all")
+    p.add_argument("-e2", "--nb-mc", type=int, default=1)
+    p.add_argument("-c", "--chain-samples", type=int, default=100)
     for name in _NOT_PORTED:
         q = sub.add_parser(name)
         q.add_argument("rest", nargs=argparse.REMAINDER)
@@ -173,7 +198,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_integrator(args):
     """The integrator of the subcommand, with the reference CLI's arguments
-    (rustlight_tpu/cli.py:244-316)."""
+    (rustlight_tpu/cli.py:244-339)."""
     from .integrators import (IntegratorAO, IntegratorDirect,
                               IntegratorLightTracing, IntegratorPathTracing,
                               IntegratorPointNormal, IntegratorSinglePlane,
@@ -211,6 +236,29 @@ def build_integrator(args):
         return IntegratorVolPrimitives(
             nb_primitive=args.nb_primitive, max_depth=pl["max_depth"],
             rr_depth=pl["rr_depth"], primitives=args.primitives.lower())
+    if cmd == "gradient-path":
+        from .integrators.gradient import IntegratorGradientPathReconnect
+        return IntegratorGradientPathReconnect(
+            max_depth=pl["max_depth"], min_depth=pl["min_depth"],
+            recons=args.strategy_recons, recons_iterations=args.iterations)
+    if cmd == "gradient-path-explicit":
+        from .integrators.gradient import IntegratorGradientPath
+        return IntegratorGradientPath(
+            max_depth=pl["max_depth"], recons=args.strategy_recons,
+            recons_iterations=args.iterations,
+            min_survival=args.min_survival)
+    if cmd == "pssmlt":
+        from .integrators.mcmc import IntegratorPSSMLT
+        return IntegratorPSSMLT(
+            IntegratorPathTracing(strategy=args.strategy, **pl),
+            large_prob=args.large_prob,
+            nb_samples_norm=args.nb_samples_norm)
+    if cmd == "erpt":
+        from .integrators.mcmc import IntegratorERPT
+        return IntegratorERPT(
+            IntegratorPathTracing(strategy=args.strategy, **pl),
+            nb_mc=args.nb_mc, chain_samples=args.chain_samples,
+            stratified=args.stratified)
     if args.command in ("light-tracing", "light"):
         return IntegratorLightTracing(
             render_surface=args.strategy in ("all", "surface"),
@@ -302,9 +350,11 @@ def main(argv=None) -> int:
     if args.command in _NOT_PORTED:
         raise SystemExit(f"integrator {args.command!r} is not ported yet")
     rng = args.random_number_generator
-    if rng.split(":")[0] != "independent":
-        raise SystemExit(f"sampler {rng!r} is not ported yet")
-    seed = int(rng.split(":")[1]) if ":" in rng else 0
+    seed = 0
+    if rng.startswith("independent:"):
+        seed = int(rng.split(":")[1])
+    # as the reference: any name but stratified is the independent sampler
+    sampler = "stratified" if rng.startswith("stratified") else "independent"
 
     from .integrators import SplattingIntegrator, render, render_splat
 
@@ -314,12 +364,19 @@ def main(argv=None) -> int:
         "no-shading" not in args.xtra_options))
     integ = build_integrator(args)
     t1 = time.time()
-    # a splatting integrator renders through render_splat, as the
-    # reference's _render_once dispatches
-    run = render_splat if isinstance(integ, SplattingIntegrator) else render
-    film = run(sd, integ, args.nbsamples, seed=seed)
+    # as the reference's _render_once dispatches: a splatting integrator
+    # through render_splat, a self-driving one (gradient domain, MCMC)
+    # through its own render, the others through render with the sampler
+    if isinstance(integ, SplattingIntegrator):
+        film = render_splat(sd, integ, args.nbsamples, seed=seed)
+    elif hasattr(integ, "render"):
+        film = integ.render(sd, args.nbsamples, seed=seed)
+    else:
+        film = render(sd, integ, args.nbsamples, seed=seed, sampler=sampler)
     t2 = time.time()
     film.save(args.output)
+    if args.aovs and len(film.buffers) > 1:
+        film.dump_all(args.output)
     print(f"scene {t1 - t0:.2f}s, render {t2 - t1:.2f}s "
           f"({args.nbsamples} spp on {args.device}) -> {args.output}")
     return 0

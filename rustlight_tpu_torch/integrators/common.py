@@ -8,7 +8,9 @@ caller asks for it, take the per-pass route: one wavefront of every pixel
 per sample, in passes of `spp_per_pass`; `variance=True` takes it too and
 adds the `mean` and `variance` AOVs. Splatting integrators (the light
 tracer) render through `render_splat` into a scatter-added film. The
-stratified sampler is not ported yet and raises.
+stratified sampler (`sampler="stratified"`) takes the per-pass route: pass
+s draws through StratifiedStream(stream_fold(base, s)), its permutations
+keyed by the base key.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import numpy as np
 import torch
 
 from ..utils.film import Film, accumulate_safe, splat_add
-from ..utils.rng import make_stream, stream_fold
+from ..utils.rng import StratifiedStream, make_stream, stream_fold
+
+SAMPLERS = ("independent", "stratified")
 
 
 class SplattingIntegrator:
@@ -44,6 +48,14 @@ def mis_balance(pdf_a, pdf_b):
     return torch.where(pdf_a > 0.0, w, 0.0)
 
 
+def no_mesh(mesh) -> None:
+    """The self-driving integrators' `render(mesh=...)`: rendering over a
+    device mesh is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "rendering over a device mesh is not ported yet")
+
+
 def _pixel_grid(width, height):
     ys, xs = np.mgrid[0:height, 0:width]
     return np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int32)
@@ -65,10 +77,20 @@ def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
     route and adds the `mean` AOV (the primal) and the `variance` AOV (the
     unbiased per-sample variance from the sums of li and li^2). An
     integrator with `prepare(scene)` has it called once, before either
-    route, as the reference does."""
-    if sampler != "independent":
-        raise NotImplementedError(
-            "only the independent sampler is ported so far (no stratified)")
+    route, as the reference does.
+
+    `sampler="stratified"` takes the per-pass route too (its strata are
+    laid over the passes): sample s of every pixel draws through
+    StratifiedStream(inner=stream_fold(base, s), pixel_ids=y*w+x,
+    pass_idx=s, spp=spp, base_key=base.key). It cannot take the
+    persistent route: `persistent=True` with it raises ValueError."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}")
+    if sampler == "stratified":
+        if persistent:
+            raise ValueError("the stratified sampler takes the per-pass "
+                             "route only (persistent=True)")
+        persistent = False
     if variance:
         persistent = False
     if hasattr(integrator, "prepare"):
@@ -78,6 +100,14 @@ def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
     device = scene.device
     pix = torch.as_tensor(_pixel_grid(w, h), device=device)
     base = make_stream(seed, device)
+    pid = pix[:, 1] * w + pix[:, 0]
+
+    def pass_stream(s):
+        stream = stream_fold(base, s)
+        if sampler == "stratified":
+            return StratifiedStream(inner=stream, pixel_ids=pid, pass_idx=s,
+                                    spp=spp, base_key=base.key)
+        return stream
     if hasattr(integrator, "compute_block") and persistent is not False:
         acc = accumulate_safe(integrator.compute_block(
             scene, pix, stream_fold(base, 0), spp))
@@ -92,7 +122,7 @@ def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
             part2 = part
             for k in range(chunk):
                 li = accumulate_safe(integrator.compute_pixel(
-                    scene, pix, stream_fold(base, n_samples + k)))
+                    scene, pix, pass_stream(n_samples + k)))
                 if variance:
                     part2 = part2 + li * li
                 part = part + li

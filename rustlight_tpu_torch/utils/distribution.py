@@ -7,7 +7,9 @@ numpy at scene-compile time; sampling is a batched `searchsorted`. The 2D
 distribution (an environment map's luminance) keeps the reference's index
 rules: `searchsorted(side="right") - 1` on the marginal, and the count of
 `ccdf <= u` over the sampled row of the conditional, so that both packages
-pick the same cells.
+pick the same cells. `build_distribution_1d` builds a 1D table on the
+device from a tensor (the MCMC seed pool), its prefix sums in the order of
+the reference's, so that the two cdfs are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -43,6 +45,52 @@ def build_distribution_1d_np(func) -> Distribution1D:
     cdf = cdf / safe_total
     cdf[..., -1] = 1.0
     return Distribution1D(cdf=cdf, func=func, func_int=total[..., 0])
+
+
+# the row length of the reference's prefix sum (XLA:CPU rewrites a long
+# cumulative sum into rows of this many entries, see `_prefix_sum`)
+_SCAN_BASE = 16
+
+
+def _prefix_sum(x):
+    """Inclusive prefix sum of a 1D float32 tensor, associated as the
+    reference's (jnp.cumsum on the CPU): the entries in rows of
+    _SCAN_BASE (zero-padded), a running sum left to right within each row,
+    the rows' totals scanned the same way, recursively, and each row's
+    exclusive prefix added to its entries. Left-to-right adds over columns
+    keep the order fixed on any device."""
+    n = x.shape[0]
+    if n <= _SCAN_BASE:
+        rows = x[None]
+    else:
+        m = -(-n // _SCAN_BASE)
+        rows = torch.zeros(m * _SCAN_BASE, dtype=x.dtype, device=x.device)
+        rows[:n] = x
+        rows = rows.reshape(m, _SCAN_BASE)
+    cols = [rows[:, 0]]
+    for k in range(1, rows.shape[1]):
+        cols.append(cols[-1] + rows[:, k])
+    run = torch.stack(cols, dim=1)
+    if n <= _SCAN_BASE:
+        return run[0]
+    tot = _prefix_sum(run[:, -1])
+    excl = torch.cat([torch.zeros_like(tot[:1]), tot[:-1]])
+    return (run + excl[:, None]).reshape(-1)[:n]
+
+
+def build_distribution_1d(func) -> Distribution1D:
+    """Device build of a 1D distribution over a [n] float32 tensor, on its
+    device; the cdf equals the reference's (the JAX package's eager
+    build_distribution_1d) bit for bit, the all-zero case included
+    (uniform cdf but the last bin: cdf [0, ..., 0, 1])."""
+    func = func.to(torch.float32)
+    n = func.shape[-1]
+    csum = _prefix_sum(func / n)
+    cdf = torch.cat([torch.zeros_like(csum[:1]), csum])
+    total = cdf[-1:]
+    cdf = cdf / torch.where(total > 0.0, total, 1.0)
+    cdf[-1] = 1.0
+    return Distribution1D(cdf=cdf, func=func, func_int=total[0])
 
 
 def build_distribution_2d_np(f) -> Distribution2D:

@@ -4,6 +4,7 @@ Images are written by extension through the port's utils/image.py (.pfm,
 device film with `index_add_`."""
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -23,6 +24,14 @@ class Film:
 
     def save(self, path, name: str = "primal") -> None:
         _image.save(path, self.buffers[name])
+
+    def dump_all(self, base_path: str, suffix: str = "") -> None:
+        """Write every AOV as <stem>_<name><suffix><ext> beside base_path
+        (the reference's dump_all)."""
+        p = Path(base_path)
+        for k, v in self.buffers.items():
+            _image.save(str(p.with_name(f"{p.stem}_{k}{suffix}{p.suffix}")),
+                        v)
 
     def __getitem__(self, name: str) -> np.ndarray:
         return self.buffers[name]

@@ -14,6 +14,17 @@ default threefry in partitionable mode:
 Key derivation is scalar work and runs on the host in Python integers; the
 per-lane hash runs on the stream's device in int64 masked to 32 bits
 (torch's uint32 lacks most arithmetic).
+
+Two other stream types go through the same `stream_next` / `stream_next2d`,
+which dispatch on the stream's type:
+
+  - `ArrayStream`: primary-sample-space replay, the dimensions read from an
+    explicit [n, d] array (column (counter + k) mod d); `next2d` reads two
+    columns. The gradient and MCMC integrators drive the path tracer with it.
+  - `StratifiedStream`: wraps a threefry stream so that its first NB_DIM 1D
+    and first NB_DIM 2D draws are stratified over the sample passes
+    (samplers/stratified.py); `base_key` is the pass-independent key of the
+    stratum permutations, `d1` / `d2` count the 1D / 2D draws made.
 """
 from __future__ import annotations
 
@@ -78,30 +89,116 @@ def stream_fold(stream: RngStream, data: int) -> RngStream:
                      device=stream.device)
 
 
-def _uniform(key: Tuple[int, int], shape, device) -> torch.Tensor:
-    n = 1
-    for s in shape:
-        n *= int(s)
+def random_bits(key: Tuple[int, int], n: int, device) -> torch.Tensor:
+    """jax.random.bits(key, (n,)) for 32-bit words (partitionable
+    threefry): threefry2x32 over the flat iota, y0 ^ y1, as int64 in
+    [0, 2^32)."""
     # the flat iota's high words are zero below 2^32 lanes
     assert n < 2 ** 32, n
     lo = torch.arange(n, dtype=torch.int64, device=device)
     y0, y1 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo,
                            _mask_tensor)
-    bits = torch.bitwise_xor(y0, y1)
+    return torch.bitwise_xor(y0, y1)
+
+
+def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
+    """jax.random.fold_in on a raw two-word key."""
+    return _fold_in(key, data)
+
+
+def _uniform(key: Tuple[int, int], shape, device) -> torch.Tensor:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    bits = random_bits(key, n, device)
     fbits = torch.bitwise_or(torch.bitwise_right_shift(bits, 9), 0x3F800000)
     u = fbits.to(torch.int32).view(torch.float32) - 1.0
     return u.reshape(tuple(shape))
 
 
-def stream_next(stream: RngStream, shape=()) -> Tuple[torch.Tensor, RngStream]:
-    """One uniform in [0,1) per lane; `shape` is the wavefront shape."""
+def uniform(key: Tuple[int, int], shape, device) -> torch.Tensor:
+    """jax.random.uniform(key, shape) in float32."""
+    return _uniform(key, tuple(shape), device)
+
+
+def _threefry_next(stream: RngStream, shape=()):
     u = _uniform(_fold_in(stream.key, stream.counter), tuple(shape),
                  stream.device)
     return u, stream._replace(counter=stream.counter + 1)
 
 
-def stream_next2d(stream: RngStream, shape=()) -> Tuple[torch.Tensor, RngStream]:
-    """Two uniforms per lane, shaped [*shape, 2]."""
+def _threefry_next2d(stream: RngStream, shape=()):
     u = _uniform(_fold_in(stream.key, stream.counter), tuple(shape) + (2,),
                  stream.device)
     return u, stream._replace(counter=stream.counter + 1)
+
+
+class ArrayStream(NamedTuple):
+    """Primary-sample-space stream: dimension k of every lane is column
+    (counter + k) mod d of `values` [n, d]. Every chain keeps a dense
+    vector of primary samples; reading past d wraps."""
+    values: torch.Tensor   # [n, d]
+    counter: int
+
+
+def make_array_stream(values) -> ArrayStream:
+    return ArrayStream(values=values, counter=0)
+
+
+def _array_col(stream: ArrayStream, offset: int) -> torch.Tensor:
+    return stream.values[:, (stream.counter + offset) % stream.values.shape[1]]
+
+
+def astream_next(stream: ArrayStream, shape=()):
+    """One column: [n]; `shape` is ignored (the array's lanes are the
+    wavefront)."""
+    return _array_col(stream, 0), stream._replace(counter=stream.counter + 1)
+
+
+def astream_next2d(stream: ArrayStream, shape=()):
+    """Two consecutive columns: [n, 2]."""
+    u = torch.stack([_array_col(stream, 0), _array_col(stream, 1)], dim=-1)
+    return u, stream._replace(counter=stream.counter + 2)
+
+
+class StratifiedStream(NamedTuple):
+    """A threefry stream whose first NB_DIM 1D draws and first NB_DIM 2D
+    draws are stratified over the sample-pass axis
+    (samplers/stratified.py). `base_key` keys the stratum permutations and
+    must not depend on the pass (the inner stream is folded per pass);
+    draws past NB_DIM are the inner stream's plain uniforms."""
+    inner: RngStream
+    pixel_ids: torch.Tensor   # [n] int
+    pass_idx: int
+    spp: int
+    base_key: Tuple[int, int]
+    d1: int = 0               # 1D draws made
+    d2: int = 0               # 2D draws made
+
+
+def stream_next(stream, shape=()) -> Tuple[torch.Tensor, object]:
+    """One uniform in [0,1) per lane; `shape` is the wavefront shape."""
+    if isinstance(stream, ArrayStream):
+        return astream_next(stream, shape)
+    if isinstance(stream, StratifiedStream):
+        from ..samplers.stratified import NB_DIM, stratified_1d
+        u, inner = stream_next(stream.inner, shape)
+        if stream.d1 < NB_DIM:
+            u = stratified_1d(stream.base_key, stream.pixel_ids,
+                              stream.pass_idx, stream.spp, stream.d1, u)
+        return u, stream._replace(inner=inner, d1=stream.d1 + 1)
+    return _threefry_next(stream, shape)
+
+
+def stream_next2d(stream, shape=()) -> Tuple[torch.Tensor, object]:
+    """Two uniforms per lane, shaped [*shape, 2]."""
+    if isinstance(stream, ArrayStream):
+        return astream_next2d(stream, shape)
+    if isinstance(stream, StratifiedStream):
+        from ..samplers.stratified import NB_DIM, stratified_2d
+        u, inner = stream_next2d(stream.inner, shape)
+        if stream.d2 < NB_DIM:
+            u = stratified_2d(stream.base_key, stream.pixel_ids,
+                              stream.pass_idx, stream.spp, stream.d2, u)
+        return u, stream._replace(inner=inner, d2=stream.d2 + 1)
+    return _threefry_next2d(stream, shape)

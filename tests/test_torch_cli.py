@@ -33,7 +33,7 @@ from rustlight_tpu_torch.integrators import render
 ROOT = Path(__file__).resolve().parents[1]
 # global flags both CLIs implement
 PORTED = {"help", "nbsamples", "output", "scale_image",
-          "random_number_generator", "medium"}
+          "random_number_generator", "medium", "aovs"}
 
 
 class _Stub:
@@ -383,3 +383,103 @@ def test_point_normal_splitting_without_ats_renders_the_ordinary_route(
         imgs.append(read_exr(out))
     assert imgs[0].mean() > 0
     np.testing.assert_array_equal(imgs[0], imgs[1])
+
+
+SLICE_COMMANDS = ("gradient-path", "gradient-path-explicit", "pssmlt", "erpt")
+
+
+def test_only_smcmc_is_refused():
+    assert cli._NOT_PORTED == ("smcmc",)
+
+
+@pytest.mark.parametrize("command", SLICE_COMMANDS)
+def test_gradient_and_mcmc_flags_match_the_reference(command):
+    assert _subflags(cli.build_parser(), command) == _subflags(
+        jax_build_parser(), command)
+
+
+def _plain(obj):
+    return {k: v for k, v in vars(obj).items()
+            if isinstance(v, (int, float, str, type(None)))
+            and not k.startswith("_")
+            and k not in ("record_accepts", "accepts", "visits", "tfs")}
+
+
+@pytest.mark.parametrize("argv", [
+    ["gradient-path"], ["gradient-path", "-m", "5", "-n", "2", "-i", "9",
+                        "--strategy-recons", "bagging"],
+    ["gradient-path-explicit"],
+    ["gradient-path-explicit", "-m", "4", "--strategy-recons", "weighted",
+     "--min-survival", "0.25"],
+    ["pssmlt"], ["pssmlt", "-m", "6", "-p", "0.5", "-b", "4096", "-s", "bsdf"],
+    ["erpt"], ["erpt", "-k", "-e2", "3", "-c", "8", "-m", "4"]],
+    ids=lambda a: "-".join(a))
+def test_cli_builds_the_reference_gradient_and_mcmc_integrators(argv):
+    from rustlight_tpu.cli import build_integrator as jax_build_integrator
+    ours = cli.build_integrator(cli.build_parser().parse_args(["cbox", *argv]))
+    theirs = jax_build_integrator(jax_build_parser().parse_args(
+        ["cbox", *argv]))
+    assert type(ours).__name__ == type(theirs).__name__
+    assert _plain(ours) == {k: vars(theirs)[k] for k in _plain(ours)}
+    inner = getattr(ours, "integrator", None)
+    if inner is not None:
+        # nee_rr spells its default apart ("default" / "auto"): both resolve
+        # to the same per-scene choice
+        want = {k: vars(theirs.integrator)[k] for k in _plain(inner)}
+        assert {**_plain(inner), "nee_rr": 0} == {**want, "nee_rr": 0}
+
+
+@pytest.mark.parametrize("argv", [
+    ["gradient-path", "-m", "3"], ["gradient-path-explicit", "-m", "3"],
+    ["pssmlt", "-m", "3", "-b", "256"], ["erpt", "-m", "3", "-c", "4"]],
+    ids=lambda a: a[0])
+def test_cli_renders_the_gradient_and_mcmc_integrators(tmp_path, argv):
+    """cbox 8x8 (ERPT 32x32: its 65,536 normalization samples go in
+    batches of w h), 2 spp on the CPU: a finite, lit image that both
+    packages read alike; with --aovs the gradient tracers also write their
+    buffers as <output>_<name>.exr."""
+    from rustlight_tpu.utils.image import read_exr as jax_read_exr
+    from rustlight_tpu_torch.utils.image import read_exr
+    out = tmp_path / "out.exr"
+    side = 32 if argv[0] == "erpt" else 8
+    assert cli.main(["cbox", "-n", "2", "-s", str(side / 512), "-o",
+                     str(out), "--aovs", "--device", "cpu", *argv]) == 0
+    img = read_exr(out)
+    assert img.shape == (side, side, 3) and np.all(np.isfinite(img))
+    assert img.mean() > 0.01
+    np.testing.assert_array_equal(img, jax_read_exr(out))
+    aovs = sorted(p.name for p in tmp_path.iterdir() if p.name != "out.exr")
+    if argv[0].startswith("gradient"):
+        assert aovs == sorted(f"out_{k}.exr" for k in (
+            "primal", "primal_raw", "very_direct", "gradient_x",
+            "gradient_y"))
+        np.testing.assert_array_equal(read_exr(tmp_path / "out_primal.exr"),
+                                      img)
+    else:
+        assert aovs == []    # a film of one buffer writes no AOVs
+
+
+def test_cli_stratified_sampler(tmp_path):
+    """-r stratified renders through the stratified passes: another image
+    than the independent sampler's, both lit and finite."""
+    from rustlight_tpu_torch.utils.image import read_exr
+    imgs = {}
+    for rng in ("stratified", "independent"):
+        out = tmp_path / f"{rng}.exr"
+        assert cli.main(["cbox", "-n", "4", "-s", "0.03125", "-o", str(out),
+                         "-r", rng, "--device", "cpu", "path", "-m",
+                         "4"]) == 0
+        imgs[rng] = read_exr(out)
+        assert np.all(np.isfinite(imgs[rng])) and imgs[rng].mean() > 0.02
+    assert np.abs(imgs["stratified"] - imgs["independent"]).max() > 1e-3
+
+
+def test_film_dump_all_names(tmp_path):
+    from rustlight_tpu_torch.utils.film import Film
+    from rustlight_tpu_torch.utils.image import read_pfm
+    film = Film(2, 1)
+    film.buffers["primal"] = np.ones((1, 2, 3), np.float32)
+    film.buffers["relerr"] = np.full((1, 2, 3), 2.0, np.float32)
+    film.dump_all(str(tmp_path / "img.pfm"), suffix="_3")
+    assert read_pfm(tmp_path / "img_relerr_3.pfm").mean() == 2.0
+    assert read_pfm(tmp_path / "img_primal_3.pfm").mean() == 1.0

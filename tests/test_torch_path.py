@@ -136,9 +136,14 @@ def test_render_averages_and_guards():
     want = sum(_port_pixel(sd, k, IntegratorPathTracing(max_depth=6))
                for k in range(SPP)) / SPP
     np.testing.assert_allclose(per_pass.reshape(-1, 3), want, rtol=1e-6)
-    with pytest.raises(NotImplementedError):
+    # a sampler name that is not ported, and the stratified sampler on the
+    # persistent route, are refused
+    with pytest.raises(ValueError):
         render(sd, IntegratorPathTracing(max_depth=6), spp=1,
-               sampler="stratified")
+               sampler="sobol")
+    with pytest.raises(ValueError):
+        render(sd, IntegratorPathTracing(max_depth=6), spp=1,
+               sampler="stratified", persistent=True)
 
 
 def test_cli_renders_a_pfm(tmp_path):
@@ -153,8 +158,9 @@ def test_cli_renders_a_pfm(tmp_path):
     np.testing.assert_array_equal(read_pfm(tmp_path / "again.pfm"), img)
 
 
-@pytest.mark.parametrize("argv", [["cbox", "pssmlt"], ["cbox", "erpt"],
-                                  ["cbox", "-r", "stratified", "path"]])
+@pytest.mark.parametrize("argv", [["cbox", "smcmc"],
+                                  ["cbox", "-x", "ats", "path"],
+                                  ["cbox", "-t", "2", "path"]])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(argv)

@@ -59,3 +59,85 @@ def test_stream_next_and_next2d(seed, n):
 def test_uniform_range():
     u, _ = trng.stream_next2d(trng.make_stream(3, "cpu"), (4096,))
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+
+
+# ---------------------------------------------------------------- replay
+# ArrayStream: column (counter + k) mod d of the array, next2d two columns
+
+
+@pytest.mark.parametrize("d", [1, 2, 5, 8])
+def test_array_stream_columns_and_wrap_match_jax(d):
+    """A mixed run of next / next2d past the array's width reads the same
+    columns, bit for bit, and advances the counter by 1 and 2."""
+    vals = np.random.default_rng(d).random((7, d)).astype(np.float32)
+    js = jrng.make_array_stream(jax.numpy.asarray(vals))
+    ts = trng.make_array_stream(torch.as_tensor(vals))
+    for op in ("1", "2", "2", "1", "2", "1", "1", "2", "2"):
+        if op == "1":
+            a, js = jrng.stream_next(js, (7,))
+            b, ts = trng.stream_next(ts, (7,))
+        else:
+            a, js = jrng.stream_next2d(js, (7,))
+            b, ts = trng.stream_next2d(ts, (7,))
+        assert tuple(b.shape) == np.asarray(a).shape
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        assert ts.counter == int(js.counter)
+    assert ts.counter == 14
+
+
+def test_array_stream_offset_start():
+    """The MCMC integrators start the path at column 2."""
+    vals = np.arange(12, dtype=np.float32).reshape(2, 6)
+    ts = trng.ArrayStream(values=torch.as_tensor(vals), counter=2)
+    u, ts = trng.stream_next2d(ts)
+    np.testing.assert_array_equal(u.numpy(), [[2, 3], [8, 9]])
+    u, ts = trng.stream_next(ts)
+    np.testing.assert_array_equal(u.numpy(), [4, 10])
+
+
+# ------------------------------------------------------------ stratified
+
+
+@pytest.mark.parametrize("spp, pass_idx", [(1, 0), (4, 3), (16, 5),
+                                           (13, 12)])
+def test_stratified_stream_matches_jax(spp, pass_idx):
+    """StratifiedStream over a per-pass threefry stream: the first NB_DIM
+    1D and 2D draws stratified, the later ones the inner stream's, in
+    every interleaving; equal bit for bit, the dim counters too."""
+    n, w = 96, 16
+    base_j, base_t = jrng.make_stream(4), trng.make_stream(4, "cpu")
+    pid = np.arange(n, dtype=np.int32) * 3 % (w * 8)
+    js = jrng.StratifiedStream(inner=jrng.stream_fold(base_j, pass_idx),
+                               pixel_ids=jax.numpy.asarray(pid),
+                               pass_idx=pass_idx, spp=spp,
+                               base_key=base_j.key)
+    ts = trng.StratifiedStream(inner=trng.stream_fold(base_t, pass_idx),
+                               pixel_ids=torch.as_tensor(pid),
+                               pass_idx=pass_idx, spp=spp,
+                               base_key=base_t.key)
+    for op in "2112121212112":
+        fj = jrng.stream_next if op == "1" else jrng.stream_next2d
+        ft = trng.stream_next if op == "1" else trng.stream_next2d
+        a, js = fj(js, (n,))
+        b, ts = ft(ts, (n,))
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        assert (ts.d1, ts.d2) == (int(js.d1), int(js.d2))
+        assert ts.inner.counter == int(js.inner.counter)
+    assert (ts.d1, ts.d2) == (7, 6)
+
+
+def test_stratified_2d_covers_every_stratum():
+    """Over its n4 passes, each pixel's first 2D draw lands once in each
+    cell of the sqrt(n4) grid."""
+    spp, n = 16, 40
+    base = trng.make_stream(9, "cpu")
+    pid = torch.arange(n)
+    cells = []
+    for s in range(spp):
+        st = trng.StratifiedStream(inner=trng.stream_fold(base, s),
+                                   pixel_ids=pid, pass_idx=s, spp=spp,
+                                   base_key=base.key)
+        u, _ = trng.stream_next2d(st, (n,))
+        cells.append((u * 4).floor().to(torch.int64) @ torch.tensor([1, 4]))
+    cells = torch.stack(cells, 1).sort(1).values
+    assert torch.equal(cells, torch.arange(16).expand(n, 16))
