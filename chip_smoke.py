@@ -288,6 +288,33 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      each of the four at 512x512 (GM_FULL's spp; ERPT with one round of 4
      chain steps), timed as phase 23 (warm-up at 1 spp, the profile at 1
      spp), with its K1/K2 launches, peak device memory and busy share.
+ 25. SMCMC and ATS light sampling: (a) the row cbox_path/smcmc of
+     tools/regression.py:111-113 at its settings (cornell_box(128, 128), 32
+     spp, seed 0, IntegratorSMCMC(path tracer max_depth = hard_cap = 6,
+     recons naive), its independent init), held as phase 20's rows, only
+     K1/K2 launched; (b) SMCMC at depth 6 on the card against the CPU at
+     32x32, 4 spp, for (independent, naive) and (mcmc, irls), both recording
+     their chains: at least MCMC_DECISIONS of the tile chains' (chain, step)
+     decisions and of the roaming chains' equal; a tile chain diverges at its
+     first init attempt, step decision or proposal's tf that differs (tf by
+     more than SCHED_PIX_RTOL) and reaches the pixels within Manhattan
+     distance 2 of its tile (its cross and its exchange partners'); the
+     naive reconstruction of the flushed accumulators within SCHED_PIX_RTOL
+     on every pixel no diverged chain reached, for both; for irls, whose
+     solve couples every pixel, the card's IRLS of the CPU's accumulators
+     against the CPU's within IRLS_RTOL on every pixel, and where no chain
+     diverged the final images within SCHED_PIX_RTOL on every pixel;
+     (c) ATS on the card against the CPU at 32x32, 4 spp, under phase 20's
+     bounds: the path tracer (depth 6) on cbox and on cbox with an emissive
+     UV sphere (a light tree of depth 9), and point-normal (tr, equiangular)
+     with -k 0.5 on cbox_medium_single's scene; (d) timed as phase 23
+     (warm-up at 1 spp, the profile at 1 spp): SMCMC with the CLI's defaults
+     (irls, the mcmc init) at depth 6 on cbox 512x512, 4 spp (its profile:
+     one step of the chains kept from one more render, then the IRLS), the
+     ATS path tracer (depth 6) on cbox 512x512 at 8 spp (K1/K2) and on
+     examples/caustic.pbrt (448x336, depth 8) at EX_FULL_SPP (K3 only),
+     each with Mrays/s, its kernels' launches, peak device memory and busy
+     share.
 
 Every line ends with the seconds since the run started. Before the last
 line: a JSON line with each kernel's tables and wavefronts
@@ -296,9 +323,9 @@ records of K7, K3w and K8 (split_forms), the card line
 from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
-The K1/K2 launches of phases 20, 21, 23 and 24's full-width renders, and
-the K1/K2/K3 launches of phase 22's, are added to K1/K2's and K3's in the
-kernels line.
+The K1/K2 launches of phases 20, 21, 23, 24 and 25's full-width renders,
+and the K1/K2/K3 launches of phases 22 and 25's, are added to K1/K2's and
+K3's in the kernels line.
 """
 from __future__ import annotations
 
@@ -471,6 +498,14 @@ GM_FULL = (("gradient-path", 4), ("gradient-path-explicit", 4),
 GM_FULL_ERPT = dict(nb_mc=1, chain_samples=4)
 GRAD_BUFFERS = ("primal", "gradient_x", "gradient_y")
 GRAD_LANES, MCMC_DECISIONS = 0.999, 0.999
+# phase 25: SMCMC's row (tools/regression.py:111-113) and the card against
+# the CPU at GATE_CPU_SPP on 32x32 (the card's IRLS of the CPU's
+# accumulators within IRLS_RTOL: float64 sums in another order); the
+# full-width renders: SMCMC (the CLI's defaults, depth SM_DEPTH) at SM_SPP,
+# the ATS path tracer on cbox at ATS_SPP and on ATS_EX at EX_FULL_SPP
+SM_DEPTH, SM_RES, SM_SPP = 6, 512, 4
+IRLS_RTOL = 1e-5
+ATS_SPP, ATS_EX = 8, "caustic.pbrt"
 
 
 _T0 = time.time()
@@ -2908,15 +2943,16 @@ def _slice_rows():
 
 
 def _card_vs_cpu(label, make_scene, res, integ, spp, dev, persistent=None,
-                 tag="gate", walk=None):
+                 tag="gate", walk=None, use_ats=False):
     """The same render (seed 0) on the card and on the CPU: at least
     SCHED_PIX_FRAC of the pixels within SCHED_PIX_RTOL (relative), means
     within SCHED_MEAN_RTOL. With `tag` "examples" (phase 22) the card's
     render may launch only its tier's kernels: the walk's if `walk` (by
-    default the compiled scene's tier), else the dense ones."""
+    default the compiled scene's tier), else the dense ones. `use_ats`
+    compiles the scene with the ATS light tree."""
     imgs = {}
     for where in (dev, "cpu"):
-        sd = make_scene(*res).compile(device=where)
+        sd = make_scene(*res).compile(device=where, use_ats=use_ats)
         tier = sd.geom.walk is not None
         if tag == "examples" and walk is not None and tier != walk:
             raise AssertionError(f"{tag} {label}: tier")
@@ -3017,13 +3053,15 @@ def _gate_row(row: _Row, dev):
 
 
 def _full_width(label, sd, integ, spp, card, dense, warm_spp=None,
-                kernels=None, profile_spp=GATE_PROFILE_SPP, tag="gate"):
+                kernels=None, profile_spp=GATE_PROFILE_SPP, tag="gate",
+                before_profile=None):
     """A render timed as phase 3 (warm-up, of `warm_spp` samples if given,
     then counts reset and rays counted over a timed render) with only
-    `kernels` launched (by default K1/K2), their launches added to
-    `dense`, the peak of allocated device memory over the timed render,
-    and the device busy share of a warm `profile_spp` render under
-    torch.profiler. Returns (busy share, K1/K2's share of device time)."""
+    `kernels` launched (by default K1/K2), the launches of `dense`'s
+    kernels added to it, the peak of allocated device memory over the timed
+    render, and the device busy share of a warm `profile_spp` render under
+    torch.profiler (after `before_profile()`, if given). Returns (busy
+    share, the share of device time of the kernels in `dense`)."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     img, wall, warm, n_rays, launches = timed_render(label, sd, integ, spp,
@@ -3032,16 +3070,19 @@ def _full_width(label, sd, integ, spp, card, dense, warm_spp=None,
     _only(f"{tag} {label}", launches, kernels or tuple(dense))
     for k in dense:
         dense[k] += launches[k]
-    busy, ours = profile_render(label, sd, integ, profile_spp, ("dense_",),
-                                top=6)
+    if before_profile is not None:
+        before_profile()
+    busy, ours = profile_render(
+        label, sd, integ, profile_spp,
+        tuple(sorted({k.split("_")[0] + "_" for k in dense})), top=6)
     busy_s = "not measured" if busy is None else f"{100 * busy:.1f}%"
     phase(tag, f"{label} {spp} spp: warm-up {warm:.3f}s"
           + ("" if warm_spp is None else f" ({warm_spp} spp)") + ", timed "
           f"{wall:.3f}s, {n_rays} rays, {n_rays / wall / 1e6:.3f} "
           f"Mrays/s, mean {img.mean():.6f}, peak device memory "
           f"{peak:.2f} GiB, device busy {busy_s} (of a warm {profile_spp} "
-          f"spp render), K1 dense_closest {launches['dense_closest']} and "
-          f"K2 dense_anyhit {launches['dense_anyhit']} launches | {card}")
+          f"spp render), launches " + ", ".join(
+              f"{k} {launches[k]}" for k in dense) + f" | {card}")
     return busy, ours
 
 
@@ -3395,6 +3436,178 @@ def gradient_mcmc_phase(dev, card):
     phase("gm", "K1/K2's share of device time in the full-width renders' "
           "profiles: " + ", ".join(shares))
     return dense
+
+
+def _sphere_lit(w, h):
+    """The Cornell box with an emissive 8x8 UV sphere: a light tree of depth
+    9 (tests/test_torch_ats.py's scene)."""
+    from rustlight_tpu_torch.models import cornell_box
+    from rustlight_tpu_torch.scene import make_sphere
+    sc = cornell_box(w, h)
+    sc.add_mesh(make_sphere((278.0, 330.0, 280.0), 60.0,
+                            emission=(4.0, 3.0, 2.0), n_theta=8, n_phi=8))
+    return sc
+
+
+def _smcmc(**kw):
+    """IntegratorSMCMC over the path tracer at max_depth = hard_cap =
+    SM_DEPTH (tools/regression.py:111-113's inner integrator)."""
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing
+    from rustlight_tpu_torch.integrators.mcmc import IntegratorSMCMC
+    return IntegratorSMCMC(IntegratorPathTracing(max_depth=SM_DEPTH,
+                                                 hard_cap=SM_DEPTH), **kw)
+
+
+def _smcmc_reach(a, b, w, h):
+    """The tile chains that diverged between records `a` and `b` (each
+    (init_tfs [k, n], accepts [1, steps, n], tfs [1, steps + 1, n])) at
+    their first init attempt, decision or proposal's tf that differs (tf by
+    more than SCHED_PIX_RTOL, relative with a 1e-4 floor), and the pixels
+    they reach: within Manhattan distance 2 of the tile, its cross and its
+    exchange partners'. Returns (reached [n] bool, diverged chains)."""
+    def off(x, y):
+        return np.abs(x - y) > SCHED_PIX_RTOL * np.maximum(np.abs(y), 1e-4)
+    (itf_a, acc_a, tf_a), (itf_b, acc_b, tf_b) = a, b
+    div = (off(itf_a, itf_b).any(0) | off(tf_a[0], tf_b[0]).any(0)
+           | (acc_a[0] != acc_b[0]).any(0) | off(tf_a[0, 1:],
+                                                 tf_b[0, 1:]).any(0))
+    ys, xs = np.divmod(np.nonzero(div)[0], w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    reached = np.zeros((h, w), bool)
+    for y, x in zip(ys, xs):
+        reached |= (np.abs(yy - y) + np.abs(xx - x)) <= 2
+    return reached.reshape(-1), int(div.sum())
+
+
+def _smcmc_card_vs_cpu(label, make_integ, dev):
+    """SMCMC at 32x32, GATE_CPU_SPP, seed 0 on the card and on the CPU, both
+    recording their chains: at least MCMC_DECISIONS of the tile chains' and
+    of the roaming chains' decisions equal; the naive reconstruction of the
+    flushed accumulators within SCHED_PIX_RTOL on every pixel no diverged
+    chain reached (_smcmc_reach). With IRLS, whose solve couples every
+    pixel: the card's solve of the CPU's accumulators against the CPU's
+    within IRLS_RTOL on every pixel, and the final images within
+    SCHED_PIX_RTOL on every pixel where no chain diverged."""
+    from rustlight_tpu_torch.integrators.mcmc import smcmc as sm
+    from rustlight_tpu_torch.models import cornell_box
+    run, rec, integ = {}, {}, {}
+    for where in (dev, "cpu"):
+        g = make_integ()
+        g.record_accepts = True
+        run[str(where)] = g.render(cornell_box(32, 32).compile(device=where),
+                                   GATE_CPU_SPP, seed=0)["primal"]
+        rec[str(where)] = (g.init_tfs, g.accepts, g.tfs)
+        integ[str(where)] = g
+    ga, gb = integ[str(dev)], integ["cpu"]
+    a, b = run[str(dev)], run["cpu"]
+    if not (np.all(np.isfinite(a)) and b.mean() > 0):
+        raise AssertionError(f"smcmc {label}: bad images")
+    same = float((ga.accepts == gb.accepts).mean())
+    roam = ("no roaming chains" if gb.init_accepts is None else
+            f"roaming chains' {ga.init_accepts.size} decisions "
+            f"{100 * float((ga.init_accepts == gb.init_accepts).mean()):.4f}"
+            "% equal")
+    same_roam = (1.0 if gb.init_accepts is None else
+                 float((ga.init_accepts == gb.init_accepts).mean()))
+    reached, chains = _smcmc_reach(rec[str(dev)], rec["cpu"], 32, 32)
+    lay = {w: sm.make_layout(32, 32, w) for w in (dev, "cpu")}
+    naive = [sm.naive_reconstruction(g.flushed, lay[w].cross_valid,
+                                     lay[w].cross_pid).cpu().numpy()
+             for g, w in ((ga, dev), (gb, "cpu"))]
+    rel = (np.abs(naive[0] - naive[1]) / np.maximum(np.abs(naive[1]), 1e-4)
+           ).max(-1)
+    worst = float(rel[~reached].max()) if (~reached).any() else 0.0
+    ok = same >= MCMC_DECISIONS and same_roam >= MCMC_DECISIONS and (
+        worst <= SCHED_PIX_RTOL)
+    line = (f"{label} 32x32 {GATE_CPU_SPP} spp, card vs CPU: "
+            f"{ga.accepts.size} tile decisions ({100 * ga.accepts.mean():.2f}%"
+            f" accepted), {100 * same:.4f}% equal, {roam} (limit "
+            f"{100 * MCMC_DECISIONS:.1f}%); {chains} of {32 * 32} tile chains"
+            f" diverged, {int((~reached).sum())} of 1024 pixels none of them "
+            f"reached, the accumulators' naive reconstruction there within "
+            f"{worst:.3g} (limit {SCHED_PIX_RTOL})")
+    if ga.recons == "irls":
+        cpu = gb.flushed
+        mine = sm.irls_reconstruction(
+            *(x.to(dev) for x in (cpu.acc_v, cpu.acc_mc, cpu.nb_s, cpu.b_acc,
+                                  cpu.nb_u)), lay[dev].cross_valid,
+            lay[dev].cross_pid, 32, 32).cpu().numpy()
+        theirs = sm.irls_reconstruction(
+            cpu.acc_v, cpu.acc_mc, cpu.nb_s, cpu.b_acc, cpu.nb_u,
+            lay["cpu"].cross_valid, lay["cpu"].cross_pid, 32, 32).numpy()
+        solve = float((np.abs(mine - theirs)
+                       / np.maximum(np.abs(theirs), 1e-6)).max())
+        whole = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-4)).max())
+        ok = ok and solve <= IRLS_RTOL and (chains > 0
+                                            or whole <= SCHED_PIX_RTOL)
+        line += (f"; the IRLS solve of the CPU's accumulators, card vs CPU, "
+                 f"within {solve:.3g} (limit {IRLS_RTOL}); the final images "
+                 f"within {whole:.3g} (limit {SCHED_PIX_RTOL} where no chain"
+                 " diverged)")
+    phase("smcmc", line + f"; means {a.mean():.7f} / {b.mean():.7f}")
+    if not ok:
+        raise AssertionError(f"smcmc {label}: card and CPU disagree")
+
+
+def smcmc_ats_phase(dev, card):
+    """Phase 25. Returns the K1/K2/K3 launches of its full-width renders
+    (counts reset just before each timed render, read just after)."""
+    from rustlight_tpu_torch import cli
+    from rustlight_tpu_torch.integrators import (IntegratorPathTracing,
+                                                 IntegratorPointNormal)
+    from rustlight_tpu_torch.models import cornell_box
+    _gate_row(_Row("cbox_path", "smcmc", cornell_box, (128, 128), None,
+                   lambda: _smcmc(recons="naive"), None,
+                   "the stored row's integrator and route; the chains' "
+                   "decisions within an ulp's flips"), dev)
+    for init, recons in (("independent", "naive"), ("mcmc", "irls")):
+        _smcmc_card_vs_cpu(f"cbox_path/smcmc {init} {recons}",
+                           lambda: _smcmc(init=init, recons=recons), dev)
+    path = IntegratorPathTracing(max_depth=CBOX_DEPTH)
+    for label, make, integ in (
+            (f"cbox path depth {CBOX_DEPTH}", cornell_box, path),
+            (f"cbox + emissive sphere path depth {CBOX_DEPTH}", _sphere_lit,
+             path),
+            ("cbox_medium_single point-normal -k 0.5", _cbox_medium,
+             IntegratorPointNormal(strategies=("tr", "equiangular"),
+                                   splitting=0.5))):
+        _card_vs_cpu(f"{label}, ATS", make, (32, 32), integ, GATE_CPU_SPP,
+                     dev, tag="ats", use_ats=True)
+    dense = {"dense_closest": 0, "dense_anyhit": 0}
+    walk = {"walk_closest": 0, "walk_anyhit": 0}
+    integ = cli.build_integrator(cli.build_parser().parse_args(
+        ["cbox", "smcmc", "-m", str(SM_DEPTH)]))
+    sd = cornell_box(SM_RES, SM_RES).compile(device=dev)
+
+    def keep():
+        # the profile renders continue these chains one step each
+        integ.keep_chains = True
+        _render(sd, integ, 1)
+    shares = []
+    busy, ours = _full_width(
+        f"smcmc (CLI defaults: {integ.recons}, {integ.init} init) cbox "
+        f"{SM_RES}x{SM_RES} depth {SM_DEPTH}", sd, integ, SM_SPP, card,
+        dense, warm_spp=1, profile_spp=1, tag="smcmc",
+        before_profile=keep)
+    shares.append(("smcmc", busy, ours))
+    del sd
+    busy, ours = _full_width(
+        f"path cbox {SM_RES}x{SM_RES} depth {CBOX_DEPTH}, ATS",
+        cornell_box(SM_RES, SM_RES).compile(device=dev, use_ats=True),
+        path, ATS_SPP, card, dense, warm_spp=1, profile_spp=1, tag="ats")
+    shares.append(("ats cbox", busy, ours))
+    ex = _example(ATS_EX).compile(device=dev, use_ats=True)
+    busy, ours = _full_width(
+        f"path {ATS_EX} {ex.camera.width}x{ex.camera.height} depth "
+        f"{EX_DEPTH}, ATS", ex, IntegratorPathTracing(max_depth=EX_DEPTH),
+        EX_FULL_SPP, card, walk, warm_spp=EX_WARM_SPP, profile_spp=1,
+        tag="ats")
+    shares.append((f"ats {ATS_EX}", busy, ours))
+    phase("smcmc", "the trace kernels' share of device time in the "
+          "full-width renders' profiles: " + ", ".join(
+              f"{name} " + ("not measured" if ours is None else
+                            f"{100 * ours:.1f}%") for name, _, ours in shares))
+    return {**dense, **walk}
 
 
 def _example(name, width=None):
@@ -3764,6 +3977,8 @@ def main() -> int:
         gate_launches[k] += v
     for k, v in gradient_mcmc_phase(dev, card).items():
         gate_launches[k] += v
+    for k, v in smcmc_ats_phase(dev, card).items():
+        (gate_launches if k.startswith("dense") else walk_launches)[k] += v
     for k in ("walk_closest", "walk_anyhit"):
         walk_launches[k] += ex_launches[k]
 

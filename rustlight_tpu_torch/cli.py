@@ -8,6 +8,8 @@ Usage: python -m rustlight_tpu_torch.cli cbox -n 64 -o out.exr path -m 6
        python -m rustlight_tpu_torch.cli cbox -m 0.0025 -n 8 -o m.exr path -m 8
        python -m rustlight_tpu_torch.cli cbox -n 8 -o v.exr vpl -m 6 -n2 256
        python -m rustlight_tpu_torch.cli cbox -m 0.0025 -n 8 -o p.exr point-normal
+       python -m rustlight_tpu_torch.cli cbox -n 4 -o s.exr smcmc -m 6
+       python -m rustlight_tpu_torch.cli cbox -x ats -n 8 -o a.exr path -m 6
 
 Flags keep the reference CLI's names. Ported so far: scene files (.pbrt,
 .xml and .obj, through scene/loaders) and the built-in `cbox`, `veach_mis`
@@ -28,19 +30,22 @@ gradient-domain path tracers `gradient-path` (the reconnection shift;
 -m/-n/-r, -i/--iterations, --strategy-recons uniform | weighted | bagging)
 and `gradient-path-explicit` (the random-replay shift; the same and
 --min-survival); `pssmlt` (-m/-n/-r, -s, -p/--large-prob,
--b/--nb-samples-norm) and `erpt` (-m/-n/-r, -s, -k/--stratified,
--e2/--nb-mc, -c/--chain-samples); and the global flags -n/--nbsamples,
+-b/--nb-samples-norm), `erpt` (-m/-n/-r, -s, -k/--stratified,
+-e2/--nb-mc, -c/--chain-samples) and `smcmc` (-m/-n/-r, -s,
+-p/--large-prob, --recons-smcmc irls | naive, --init mcmc | independent;
+its chains never persist across passes while -a is refused); and the
+global flags -n/--nbsamples,
 -o/--output (.pfm, .exr, .png), -s/--scale-image (the camera re-derived
 for the new size), -m/--medium sigma_s[:sigma_a[:g]] (an infinite
 homogeneous medium), -r/--random-number-generator independent[:seed] |
 stratified, --aovs (every buffer of the film as <output>_<name>.<ext>)
-and -x/--xtra-options no-shading, hvs-light and texture-light
-(butterfly.jpg from the working directory, else a procedural ramp).
-`--device` names the torch device to render on. The reference's other
-global flags (-a -e -t -l --progress --resume --adaptive --guiding
---feature-aovs --profile, and -x ats) are declared with its defaults: a
-flag left at its default is accepted, any other value exits with code 1
-and "<flag> is not ported yet". So does the reference's `smcmc`.
+and -x/--xtra-options ats (the ATS light tree for NEE), no-shading,
+hvs-light and texture-light (butterfly.jpg from the working directory,
+else a procedural ramp). `--device` names the torch device to render on.
+The reference's other global flags (-a -e -t -l --progress --resume
+--adaptive --guiding --feature-aovs --profile) are declared with its
+defaults: a flag left at its default is accepted, any other value exits
+with code 1 and "<flag> is not ported yet".
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ import sys
 import time
 
 # integrator subcommands of the reference CLI that have no port yet
-_NOT_PORTED = ("smcmc",)
+_NOT_PORTED = ()
 # point-normal's -s names and the strategies they take
 # (rustlight_tpu/cli.py:284-306); any other name takes tr and equiangular
 _PN_STRATEGIES = {
@@ -91,7 +96,7 @@ _NOT_PORTED_FLAGS = (
     (("-l", "--log"), dict(default=None)),
 )
 # -x values of the reference CLI that have no port yet
-_NOT_PORTED_XTRA = ("ats",)
+_NOT_PORTED_XTRA = ()
 _BUILTIN = ("cbox", "veach_mis", "door_box")
 
 
@@ -130,8 +135,7 @@ def build_parser() -> argparse.ArgumentParser:
         ap.add_argument(*names, **kw, help="not ported yet")
     ap.add_argument("-x", "--xtra-options", action="append", default=[],
                     choices=["ats", "no-shading", "hvs-light",
-                             "texture-light"],
-                    help="ats is not ported yet")
+                             "texture-light"])
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser("path")
     _add_path_length(p)
@@ -190,6 +194,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--strategy", default="all")
     p.add_argument("-e2", "--nb-mc", type=int, default=1)
     p.add_argument("-c", "--chain-samples", type=int, default=100)
+    p = sub.add_parser("smcmc")
+    _add_path_length(p)
+    p.add_argument("-s", "--strategy", default="all")
+    p.add_argument("-p", "--large-prob", type=float, default=0.3)
+    p.add_argument("--recons-smcmc", default="irls")
+    p.add_argument("--init", default="mcmc")
     for name in _NOT_PORTED:
         q = sub.add_parser(name)
         q.add_argument("rest", nargs=argparse.REMAINDER)
@@ -259,6 +269,14 @@ def build_integrator(args):
             IntegratorPathTracing(strategy=args.strategy, **pl),
             nb_mc=args.nb_mc, chain_samples=args.chain_samples,
             stratified=args.stratified)
+    if cmd == "smcmc":
+        from .integrators.mcmc import IntegratorSMCMC
+        # the reference keeps the chains across passes under -a only,
+        # which is refused here
+        return IntegratorSMCMC(
+            IntegratorPathTracing(strategy=args.strategy, **pl),
+            large_prob=args.large_prob, recons=args.recons_smcmc,
+            init=args.init, keep_chains=False)
     if args.command in ("light-tracing", "light"):
         return IntegratorLightTracing(
             render_surface=args.strategy in ("all", "surface"),
@@ -361,7 +379,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     scene = load_scene_arg(args)
     sd = scene.compile(device=args.device, use_shading_normals=(
-        "no-shading" not in args.xtra_options))
+        "no-shading" not in args.xtra_options),
+        use_ats="ats" in args.xtra_options)
     integ = build_integrator(args)
     t1 = time.time()
     # as the reference's _render_once dispatches: a splatting integrator

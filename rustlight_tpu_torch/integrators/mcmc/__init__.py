@@ -1,2 +1,3 @@
 from .pssmlt import IntegratorPSSMLT
 from .erpt import IntegratorERPT
+from .smcmc import IntegratorSMCMC

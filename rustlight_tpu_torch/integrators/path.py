@@ -13,8 +13,12 @@ emission found after a delta bounce has weight 1. A ray that escapes the
 scene picks up the environment's radiance, weighted against the
 environment's NEE pdf as an emitter hit is; NEE samples every atom kind
 (triangles, point, directional and point-normal lights, the environment),
-at surface and medium vertices alike. Camera paths use the importance
-transport, as the reference's call sites do.
+at surface and medium vertices alike. With the ATS light tree
+(`scene.ats`, `-x ats`), NEE picks an emissive triangle by a descent of the
+tree from the vertex and its shading normal, and an emitter hit is MIS'd
+against the tree's pdf from the previous vertex; the tree holds triangles
+only, as the reference's. Camera paths use the importance transport, as
+the reference's call sites do.
 
 In a scene with a homogeneous medium (`scene.volume`), each segment
 samples a free-flight distance (`tfar = 1e8` where the ray misses: the
@@ -48,7 +52,8 @@ from ..accel import intersect_rays, visible
 from ..bsdfs import bsdf_eval, bsdf_pdf, bsdf_sample, bsdf_is_smooth
 from ..bsdfs.table import TRANSPORT_IMPORTANCE
 from ..scene import (fill_hit, generate_rays, sample_light, direct_pdf_tri,
-                     emitted_radiance, env_direction_pdf, env_radiance)
+                     emitted_radiance, env_direction_pdf, env_radiance,
+                     sample_light_ats, direct_pdf_tri_ats)
 from ..scene.scene import offset_ray_origin
 from ..scene.volume import (phase_eval, phase_sample, transmittance,
                             volume_sample_distance)
@@ -314,7 +319,13 @@ class IntegratorPathTracing:
         # ---- emission picked up through the BSDF/sensor edge
         le = emitted_radiance(scene.emitters, scene.geom, hit.tri, d,
                               uv=hit.uv)
-        pdf_light = direct_pdf_tri(scene.emitters, hit.tri, o, hit.p, hit.n_g, d)
+        if scene.ats is not None:
+            pdf_light = direct_pdf_tri_ats(scene.emitters, scene.geom,
+                                           scene.ats, hit.tri, o, hit.p,
+                                           hit.n_g, d)
+        else:
+            pdf_light = direct_pdf_tri(scene.emitters, hit.tri, o, hit.p,
+                                       hit.n_g, d)
 
         def mis_hit(pdf_nee):
             """The directional strategy's weight against NEE's pdf."""
@@ -350,7 +361,12 @@ class IntegratorPathTracing:
         u_sel, stream = stream_next(stream, (n,))
         u_pos, stream = stream_next2d(stream, (n,))
         if use_nee:
-            ls = sample_light(scene.emitters, scene.geom, p_v, u_sel, u_pos)
+            if scene.ats is not None:
+                ls = sample_light_ats(scene.emitters, scene.geom, scene.ats,
+                                      p_v, hit.n_s, u_sel, u_pos)
+            else:
+                ls = sample_light(scene.emitters, scene.geom, p_v, u_sel,
+                                  u_pos)
             wo_l = to_local(hit.frame, ls.d)
             f = bsdf_eval(scene.materials, hit.mat, hit.uv, hit.wi, wo_l,
                           TRANSPORT_IMPORTANCE)

@@ -23,9 +23,12 @@ sampling, sample and pdf alike. The `ex` connection samples the light; the
 
 Draws per lane, in the reference's order: u_pix (n, 2), u_sel, u_lpos (n,
 2), then per strategy u_t and, with the `phase` connection, u_ph (n, 2).
-`splitting` (-k) takes the reference's ATS traversal, which runs only when
-the scene has ATS tables; without them, as here, the ordinary route
-renders, as the reference's does.
+`splitting` (-k) takes the reference's ATS traversal when the scene has
+the ATS light tree (`-x ats`): `ats_sample_split` returns a set of up to 8
+lights a camera ray, each with its own distance sample (the first strategy;
+warp and pn fall back to equiangular) and explicit connection. Its draws:
+u_pix (n, 2), u_sel, u_pos (n, 2), u_stack (n, 40), then u_t a light slot.
+Without the tree the ordinary route renders, as the reference's does.
 """
 from __future__ import annotations
 
@@ -35,10 +38,13 @@ import torch
 
 from ..accel import intersect_rays, visible
 from ..scene import emitted_radiance, fill_hit, generate_rays, sample_light
+from ..scene.ats import ats_sample_split
+from ..scene.emitters import _tri_le
 from ..scene.volume import (distance_pdf, phase_eval, phase_sample,
                             transmittance, volume_sample_distance)
 from ..utils.rng import stream_next, stream_next2d
 from ..utils.vec import dot, length
+from ..utils.warps import uniform_sample_triangle
 from . import point_normal_poly as pp
 
 STRATEGY_TR = "tr"
@@ -192,6 +198,29 @@ def _equiangular_pdf(dist, delta, d_l, theta_a, theta_b, clamped: bool):
     return torch.where((theta >= theta_a) & (theta <= theta_b), pdf, 0.0)
 
 
+def _angle_to_distance(theta, pdf_ang, valid, u_t, eq, tmax):
+    """An angular sample theta (pdf pdf_ang) -> distance and pdf, plain
+    equiangular sampling on the lanes that are not `valid`."""
+    delta, d_l, ta, tb = eq
+    tt = d_l * torch.tan(theta)
+    t_s = _clip(tt + delta, torch.zeros_like(tmax), tmax)
+    pdf_s = pdf_ang * d_l / torch.clamp(d_l ** 2 + tt ** 2, min=1e-30)
+    t_eq, pdf_eq = _equiangular_sample(u_t, delta, d_l, ta, tb, tmax)
+    t = torch.where(valid, t_s, t_eq)
+    pdf = torch.where(valid, pdf_s, pdf_eq)
+    return t, pdf, pdf > 0.0
+
+
+def _taylor_poly(vol, name, d_l):
+    """The degree-6 Taylor polynomial of a product strategy's factor and its
+    clamp angle: transmittance for the *_tr names, else the phase."""
+    if name.endswith("_tr"):
+        st_avg = torch.mean(vol.sigma_t)
+        return pp.poly6_tr(d_l, st_avg), pp.clamp_angle_tr(st_avg, d_l)
+    g = vol.phase_g
+    return pp.poly6_phase(g), pp.clamp_angle_phase(g).expand(d_l.shape)
+
+
 class IntegratorPointNormal:
     def __init__(self, strategies: Sequence[str] = (STRATEGY_EQUIANGULAR,),
                  splitting: Optional[float] = None,
@@ -272,12 +301,7 @@ class IntegratorPointNormal:
         for name in self.strategies:
             if name not in _TAYLOR + _PN_TAYLOR + _BEST:
                 continue
-            if name.endswith("_tr"):
-                c = pp.poly6_tr(d_l, st_avg)
-                clamp = pp.clamp_angle_tr(st_avg, d_l)
-            else:
-                c = pp.poly6_phase(g)
-                clamp = pp.clamp_angle_phase(g).expand(d_l.shape)
+            c, clamp = _taylor_poly(scene.volume, name, d_l)
             if name in _TAYLOR + (STRATEGY_BEST,):
                 st = pp.taylor_setup(c, ta, tb, clamp)
             else:
@@ -365,14 +389,7 @@ class IntegratorPointNormal:
         _, _, ta_c, tb_c, valid_c = eqc
 
         def to_dist(theta, pdf_ang, valid):
-            """theta -> distance and pdf, equiangular on invalid lanes."""
-            tt = d_l * torch.tan(theta)
-            t_s = _clip(tt + delta, torch.zeros_like(tmax), tmax)
-            pdf_s = pdf_ang * d_l / torch.clamp(d_l ** 2 + tt ** 2, min=1e-30)
-            t_eq, pdf_eq = _equiangular_sample(u_t, delta, d_l, ta, tb, tmax)
-            t = torch.where(valid, t_s, t_eq)
-            pdf = torch.where(valid, pdf_s, pdf_eq)
-            return t, pdf, pdf > 0.0
+            return _angle_to_distance(theta, pdf_ang, valid, u_t, eq, tmax)
 
         if name == STRATEGY_TR:
             sd = volume_sample_distance(scene.volume, tmax, u_t)
@@ -415,9 +432,88 @@ class IntegratorPointNormal:
         t, pdf = _equiangular_sample(u_t, delta, d_l, ta_c, tb_c, tmax)
         return t, pdf, valid_c & (pdf > 0.0)
 
+    def _sample_distance_single(self, scene, name, u_t, o, d, p_l, n_l, tmax):
+        """A distance sample toward one split light's point (the
+        reference's create_distance_sampling a selected light): (t, pdf,
+        valid)."""
+        eq = _equiangular_params(o, d, p_l, tmax)
+        delta, d_l, ta, tb = eq
+        if name == STRATEGY_TR:
+            sd = volume_sample_distance(scene.volume, tmax, u_t)
+            return sd.t, sd.pdf, ~sd.exited
+        if name in _TAYLOR:
+            c, clamp = _taylor_poly(scene.volume, name, d_l)
+            st = pp.taylor_setup(c, ta, tb, clamp)
+            theta, pdf_ang = pp.taylor_sample(c, st, u_t)
+            return _angle_to_distance(theta, pdf_ang, st["valid"], u_t, eq,
+                                      tmax)
+        if name == STRATEGY_EQ_CLAMP:
+            ta_c, tb_c, ok = _equiangular_clamp(o, d, p_l, n_l, tmax, ta, tb,
+                                                delta, d_l)
+            t, pdf = _equiangular_sample(u_t, delta, d_l, ta_c, tb_c, tmax)
+            return t, pdf, ok & (pdf > 0.0)
+        # equiangular, also for the other strategies under splitting
+        t, pdf = _equiangular_sample(u_t, delta, d_l, ta, tb, tmax)
+        return t, pdf, pdf > 0.0
+
+    def _compute_splitting(self, scene, pix, stream):
+        """Variance-splitting single scattering: the ATS traversal returns a
+        set of lights a camera ray; each gets its own distance sample and
+        explicit connection (compute_single_strategy_splitting,
+        point_normal.rs:2455-2580, emitter.rs:1669-1727)."""
+        vol = scene.volume
+        geom = scene.geom
+        n = pix.shape[0]
+        K = 8
+        u_pix, stream = stream_next2d(stream, (n,))
+        if not self.use_aa:
+            u_pix = torch.full_like(u_pix, 0.5)
+        o, d = generate_rays(scene.camera, pix.to(torch.float32) + u_pix)
+        rh = intersect_rays(geom, o, d)
+        tmax = torch.where(rh.hit, rh.t, 1e7)
+
+        u_sel, stream = stream_next(stream, (n,))
+        u_pos, stream = stream_next2d(stream, (n,))
+        u_stack, stream = stream_next(stream, (n, K + 32))
+        tris, pdf_sel, valid, _ = ats_sample_split(
+            scene.ats, o, d, tmax, u_sel, u_stack, self.splitting, K)
+
+        b = uniform_sample_triangle(u_pos)   # shared by the split lights
+        name = self.strategies[0]
+        li = torch.zeros((n, 3), dtype=torch.float32, device=pix.device)
+        for k in range(K):
+            tri = torch.clamp(tris[:, k], 0, geom.v0.shape[0] - 1)
+            psel = torch.clamp(pdf_sel[:, k], min=1e-30)
+            p_l = (geom.v0[tri] + b[..., 0:1] * geom.e1[tri]
+                   + b[..., 1:2] * geom.e2[tri])
+            n_l = geom.n_g[tri]
+            le = _tri_le(scene.emitters, geom, tri, b)
+            # flux = Le pi area / pdf_sel, times correct_flux (1 / pi)
+            flux = le * (geom.area[tri] / psel)[:, None]
+
+            u_t, stream = stream_next(stream, (n,))
+            t, pdf_t, d_ok = self._sample_distance_single(
+                scene, name, u_t, o, d, p_l, n_l, tmax)
+            x_t = o + d * t[:, None]
+            dv = p_l - x_t
+            t_light = torch.clamp(length(dv), min=1e-20)
+            d_hat = dv / t_light[:, None]
+            g_f = dot(n_l, -d_hat) / t_light ** 2
+            ph = phase_eval(vol.phase_g, -d, d_hat)
+            vis = visible(geom, x_t, p_l)
+            contrib = (vol.sigma_s[None, :] * flux
+                       * transmittance(vol, t) * transmittance(vol, t_light)
+                       * (g_f * ph / torch.clamp(pdf_t, min=1e-30))[:, None])
+            use = valid[:, k] & d_ok & vis & (g_f > 0.0) & (t > 0.0) & (
+                t < tmax)
+            li = li + torch.where(use[:, None], contrib, 0.0)
+        return li
+
     def compute_pixel(self, scene, pix, stream):
         if scene.volume is None:
             raise ValueError("point_normal needs a medium")
+        if self.splitting is not None and scene.ats is not None:
+            return self._compute_splitting(scene, pix, stream)
         vol = scene.volume
         n = pix.shape[0]
         u_pix, stream = stream_next2d(stream, (n,))

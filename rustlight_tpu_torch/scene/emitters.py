@@ -1,5 +1,5 @@
 """Emitters as flat atom tables with a single flux CDF; port of
-rustlight_tpu/scene/emitters.py (all but its ATS variants).
+rustlight_tpu/scene/emitters.py.
 
 Every sampleable atom (each emissive triangle, each point light, each
 directional light, each point-normal light and the environment) is one row
@@ -16,7 +16,10 @@ and its MIS pdf. A triangle's emission may depend on its uv (the
 reference's HSV and texture emission kinds); `emitted_radiance`,
 `sample_light` and `sample_position` evaluate it at the hit or sampled
 point. `sample_position` and `sample_emission_direction` start the light
-tracer's paths on any atom.
+tracer's paths on any atom. With the ATS light tree (scene/ats.py),
+`sample_light_ats` picks an emissive triangle by a descent of the tree and
+`direct_pdf_tri_ats` gives the matching pdf; they see triangles only, as
+the reference's.
 
 Each atom kind's branch runs only where the tables hold such an atom
 (`EmitterTables.kinds`); a branch selects its lanes by kind, so skipping
@@ -41,6 +44,7 @@ from ..utils.vec import dot, length
 from ..utils.warps import (concentric_sample_disk, cosine_sample_hemisphere,
                            sample_uniform_sphere, to_spherical_coordinates,
                            uniform_sample_triangle)
+from .ats import ats_pdf, ats_sample
 
 ATOM_TRI = 0
 ATOM_POINT = 1
@@ -410,16 +414,10 @@ def _pick(em: EmitterTables, u_sel):
             em.atom_ref[atom])
 
 
-def sample_light(em: EmitterTables, geom, p_ref, u_sel, u_pos) -> LightSample:
-    """NEE sample toward one emitter atom per lane.
-
-    p_ref [n, 3] shading points; u_sel [n]; u_pos [n, 2]. weight = Le * G /
-    pdf with the selection pdf folded in, ready to multiply by f."""
-    n = p_ref.shape[0]
-    atom, sel_pdf, kind, ref = _pick(em, u_sel)
-    sel_c = torch.clamp(sel_pdf, min=1e-30)[:, None]
-
-    # ---- surface triangle atom
+def _triangle_sample(em: EmitterTables, geom, ref, sel_pdf, p_ref, u_pos):
+    """A uniform point on triangle `ref` (clamped to the table) picked with
+    probability sel_pdf: (p, n, d, dist, solid-angle pdf, Le G / pdf,
+    valid)."""
     tri = torch.clamp(ref, 0, geom.v0.shape[0] - 1)
     b = uniform_sample_triangle(u_pos)
     p = geom.v0[tri] + b[..., 0:1] * geom.e1[tri] + b[..., 1:2] * geom.e2[tri]
@@ -436,7 +434,21 @@ def sample_light(em: EmitterTables, geom, p_ref, u_sel, u_pos) -> LightSample:
     weight = torch.where((g > 0.0)[:, None],
                          le * (g / torch.clamp(pdf_area, min=1e-30))[:, None],
                          0.0)
-    valid = (g > 0.0) & (sel_pdf > 0.0)
+    return p, nrm, d, dist, pdf, weight, (g > 0.0) & (sel_pdf > 0.0)
+
+
+def sample_light(em: EmitterTables, geom, p_ref, u_sel, u_pos) -> LightSample:
+    """NEE sample toward one emitter atom per lane.
+
+    p_ref [n, 3] shading points; u_sel [n]; u_pos [n, 2]. weight = Le * G /
+    pdf with the selection pdf folded in, ready to multiply by f."""
+    n = p_ref.shape[0]
+    atom, sel_pdf, kind, ref = _pick(em, u_sel)
+    sel_c = torch.clamp(sel_pdf, min=1e-30)[:, None]
+
+    # ---- surface triangle atom
+    p, nrm, d, dist, pdf, weight, valid = _triangle_sample(
+        em, geom, ref, sel_pdf, p_ref, u_pos)
     is_delta = torch.zeros(n, dtype=torch.bool, device=p_ref.device)
     tri_out = torch.where(kind == ATOM_TRI, ref, -1)
 
@@ -609,3 +621,35 @@ def sample_emission_direction(em: EmitterTables, ps: PositionSample, u):
         pdf = torch.where(m, 1.0, pdf)
         weight = torch.where(m[:, None], 1.0, weight)
     return d, pdf, weight
+
+
+# ------------------------------------------------------------ ATS variants
+
+def sample_light_ats(em: EmitterTables, geom, ats, p_ref, n_ref, u_sel,
+                     u_pos) -> LightSample:
+    """NEE through the ATS light tree: a descent picks a triangle by its
+    importance from (p_ref, n_ref), then a uniform point on it (the
+    reference's sample_light with ATS, emitter.rs:1629-1648)."""
+    tri, sel_pdf = ats_sample(ats, p_ref, n_ref, u_sel)
+    p, nrm, d, dist, pdf, weight, valid = _triangle_sample(
+        em, geom, tri, sel_pdf, p_ref, u_pos)
+    valid = valid & (tri >= 0)
+    return LightSample(p=p, n=nrm, d=d, dist=dist, pdf=pdf,
+                       weight=torch.where(valid[:, None], weight, 0.0),
+                       is_delta=torch.zeros_like(valid), valid=valid, tri=tri)
+
+
+def direct_pdf_tri_ats(em: EmitterTables, geom, ats, tri_id, p_ref, p_hit,
+                       n_hit, d):
+    """Solid-angle NEE pdf of hitting tri_id from p_ref under ATS selection
+    (direct_pdf_tri x the tree's pdf, emitter.rs:1567-1601; the reference
+    passes no normal to the tree here)."""
+    sel = ats_pdf(ats, tri_id, p_ref, None)
+    area_inv = ats.tri_area_inv[torch.clamp(tri_id, min=0)]
+    cos_l = torch.clamp(dot(n_hit, -d), min=0.0)
+    delta = p_hit - p_ref
+    dist2 = dot(delta, delta)
+    pdf = torch.where(cos_l > 0.0,
+                      sel * area_inv * dist2 / torch.clamp(cos_l, min=1e-20),
+                      0.0)
+    return torch.where(tri_id >= 0, pdf, 0.0)

@@ -6,7 +6,8 @@ does (kept as `SceneData.host`), then `from_numpy_scene` uploads them to
 `device`. `from_numpy_scene` also takes the JAX package's compiled numpy
 scene (`sd.host.data`), read by attribute, so both packages can render the
 very same tables, the homogeneous medium, the point, directional,
-point-normal and environment lights and uv-dependent emission included.
+point-normal and environment lights, uv-dependent emission and the ATS
+light tree (`use_ats`) included.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from ..bsdfs.table import MaterialDesc, build_material_table, material_table_to
 from ..utils.frame import make_frame, to_local
 from ..utils.vec import dot
+from .ats import ats_to, build_ats
 from .camera import Camera, camera_to
 from .emitters import build_emitter_tables, emitters_to
 from .geometry import TriMesh, build_geometry_tables, geometry_to, scene_bounds
@@ -33,6 +35,7 @@ class SceneData(NamedTuple):
     host: Optional[Any] = None       # the numpy SceneData this was built from
     use_shading_normals: bool = True
     volume: Optional[HomogeneousVolume] = None   # infinite medium, on device
+    ats: Optional[Any] = None        # ats.AtsTables when built with use_ats
 
     @property
     def device(self) -> torch.device:
@@ -62,10 +65,11 @@ class Scene:
         return len(self.meshes) - 1
 
     def compile(self, device, use_shading_normals: bool = True,
-                walk_options=None) -> SceneData:
+                walk_options=None, use_ats: bool = False) -> SceneData:
         """Build the numpy tables and upload them to `device`.
         `walk_options` (accel/walk.py: WalkOptions) picks the walk's
-        schedule for scenes that carry walk tables."""
+        schedule for scenes that carry walk tables; `use_ats` builds the
+        ATS light tree (scene/ats.py), which NEE then samples."""
         materials = self.materials or [MaterialDesc()]
         mesh_emitter_id, next_id = [], 0
         for m in self.meshes:
@@ -88,12 +92,15 @@ class Scene:
             env_constant=self.env_constant, env_image=self.env_image,
             bsphere_center=center, bsphere_radius=radius,
             textures=self.textures)
+        ats = None
+        if use_ats:
+            ats = build_ats(geom, emitters)
         host_sd = SceneData(camera=self.camera, geom=geom,
                             materials=build_material_table(
                                 materials, textures=self.textures),
                             emitters=emitters,
                             use_shading_normals=use_shading_normals,
-                            volume=self.volume)
+                            volume=self.volume, ats=ats)
         return from_numpy_scene(host_sd, device, walk_options)
 
 
@@ -107,11 +114,12 @@ def from_numpy_scene(host_sd, device, walk_options=None) -> SceneData:
     package's clustered tables are ignored. The emitter tables come whole:
     every atom kind, the environment's image and CDF, the uv-dependent
     emission columns. The medium's sigmas and phase g are read as plain
-    numbers. `walk_options` sets the walk's schedule
-    (accel/walk.py: WalkOptions)."""
-    if getattr(host_sd, "ats", None) is not None:
-        raise NotImplementedError("ATS light sampling is not ported yet")
+    numbers. The ATS light tree comes where the host scene has one.
+    `walk_options` sets the walk's schedule (accel/walk.py: WalkOptions)."""
     device = torch.device(device)
+    ats = getattr(host_sd, "ats", None)
+    if ats is not None:
+        ats = ats_to(ats, device)
     return SceneData(
         camera=camera_to(host_sd.camera, device),
         geom=geometry_to(host_sd.geom, device, walk_options),
@@ -121,6 +129,7 @@ def from_numpy_scene(host_sd, device, walk_options=None) -> SceneData:
         use_shading_normals=bool(host_sd.use_shading_normals),
         volume=(None if getattr(host_sd, "volume", None) is None
                 else volume_to(host_sd.volume, device)),
+        ats=ats,
     )
 
 

@@ -109,10 +109,18 @@ def test_every_reference_global_flag_is_declared(dest):
 
 
 @pytest.mark.parametrize("dest", [f[0] for f in FLAGS if f[0] not in PORTED])
-def test_unported_flag_exits_not_ported(dest):
+def test_unported_flag_exits_not_ported(dest, tmp_path):
+    """-x/--xtra-options was refused for its first value, ats, until the
+    ATS light tree was ported: now it renders a tiny image instead."""
     _, names, _, action = next(f for f in FLAGS if f[0] == dest)
     argv = ["cbox", names[-1], *_other_value(action), "--device", "cpu",
             "path", "-m", "2"]
+    if dest == "xtra_options":
+        assert argv[2] == "ats"
+        assert cli.main(argv[:-3] + ["-s", "0.015625", "-o",
+                                     str(tmp_path / "x.pfm")]
+                        + argv[-3:]) == 0
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert e.value.code == f"{names[-1]} is not ported yet"
@@ -293,11 +301,37 @@ def test_cli_xtra_options(tmp_path, xtra):
         assert sc.textures.shape[0] == 1 and lights[0].emission_tex == 0
 
 
-def test_cli_refuses_ats():
-    with pytest.raises(SystemExit) as e:
-        cli.main(["cbox", "-x", "no-shading", "-x", "ats", "--device", "cpu",
-                  "path"])
-    assert e.value.code == "--xtra-options is not ported yet"
+def test_cli_refuses_ats(tmp_path, monkeypatch):
+    """-x ats, refused before the ATS light tree was ported, now renders
+    through the tree (its descent runs): a lit, finite image, the port's
+    render of the scene compiled with use_ats. On cbox the tree's two
+    leaves (the light quad's triangles) share one box, so the descent
+    picks each with probability 1/2, as the flux cdf does: the image is
+    also the one without -x ats."""
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing, render
+    from rustlight_tpu_torch.models import cornell_box
+    from rustlight_tpu_torch.scene import emitters
+    from rustlight_tpu_torch.utils.image import read_exr
+    calls = []
+    descend = emitters.ats_sample
+    monkeypatch.setattr(emitters, "ats_sample", lambda *a: calls.append(
+        a[1].shape[0]) or descend(*a))
+    out = tmp_path / "ats.exr"
+    assert cli.main(["cbox", "-x", "no-shading", "-x", "ats", "-n", "2",
+                     "-s", "0.03125", "-o", str(out), "--device", "cpu",
+                     "path", "-m", "3"]) == 0
+    assert calls and set(calls) == {16 * 16}
+    img = read_exr(out)
+    assert img.shape == (16, 16, 3) and np.all(np.isfinite(img))
+    assert img.mean() > 1e-2
+    integ = IntegratorPathTracing(max_depth=3)
+    sd = cornell_box(16, 16).compile(device="cpu", use_ats=True,
+                                     use_shading_normals=False)
+    assert sd.ats is not None and sd.ats.depth == 1
+    np.testing.assert_array_equal(render(sd, integ, 2)["primal"], img)
+    plain = cornell_box(16, 16).compile(device="cpu",
+                                        use_shading_normals=False)
+    np.testing.assert_array_equal(render(plain, integ, 2)["primal"], img)
 
 
 NEW_COMMANDS = ("vpl", "vol-primitivies", "vol-primitives", "plane-single",
@@ -385,11 +419,15 @@ def test_point_normal_splitting_without_ats_renders_the_ordinary_route(
     np.testing.assert_array_equal(imgs[0], imgs[1])
 
 
-SLICE_COMMANDS = ("gradient-path", "gradient-path-explicit", "pssmlt", "erpt")
+SLICE_COMMANDS = ("gradient-path", "gradient-path-explicit", "pssmlt", "erpt",
+                  "smcmc")
 
 
 def test_only_smcmc_is_refused():
-    assert cli._NOT_PORTED == ("smcmc",)
+    """SMCMC and -x ats were the last refused subcommand and -x value:
+    every one is ported now."""
+    assert cli._NOT_PORTED == ()
+    assert cli._NOT_PORTED_XTRA == ()
 
 
 @pytest.mark.parametrize("command", SLICE_COMMANDS)
@@ -402,7 +440,8 @@ def _plain(obj):
     return {k: v for k, v in vars(obj).items()
             if isinstance(v, (int, float, str, type(None)))
             and not k.startswith("_")
-            and k not in ("record_accepts", "accepts", "visits", "tfs")}
+            and k not in ("record_accepts", "accepts", "visits", "tfs",
+                          "init_accepts", "init_tfs", "flushed")}
 
 
 @pytest.mark.parametrize("argv", [
@@ -412,7 +451,9 @@ def _plain(obj):
     ["gradient-path-explicit", "-m", "4", "--strategy-recons", "weighted",
      "--min-survival", "0.25"],
     ["pssmlt"], ["pssmlt", "-m", "6", "-p", "0.5", "-b", "4096", "-s", "bsdf"],
-    ["erpt"], ["erpt", "-k", "-e2", "3", "-c", "8", "-m", "4"]],
+    ["erpt"], ["erpt", "-k", "-e2", "3", "-c", "8", "-m", "4"],
+    ["smcmc"], ["smcmc", "-m", "4", "-p", "0.5", "--recons-smcmc", "naive",
+                "--init", "independent", "-s", "bsdf"]],
     ids=lambda a: "-".join(a))
 def test_cli_builds_the_reference_gradient_and_mcmc_integrators(argv):
     from rustlight_tpu.cli import build_integrator as jax_build_integrator
@@ -431,7 +472,8 @@ def test_cli_builds_the_reference_gradient_and_mcmc_integrators(argv):
 
 @pytest.mark.parametrize("argv", [
     ["gradient-path", "-m", "3"], ["gradient-path-explicit", "-m", "3"],
-    ["pssmlt", "-m", "3", "-b", "256"], ["erpt", "-m", "3", "-c", "4"]],
+    ["pssmlt", "-m", "3", "-b", "256"], ["erpt", "-m", "3", "-c", "4"],
+    ["smcmc", "-m", "3"]],
     ids=lambda a: a[0])
 def test_cli_renders_the_gradient_and_mcmc_integrators(tmp_path, argv):
     """cbox 8x8 (ERPT 32x32: its 65,536 normalization samples go in

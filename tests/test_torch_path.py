@@ -158,8 +158,8 @@ def test_cli_renders_a_pfm(tmp_path):
     np.testing.assert_array_equal(read_pfm(tmp_path / "again.pfm"), img)
 
 
-@pytest.mark.parametrize("argv", [["cbox", "smcmc"],
-                                  ["cbox", "-x", "ats", "path"],
+@pytest.mark.parametrize("argv", [["cbox", "-a", "2", "path"],
+                                  ["cbox", "--guiding", "path"],
                                   ["cbox", "-t", "2", "path"]])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -218,11 +218,11 @@ def test_offset_ray_origin():
 def test_unported_features_raise():
     from rustlight_tpu_torch.scene.geometry import (
         TriMesh, build_geometry_tables, geometry_to)
-    # ATS light sampling is not ported (the medium and every other emitter
-    # atom kind are)
-    with pytest.raises(NotImplementedError, match="ATS"):
-        tscene.from_numpy_scene(
-            jax_cornell_box(8, 8).compile(use_ats=True).host.data, "cpu")
+    # the ATS light tree, refused before its port, now uploads with the
+    # scene
+    sd = tscene.from_numpy_scene(
+        jax_cornell_box(8, 8).compile(use_ats=True).host.data, "cpu")
+    assert sd.ats is not None and sd.ats.leaf_tri.device.type == "cpu"
     # above the dense tier, only the tile walk is ported: tables without
     # walk tables (the reference's clustered-only fallback) are refused
     verts = np.random.default_rng(0).uniform(0, 1, (3 * 1025, 3))
