@@ -315,6 +315,34 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      examples/caustic.pbrt (448x336, depth 8) at EX_FULL_SPP (K3 only),
      each with Mrays/s, its kernels' launches, peak device memory and busy
      share.
+ 26. path guiding, adaptive sampling, the feature AOVs and the meta
+     integrators: (a) the guided path tracer (render_guided, g 16, depth 6)
+     on cbox 512x512, 8 passes, timed as phase 23 (K1/K2 only; Mrays/s,
+     peak device memory, busy share of a 1-pass profile), its mean within
+     2% of phase 3's 128-spp mean; torch.profiler's cost over a 1-spp
+     direct render, host and device activities against the device's alone
+     (every profile records the device's alone); one guided pass run twice
+     on a trained table, its lanes and table bit for bit, and the deposit's
+     index_put_ against index_add_ twice each on 262,144 lanes (repeats,
+     ms); door_box 40x30 at depth 6 (tests/test_guiding.py:70-87's
+     settings), guided and unguided at 64 spp against a 1,024-spp reference
+     (the unguided and reference estimates many samples a pixel side by
+     side in one wavefront: _wide_render): guided l1 below unguided, the
+     means' ratio in (0.5, 2); (b) the guided examples/caustic.pbrt at its
+     full size, 4 passes (K3 only; no profile); (c) the card against the
+     CPU at 32x32: 4 guided passes (at most 0.1% of the (pass, lane) pairs
+     off by more than SCHED_PIX_RTOL, the pixels no diverged lane reached
+     within SCHED_PIX_RTOL; each pass once more on the card from the CPU's
+     table, the table after it within 1e-5 of the CPU's largest entry),
+     render_adaptive at 16 spp (counts equal on 99.9% of the pixels, the
+     image under phase 20's bounds), render_feature_aovs at 4 spp (each AOV
+     within 1e-5 on 99.9% of the pixels, means within SCHED_MEAN_RTOL); (d)
+     the CLI in this process on cbox 128x128: `-a 3 -n 2` twice (bit for
+     bit?) and `-a 1` then `-a 3 --resume`, for `path`, `--guiding path`
+     and `smcmc` (kept chains): the resumed film equal bit for bit where
+     the reruns are, else within 1e-6 relative; `-e 2000` achieving a
+     sample or more; (e) render_adaptive (path, depth 6) at 32 spp and
+     render_feature_aovs at 8 spp on cbox 512x512, timed as (a).
 
 Every line ends with the seconds since the run started. Before the last
 line: a JSON line with each kernel's tables and wavefronts
@@ -324,8 +352,8 @@ from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
 The K1/K2 launches of phases 20, 21, 23, 24 and 25's full-width renders,
-and the K1/K2/K3 launches of phases 22 and 25's, are added to K1/K2's and
-K3's in the kernels line.
+and the K1/K2/K3 launches of phases 22, 25 and 26's, are added to K1/K2's
+and K3's in the kernels line.
 """
 from __future__ import annotations
 
@@ -344,10 +372,11 @@ DEVICE = "cuda"
 N_RAYS = 262_144
 CBOX_RES, CBOX_SPP, CBOX_DEPTH = 512, 128, 6
 # the whole run's 1,200 s: phase 3's warm-up and phase 4's profile at these
-# spp (128 and 8 until phase 24 came), phases 8, 14, 16 and 19's profiles at
-# SCHED_PROFILE_SPP (2 until then); torch.profiler's host-side processing
-# grows with the launches it records (PERF.md, section 6)
-CBOX_WARM_SPP, CBOX_PROFILE_SPP, SCHED_PROFILE_SPP = 8, 2, 1
+# spp (128 and 8 until phase 24 came, the profile at 2 until phase 26 came),
+# phases 8, 14, 16 and 19's profiles at SCHED_PROFILE_SPP (2 until phase
+# 24); torch.profiler's host-side processing grows with the launches it
+# records (PERF.md, section 6)
+CBOX_WARM_SPP, CBOX_PROFILE_SPP, SCHED_PROFILE_SPP = 8, 1, 1
 TIMING_RUNS = 10
 PLAIN_RUNS = 1
 # ids may differ only where the two nearest valid t are this close (relative)
@@ -445,7 +474,8 @@ WALK_REPLACES = ("rustlight_tpu/accel/pallas_walk.py:{} (K3), "
 # the full-width renders
 GATE_SPP, GATE_STORED, GATE_FLOOR = 32, 1.3, 1.5
 GATE_METRICS = ("l1", "l2", "mape", "dssim")
-GATE_CPU_SPP, GATE_PROFILE_SPP = 4, 2     # the profiles at 8 before phase 24
+# the profiles at 8 before phase 24, at 2 before phase 26
+GATE_CPU_SPP, GATE_PROFILE_SPP = 4, 1
 # (the full-width spp were 128 until phase 23 came: the whole run stays
 # well inside its 1,200 s)
 DIRECT_RES, DIRECT_SPP = 512, 32
@@ -506,6 +536,27 @@ GRAD_LANES, MCMC_DECISIONS = 0.999, 0.999
 SM_DEPTH, SM_RES, SM_SPP = 6, 512, 4
 IRLS_RTOL = 1e-5
 ATS_SPP, ATS_EX = 8, "caustic.pbrt"
+# phase 26: the guided path tracer on cbox (GUIDE_RES, GUIDE_PASSES passes,
+# a GUIDE_G^3 grid, depth CBOX_DEPTH), its mean within GUIDE_MEAN_RTOL of
+# phase 3's; door_box (DOOR_RES, depth DOOR_DEPTH) guided and unguided at
+# DOOR_SPP against a DOOR_REF_SPP reference, tests/test_guiding.py:70-87's
+# settings (at 160x120 guiding lost, 0.80x the unguided l1, on the card:
+# the 1,024-spp reference's own noise dominates there); examples/caustic.pbrt guided at
+# its full size (GUIDE_EX_PASSES); card vs CPU at 32x32 (the guided passes'
+# tables within GUIDE_TABLE_RTOL, render_adaptive at ADAPT_CPU_SPP,
+# render_feature_aovs at FEAT_CPU_SPP within FEAT_RTOL); -a / --resume
+# through the CLI at META_RES (META_PASSES passes of META_SPP), -e META_E_MS;
+# render_adaptive at ADAPT_SPP and render_feature_aovs at FEAT_SPP on cbox
+# GUIDE_RES
+GUIDE_RES, GUIDE_PASSES, GUIDE_G, GUIDE_MEAN_RTOL = 512, 8, 16, 0.02
+DOOR_RES, DOOR_DEPTH, DOOR_SPP, DOOR_REF_SPP = (40, 30), 6, 64, 1024
+GUIDE_EX_PASSES, GUIDE_CPU_PASSES, GUIDE_TABLE_RTOL = 4, 4, 1e-5
+ADAPT_CPU_SPP, FEAT_CPU_SPP, FEAT_RTOL = 16, 4, 1e-5
+META_RES, META_PASSES, META_SPP, META_E_MS = 128, 3, 2, 2000
+ADAPT_SPP, FEAT_SPP = 32, 8
+# the adaptive profile: the pilot of 8 and one pass of extra samples
+ADAPT_PROFILE_SPP = 9
+RESUME_RTOL = 1e-6
 
 
 _T0 = time.time()
@@ -1014,12 +1065,16 @@ def _render(sd, integ, spp, seed=0, persistent=None):
     return render(sd, integ, spp=spp, seed=seed, persistent=persistent)
 
 
-def _profile(fn):
+def _profile(fn, cpu=False):
     """torch.profiler over one call of `fn`: (wall s, the device kernels'
-    key averages, longest total first)."""
+    key averages, longest total first). It records the device's activity
+    alone unless `cpu`: recording the host's ops as well slows the host
+    loop it times, and takes two to three times as long to process
+    (phase 26 (a) prints both)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -3054,34 +3109,41 @@ def _gate_row(row: _Row, dev):
 
 def _full_width(label, sd, integ, spp, card, dense, warm_spp=None,
                 kernels=None, profile_spp=GATE_PROFILE_SPP, tag="gate",
-                before_profile=None):
+                before_profile=None, keep=None):
     """A render timed as phase 3 (warm-up, of `warm_spp` samples if given,
     then counts reset and rays counted over a timed render) with only
     `kernels` launched (by default K1/K2), the launches of `dense`'s
     kernels added to it, the peak of allocated device memory over the timed
     render, and the device busy share of a warm `profile_spp` render under
-    torch.profiler (after `before_profile()`, if given). Returns (busy
-    share, the share of device time of the kernels in `dense`)."""
+    torch.profiler (after `before_profile()`, if given; none with
+    `profile_spp` 0). Returns (busy share, the share of device time of the
+    kernels in `dense`); the timed render's image goes to keep["img"] when
+    `keep` is given."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     img, wall, warm, n_rays, launches = timed_render(label, sd, integ, spp,
                                                      warm_spp=warm_spp)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if keep is not None:
+        keep["img"] = img
     _only(f"{tag} {label}", launches, kernels or tuple(dense))
     for k in dense:
         dense[k] += launches[k]
     if before_profile is not None:
         before_profile()
-    busy, ours = profile_render(
-        label, sd, integ, profile_spp,
-        tuple(sorted({k.split("_")[0] + "_" for k in dense})), top=6)
+    busy = ours = None
+    if profile_spp:
+        busy, ours = profile_render(
+            label, sd, integ, profile_spp,
+            tuple(sorted({k.split("_")[0] + "_" for k in dense})), top=6)
     busy_s = "not measured" if busy is None else f"{100 * busy:.1f}%"
     phase(tag, f"{label} {spp} spp: warm-up {warm:.3f}s"
           + ("" if warm_spp is None else f" ({warm_spp} spp)") + ", timed "
           f"{wall:.3f}s, {n_rays} rays, {n_rays / wall / 1e6:.3f} "
           f"Mrays/s, mean {img.mean():.6f}, peak device memory "
-          f"{peak:.2f} GiB, device busy {busy_s} (of a warm {profile_spp} "
-          f"spp render), launches " + ", ".join(
+          f"{peak:.2f} GiB, device busy {busy_s}"
+          + (f" (of a warm {profile_spp} spp render)" if profile_spp else "")
+          + ", launches " + ", ".join(
               f"{k} {launches[k]}" for k in dense) + f" | {card}")
     return busy, ours
 
@@ -3610,6 +3672,378 @@ def smcmc_ats_phase(dev, card):
     return {**dense, **walk}
 
 
+class _Guided:
+    """render_guided as a self-driving integrator: every render starts from
+    a cold table (IntegratorGuidedPath would carry it over)."""
+
+    def __init__(self, integ, g):
+        self.integ, self.g = integ, g
+
+    def render(self, sd, spp, seed=0):
+        from rustlight_tpu_torch.integrators.guiding import render_guided
+        return render_guided(sd, self.integ, spp, seed=seed, g=self.g)
+
+
+class _Adaptive:
+    """render_adaptive over `integ` as a self-driving integrator."""
+
+    def __init__(self, integ):
+        self.integ = integ
+
+    def render(self, sd, spp, seed=0):
+        from rustlight_tpu_torch.integrators.common import render_adaptive
+        return render_adaptive(sd, self.integ, spp, seed=seed)
+
+
+class _Features:
+    """render_feature_aovs as a self-driving integrator: its film holds the
+    three AOVs, the albedo as the primal."""
+
+    def render(self, sd, spp, seed=0):
+        from rustlight_tpu_torch.integrators.common import render_feature_aovs
+        from rustlight_tpu_torch.utils.film import Film
+        film = Film(sd.camera.width, sd.camera.height)
+        film.buffers.update(render_feature_aovs(sd, spp=spp, seed=seed))
+        film.buffers["primal"] = film.buffers["albedo"]
+        return film
+
+
+def _wide_render(sd, integ, spp, seed, tile):
+    """The per-pass route's estimate, spp samples a pixel of
+    integ.compute_pixel, `tile` samples of every pixel side by side in one
+    wavefront (pass s draws from stream_fold(make_stream(seed), s)): far
+    fewer iterations of the eager loop than spp passes. [h, w, 3] on the
+    host."""
+    import torch
+    from rustlight_tpu_torch.integrators.common import _pixel_grid
+    from rustlight_tpu_torch.utils.film import accumulate_safe
+    from rustlight_tpu_torch.utils.rng import make_stream, stream_fold
+    w, h = sd.camera.width, sd.camera.height
+    pix = torch.as_tensor(_pixel_grid(w, h), device=sd.device).repeat(tile,
+                                                                      1)
+    base = make_stream(seed, sd.device)
+    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=sd.device)
+    for s in range(spp // tile):
+        li = accumulate_safe(integ.compute_pixel(sd, pix,
+                                                 stream_fold(base, s)))
+        acc = acc + li.reshape(tile, w * h, 3).sum(0)
+    return (acc / spp).cpu().numpy().reshape(h, w, 3)
+
+
+def _guided_card_vs_cpu(dev):
+    """(c), guiding: GUIDE_CPU_PASSES guided passes of cbox 32x32 (depth
+    CBOX_DEPTH, a GUIDE_G^3 grid, seed 0) on the card and on the CPU, each
+    device from its own tables. A lane of a pass diverged where its
+    radiance is off by more than SCHED_PIX_RTOL (relative, 1e-4 floor): at
+    most 1 - SCHED_PIX_FRAC of the (pass, lane) pairs may; the image (the
+    passes' mean) within SCHED_PIX_RTOL on every pixel no diverged lane
+    reached. Every pass is run on the card once more from the CPU's table
+    before it: the table after it within GUIDE_TABLE_RTOL of the CPU's
+    largest entry. (Run from its own tables, the card's drifts further
+    from pass to pass: the draw reuses the CDF's residual, so an ulp of a
+    row's sum moves a draw in a bin of small weight; the drift is
+    printed.)"""
+    import torch
+    from dataclasses import replace
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing
+    from rustlight_tpu_torch.integrators.common import _pixel_grid
+    from rustlight_tpu_torch.integrators.guiding import (guided_pass,
+                                                         make_guide_grid)
+    from rustlight_tpu_torch.models import cornell_box
+    from rustlight_tpu_torch.utils.rng import make_stream, stream_fold
+    run = {}
+    for w in (str(dev), "cpu"):
+        sd = cornell_box(32, 32).compile(device=w)
+        integ = IntegratorPathTracing(max_depth=CBOX_DEPTH)
+        integ.guide_alpha = 0.5
+        run[w] = (sd, integ, torch.as_tensor(_pixel_grid(32, 32), device=w),
+                  make_stream(0, w), make_guide_grid(sd, GUIDE_G))
+
+    def one(w, grid, j):
+        sd, integ, pix, base, _ = run[w]
+        rad, grid = guided_pass(sd, integ, grid, pix, stream_fold(base, j),
+                                0.8)
+        return rad.cpu().numpy(), grid
+    free = {w: run[w][4] for w in run}
+    img = {w: 0.0 for w in run}
+    keep = np.ones(32 * 32, bool)
+    n_div, tables, drift = 0, [], []
+    for j in range(GUIDE_CPU_PASSES):
+        before = free["cpu"].table
+        out = {}
+        for w in run:
+            rad, free[w] = one(w, free[w], j)
+            img[w] = img[w] + rad
+            out[w] = rad
+        ra, rb = out[str(dev)], out["cpu"]
+        div = (np.abs(ra - rb) / np.maximum(np.abs(rb), 1e-4)).max(-1) > (
+            SCHED_PIX_RTOL)
+        n_div += int(div.sum())
+        keep &= ~div
+        tb = free["cpu"].table.numpy()
+        _, same_in = one(str(dev), replace(free[str(dev)], table=before.to(
+            dev)), j)
+        tables.append(float(np.abs(same_in.table.cpu().numpy() - tb).max()
+                            / np.abs(tb).max()))
+        drift.append(float(np.abs(free[str(dev)].table.cpu().numpy() - tb)
+                           .max() / np.abs(tb).max()))
+    img_a = img[str(dev)] / GUIDE_CPU_PASSES
+    img_b = img["cpu"] / GUIDE_CPU_PASSES
+    rel = (np.abs(img_a - img_b) / np.maximum(np.abs(img_b), 1e-4)).max(-1)
+    worst = float(rel[keep].max())
+    total = GUIDE_CPU_PASSES * 32 * 32
+    phase("guide", f"(c) guided cbox 32x32, {GUIDE_CPU_PASSES} passes, g "
+          f"{GUIDE_G}, card vs CPU: {n_div} of {total} (pass, lane) pairs "
+          f"diverged (limit {100 * (1 - SCHED_PIX_FRAC):.1f}%); each pass "
+          "from the CPU's table, the table after it within " + ", ".join(
+              f"{t:.3g}" for t in tables) + " of the CPU's largest entry "
+          f"(limit {GUIDE_TABLE_RTOL}); from the card's own tables " +
+          ", ".join(f"{t:.3g}" for t in drift) + f"; on the "
+          f"{int(keep.sum())} pixels no diverged lane reached, worst "
+          f"relative difference {worst:.3g} (limit {SCHED_PIX_RTOL}); "
+          f"means {img_a.mean():.7f} / {img_b.mean():.7f}")
+    if not (img_b.mean() > 0 and np.all(np.isfinite(img_a))):
+        raise AssertionError("guide (c): bad images")
+    if (n_div > (1 - SCHED_PIX_FRAC) * total or max(tables) >
+            GUIDE_TABLE_RTOL or worst > SCHED_PIX_RTOL):
+        raise AssertionError("guide (c): guided card and CPU disagree")
+
+
+def _adaptive_card_vs_cpu(dev):
+    """(c), render_adaptive and render_feature_aovs on cbox 32x32 (depth
+    CBOX_DEPTH) on the card and on the CPU: the adaptive counts equal on at
+    least SCHED_PIX_FRAC of the pixels and the images under phase 20's
+    bounds; each feature AOV within FEAT_RTOL (relative, 1e-4 floor) on at
+    least SCHED_PIX_FRAC of the pixels, the means within SCHED_MEAN_RTOL."""
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing
+    from rustlight_tpu_torch.integrators.common import (render_adaptive,
+                                                        render_feature_aovs)
+    from rustlight_tpu_torch.models import cornell_box
+    ad, feat = {}, {}
+    for w in (dev, "cpu"):
+        sd = cornell_box(32, 32).compile(device=w)
+        ad[str(w)] = render_adaptive(
+            sd, IntegratorPathTracing(max_depth=CBOX_DEPTH), ADAPT_CPU_SPP)
+        feat[str(w)] = render_feature_aovs(sd, spp=FEAT_CPU_SPP)
+    fa, fb = ad[str(dev)], ad["cpu"]
+    same = float((fa["spp"] == fb["spp"]).mean())
+    line = _agree_buffer("guide", "(c) adaptive", "primal", fa["primal"],
+                         fb["primal"], False)
+    phase("guide", f"(c) render_adaptive cbox 32x32 {ADAPT_CPU_SPP} spp, card"
+          f" vs CPU: counts equal on {100 * same:.3f}% of pixels (limit "
+          f"{100 * SCHED_PIX_FRAC:.1f}%), budgets {int(fa['spp'].sum())} / "
+          f"{int(fb['spp'].sum())}; {line}")
+    if same < SCHED_PIX_FRAC or fa["spp"].sum() != fb["spp"].sum():
+        raise AssertionError("guide (c): adaptive counts disagree")
+    parts = []
+    for name in ("albedo", "normal", "depth"):
+        a, b = feat[str(dev)][name], feat["cpu"][name]
+        rel = (np.abs(a - b) / np.maximum(np.abs(b), 1e-4)).max(-1)
+        frac = float((rel <= FEAT_RTOL).mean())
+        mean_rel = abs(float(a.mean()) - float(b.mean())) / max(
+            float(np.abs(b).mean()), 1e-30)
+        parts.append(f"{name} {100 * frac:.3f}% within {FEAT_RTOL} (worst "
+                     f"{float(rel.max()):.3g}), means off by {mean_rel:.3g}")
+        if (not np.all(np.isfinite(a)) or frac < SCHED_PIX_FRAC
+                or mean_rel > SCHED_MEAN_RTOL):
+            raise AssertionError(f"guide (c): feature AOV {name} disagrees")
+    phase("guide", f"(c) render_feature_aovs cbox 32x32 {FEAT_CPU_SPP} spp, "
+          "card vs CPU: " + "; ".join(parts))
+
+
+def _cli_film(argv, out):
+    """One in-process run of the port's CLI on the card; its film."""
+    from rustlight_tpu_torch import cli
+    from rustlight_tpu_torch.utils.image import read_pfm
+    if cli.main(argv) != 0:
+        raise AssertionError(f"guide (d): {' '.join(argv)} failed")
+    return read_pfm(out)
+
+
+def _cli_resume(tmp, dev, label, tail):
+    """(d) for one integrator: two identical `-a META_PASSES` runs, then `-a
+    1` and `-a META_PASSES --resume` from its dumps. Returns (bit-equal
+    reruns, largest relative difference between the reruns, between the
+    resumed and the uninterrupted films)."""
+    def run(name, *flags):
+        out = os.path.join(tmp, f"{label}_{name}.pfm")
+        return _cli_film(["cbox", "-n", str(META_SPP), "-s",
+                          str(META_RES / 512), "-o", out, "--device",
+                          str(dev), *flags, *tail], out)
+    a = run("a", "-a", str(META_PASSES))
+    b = run("b", "-a", str(META_PASSES))
+    run("r", "-a", "1")
+    r = run("r", "-a", str(META_PASSES), "--resume")
+
+    def rel(x, y):
+        return float((np.abs(x - y) / np.maximum(np.abs(y), 1e-30)).max())
+    if not (np.all(np.isfinite(a)) and a.mean() > 0):
+        raise AssertionError(f"guide (d) {label}: bad film")
+    return np.array_equal(a, b), rel(b, a), rel(r, a), np.array_equal(r, a)
+
+
+def _deposit_determinism(dev):
+    """The card's deposit (index_put_ with accumulate, guiding.deposit)
+    against index_add_ on the same 262,144 lanes into a g = 16 table, each
+    twice: whether each repeats bit for bit, and each one's median ms."""
+    import torch
+    from rustlight_tpu_torch.integrators import guiding as gd
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, cells = 262_144, 16 ** 3 * gd.N_BINS
+    # lanes herded into few cells, as a wavefront's vertices are
+    idx = (torch.rand(n, device=dev, generator=gen) ** 4 * cells).long()
+    val = torch.rand(n, device=dev, generator=gen)
+    zero = torch.zeros(cells, device=dev)
+
+    def put():
+        return zero.clone().index_put_((idx,), val, accumulate=True)
+
+    def add():
+        return zero.clone().index_add_(0, idx, val)
+    out = []
+    for name, fn in (("index_put_ (the port's deposit)", put),
+                     ("index_add_", add)):
+        x, y = fn(), fn()
+        out.append(f"{name}: repeats bit for bit {bool(torch.equal(x, y))}, "
+                   f"largest difference {float((x - y).abs().max()):.3g}, "
+                   f"{_median_ms(fn):.4f} ms")
+    return "; ".join(out)
+
+
+def guiding_meta_phase(dev, card, cbox_mean):
+    """Phase 26. Returns the K1/K2/K3 launches of its full-width renders
+    (counts reset just before each timed render, read just after).
+    `cbox_mean` is phase 3's 128-spp mean."""
+    import tempfile
+    import torch
+    from rustlight_tpu_torch.integrators import (IntegratorDirect,
+                                                 IntegratorPathTracing)
+    from rustlight_tpu_torch.integrators.guiding import (guided_pass,
+                                                         render_guided)
+    from rustlight_tpu_torch.models import cornell_box, door_box
+    dense = {"dense_closest": 0, "dense_anyhit": 0}
+    walk = {"walk_closest": 0, "walk_anyhit": 0}
+    path = IntegratorPathTracing(max_depth=CBOX_DEPTH)
+    # (a) the guided path tracer at full width, its mean against phase 3's
+    sd = cornell_box(GUIDE_RES, GUIDE_RES).compile(device=dev)
+    keep = {}
+    busy, _ = _full_width(
+        f"(a) guided path cbox {GUIDE_RES}x{GUIDE_RES} depth {CBOX_DEPTH}, "
+        f"g {GUIDE_G}", sd, _Guided(path, GUIDE_G), GUIDE_PASSES, card,
+        dense, warm_spp=1, profile_spp=1, tag="guide", keep=keep)
+    g_mean = float(keep["img"].mean())
+    off = abs(g_mean - cbox_mean) / cbox_mean
+    phase("guide", f"(a) guided mean {g_mean:.6f} against phase 3's "
+          f"{CBOX_SPP}-spp mean {cbox_mean:.6f}: {off:.3g} relative (limit "
+          f"{GUIDE_MEAN_RTOL})")
+    if off > GUIDE_MEAN_RTOL:
+        raise AssertionError("guide (a): the guided mean is off")
+    # the profiler's own cost, host and device activities against the
+    # device's alone, on one render
+    costs = []
+    direct = IntegratorDirect(1, 1)
+    _render(sd, direct, 1)
+    for cpu in (True, False):
+        t0 = time.time()
+        wall, kern = _profile(lambda: _render(sd, direct, 1, seed=1), cpu=cpu)
+        busy = sum(e.self_device_time_total for e in kern) / 1e6
+        costs.append(f"{'host + device' if cpu else 'device only'}: wall "
+                     f"{wall:.3f}s, busy {100 * busy / wall:.1f}%, "
+                     f"{sum(e.count for e in kern)} launches, "
+                     f"{time.time() - t0:.1f}s with the processing")
+    phase("guide", f"(a) torch.profiler over direct cbox {GUIDE_RES}x"
+          f"{GUIDE_RES} 1 spp, recording " + "; ".join(costs))
+    # the deposits of one pass, twice on a trained table: bit for bit?
+    film, grid = render_guided(sd, path, 2, seed=3, g=GUIDE_G,
+                               return_grid=True)
+    from rustlight_tpu_torch.integrators.common import _pixel_grid
+    from rustlight_tpu_torch.utils.rng import make_stream, stream_fold
+    pix = torch.as_tensor(_pixel_grid(GUIDE_RES, GUIDE_RES), device=dev)
+    st = stream_fold(make_stream(4, dev), 0)
+    (ra, ga), (rb, gb) = (guided_pass(sd, path, grid, pix, st, 0.8)
+                          for _ in range(2))
+    same = torch.equal(ga.table, gb.table) and torch.equal(ra, rb)
+    phase("guide", f"(a) one guided pass twice on a trained table: tables "
+          f"and lanes bit for bit {same}; " + _deposit_determinism(dev))
+    if not same:
+        raise AssertionError("guide (a): the guided pass does not repeat")
+    del sd, film, grid, ga, gb, ra, rb
+    # door_box: guided against unguided at equal spp
+    dsd = door_box(*DOOR_RES).compile(device=dev)
+    dpath = IntegratorPathTracing(max_depth=DOOR_DEPTH, hard_cap=DOOR_DEPTH)
+    t0 = time.time()
+    ref = _wide_render(dsd, dpath, DOOR_REF_SPP, 99, DOOR_REF_SPP // 4)
+    un = _wide_render(dsd, dpath, DOOR_SPP, 1, DOOR_SPP)
+    t1 = time.time()
+    gu = render_guided(dsd, dpath, DOOR_SPP, seed=1, g=GUIDE_G)["primal"]
+    torch.cuda.synchronize()
+    t2 = time.time()
+    l1u, l1g = (float(np.abs(x - ref).mean()) for x in (un, gu))
+    ratio = float(gu.mean() / ref.mean())
+    phase("guide", f"(a) door_box {DOOR_RES[0]}x{DOOR_RES[1]} depth "
+          f"{DOOR_DEPTH}, {DOOR_SPP} spp against {DOOR_REF_SPP} spp: l1 "
+          f"unguided {l1u:.6f}, guided {l1g:.6f} ({l1u / l1g:.3f}x), guided "
+          f"mean / reference mean {ratio:.4f} (limits: guided l1 below "
+          f"unguided, ratio in (0.5, 2)); reference + unguided "
+          f"{t1 - t0:.2f}s, guided {t2 - t1:.2f}s")
+    if not (l1g < l1u and 0.5 < ratio < 2.0):
+        raise AssertionError("guide (a): guiding does not help on door_box")
+    del dsd
+    # (b) the guided walk-tier scene at its full size: K3
+    ex = _example(ATS_EX).compile(device=dev)
+    _full_width(f"(b) guided path {ATS_EX} {ex.camera.width}x"
+                f"{ex.camera.height} depth {EX_DEPTH}, g {GUIDE_G}", ex,
+                _Guided(IntegratorPathTracing(max_depth=EX_DEPTH), GUIDE_G),
+                GUIDE_EX_PASSES, card, walk, warm_spp=1, profile_spp=0,
+                tag="guide")
+    del ex
+    # (c) card against the CPU at 32x32
+    _guided_card_vs_cpu(dev)
+    _adaptive_card_vs_cpu(dev)
+    # (d) -a and --resume through the CLI on the card
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        lines = []
+        for label, tail in (("path", ["path", "-m", str(CBOX_DEPTH)]),
+                            ("guided", ["--guiding", "path", "-m",
+                                        str(CBOX_DEPTH)]),
+                            ("smcmc", ["smcmc", "-m", str(SM_DEPTH)])):
+            rerun, rerun_rel, res_rel, res_eq = _cli_resume(tmp, dev, label,
+                                                            tail)
+            lines.append(f"{label}: reruns bit for bit {rerun} (largest "
+                         f"relative difference {rerun_rel:.3g}), resumed = "
+                         f"uninterrupted bit for bit {res_eq} "
+                         f"({res_rel:.3g})")
+            if (res_rel > RESUME_RTOL) or (rerun and not res_eq):
+                raise AssertionError(f"guide (d) {label}: --resume differs")
+        log = os.path.join(tmp, "e.log")
+        out = os.path.join(tmp, "e.pfm")
+        t0 = time.time()
+        _cli_film(["cbox", "-n", "1", "-s", str(META_RES / 512), "-o", out,
+                   "--device", str(dev), "-e", str(META_E_MS), "-l", log,
+                   "path", "-m", str(CBOX_DEPTH)], out)
+        secs = time.time() - t0
+        with open(log) as f:
+            got = [ln for ln in f if "Achieved spp" in ln]
+        spp = int(got[-1].split(":")[-1]) if got else 0
+    phase("guide", f"(d) the CLI on cbox {META_RES}x{META_RES}, -a "
+          f"{META_PASSES} -n {META_SPP} against -a 1 then -a {META_PASSES} "
+          f"--resume (limit {RESUME_RTOL} relative where reruns differ): "
+          + "; ".join(lines) + f"; -e {META_E_MS}: achieved {spp} spp in "
+          f"{secs:.2f}s with the set-up pass")
+    if spp <= 0:
+        raise AssertionError("guide (d): -e achieved no sample")
+    # (e) adaptive sampling and the feature AOVs at full width
+    sd = cornell_box(GUIDE_RES, GUIDE_RES).compile(device=dev)
+    _full_width(f"(e) render_adaptive path cbox {GUIDE_RES}x{GUIDE_RES} "
+                f"depth {CBOX_DEPTH}", sd, _Adaptive(path), ADAPT_SPP, card,
+                dense, warm_spp=8, profile_spp=ADAPT_PROFILE_SPP, tag="guide")
+    _full_width(f"(e) render_feature_aovs cbox {GUIDE_RES}x{GUIDE_RES}", sd,
+                _Features(), FEAT_SPP, card, dense, kernels=("dense_closest",),
+                warm_spp=1, profile_spp=1, tag="guide")
+    return {**dense, **walk}
+
+
 def _example(name, width=None):
     """The port's host scene of examples/<name>, its camera re-derived for
     `width` pixels wide (the file's aspect kept) when given."""
@@ -3892,6 +4326,7 @@ def main() -> int:
         if launches[name] <= 0:
             raise AssertionError(f"render: kernel {name} never launched")
     cbox_launches = launches
+    cbox_mean = float(img.mean())
     phase("main", f"cbox {CBOX_RES}x{CBOX_RES} {CBOX_SPP} spp depth "
           f"{CBOX_DEPTH}: warm-up {warm:.3f}s, timed {wall:.3f}s, {n_rays} "
           f"rays, {n_rays / wall / 1e6:.3f} Mrays/s, mean {img.mean():.6f}, "
@@ -3978,6 +4413,8 @@ def main() -> int:
     for k, v in gradient_mcmc_phase(dev, card).items():
         gate_launches[k] += v
     for k, v in smcmc_ats_phase(dev, card).items():
+        (gate_launches if k.startswith("dense") else walk_launches)[k] += v
+    for k, v in guiding_meta_phase(dev, card, cbox_mean).items():
         (gate_launches if k.startswith("dense") else walk_launches)[k] += v
     for k in ("walk_closest", "walk_anyhit"):
         walk_launches[k] += ex_launches[k]

@@ -10,6 +10,7 @@ Usage: python -m rustlight_tpu_torch.cli cbox -n 64 -o out.exr path -m 6
        python -m rustlight_tpu_torch.cli cbox -m 0.0025 -n 8 -o p.exr point-normal
        python -m rustlight_tpu_torch.cli cbox -n 4 -o s.exr smcmc -m 6
        python -m rustlight_tpu_torch.cli cbox -x ats -n 8 -o a.exr path -m 6
+       python -m rustlight_tpu_torch.cli cbox -n 2 -a 8 --guiding -o g.pfm path -m 6
 
 Flags keep the reference CLI's names. Ported so far: scene files (.pbrt,
 .xml and .obj, through scene/loaders) and the built-in `cbox`, `veach_mis`
@@ -19,37 +20,44 @@ and `door_box` scenes; the `path` integrator with -m/-n/-r/-x/-s
 volume, the `ao` integrator with -d/--distance (`inf` for no limit) and
 -c/--normal-correction, the `direct` integrator with -b/--nb-bsdf-samples
 and -l/--nb-light-samples, `vpl` (-m/-n/-r, -b/--clamping, -n2/--nb-vpl),
-`vol-primitives` (`vol-primitivies`; -m/-n/-r, -n2/--nb-primitive,
--p bre | beams | planes | vrl), `plane-single` and
-`uncorrelated-plane-single` (-n2/--nb-primitive, -s uv | ut | vt | average
-| discrete_mis | ualpha | cmis) and `point-normal` (-s and its strategy
-names, -w/--warps, -W L | B, -z/--disable-aa, -k/--splitting, which takes
-the reference's ATS traversal only with ATS tables, and -x/--use-mis,
-parsed and unused as in the reference; these last four need -m); the
-gradient-domain path tracers `gradient-path` (the reconnection shift;
--m/-n/-r, -i/--iterations, --strategy-recons uniform | weighted | bagging)
-and `gradient-path-explicit` (the random-replay shift; the same and
+`vol-primitives` (`vol-primitivies`; -m/-n/-r, -n2/--nb-primitive, -p bre
+| beams | planes | vrl), `plane-single` and `uncorrelated-plane-single`
+(-n2/--nb-primitive, -s uv | ut | vt | average | discrete_mis | ualpha |
+cmis) and `point-normal` (-s and its strategy names, -w/--warps, -W L | B,
+-z/--disable-aa, -k/--splitting, which takes the reference's ATS traversal
+only with ATS tables, and -x/--use-mis, parsed and unused as in the
+reference; these last four need -m); the gradient-domain path tracers
+`gradient-path` (the reconnection shift; -m/-n/-r, -i/--iterations,
+--strategy-recons uniform | weighted | bagging) and
+`gradient-path-explicit` (the random-replay shift; the same and
 --min-survival); `pssmlt` (-m/-n/-r, -s, -p/--large-prob,
--b/--nb-samples-norm), `erpt` (-m/-n/-r, -s, -k/--stratified,
--e2/--nb-mc, -c/--chain-samples) and `smcmc` (-m/-n/-r, -s,
--p/--large-prob, --recons-smcmc irls | naive, --init mcmc | independent;
-its chains never persist across passes while -a is refused); and the
-global flags -n/--nbsamples,
+-b/--nb-samples-norm), `erpt` (-m/-n/-r, -s, -k/--stratified, -e2/--nb-mc,
+-c/--chain-samples) and `smcmc` (-m/-n/-r, -s, -p/--large-prob,
+--recons-smcmc irls | naive, --init mcmc | independent; under -a its
+chains persist across passes); and the global flags -n/--nbsamples,
 -o/--output (.pfm, .exr, .png), -s/--scale-image (the camera re-derived
 for the new size), -m/--medium sigma_s[:sigma_a[:g]] (an infinite
 homogeneous medium), -r/--random-number-generator independent[:seed] |
-stratified, --aovs (every buffer of the film as <output>_<name>.<ext>)
-and -x/--xtra-options ats (the ATS light tree for NEE), no-shading,
-hvs-light and texture-light (butterfly.jpg from the working directory,
-else a procedural ramp). `--device` names the torch device to render on.
-The reference's other global flags (-a -e -t -l --progress --resume
---adaptive --guiding --feature-aovs --profile) are declared with its
-defaults: a flag left at its default is accepted, any other value exits
-with code 1 and "<flag> is not ported yet".
+stratified, --aovs (every buffer of the film as <output>_<name>.<ext>) and
+-x/--xtra-options ats (the ATS light tree for NEE), no-shading, hvs-light
+and texture-light (butterfly.jpg from the working directory, else a
+procedural ramp), -a/--average N | Ns | inf (passes averaged, dumped as
+<output>_<k>.pfm with the integrator's state beside them and
+<output>_time.csv; --resume continues from the newest dump, --progress
+draws a bar), -e/--equal-time (a render-time budget in milliseconds),
+--guiding (the guided path tracer; its table persists across -a / -e
+passes), --adaptive (variance-adaptive sampling of a per-pixel
+integrator), --feature-aovs (first-hit albedo, normal and depth added to
+the film), --profile OUT.json (per-phase timings and run metadata) and
+-l/--log FILE. `--device` names the torch device to render on. The
+reference's -t/--threads is declared with its default: left at it, it is
+accepted; any other value exits with code 1 and "--threads is not ported
+yet".
 """
 from __future__ import annotations
 
 import argparse
+import logging
 import sys
 import time
 
@@ -84,16 +92,7 @@ _PLANE_STRATEGIES = ["uv", "ut", "vt", "average", "discrete_mis", "ualpha",
 # global flags of the reference CLI that have no port yet, with its names
 # and defaults (rustlight_tpu/cli.py:44-89)
 _NOT_PORTED_FLAGS = (
-    (("-a", "--average"), dict(default=None)),
-    (("--progress",), dict(action="store_true")),
-    (("--resume",), dict(action="store_true")),
-    (("--adaptive",), dict(action="store_true")),
-    (("--guiding",), dict(action="store_true")),
-    (("--feature-aovs",), dict(action="store_true")),
-    (("--profile",), dict(metavar="OUT.json", default=None)),
     (("-t", "--threads"), dict(type=int, default=None)),
-    (("-e", "--equal-time"), dict(type=float, default=None)),
-    (("-l", "--log"), dict(default=None)),
 )
 # -x values of the reference CLI that have no port yet
 _NOT_PORTED_XTRA = ()
@@ -131,6 +130,34 @@ def build_parser() -> argparse.ArgumentParser:
                     "medium")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (cuda, cuda:1, cpu)")
+    ap.add_argument("-a", "--average", default=None,
+                    help="averaging passes or time budget ('inf' / '10s')")
+    ap.add_argument("--progress", action="store_true",
+                    help="in-place per-pass progress bar on stderr under "
+                    "-a/-e")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue -a averaging from the newest "
+                    "<output>_<k>.pfm dump (bit-exact against an "
+                    "uninterrupted run)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="variance-adaptive sampling: a pilot quarter of -n "
+                    "measures per-pixel noise, the rest of the budget goes "
+                    "to noisy pixels (per-pixel MC integrators)")
+    ap.add_argument("--guiding", action="store_true",
+                    help="path guiding: per-voxel directional radiance "
+                    "histograms learned online, sampled as a defensive "
+                    "BSDF/guide mixture (the path integrator)")
+    ap.add_argument("--feature-aovs", action="store_true",
+                    help="add denoiser guide channels (first-hit "
+                    "albedo/normal/depth) to the film; write them with "
+                    "--aovs")
+    ap.add_argument("--profile", metavar="OUT.json", default=None,
+                    help="write per-phase wall-clock timings and run "
+                    "metadata as JSON")
+    ap.add_argument("-e", "--equal-time", type=float, default=None,
+                    help="render-time budget in milliseconds")
+    ap.add_argument("-l", "--log", default=None,
+                    help="write the log to this file instead of stderr")
     for names, kw in _NOT_PORTED_FLAGS:
         ap.add_argument(*names, **kw, help="not ported yet")
     ap.add_argument("-x", "--xtra-options", action="append", default=[],
@@ -271,12 +298,12 @@ def build_integrator(args):
             stratified=args.stratified)
     if cmd == "smcmc":
         from .integrators.mcmc import IntegratorSMCMC
-        # the reference keeps the chains across passes under -a only,
-        # which is refused here
+        # the chains persist across -a passes, each returning the
+        # cumulative reconstruction (-a then replaces the film each pass)
         return IntegratorSMCMC(
             IntegratorPathTracing(strategy=args.strategy, **pl),
             large_prob=args.large_prob, recons=args.recons_smcmc,
-            init=args.init, keep_chains=False)
+            init=args.init, keep_chains=args.average is not None)
     if args.command in ("light-tracing", "light"):
         return IntegratorLightTracing(
             render_surface=args.strategy in ("all", "surface"),
@@ -356,6 +383,66 @@ def load_scene_arg(args):
     return scene
 
 
+def _render_film(args, sd, integ, seed, sampler, log):
+    """The film of the run: -e, then -a, then --guiding, then --adaptive,
+    then one render, as the reference's main dispatches
+    (rustlight_tpu/cli.py:474-553)."""
+    from .integrators import IntegratorPathTracing, SplattingIntegrator
+    from .integrators.meta import (IntegratorAverage, IntegratorEqualTime,
+                                   _render_once)
+    if args.guiding and (args.average is not None
+                         or args.equal_time is not None):
+        # under -a/-e the guide table persists across passes (and -a dumps
+        # checkpoint it, so that --resume continues bit for bit)
+        from .integrators.guiding import IntegratorGuidedPath
+        if type(integ) is not IntegratorPathTracing:
+            raise SystemExit("--guiding needs the `path` integrator")
+        integ = IntegratorGuidedPath(integ)
+        log.info("Guided path tracing: table persists across passes")
+    if args.equal_time is not None:
+        # -e is milliseconds, as the reference's (equal_time.rs:5)
+        meta = IntegratorEqualTime(integ, target_s=args.equal_time / 1e3,
+                                   spp_per_pass=args.nbsamples,
+                                   progress=args.progress)
+        film = meta.render(sd, seed=seed, verbose=True)
+        log.info("Achieved spp: %d", meta.achieved_spp)
+        return film
+    if args.average is not None:
+        kw = dict(spp_per_pass=args.nbsamples,
+                  dump_base=args.output.rsplit(".", 1)[0],
+                  resume=args.resume, progress=args.progress)
+        if args.average == "inf":
+            # forever, a dump a pass (avg.rs:21): stop with Ctrl-C and
+            # continue later with --resume
+            meta = IntegratorAverage(integ, **kw)
+        elif args.average.endswith("s"):
+            meta = IntegratorAverage(integ, timeout_s=float(args.average[:-1]),
+                                     **kw)
+        else:
+            meta = IntegratorAverage(integ, nb_passes=int(args.average), **kw)
+        try:
+            return meta.render(sd, seed=seed, verbose=True)
+        except KeyboardInterrupt:
+            if meta.infinite:
+                log.info("interrupted; last dump kept at %s_<n>.pfm",
+                         meta.dump_base)
+            raise
+    if args.guiding:
+        from .integrators.guiding import render_guided
+        if type(integ) is not IntegratorPathTracing:
+            raise SystemExit("--guiding needs the `path` integrator")
+        return render_guided(sd, integ, args.nbsamples, seed, verbose=True)
+    if args.adaptive:
+        from .integrators.common import render_adaptive
+        if isinstance(integ, SplattingIntegrator) or hasattr(integ, "render"):
+            raise SystemExit(
+                "--adaptive needs a per-pixel MC integrator "
+                "(path/ao/direct/...); splatting and self-driving "
+                "integrators allocate their own budgets")
+        return render_adaptive(sd, integ, args.nbsamples, seed, verbose=True)
+    return _render_once(sd, integ, args.nbsamples, seed, sampler=sampler)
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -374,29 +461,69 @@ def main(argv=None) -> int:
     # as the reference: any name but stratified is the independent sampler
     sampler = "stratified" if rng.startswith("stratified") else "independent"
 
-    from .integrators import SplattingIntegrator, render, render_splat
+    # the package's log (INFO) on stderr, or with -l only in that file
+    fmt = "%(levelname)s %(module)s - %(message)s"
+    log = logging.getLogger("rustlight_tpu_torch")
+    log.setLevel(logging.INFO)
+    if not args.log:
+        logging.basicConfig(stream=sys.stderr, format=fmt)
+        return _run(args, seed, sampler, log)
+    handler = logging.FileHandler(args.log)
+    handler.setFormatter(logging.Formatter(fmt))
+    log.addHandler(handler)
+    log.propagate = False
+    try:
+        return _run(args, seed, sampler, log)
+    finally:
+        log.removeHandler(handler)
+        log.propagate = True
+        handler.close()
 
+
+def _run(args, seed, sampler, log) -> int:
+    """Load, render and write the run of `args`."""
     t0 = time.time()
     scene = load_scene_arg(args)
     sd = scene.compile(device=args.device, use_shading_normals=(
         "no-shading" not in args.xtra_options),
         use_ats="ats" in args.xtra_options)
+    t_compile = time.time() - t0
+    log.info("Scene compiled: %d triangles", sd.geom.n_tris)
     integ = build_integrator(args)
     t1 = time.time()
-    # as the reference's _render_once dispatches: a splatting integrator
-    # through render_splat, a self-driving one (gradient domain, MCMC)
-    # through its own render, the others through render with the sampler
-    if isinstance(integ, SplattingIntegrator):
-        film = render_splat(sd, integ, args.nbsamples, seed=seed)
-    elif hasattr(integ, "render"):
-        film = integ.render(sd, args.nbsamples, seed=seed)
-    else:
-        film = render(sd, integ, args.nbsamples, seed=seed, sampler=sampler)
+    film = _render_film(args, sd, integ, seed, sampler, log)
+    t_render = time.time() - t1
+    log.info("Elapsed Integrator: %.3fs", t_render)
+    if args.feature_aovs:
+        from .integrators.common import render_feature_aovs
+        film.buffers.update(render_feature_aovs(sd, spp=8, seed=seed))
+        log.info("Feature AOVs rendered (albedo/normal/depth)")
     t2 = time.time()
     film.save(args.output)
     if args.aovs and len(film.buffers) > 1:
         film.dump_all(args.output)
-    print(f"scene {t1 - t0:.2f}s, render {t2 - t1:.2f}s "
+        log.info("Wrote AOVs: %s", ", ".join(sorted(film.buffers)))
+    log.info("Wrote %s (total %.3fs)", args.output, time.time() - t0)
+    if args.profile:
+        import json
+        import torch
+        dev = torch.device(args.device)
+        with open(args.profile, "w") as f:
+            json.dump({
+                "scene_compile_s": round(t_compile, 4),
+                "integrator_s": round(t_render, 4),
+                "save_s": round(time.time() - t2, 4),
+                "total_s": round(time.time() - t0, 4),
+                "n_triangles": int(sd.geom.n_tris),
+                "resolution": [sd.camera.width, sd.camera.height],
+                "spp": args.nbsamples,
+                "integrator": args.command,
+                "backend": dev.type,
+                "n_devices": (torch.cuda.device_count() if dev.type == "cuda"
+                              else 1),
+            }, f, indent=1)
+        log.info("Wrote profile %s", args.profile)
+    print(f"scene {t1 - t0:.2f}s, render {t_render:.2f}s "
           f"({args.nbsamples} spp on {args.device}) -> {args.output}")
     return 0
 

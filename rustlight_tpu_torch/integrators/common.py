@@ -10,9 +10,13 @@ adds the `mean` and `variance` AOVs. Splatting integrators (the light
 tracer) render through `render_splat` into a scatter-added film. The
 stratified sampler (`sampler="stratified"`) takes the per-pass route: pass
 s draws through StratifiedStream(stream_fold(base, s)), its permutations
-keyed by the base key.
+keyed by the base key. `render_adaptive` spends a variance-driven budget
+over the pixels after a per-pass pilot; `render_feature_aovs` renders the
+first-hit albedo, normal and depth for denoisers.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -171,3 +175,127 @@ def render_splat(scene, integrator: SplattingIntegrator, spp: int,
     film = Film(w, h)
     film.buffers["primal"] = img
     return film
+
+
+def render_adaptive(scene, integrator, spp: int, seed: int = 0,
+                    pilot_frac: float = 0.25, verbose: bool = False,
+                    mesh=None) -> Film:
+    """Variance-adaptive render on the scene's device: a pilot measures
+    per-pixel noise, then the rest of the sample budget goes to the pixels
+    in proportion to their standard deviation.
+
+    The pilot is max(8, min(round(spp * pilot_frac), spp)) samples on the
+    per-pass route (render(variance=True, persistent=False) in one pass).
+    The allocation runs on the host, as the reference's: sigma, a 0.7 / 0.3
+    blend with the uniform share, floor, then largest-remainder rounding,
+    so that the budget (spp - pilot) * w * h is exact. The extra samples
+    run in passes of w * h lanes, pass k drawing from stream_fold(
+    make_stream(seed + 7919), k); padding lanes point past the film and
+    are dropped. Unbiased: each pixel's estimate is the mean of its own
+    samples, whose count depends on the pilot alone. The film holds the
+    `spp` AOV (each pixel's sample count). Rendering over a device mesh is
+    not ported yet (`mesh` raises NotImplementedError)."""
+    no_mesh(mesh)
+    cam = scene.camera
+    w, h = cam.width, cam.height
+    n_pix = w * h
+    # below a pilot of 8 the variance estimates misallocate against
+    # fireflies; spp_per_pass=pilot renders exactly `pilot` samples
+    pilot = max(8, min(int(round(spp * pilot_frac)), spp))
+    film = render(scene, integrator, pilot, seed=seed, variance=True,
+                  persistent=False, spp_per_pass=pilot)
+    extra_budget = (spp - pilot) * n_pix
+    if extra_budget <= 0:
+        return film
+
+    var = film.buffers["variance"].mean(-1).reshape(-1)     # [n_pix]
+    sigma = np.sqrt(np.maximum(var, 0.0)) + 1e-12
+    # defensive blend: 30% of the budget stays uniform, since a small
+    # pilot's variance estimates are themselves noisy
+    share = 0.7 * sigma / sigma.sum() + 0.3 / n_pix
+    alloc = share * extra_budget
+    counts = np.floor(alloc).astype(np.int64)
+    rem = int(extra_budget - counts.sum())
+    if rem > 0:  # largest-remainder rounding keeps the budget exact
+        frac = alloc - counts
+        counts[np.argpartition(-frac, rem - 1)[:rem]] += 1
+
+    pix = _pixel_grid(w, h)
+    pix_list = np.repeat(pix, counts, axis=0)               # [extra_budget, 2]
+    pids = (pix_list[:, 1].astype(np.int64) * w + pix_list[:, 0]).astype(
+        np.int32)
+    n_total = pix_list.shape[0]
+    pad = (-n_total) % n_pix
+    if pad:
+        # padding lanes resample pixel 0 and splat past the film
+        pix_list = np.concatenate([pix_list, np.tile(pix_list[:1], (pad, 1))])
+        pids = np.concatenate([pids, np.full(pad, n_pix, np.int32)])
+    n_passes = pix_list.shape[0] // n_pix
+    device = scene.device
+    pix_d = torch.as_tensor(pix_list.reshape(n_passes, n_pix, 2),
+                            device=device)
+    pid_d = torch.as_tensor(pids.reshape(n_passes, n_pix), device=device)
+    base = make_stream(seed + 7919, device)
+    extra_sum = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+    t0 = time.time()
+    for k in range(n_passes):
+        li = accumulate_safe(integrator.compute_pixel(
+            scene, pix_d[k], stream_fold(base, k)))
+        part = splat_add(torch.zeros((n_pix + 1, 3), dtype=torch.float32,
+                                     device=device), pid_d[k], li)
+        extra_sum = extra_sum + part[:n_pix]
+    extra = extra_sum.cpu().numpy().reshape(h, w, 3)
+    if verbose:
+        print(f"render_adaptive: pilot {pilot} spp + {n_total} adaptive "
+              f"samples in {time.time() - t0:.2f}s (max/pixel "
+              f"{pilot + counts.max()})")
+    total = pilot + counts.reshape(h, w)
+    img = (film.buffers["primal"] * pilot + extra) / total[..., None]
+    out = Film(w, h)
+    out.buffers["primal"] = img.astype(np.float32)
+    out.buffers["spp"] = total[..., None].astype(np.float32)
+    return out
+
+
+def render_feature_aovs(scene, spp: int = 8, seed: int = 0) -> dict:
+    """First-hit feature AOVs for external denoisers: `albedo`, `normal`
+    and `depth`, each [h, w, 3] float32, averaged over `spp` jittered camera
+    samples (sample s draws its pixel offsets from stream_fold(make_stream(
+    seed), s)). albedo: the textured diffuse reflectance at the first hit,
+    1 on smooth materials and emitters, 0 on a miss; normal: the world-space
+    shading normal, averaged without renormalizing; depth: the first hit's
+    distance in all three channels, 0 on a miss."""
+    from ..accel import intersect_rays
+    from ..bsdfs import bsdf_is_smooth
+    from ..bsdfs.kernels import _gather, _present, diffuse_color
+    from ..scene import fill_hit, generate_rays
+    from ..utils.rng import stream_next2d
+
+    cam = scene.camera
+    w, h = cam.width, cam.height
+    device = scene.device
+    pix = torch.as_tensor(_pixel_grid(w, h), device=device)
+    n = pix.shape[0]
+    present = _present(scene.materials)
+    base = make_stream(seed, device)
+    alb_a = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    nrm_a = torch.zeros_like(alb_a)
+    dep_a = torch.zeros(n, dtype=torch.float32, device=device)
+    for s in range(spp):
+        u_pix, _ = stream_next2d(stream_fold(base, s), (n,))
+        o, d = generate_rays(scene.camera, pix.to(torch.float32) + u_pix)
+        hit = fill_hit(scene, o, d, intersect_rays(scene.geom, o, d))
+        v = hit.valid
+        alb = diffuse_color(_gather(scene.materials, hit.mat), hit.uv,
+                            present)
+        one_alb = bsdf_is_smooth(scene.materials, hit.mat) | hit.is_light
+        alb = torch.where(one_alb[:, None], 1.0, alb)
+        alb_a = alb_a + torch.where(v[:, None], alb, 0.0)
+        nrm_a = nrm_a + torch.where(v[:, None], hit.n_s, 0.0)
+        dep_a = dep_a + torch.where(v, hit.t, 0.0)
+    alb = alb_a.cpu().numpy().reshape(h, w, 3) / spp
+    nrm = nrm_a.cpu().numpy().reshape(h, w, 3) / spp
+    dep = np.repeat(dep_a.cpu().numpy().reshape(h, w, 1) / spp, 3, axis=-1)
+    return {"albedo": alb.astype(np.float32),
+            "normal": nrm.astype(np.float32),
+            "depth": dep.astype(np.float32)}

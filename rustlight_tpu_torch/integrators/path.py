@@ -30,9 +30,10 @@ adds its emission and ends the path.
 Each iteration draws its uniforms in the reference's order and shapes, for
 every lane: u_pix (n,2) (compute_block only; compute_pixel draws it once),
 u_med (n,) only with a medium, u_sel (n,), u_pos (n,2), u_nrr (n,) only
-with NEE Russian roulette on, u_bsdf (n,2), u_rr (n,). The streams are
-bit-exact with the reference's, so the two packages render sample for
-sample alike.
+with NEE Russian roulette on, u_bsdf (n,2), then u_gsel (n,) and u_gdir
+(n,2) only in a guided pass (compute_pixel with `guide`), u_rr (n,). The
+streams are bit-exact with the reference's, so the two packages render
+sample for sample alike.
 
 Loop shape: the reference's `while_loop`s test `any(alive)` (any(alive |
 done < spp) in compute_block) before every iteration; read on the host,
@@ -61,6 +62,7 @@ from ..utils.frame import to_world, to_local
 from ..utils.rng import stream_next, stream_next2d
 from ..utils.vec import channel_max
 from ..utils.warps import cosine_sample_hemisphere
+from . import guiding as _gd
 from .common import mis_balance
 
 STRATEGY_ALL = "all"
@@ -120,6 +122,7 @@ class _Vertex(NamedTuple):
     is_delta: Any
     nee_possible: Any
     prev_occ: Any
+    dep: Any = None   # the guide's deposit accumulator (guided passes)
 
 
 class IntegratorPathTracing:
@@ -153,9 +156,20 @@ class IntegratorPathTracing:
             return 0.25 if scene.geom.walk is not None else None
         return self.nee_rr
 
-    def compute_pixel(self, scene, pix, stream):
+    def compute_pixel(self, scene, pix, stream, guide=None, collect=False):
         """One sample of every pixel: the radiance of one path a lane,
-        [n, 3]. The loop runs at most hard_cap iterations."""
+        [n, 3]. The loop runs at most hard_cap iterations.
+
+        `guide` (a guiding.GuideGrid) turns the directional bounce on rough
+        surfaces into a defensive one-sample-MIS mixture of the BSDF and the
+        learned distribution (with probability `guide_alpha`, 0.5 unless
+        set, the draw comes from the guide; the realized direction is
+        weighted by f cos / pdf_mixture); each iteration then draws u_gsel
+        (n,) and u_gdir (n, 2) after u_bsdf. `collect=True` also returns the
+        flat [g^3 * N_BINS] accumulator of incident-radiance deposits
+        (emission hits, environment escapes, NEE contributions and their
+        one-bounce look-ahead, binned by the direction they arrived from):
+        (radiance, dep)."""
         n = pix.shape[0]
         dev = pix.device
         u_pix, stream = stream_next2d(stream, (n,))
@@ -172,6 +186,9 @@ class IntegratorPathTracing:
             prev_occ=torch.zeros(n, dtype=torch.bool, device=dev),
         )
         nee_rr = self._nee_rr_for(scene)
+        collect = guide is not None and collect
+        dep = (torch.zeros(guide.table.numel(), dtype=torch.float32,
+                           device=dev) if collect else None)
         k = 0
         while k < self.hard_cap:
             if not bool(torch.any(s.alive)):
@@ -180,7 +197,8 @@ class IntegratorPathTracing:
                 v = self._vertex(scene, s.o, s.d, s.throughput, s.radiance,
                                  s.alive, s.depth, s.prev_pdf, s.prev_delta,
                                  s.prev_nee, s.prev_occ, s.stream, nee_rr,
-                                 self.max_depth)
+                                 self.max_depth, guide=guide, dep=dep)
+                dep = v.dep
                 an = v.alive[:, None]
                 s = _PathState(
                     stream=v.stream,
@@ -194,6 +212,8 @@ class IntegratorPathTracing:
                     prev_occ=v.prev_occ,
                 )
             k += min(CHECK_EVERY, self.hard_cap - k)
+        if collect:
+            return s.radiance, dep
         return s.radiance
 
     def compute_block(self, scene, pix, stream, spp: int):
@@ -286,12 +306,16 @@ class IntegratorPathTracing:
 
     def _vertex(self, scene, o, d, thr0, rad, alive, depth, prev_pdf,
                 prev_delta, prev_nee, prev_occ, stream, nee_rr,
-                depth_cap) -> _Vertex:
+                depth_cap, guide=None, dep=None) -> _Vertex:
         """One segment from o along d and the vertex it ends at, for every
         lane: the medium's free flight, the emission found, NEE, the bounce
         and Russian roulette. `depth` (edges completed, [n] or 0-d) gates
         the terms; a vertex expands while depth + 1 < depth_cap (None: no
-        cap here)."""
+        cap here). With `guide` (compute_pixel only) the bounce samples the
+        guide mixture; with `dep` too, the vertex's deposits are added to
+        it (the deposits' values divide by prev_pdf, so that a bin's mass
+        estimates the integral of the radiance over it whatever the
+        sampling frequency)."""
         n = o.shape[0]
         use_nee = self.strategy in (STRATEGY_ALL, STRATEGY_EMITTER)
         mis_on = self.strategy == STRATEGY_ALL
@@ -336,8 +360,16 @@ class IntegratorPathTracing:
         senses = depth >= self.min_depth
         if not keep_bsdf_hits:   # the sensor edge always contributes
             senses = senses & (depth == 0)
+        w_hit = mis_hit(pdf_light)
         rad = rad + torch.where((lane_hit & senses)[:, None],
-                                thr * le * mis_hit(pdf_light)[:, None], 0.0)
+                                thr * le * w_hit[:, None], 0.0)
+        if dep is not None:
+            # incident radiance into o along d (the previous bounce)
+            from_bounce = (depth > 0) & (~prev_delta)
+            inv_p = 1.0 / torch.clamp(prev_pdf, min=1e-4)
+            dep = _gd.deposit(dep, guide, o, d,
+                              torch.mean(le, -1) * w_hit * inv_p,
+                              lane_hit & senses & from_bounce)
 
         # ---- escaped rays: the environment
         if scene.emitters.has_env:
@@ -346,6 +378,11 @@ class IntegratorPathTracing:
             w_env = mis_hit(env_direction_pdf(scene.emitters, d))
             rad = rad + torch.where((esc & senses)[:, None],
                                     thr * le_env * w_env[:, None], 0.0)
+            if dep is not None:
+                dep = _gd.deposit(
+                    dep, guide, o, d, torch.mean(le_env, -1) * w_env
+                    / torch.clamp(prev_pdf, min=1e-4),
+                    esc & senses & from_bounce)
 
         smooth = bsdf_is_smooth(scene.materials, hit.mat)
         # single scattering: a surface vertex adds its emission and ends
@@ -356,6 +393,10 @@ class IntegratorPathTracing:
             can_expand = can_expand & (depth + 1 < depth_cap)
         p_v = hit.p if vol is None else torch.where(scattered[:, None],
                                                     p_scatter, hit.p)
+        if guide is not None:
+            g_alpha = getattr(self, "guide_alpha", 0.5)
+            vox = _gd.voxel_of(guide, p_v)
+            rough = lane_surface & (~smooth)
 
         # ---- NEE (light strategy); u_sel/u_pos are drawn in every case
         u_sel, stream = stream_next(stream, (n,))
@@ -370,14 +411,23 @@ class IntegratorPathTracing:
             wo_l = to_local(hit.frame, ls.d)
             f = bsdf_eval(scene.materials, hit.mat, hit.uv, hit.wi, wo_l,
                           TRANSPORT_IMPORTANCE)
-            pdf_other = bsdf_pdf(scene.materials, hit.mat, hit.uv, hit.wi,
-                                 wo_l, TRANSPORT_IMPORTANCE)
+            pdf_s = bsdf_pdf(scene.materials, hit.mat, hit.uv, hit.wi,
+                             wo_l, TRANSPORT_IMPORTANCE)
+            pdf_other = pdf_s
             p_shadow = offset_ray_origin(hit.p, hit.n_g, ls.d)
+            tr_sh = None
             if vol is not None:
                 ph = phase_eval(vol.phase_g, -d, ls.d)
                 f = torch.where(scattered[:, None], ph[:, None], f)
                 pdf_other = torch.where(scattered, ph, pdf_other)
                 p_shadow = torch.where(scattered[:, None], p_v, p_shadow)
+                tr_sh = transmittance(vol, ls.dist)
+            if guide is not None:
+                # on rough surfaces the directional strategy is the
+                # BSDF/guide mixture: its pdf enters the NEE MIS weight
+                pdf_other = torch.where(
+                    rough, g_alpha * _gd.guide_pdf(guide, vox, ls.d)
+                    + (1.0 - g_alpha) * pdf_s, pdf_other)
             pre_ok = (can_expand & (scattered | (lane_surface & (~smooth)))
                       & ls.valid & ((depth + 1) >= self.min_depth))
             nee_scale = None
@@ -396,12 +446,27 @@ class IntegratorPathTracing:
             nee_ok = pre_ok & vis
             prev_occ = torch.where(pre_ok, ~vis, prev_occ)
             contrib = thr * f
-            if vol is not None:
-                contrib = contrib * transmittance(vol, ls.dist)
+            if tr_sh is not None:
+                contrib = contrib * tr_sh
             contrib = contrib * ls.weight * w_nee[:, None]
             if nee_scale is not None:
                 contrib = contrib * nee_scale
             rad = rad + torch.where(nee_ok[:, None], contrib, 0.0)
+            if dep is not None:
+                # ls.weight = Le G / pdf, the incident radiance along ls.d
+                # (f left out: the grid learns L_i, not the product)
+                li = ls.weight if tr_sh is None else ls.weight * tr_sh
+                dep = _gd.deposit(dep, guide, p_v, ls.d,
+                                  torch.mean(li, -1) * w_nee, nee_ok)
+                # one-bounce look-ahead: the same event seen from the
+                # previous vertex along its bounce direction, so that a
+                # wall whose own NEE is occluded still learns where the
+                # light comes from
+                fl = f if tr_sh is None else f * tr_sh
+                dep = _gd.deposit(
+                    dep, guide, o, d, torch.mean(fl * ls.weight, -1) * w_nee
+                    / torch.clamp(prev_pdf, min=1e-4),
+                    nee_ok & from_bounce)
 
         # ---- directional bounce: BSDF at surfaces, phase in the medium
         u_bsdf, stream = stream_next2d(stream, (n,))
@@ -414,6 +479,29 @@ class IntegratorPathTracing:
             wo, weight, pdf_dir, is_delta, valid_dir = (
                 bs.wo, bs.weight, bs.pdf, bs.is_delta, bs.valid)
         wo_world = to_world(hit.frame, wo)
+        if guide is not None:
+            # defensive one-sample MIS: with probability alpha the draw
+            # comes from the learned distribution, else from the BSDF;
+            # either way the direction is weighted by f cos / pdf_mixture
+            u_gsel, stream = stream_next(stream, (n,))
+            u_gdir, stream = stream_next2d(stream, (n,))
+            d_guided, _ = _gd.guide_sample(guide, vox, u_gdir)
+            mixable = (rough if self.strategy != STRATEGY_NAIVE
+                       else torch.zeros_like(rough))
+            take_g = mixable & (u_gsel < g_alpha)
+            wo_world = torch.where(take_g[:, None], d_guided, wo_world)
+            wo_loc = to_local(hit.frame, wo_world)
+            f_mix = bsdf_eval(scene.materials, hit.mat, hit.uv, hit.wi,
+                              wo_loc, TRANSPORT_IMPORTANCE)
+            pdf_b = bsdf_pdf(scene.materials, hit.mat, hit.uv, hit.wi,
+                             wo_loc, TRANSPORT_IMPORTANCE)
+            pdf_mix = (g_alpha * _gd.guide_pdf(guide, vox, wo_world)
+                       + (1.0 - g_alpha) * pdf_b)
+            w_mix = f_mix / torch.clamp(pdf_mix, min=1e-20)[:, None]
+            weight = torch.where(mixable[:, None], w_mix, weight)
+            pdf_dir = torch.where(mixable, pdf_mix, pdf_dir)
+            valid_dir = torch.where(mixable, pdf_mix > 0.0, valid_dir)
+            is_delta = (~mixable) & is_delta
         if vol is not None:
             d_ph, w_ph, pdf_ph = phase_sample(vol.phase_g, -d, u_bsdf)
             sc = scattered[:, None]
@@ -431,6 +519,10 @@ class IntegratorPathTracing:
         else:
             do_rr = (depth + 1) >= self.rr_depth
             rr_p = torch.clamp(channel_max(throughput), max=0.95)
+            if guide is not None:
+                # guided bounces carry small f / pdf_mix throughput into
+                # bright regions: floor their survival
+                rr_p = torch.where(mixable, torch.clamp(rr_p, min=0.6), rr_p)
             rr_keep = torch.where(do_rr, u_rr < rr_p, True)
             rr_w = torch.where(do_rr & rr_keep,
                                1.0 / torch.clamp(rr_p, min=1e-8), 1.0)
@@ -446,4 +538,4 @@ class IntegratorPathTracing:
         return _Vertex(stream=stream, radiance=rad, thr=thr, alive=alive_new,
                        o=o_new, d=wo_world, throughput=throughput,
                        pdf_dir=pdf_dir, is_delta=is_delta,
-                       nee_possible=nee_possible, prev_occ=prev_occ)
+                       nee_possible=nee_possible, prev_occ=prev_occ, dep=dep)

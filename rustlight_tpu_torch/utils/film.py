@@ -22,6 +22,24 @@ class Film:
         self.height = int(height)
         self.buffers: Dict[str, np.ndarray] = {}
 
+    def register(self, name: str = "primal", channels: int = 3) -> None:
+        self.buffers[name] = np.zeros((self.height, self.width, channels),
+                                      np.float32)
+
+    def accumulate(self, name: str, values) -> None:
+        self.buffers[name] += np.asarray(values, dtype=np.float32)
+
+    def scale(self, s: float, name: str | None = None) -> None:
+        for k in [name] if name else list(self.buffers):
+            self.buffers[k] = self.buffers[k] * np.float32(s)
+
+    def average_with(self, other: "Film", n_prev: int) -> None:
+        """Running average over passes (the reference's avg.rs):
+        self = (self * n_prev + other) / (n_prev + 1), buffer by buffer."""
+        for k in self.buffers:
+            self.buffers[k] = ((self.buffers[k] * n_prev + other.buffers[k])
+                               / (n_prev + 1))
+
     def save(self, path, name: str = "primal") -> None:
         _image.save(path, self.buffers[name])
 

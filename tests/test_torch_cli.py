@@ -5,8 +5,13 @@
     common.py:144-145 does (a stub integrator on each route);
   - every global flag of rustlight_tpu/cli.py's parser is declared by the
     port's under the same name and with the same default: left at its
-    default it parses, and a flag the port has not ported exits with code 1
-    and "<flag> is not ported yet" for any other value;
+    default it parses, and a flag the port has not ported (-t/--threads
+    alone) exits with code 1 and "<flag> is not ported yet" for any other
+    value; the flags ported with the meta integrators (-a, -e, -l,
+    --progress, --resume, --adaptive, --guiding, --feature-aovs, --profile)
+    render cbox 8x8 on the CPU, -e counts milliseconds, --profile writes
+    the JAX CLI's keys, `-a N smcmc` keeps the chains, and --guiding and
+    --adaptive refuse the integrators they cannot drive;
   - the port offers no subcommand the reference lacks (`avg` is none);
   - the light tracer, the medium (-m), single scattering (path -x) and the
     naive strategy (path -s naive) render at 32x32 on the CPU to .exr
@@ -34,6 +39,21 @@ ROOT = Path(__file__).resolve().parents[1]
 # global flags both CLIs implement
 PORTED = {"help", "nbsamples", "output", "scale_image",
           "random_number_generator", "medium", "aovs"}
+# the global flags ported with the meta integrators: argv (given the run's
+# directory) and the files the run leaves there besides its output
+META_FLAGS = {
+    "average": (lambda d: ["-a", "2"], ["x_1.pfm", "x_2.pfm", "x_time.csv"]),
+    "progress": (lambda d: ["-a", "2", "--progress"],
+                 ["x_1.pfm", "x_2.pfm", "x_time.csv"]),
+    "resume": (lambda d: ["-a", "1", "--resume"], ["x_1.pfm", "x_time.csv"]),
+    "adaptive": (lambda d: ["--adaptive", "-n", "12"], []),
+    "guiding": (lambda d: ["--guiding", "-n", "2"], []),
+    "feature_aovs": (lambda d: ["--feature-aovs", "--aovs"], [
+        f"x_{k}.pfm" for k in ("albedo", "depth", "normal", "primal")]),
+    "profile": (lambda d: ["--profile", str(d / "p.json")], ["p.json"]),
+    "equal_time": (lambda d: ["-e", "5"], []),
+    "log": (lambda d: ["-l", str(d / "log.txt")], ["log.txt"]),
+}
 
 
 class _Stub:
@@ -111,10 +131,20 @@ def test_every_reference_global_flag_is_declared(dest):
 @pytest.mark.parametrize("dest", [f[0] for f in FLAGS if f[0] not in PORTED])
 def test_unported_flag_exits_not_ported(dest, tmp_path):
     """-x/--xtra-options was refused for its first value, ats, until the
-    ATS light tree was ported: now it renders a tiny image instead."""
+    ATS light tree was ported: now it renders a tiny image instead. So do
+    the flags of the meta integrators (META_FLAGS), each leaving its files;
+    -t/--threads is still refused."""
     _, names, _, action = next(f for f in FLAGS if f[0] == dest)
     argv = ["cbox", names[-1], *_other_value(action), "--device", "cpu",
             "path", "-m", "2"]
+    if dest in META_FLAGS:
+        flags, files = META_FLAGS[dest]
+        assert cli.main(["cbox", *flags(tmp_path), "-s", "0.015625", "-o",
+                         str(tmp_path / "x.pfm"), "--device", "cpu", "path",
+                         "-m", "2"]) == 0
+        assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+            files + ["x.pfm"])
+        return
     if dest == "xtra_options":
         assert argv[2] == "ats"
         assert cli.main(argv[:-3] + ["-s", "0.015625", "-o",
@@ -425,9 +455,12 @@ SLICE_COMMANDS = ("gradient-path", "gradient-path-explicit", "pssmlt", "erpt",
 
 def test_only_smcmc_is_refused():
     """SMCMC and -x ats were the last refused subcommand and -x value:
-    every one is ported now."""
+    every one is ported now, and of the global flags only -t/--threads is
+    left."""
     assert cli._NOT_PORTED == ()
     assert cli._NOT_PORTED_XTRA == ()
+    assert [names for names, _ in cli._NOT_PORTED_FLAGS] == [
+        ("-t", "--threads")]
 
 
 @pytest.mark.parametrize("command", SLICE_COMMANDS)
@@ -525,3 +558,87 @@ def test_film_dump_all_names(tmp_path):
     film.dump_all(str(tmp_path / "img.pfm"), suffix="_3")
     assert read_pfm(tmp_path / "img_relerr_3.pfm").mean() == 2.0
     assert read_pfm(tmp_path / "img_primal_3.pfm").mean() == 1.0
+
+
+@pytest.mark.parametrize("argv", [
+    ["-a", "2", "--progress"], ["-a", "inf"], ["-a", "1s"], ["-e", "5"],
+    ["--resume", "-a", "3"], ["--adaptive", "-n", "16"],
+    ["--guiding", "-n", "4"], ["--guiding", "-a", "2"], ["--feature-aovs"],
+    ["--profile", "p.json"], ["-l", "log.txt"]], ids=lambda a: "".join(a))
+def test_meta_flags_parse_as_the_reference(argv):
+    ours = vars(cli.build_parser().parse_args(["cbox", *argv, "path"]))
+    theirs = vars(jax_build_parser().parse_args(["cbox", *argv, "path"]))
+    assert {k: ours[k] for k in theirs} == theirs
+
+
+def test_equal_time_is_milliseconds(tmp_path, monkeypatch):
+    from rustlight_tpu_torch.integrators import meta
+    seen = {}
+    real = meta.IntegratorEqualTime
+
+    def spy(integ, target_s, **kw):
+        seen["target_s"] = target_s
+        seen["meta"] = real(integ, target_s, **kw)
+        return seen["meta"]
+    monkeypatch.setattr(meta, "IntegratorEqualTime", spy)
+    assert cli.main(["cbox", "-e", "250", "-s", "0.015625", "-o",
+                     str(tmp_path / "e.pfm"), "--device", "cpu", "path",
+                     "-m", "2"]) == 0
+    assert seen["target_s"] == 0.25 and seen["meta"].achieved_spp >= 1
+
+
+def test_profile_writes_the_reference_keys(tmp_path):
+    import json
+    out = tmp_path / "p.json"
+    assert cli.main(["cbox", "-n", "2", "-s", "0.015625", "-o",
+                     str(tmp_path / "x.pfm"), "--profile", str(out),
+                     "--device", "cpu", "path", "-m", "2"]) == 0
+    prof = json.loads(out.read_text())
+    assert sorted(prof) == sorted([
+        "scene_compile_s", "integrator_s", "save_s", "total_s",
+        "n_triangles", "resolution", "spp", "integrator", "backend",
+        "n_devices"])
+    assert prof["backend"] == "cpu" and prof["n_devices"] == 1
+    assert prof["resolution"] == [8, 8] and prof["spp"] == 2
+    assert prof["n_triangles"] > 0 and prof["integrator"] == "path"
+
+
+@pytest.mark.parametrize("average, keep", [(None, False), ("2", True)])
+def test_average_keeps_smcmc_chains(average, keep):
+    from rustlight_tpu.cli import build_integrator as jax_build_integrator
+    argv = ["cbox"] + (["-a", average] if average else []) + ["smcmc"]
+    ours = cli.build_integrator(cli.build_parser().parse_args(argv))
+    theirs = jax_build_integrator(jax_build_parser().parse_args(argv))
+    assert ours.keep_chains is theirs.keep_chains is keep
+    assert ours.averaging is theirs.averaging is (not keep)
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--guiding", "ao"], "--guiding needs the `path` integrator"),
+    (["--guiding", "-a", "2", "direct"],
+     "--guiding needs the `path` integrator"),
+    (["--adaptive", "light"], "--adaptive needs a per-pixel MC integrator"),
+    (["--adaptive", "smcmc"], "--adaptive needs a per-pixel MC integrator")],
+    ids=lambda a: "-".join(a) if isinstance(a, list) else None)
+def test_meta_refusals(tmp_path, argv, message):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["cbox", "-s", "0.015625", "-o", str(tmp_path / "x.pfm"),
+                  "--device", "cpu", *argv])
+    assert str(e.value.code).startswith(message)
+
+
+def test_cli_average_resume_and_guided_table(tmp_path):
+    """-a 1 then -a 3 --resume equals -a 3, for the guided path tracer,
+    whose table is checkpointed beside the dumps."""
+    from rustlight_tpu_torch.utils.image import read_pfm
+
+    def run(name, *flags):
+        assert cli.main(["cbox", "-n", "1", "-s", "0.015625", "-o",
+                         str(tmp_path / f"{name}.pfm"), "--guiding", *flags,
+                         "--device", "cpu", "path", "-m", "3"]) == 0
+        return read_pfm(tmp_path / f"{name}.pfm")
+    full = run("full", "-a", "3")
+    run("res", "-a", "1")
+    assert (tmp_path / "res_state.npz").exists()
+    np.testing.assert_array_equal(run("res", "-a", "3", "--resume"), full)
+    np.testing.assert_array_equal(read_pfm(tmp_path / "res_3.pfm"), full)
