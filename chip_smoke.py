@@ -286,8 +286,9 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      and every pixel that no chain splatted after its first step whose
      decision or proposal's tf (its seed's first) differs within 1e-3; (c)
      each of the four at 512x512 (GM_FULL's spp; ERPT with one round of 4
-     chain steps), timed as phase 23 (warm-up at 1 spp, the profile at 1
-     spp), with its K1/K2 launches, peak device memory and busy share.
+     chain steps), timed as phase 23 (warm-up at 1 spp; the profile at 1
+     spp of gradient-path alone, GM_PROFILED), with its K1/K2 launches,
+     peak device memory and busy share.
  25. SMCMC and ATS light sampling: (a) the row cbox_path/smcmc of
      tools/regression.py:111-113 at its settings (cornell_box(128, 128), 32
      spp, seed 0, IntegratorSMCMC(path tracer max_depth = hard_cap = 6,
@@ -313,8 +314,8 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      one step of the chains kept from one more render, then the IRLS), the
      ATS path tracer (depth 6) on cbox 512x512 at 8 spp (K1/K2) and on
      examples/caustic.pbrt (448x336, depth 8) at EX_FULL_SPP (K3 only),
-     each with Mrays/s, its kernels' launches, peak device memory and busy
-     share.
+     each with Mrays/s, its kernels' launches and peak device memory, and
+     SMCMC's busy share (the ATS renders unprofiled since phase 27).
  26. path guiding, adaptive sampling, the feature AOVs and the meta
      integrators: (a) the guided path tracer (render_guided, g 16, depth 6)
      on cbox 512x512, 8 passes, timed as phase 23 (K1/K2 only; Mrays/s,
@@ -342,7 +343,27 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      and `smcmc` (kept chains): the resumed film equal bit for bit where
      the reruns are, else within 1e-6 relative; `-e 2000` achieving a
      sample or more; (e) render_adaptive (path, depth 6) at 32 spp and
-     render_feature_aovs at 8 spp on cbox 512x512, timed as (a).
+     render_feature_aovs at 8 spp on cbox 512x512, timed as (a) (the
+     adaptive render unprofiled since phase 27).
+ 27. rendering over a device mesh (rustlight_tpu_torch/parallel/), one
+     spawn of ranks (run_on_mesh) a part, the kernels built in this
+     process first: (a) NCCL with one rank: render_sharded of the path
+     tracer (depth 6) on cbox 512x512 at 8 spp and render_splat_sharded of
+     the light tracer there at 1 spp, timed (Mrays/s, wall, the
+     collectives' ms); at 32x32, 4 spp, the rank's film against a gloo
+     rank's on the CPU under phase 20's bounds; (b) two gloo ranks sharing
+     the card, staged through the host, at 32x32: every family of the
+     mesh (P1 render_sharded, P2/P6 render_splat_sharded, render_adaptive,
+     render_guided, PSSMLT and ERPT chain by chain) against two gloo ranks
+     on the CPU under phase 20's bounds, both gradient shifts and SMCMC
+     against the card's single-device render (lanes that differ counted,
+     means within 1e-4), SMCMC's exchange sending boundary rows only;
+     (c) the two ranks at full width: path cbox 512x512 and grid122k
+     256x256, 8 spp (K3 in both ranks), against one rank (rank 0's rows
+     equal, wall, collectives' and staging's ms: what the mesh layer
+     costs, not a scaling figure, both ranks on one card); (d) the CLI's
+     `-t 2` on the card: one device and the info log, the film bit for bit
+     the run's without -t, and `-a 2 -t 2` the same.
 
 Every line ends with the seconds since the run started. Before the last
 line: a JSON line with each kernel's tables and wavefronts
@@ -352,8 +373,8 @@ from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
 The K1/K2 launches of phases 20, 21, 23, 24 and 25's full-width renders,
-and the K1/K2/K3 launches of phases 22, 25 and 26's, are added to K1/K2's
-and K3's in the kernels line.
+and the K1/K2/K3 launches of phases 22, 25, 26 and 27's (every rank's), are
+added to K1/K2's and K3's in the kernels line.
 """
 from __future__ import annotations
 
@@ -519,6 +540,8 @@ VOL_FULL = (("vpl", "cbox", "vpl", 8), ("point-normal", "cbox_medium",
 # about k x 6e-8, k < 2,000 here); the full-width renders (technique,
 # spp), timed as phase 23
 GM_RES, GM_WARM_SPP, GM_PROFILE_SPP = 512, 1, 1
+# the full-width renders of phase 24 profiled (all four until phase 27 came)
+GM_PROFILED = ("gradient-path",)
 GM_FULL = (("gradient-path", 4), ("gradient-path-explicit", 4),
            ("pssmlt", 8), ("erpt", 8))
 # ERPT's work does not grow with spp (nb_mc rounds of chain_samples steps
@@ -554,9 +577,19 @@ GUIDE_EX_PASSES, GUIDE_CPU_PASSES, GUIDE_TABLE_RTOL = 4, 4, 1e-5
 ADAPT_CPU_SPP, FEAT_CPU_SPP, FEAT_RTOL = 16, 4, 1e-5
 META_RES, META_PASSES, META_SPP, META_E_MS = 128, 3, 2, 2000
 ADAPT_SPP, FEAT_SPP = 32, 8
-# the adaptive profile: the pilot of 8 and one pass of extra samples
-ADAPT_PROFILE_SPP = 9
+# the adaptive profile (the pilot of 8 and one pass of extra samples at
+# 9 until phase 27 came; its busy share is PERF.md's, PR 18)
+ADAPT_PROFILE_SPP = 0
 RESUME_RTOL = 1e-6
+# phase 27: the mesh. (a) one NCCL rank at MESH_RES (MESH_SPP for the path
+# tracer, MESH_LIGHT_SPP for the light tracer), then MESH_SMALL at
+# MESH_SMALL_SPP against a gloo rank on the CPU; (b) the families at
+# MESH_SMALL on two gloo ranks sharing the card; (c) the two ranks at
+# MESH_RES and grid122k at GRID_RES, MESH_SPP, against one rank
+MESH_RES, MESH_SPP, MESH_LIGHT_SPP = 512, 8, 1
+MESH_SMALL, MESH_SMALL_SPP = 32, 4
+MESH_TIMEOUT = 600.0
+MESH_GRAD_MEAN, MESH_MEAN_RTOL = 1e-4, 0.01
 
 
 _T0 = time.time()
@@ -3446,17 +3479,26 @@ def _mcmc_card_vs_cpu(label, make_integ, dev):
             cornell_box(32, 32).compile(device=where), GATE_CPU_SPP,
             seed=0)["primal"]
         rec[str(where)] = (integ.accepts, integ.visits, integ.tfs)
-    a, b = run[str(dev)], run["cpu"]
+    _mcmc_agree("gm", label, run[str(dev)], rec[str(dev)], run["cpu"],
+                rec["cpu"])
+
+
+def _mcmc_agree(tag, label, a, rec_a, b, rec_b):
+    """Two MCMC renders at 32x32, GATE_CPU_SPP, chain by chain: image `a`
+    with its chains' records `rec_a` (accepts, visits, tfs) on the card,
+    `b` with `rec_b` on the CPU. At least MCMC_DECISIONS of the decisions
+    equal, the pixels that no diverged chain splatted within
+    SCHED_PIX_RTOL."""
     if not (np.all(np.isfinite(a)) and b.mean() > 0):
-        raise AssertionError(f"gm {label}: bad images")
-    acc_a, acc_b = rec[str(dev)][0], rec["cpu"][0]
+        raise AssertionError(f"{tag} {label}: bad images")
+    acc_a, acc_b = rec_a[0], rec_b[0]
     same = float((acc_a == acc_b).mean())
-    touched, chains = _diverged_pixels(rec[str(dev)], rec["cpu"])
+    touched, chains = _diverged_pixels(rec_a, rec_b)
     keep = np.ones(32 * 32, bool)
     keep[sorted(touched)] = False
     rel = (np.abs(a - b) / np.maximum(np.abs(b), 1e-4)).max(-1).reshape(-1)
     worst = float(rel[keep].max())
-    phase("gm", f"{label} 32x32 {GATE_CPU_SPP} spp, card vs CPU: "
+    phase(tag, f"{label} 32x32 {GATE_CPU_SPP} spp, card vs CPU: "
           f"{acc_a.size} decisions ({100 * acc_a.mean():.2f}% accepted), "
           f"{100 * same:.4f}% equal (limit {100 * MCMC_DECISIONS:.1f}%); "
           f"{chains} of {acc_a.shape[0] * acc_a.shape[2]} chains diverged, "
@@ -3464,7 +3506,7 @@ def _mcmc_card_vs_cpu(label, make_integ, dev):
           f"relative difference there {worst:.3g} (limit {SCHED_PIX_RTOL}); "
           f"means {a.mean():.7f} / {b.mean():.7f}")
     if same < MCMC_DECISIONS or worst > SCHED_PIX_RTOL:
-        raise AssertionError(f"gm {label}: card and CPU disagree")
+        raise AssertionError(f"{tag} {label}: card and CPU disagree")
 
 
 def gradient_mcmc_phase(dev, card):
@@ -3492,7 +3534,8 @@ def gradient_mcmc_phase(dev, card):
                 f" {k} {v}" for k, v in kw.items()),
             cornell_box(GM_RES, GM_RES).compile(device=dev), integ[tech](**kw),
             spp, card, dense, warm_spp=GM_WARM_SPP,
-            profile_spp=GM_PROFILE_SPP, tag="gm")
+            profile_spp=GM_PROFILE_SPP if tech in GM_PROFILED else 0,
+            tag="gm")
         shares.append(f"{tech} " + ("not measured" if ours is None else
                                     f"{100 * ours:.1f}%"))
     phase("gm", "K1/K2's share of device time in the full-width renders' "
@@ -3656,13 +3699,13 @@ def smcmc_ats_phase(dev, card):
     busy, ours = _full_width(
         f"path cbox {SM_RES}x{SM_RES} depth {CBOX_DEPTH}, ATS",
         cornell_box(SM_RES, SM_RES).compile(device=dev, use_ats=True),
-        path, ATS_SPP, card, dense, warm_spp=1, profile_spp=1, tag="ats")
+        path, ATS_SPP, card, dense, warm_spp=1, profile_spp=0, tag="ats")
     shares.append(("ats cbox", busy, ours))
     ex = _example(ATS_EX).compile(device=dev, use_ats=True)
     busy, ours = _full_width(
         f"path {ATS_EX} {ex.camera.width}x{ex.camera.height} depth "
         f"{EX_DEPTH}, ATS", ex, IntegratorPathTracing(max_depth=EX_DEPTH),
-        EX_FULL_SPP, card, walk, warm_spp=EX_WARM_SPP, profile_spp=1,
+        EX_FULL_SPP, card, walk, warm_spp=EX_WARM_SPP, profile_spp=0,
         tag="ats")
     shares.append((f"ats {ATS_EX}", busy, ours))
     phase("smcmc", "the trace kernels' share of device time in the "
@@ -4259,6 +4302,429 @@ def examples_phase(dev, card):
     return launched
 
 
+# ---- phase 27: rendering over a device mesh
+
+
+def _rank_launches(mesh, launches):
+    """Every rank's launch counts, in rank order (on every rank)."""
+    from rustlight_tpu_torch.parallel.mesh import gather_objects
+    return gather_objects(mesh, {k: v for k, v in launches.items() if v})
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_cfg():
+    """Phase 27's sizes, handed to the ranks (which import this file
+    afresh)."""
+    return dict(res=MESH_RES, spp=MESH_SPP, light_spp=MESH_LIGHT_SPP,
+                small=MESH_SMALL, small_spp=MESH_SMALL_SPP,
+                depth=CBOX_DEPTH, grid=(GRID_ROWS[0][0], GRID_ROWS[0][1],
+                                        GRID_RES, GRID_DEPTH),
+                adapt_spp=ADAPT_CPU_SPP, gate_spp=GATE_CPU_SPP, g=GUIDE_G)
+
+
+def _mesh_timed(mesh, sd, fn, spp, warm_spp=1):
+    """A warm-up of `fn(spp)` at `warm_spp`, then a timed one with the
+    launch counts reset just before and read just after and the rays
+    counted; the mesh's collectives counted over it. Returns this rank's
+    record (image, wall, rays, launches, collectives' and staging's
+    ms, bytes staged)."""
+    from rustlight_tpu_torch.ops.native import counting_rays
+    fn(warm_spp)
+    _sync(sd.device)
+    mesh.reset_counts()
+    _reset_launches()
+    with counting_rays(sd.device) as rays:
+        t0 = time.time()
+        img = fn(spp)["primal"]
+        _sync(sd.device)
+        wall = time.time() - t0
+        n_rays = int(rays)
+    return {"img": img, "wall": wall, "rays": n_rays,
+            "launches": _launches(), "coll_ms": 1e3 * mesh.coll_s,
+            "stage_ms": 1e3 * mesh.stage_s, "staged": mesh.staged,
+            "calls": mesh.calls}
+
+
+def _p27_nccl(mesh, cfg):
+    """(a): one NCCL rank. The path tracer's and the light tracer's
+    full-width records, and the small film."""
+    t_enter = time.time()
+    from rustlight_tpu_torch.integrators import (IntegratorLightTracing,
+                                                 IntegratorPathTracing)
+    from rustlight_tpu_torch.models import cornell_box
+    from rustlight_tpu_torch.parallel import (render_sharded,
+                                              render_splat_sharded)
+    dev = mesh.device
+    sd = cornell_box(cfg["res"], cfg["res"]).compile(device=dev)
+    path = IntegratorPathTracing(max_depth=cfg["depth"])
+    light = IntegratorLightTracing(max_depth=8, hard_cap=8)
+    n_pix = cfg["res"] ** 2
+    out = {"t_enter": t_enter, "backend": mesh.backend, "device": str(dev)}
+    out["path"] = _mesh_timed(mesh, sd, lambda spp: render_sharded(
+        sd, path, spp, mesh=mesh), cfg["spp"])
+    out["light"] = _mesh_timed(mesh, sd, lambda spp: render_splat_sharded(
+        sd, light, n_paths=spp * n_pix, mesh=mesh), cfg["light_spp"])
+    small = cornell_box(cfg["small"], cfg["small"]).compile(device=dev)
+    _reset_launches()
+    out["small"] = render_sharded(small, path, cfg["small_spp"],
+                                  mesh=mesh)["primal"]
+    out["small_launches"] = _launches()
+    return out
+
+
+def _p27_families(mesh, cfg, cpu):
+    """(b) on this rank: every family of the mesh at MESH_SMALL, seed 0.
+    On the card (`cpu` False) also the gradient shifts and SMCMC; on the
+    CPU also (a)'s small film from a one-rank subgroup of rank 0."""
+    import torch.distributed as dist
+    from rustlight_tpu_torch.integrators import (IntegratorLightTracing,
+                                                 IntegratorPathTracing)
+    from rustlight_tpu_torch.integrators.common import render_adaptive
+    from rustlight_tpu_torch.integrators.guiding import render_guided
+    from rustlight_tpu_torch.models import cornell_box
+    from rustlight_tpu_torch.parallel import (Mesh, render_sharded,
+                                              render_splat_sharded)
+    dev = mesh.device
+    n, spp = cfg["small"], cfg["gate_spp"]
+    sd = cornell_box(n, n).compile(device=dev)
+    path = IntegratorPathTracing(max_depth=cfg["depth"])
+    out = {}
+    _reset_launches()
+    out["P1"] = render_sharded(sd, path, cfg["small_spp"],
+                               mesh=mesh)["primal"]
+    out["P2/P6"] = render_splat_sharded(
+        sd, IntegratorLightTracing(max_depth=8, hard_cap=8),
+        n_paths=cfg["small_spp"] * n * n, mesh=mesh)["primal"]
+    ad = render_adaptive(sd, path, cfg["adapt_spp"], mesh=mesh)
+    out["adaptive"], out["adaptive spp"] = ad["primal"], ad["spp"]
+    film, grid = render_guided(sd, path, 1, g=cfg["g"], return_grid=True,
+                               mesh=mesh)
+    out["guided"], out["guided table"] = film["primal"], grid.table.cpu(
+        ).numpy()
+    gm = _gm_integrators()
+    for tech in ("pssmlt", "erpt"):
+        integ = gm[tech]()
+        integ.record_accepts = True
+        out[tech] = (integ.render(sd, spp, seed=0, mesh=mesh)["primal"],
+                     (integ.accepts, integ.visits, integ.tfs))
+    if not cpu:
+        for tech in ("gradient-path", "gradient-path-explicit"):
+            out[tech] = dict(gm[tech]().render(sd, spp, seed=0,
+                                               mesh=mesh).buffers)
+        sm = _smcmc()
+        out["smcmc"] = sm.render(sd, spp, seed=0, mesh=mesh)["primal"]
+        out["smcmc moved"] = sm.exchange_moved
+    out["launches"] = _rank_launches(mesh, _launches())
+    if cpu:
+        one = dist.new_group([0])
+        if mesh.rank == 0:
+            out["small"] = render_sharded(
+                sd, path, cfg["small_spp"],
+                mesh=Mesh(0, 1, dev, one, mesh.backend))["primal"]
+    return out
+
+
+def _p27_cpu(mesh, cfg):
+    return _p27_families(mesh, cfg, True)
+
+
+def _gloo_cuda(mesh):
+    """Which of gloo's collectives take CUDA tensors in this torch (the
+    mesh stages every one through the host regardless): {op: "yes" or the
+    error's class}. Its send and recv are left out: their transport reads
+    the tensor's memory from the host."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(4, device=mesh.device)
+    ops = {
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x)
+                                               for _ in range(2)], x),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0)}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "yes"
+        except Exception as e:   # noqa: BLE001 (the answer recorded)
+            out[name] = type(e).__name__
+        dist.barrier()
+    return out
+
+
+def _p27_card(mesh, cfg):
+    """(b) and (c) on two gloo ranks sharing the card."""
+    t_enter = time.time()
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing
+    from rustlight_tpu_torch.models import cornell_box, sphere_grid
+    from rustlight_tpu_torch.parallel import render_sharded
+    from rustlight_tpu_torch.parallel.mesh import gather_objects
+    out = _p27_families(mesh, cfg, False)
+    out["t_enter"] = gather_objects(mesh, t_enter)
+    g_label, g_tris, g_res, g_depth = cfg["grid"]
+    for label, sd, depth in (
+            ("path cbox", cornell_box(cfg["res"], cfg["res"]), cfg["depth"]),
+            (g_label, sphere_grid(g_tris, g_res, g_res), g_depth)):
+        sd = sd.compile(device=mesh.device)
+        integ = IntegratorPathTracing(max_depth=depth)
+        rec = _mesh_timed(mesh, sd, lambda spp: render_sharded(
+            sd, integ, spp, mesh=mesh), cfg["spp"])
+        img = rec.pop("img")
+        out[label] = {"img": img, "ranks": gather_objects(mesh, rec)}
+    out["gloo cuda"] = _gloo_cuda(mesh)
+    return out
+
+
+def _p27_one_rank(sd, integ, dev):
+    """(c)'s one rank in this process: render_sharded over a mesh of one
+    (the streams of a one-rank mesh), timed as _mesh_timed."""
+    from rustlight_tpu_torch.parallel import Mesh, render_sharded
+    one = Mesh(device=dev)
+    return _mesh_timed(one, sd, lambda spp: render_sharded(
+        sd, integ, spp, mesh=one), MESH_SPP)
+
+
+def _p27_only_dense(label, launches):
+    """Each rank's launches: K1 and K2, and nothing else."""
+    for r, ln in enumerate(launches):
+        _only(f"mesh {label} rank {r}", {**{k: 0 for k in _launches()},
+                                         **ln},
+              ("dense_closest", "dense_anyhit"))
+
+
+def _p27_cli(dev):
+    """(d): the CLI's -t 2 on the one card, in this process: one device and
+    the info log, the film bit for bit the run's without -t; -a 2 -t 2 the
+    same. Returns the line's text."""
+    import logging
+    import tempfile
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+    keep = Keep()
+    log = logging.getLogger("rustlight_tpu_torch")
+    log.addHandler(keep)
+    parts = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for tag, extra in (("", []), ("-a 2 ", ["-a", "2"])):
+                films = []
+                for t in ([], ["-t", "2"]):
+                    out = os.path.join(tmp, f"d{len(films)}{len(tag)}.pfm")
+                    films.append(_cli_film(
+                        ["cbox", "-n", str(MESH_SMALL_SPP), "-s",
+                         str(MESH_SMALL / 512), "-o", out, "--device",
+                         str(dev), *extra, *t, "path", "-m", "6"], out))
+                if not np.array_equal(films[0], films[1]):
+                    raise AssertionError(f"mesh (d): {tag}-t 2 changed the "
+                                         "film")
+                parts.append(f"`{tag}-t 2` film bit for bit the run's "
+                             "without -t")
+    finally:
+        log.removeHandler(keep)
+    info = [x for x in keep.lines if x.startswith("-t 2:")]
+    if len(info) != 2 or "one cuda device" not in info[0]:
+        raise AssertionError(f"mesh (d): the -t info log {info}")
+    return f"log {info[0]!r}; " + "; ".join(parts)
+
+
+def mesh_phase(dev, card):
+    """Phase 27. Returns the K1/K2/K3 launches of its renders, every rank's
+    (counts reset just before each render, read just after)."""
+    import threading
+    import torch
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing
+    from rustlight_tpu_torch.models import cornell_box, sphere_grid
+    from rustlight_tpu_torch.parallel import run_on_mesh
+    from rustlight_tpu_torch.ops import native
+    counts = {"dense_closest": 0, "dense_anyhit": 0, "walk_closest": 0,
+              "walk_anyhit": 0}
+    cfg = _mesh_cfg()
+    # the ranks load what this process built and never race to build it
+    native.build()
+    native.build_host(native.CSRC / "bvh_builder.cpp")
+
+    def add(launches):
+        for k in counts:
+            counts[k] += launches.get(k, 0)
+    # the CPU ranks' reference runs beside the card's
+    cpu_box = {}
+
+    def cpu_run():
+        try:
+            cpu_box["out"] = run_on_mesh(2, _p27_cpu, cfg, backend="gloo",
+                                         device="cpu", timeout=MESH_TIMEOUT,
+                                         threads=1)
+        except BaseException as e:   # noqa: BLE001 (raised below)
+            cpu_box["err"] = e
+    cpu_thread = threading.Thread(target=cpu_run)
+    cpu_thread.start()
+
+    # (a) one NCCL rank
+    t0 = time.time()
+    a = run_on_mesh(1, _p27_nccl, cfg, backend="nccl", timeout=MESH_TIMEOUT)
+    a_wall = time.time() - t0
+    for label, spp in (("path", MESH_SPP), ("light", MESH_LIGHT_SPP)):
+        rec = a[label]
+        _only(f"mesh (a) {label}", rec["launches"],
+              ("dense_closest", "dense_anyhit"))
+        add(rec["launches"])
+        img = rec["img"]
+        if not (np.all(np.isfinite(img)) and img.mean() > 0):
+            raise AssertionError(f"mesh (a) {label}: bad image")
+        phase("mesh", f"(a) {a['backend']} one rank on {a['device']}: "
+              f"render_{'splat_' if label == 'light' else ''}sharded "
+              f"{label} cbox {MESH_RES}x{MESH_RES} {spp} spp: timed "
+              f"{rec['wall']:.3f}s, {rec['rays']} rays, "
+              f"{rec['rays'] / rec['wall'] / 1e6:.3f} Mrays/s, mean "
+              f"{img.mean():.6f}, {rec['calls']} collectives "
+              f"({rec['coll_ms']:.3f} ms; one rank sends nothing), launches "
+              + ", ".join(f"{k} {v}" for k, v in rec["launches"].items()
+                          if v) + f" | {card}")
+    add(a["small_launches"])
+    phase("mesh", f"(a) spawn to the rank's first line "
+          f"{a['t_enter'] - t0:.2f}s, the whole call {a_wall:.2f}s")
+
+    # single-device references on the card for (b)'s GSPMD families
+    gm = _gm_integrators()
+    small = cornell_box(MESH_SMALL, MESH_SMALL).compile(device=dev)
+    ref = {tech: dict(gm[tech]().render(small, GATE_CPU_SPP,
+                                        seed=0).buffers)
+           for tech in ("gradient-path", "gradient-path-explicit")}
+    ref["smcmc"] = _smcmc().render(small, GATE_CPU_SPP, seed=0)["primal"]
+
+    # (b) and (c): two gloo ranks on the card
+    t0 = time.time()
+    b = run_on_mesh(2, _p27_card, cfg, backend="gloo", device=dev,
+                    timeout=MESH_TIMEOUT)
+    b_wall = time.time() - t0
+    spawn = [t - t0 for t in b["t_enter"]]
+    cpu_thread.join(MESH_TIMEOUT)
+    if "err" in cpu_box or "out" not in cpu_box:
+        raise AssertionError(f"mesh (b): the CPU ranks failed: "
+                             f"{cpu_box.get('err')}")
+    c = cpu_box["out"]
+    phase("mesh", "(a) " + _agree_buffer(
+        "mesh", "(a) path cbox 32x32", f"path cbox {MESH_SMALL}x"
+        f"{MESH_SMALL} {MESH_SMALL_SPP} spp, one NCCL rank vs one gloo rank "
+        "on the CPU:", a["small"], c["small"], False))
+    _p27_only_dense("(b)", b["launches"])
+    for ln in b["launches"]:
+        add(ln)
+    phase("mesh", "(b) the families' launches a rank: " + " / ".join(
+        ", ".join(f"{k} {v}" for k, v in ln.items()) for ln in b["launches"]))
+    for fam in ("P1", "P2/P6", "adaptive", "guided"):
+        phase("mesh", "(b) " + _agree_buffer(
+            "mesh", f"(b) {fam}", f"{fam} cbox {MESH_SMALL}x{MESH_SMALL}, "
+            "two gloo ranks, card vs CPU:", b[fam], c[fam], False))
+    same = float((b["adaptive spp"] == c["adaptive spp"]).mean())
+    tab = float(np.abs(b["guided table"] - c["guided table"]).max()
+                / max(float(np.abs(c["guided table"]).max()), 1e-30))
+    phase("mesh", f"(b) adaptive counts equal on {100 * same:.3f}% of the "
+          f"pixels (limit {100 * SCHED_PIX_FRAC:.1f}%); the guided table "
+          f"after the pass within {tab:.3g} of the CPU's largest entry "
+          f"(limit {GUIDE_TABLE_RTOL})")
+    if same < SCHED_PIX_FRAC or tab > GUIDE_TABLE_RTOL:
+        raise AssertionError("mesh (b): adaptive counts or guided table")
+    for tech in ("pssmlt", "erpt"):
+        _mcmc_agree("mesh", f"(b) {tech} two gloo ranks", b[tech][0],
+                    b[tech][1], c[tech][0], c[tech][1])
+    for tech in ("gradient-path", "gradient-path-explicit", "smcmc"):
+        got, want = b[tech], ref[tech]
+        if tech == "smcmc":
+            got, want = {"primal": got}, {"primal": want}
+        parts, worst = [], 0.0
+        for k, x in want.items():
+            y = got[k]
+            lanes = int((y != x).any(-1).sum())
+            scale = max(float(np.abs(x).mean()), 1e-30)
+            off = abs(float(y.mean()) - float(x.mean())) / scale
+            worst = max(worst, off)
+            parts.append(f"{k} {lanes} lanes differ, means {off:.3g}")
+            if not np.all(np.isfinite(y)):
+                raise AssertionError(f"mesh (b) {tech}: non-finite {k}")
+        phase("mesh", f"(b) {tech} cbox 32x32 {GATE_CPU_SPP} spp, two "
+              "gloo ranks vs the card's single-device render: "
+              + "; ".join(parts) + f" (means limit {MESH_GRAD_MEAN})")
+        if worst > MESH_GRAD_MEAN:
+            raise AssertionError(f"mesh (b) {tech}: ranks vs one device")
+    d = _smcmc().pss_dims
+    want = 2 * MESH_SMALL * (d + 3)   # one vertical step of GATE_CPU_SPP
+    phase("mesh", f"(b) SMCMC's exchange sent {b['smcmc moved']} elements "
+          f"a rank, boundary rows {want} (of {MESH_SMALL ** 2 * d} in the "
+          "chains' states)")
+    if b["smcmc moved"] != want:
+        raise AssertionError("mesh (b): SMCMC's exchange sent more than "
+                             "its boundary rows")
+
+    # (c) against one rank in this process
+    for label, make, depth, walk in (
+            ("path cbox", lambda: cornell_box(MESH_RES, MESH_RES),
+             CBOX_DEPTH, False),
+            (GRID_ROWS[0][0], lambda: sphere_grid(
+                GRID_ROWS[0][1], GRID_RES, GRID_RES), GRID_DEPTH, True)):
+        sd = make().compile(device=dev)
+        one = _p27_one_rank(sd, IntegratorPathTracing(max_depth=depth), dev)
+        kern = (("walk_closest", "walk_anyhit") if walk
+                else ("dense_closest", "dense_anyhit"))
+        _only(f"mesh (c) {label} one rank", one["launches"], kern)
+        add(one["launches"])
+        two = b[label]
+        for r, rec in enumerate(two["ranks"]):
+            _only(f"mesh (c) {label} rank {r}", rec["launches"], kern)
+            add(rec["launches"])
+        half = sd.camera.height // 2
+        x, y = two["img"], one["img"]
+        rows0 = bool(np.array_equal(x[:half], y[:half]))
+        rel = np.abs(x[:half] - y[:half]) / np.maximum(np.abs(y[:half]),
+                                                        1e-4)
+        frac0 = float((rel.max(-1) <= SCHED_PIX_RTOL).mean())
+        off = abs(float(x.mean()) - float(y.mean())) / float(y.mean())
+        wall = max(r["wall"] for r in two["ranks"])
+        rays = sum(r["rays"] for r in two["ranks"])
+        r0 = two["ranks"][0]
+        phase("mesh", f"(c) {label} {sd.camera.width}x{sd.camera.height} "
+              f"{MESH_SPP} spp, two gloo ranks on one card: wall "
+              f"{wall:.3f}s ({rays / wall / 1e6:.3f} Mrays/s), collectives "
+              f"{r0['calls']} ({r0['coll_ms']:.3f} ms on rank 0, staging "
+              f"{r0['stage_ms']:.3f} ms of it, {r0['staged']} bytes, "
+              f"{100 * r0['stage_ms'] / 1e3 / wall:.2f}% of the wall); one "
+              f"rank: wall {one['wall']:.3f}s "
+              f"({one['rays'] / one['wall'] / 1e6:.3f} Mrays/s); rank 0's rows equal one rank's bit for bit "
+              f"{rows0} ({100 * frac0:.3f}% within {SCHED_PIX_RTOL}), means "
+              f"differ by {off:.3g} (limit {MESH_MEAN_RTOL}); launches a rank "
+              + " / ".join(", ".join(f"{k} {r['launches'][k]}" for k in kern)
+                           for r in two["ranks"]) + f" | {card}")
+        if (frac0 < SCHED_PIX_FRAC or off > MESH_MEAN_RTOL
+                or not np.all(np.isfinite(x))):
+            raise AssertionError(f"mesh (c) {label}: two ranks vs one")
+    phase("mesh", "(b) gloo's collectives on CUDA tensors in torch "
+          f"{torch.__version__}: " + ", ".join(
+              f"{k} {v}" for k, v in b["gloo cuda"].items())
+          + " (the mesh stages every one through the host)")
+    phase("mesh", f"(b)-(c) spawn to each rank's first line "
+          + ", ".join(f"{t:.2f}s" for t in spawn)
+          + f", the whole call {b_wall:.2f}s")
+
+    # (d) the CLI
+    _reset_launches()
+    phase("mesh", "(d) " + _p27_cli(dev))
+    add(_launches())
+    return counts
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4415,6 +4881,8 @@ def main() -> int:
     for k, v in smcmc_ats_phase(dev, card).items():
         (gate_launches if k.startswith("dense") else walk_launches)[k] += v
     for k, v in guiding_meta_phase(dev, card, cbox_mean).items():
+        (gate_launches if k.startswith("dense") else walk_launches)[k] += v
+    for k, v in mesh_phase(dev, card).items():
         (gate_launches if k.startswith("dense") else walk_launches)[k] += v
     for k in ("walk_closest", "walk_anyhit"):
         walk_launches[k] += ex_launches[k]

@@ -49,15 +49,23 @@ draws a bar), -e/--equal-time (a render-time budget in milliseconds),
 passes), --adaptive (variance-adaptive sampling of a per-pixel
 integrator), --feature-aovs (first-hit albedo, normal and depth added to
 the film), --profile OUT.json (per-phase timings and run metadata) and
--l/--log FILE. `--device` names the torch device to render on. The
-reference's -t/--threads is declared with its default: left at it, it is
-accepted; any other value exits with code 1 and "--threads is not ported
-yet".
+-l/--log FILE and -t/--threads N. `--device` names the torch device to
+render on.
+
+-t N renders over a device mesh of n ranks (parallel/mesh.py), one process
+each: on the card n = min(N, the cards torch sees) with NCCL, rank r on
+cuda:r; on the CPU n = min(N, os.cpu_count()) gloo ranks (the counterpart
+of XLA's virtual host devices, which the JAX package's -t shards over
+there). Only n > 1 builds a mesh, as the reference; with n = 1 the run logs
+so and renders on one device. Every rank renders its share; rank 0 writes
+the output, the dumps and the log.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
+import os
 import sys
 import time
 
@@ -89,11 +97,6 @@ _PN_STRATEGIES = {
 }
 _PLANE_STRATEGIES = ["uv", "ut", "vt", "average", "discrete_mis", "ualpha",
                      "cmis"]
-# global flags of the reference CLI that have no port yet, with its names
-# and defaults (rustlight_tpu/cli.py:44-89)
-_NOT_PORTED_FLAGS = (
-    (("-t", "--threads"), dict(type=int, default=None)),
-)
 # -x values of the reference CLI that have no port yet
 _NOT_PORTED_XTRA = ()
 _BUILTIN = ("cbox", "veach_mis", "door_box")
@@ -158,8 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="render-time budget in milliseconds")
     ap.add_argument("-l", "--log", default=None,
                     help="write the log to this file instead of stderr")
-    for names, kw in _NOT_PORTED_FLAGS:
-        ap.add_argument(*names, **kw, help="not ported yet")
+    ap.add_argument("-t", "--threads", type=int, default=None,
+                    help="render over a mesh of min(N, devices) ranks: "
+                    "NCCL across cards, gloo processes on the CPU")
     ap.add_argument("-x", "--xtra-options", action="append", default=[],
                     choices=["ats", "no-shading", "hvs-light",
                              "texture-light"])
@@ -383,10 +387,10 @@ def load_scene_arg(args):
     return scene
 
 
-def _render_film(args, sd, integ, seed, sampler, log):
+def _render_film(args, sd, integ, seed, sampler, log, mesh=None):
     """The film of the run: -e, then -a, then --guiding, then --adaptive,
     then one render, as the reference's main dispatches
-    (rustlight_tpu/cli.py:474-553)."""
+    (rustlight_tpu/cli.py:474-553), over `mesh` if given."""
     from .integrators import IntegratorPathTracing, SplattingIntegrator
     from .integrators.meta import (IntegratorAverage, IntegratorEqualTime,
                                    _render_once)
@@ -402,7 +406,7 @@ def _render_film(args, sd, integ, seed, sampler, log):
     if args.equal_time is not None:
         # -e is milliseconds, as the reference's (equal_time.rs:5)
         meta = IntegratorEqualTime(integ, target_s=args.equal_time / 1e3,
-                                   spp_per_pass=args.nbsamples,
+                                   spp_per_pass=args.nbsamples, mesh=mesh,
                                    progress=args.progress)
         film = meta.render(sd, seed=seed, verbose=True)
         log.info("Achieved spp: %d", meta.achieved_spp)
@@ -410,7 +414,7 @@ def _render_film(args, sd, integ, seed, sampler, log):
     if args.average is not None:
         kw = dict(spp_per_pass=args.nbsamples,
                   dump_base=args.output.rsplit(".", 1)[0],
-                  resume=args.resume, progress=args.progress)
+                  resume=args.resume, progress=args.progress, mesh=mesh)
         if args.average == "inf":
             # forever, a dump a pass (avg.rs:21): stop with Ctrl-C and
             # continue later with --resume
@@ -431,7 +435,9 @@ def _render_film(args, sd, integ, seed, sampler, log):
         from .integrators.guiding import render_guided
         if type(integ) is not IntegratorPathTracing:
             raise SystemExit("--guiding needs the `path` integrator")
-        return render_guided(sd, integ, args.nbsamples, seed, verbose=True)
+        return render_guided(sd, integ, args.nbsamples, seed,
+                             verbose=mesh is None or mesh.rank == 0,
+                             mesh=mesh)
     if args.adaptive:
         from .integrators.common import render_adaptive
         if isinstance(integ, SplattingIntegrator) or hasattr(integ, "render"):
@@ -439,17 +445,16 @@ def _render_film(args, sd, integ, seed, sampler, log):
                 "--adaptive needs a per-pixel MC integrator "
                 "(path/ao/direct/...); splatting and self-driving "
                 "integrators allocate their own budgets")
-        return render_adaptive(sd, integ, args.nbsamples, seed, verbose=True)
-    return _render_once(sd, integ, args.nbsamples, seed, sampler=sampler)
+        return render_adaptive(sd, integ, args.nbsamples, seed,
+                               verbose=mesh is None or mesh.rank == 0,
+                               mesh=mesh)
+    return _render_once(sd, integ, args.nbsamples, seed, sampler=sampler,
+                        mesh=mesh)
 
 
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for names, _ in _NOT_PORTED_FLAGS:
-        dest = names[-1].lstrip("-").replace("-", "_")
-        if getattr(args, dest) != ap.get_default(dest):
-            raise SystemExit(f"{names[-1]} is not ported yet")
     if any(x in _NOT_PORTED_XTRA for x in args.xtra_options):
         raise SystemExit("--xtra-options is not ported yet")
     if args.command in _NOT_PORTED:
@@ -460,40 +465,88 @@ def main(argv=None) -> int:
         seed = int(rng.split(":")[1])
     # as the reference: any name but stratified is the independent sampler
     sampler = "stratified" if rng.startswith("stratified") else "independent"
+    with _logging(args) as log:
+        n, backend = _mesh_size(args, log)
+        if n <= 1:
+            return _run(args, seed, sampler, log)
+        from .parallel import run_on_mesh
+        log.info("Sharding over %d %s ranks (-t %d)", n, backend,
+                 args.threads)
+        cpu = backend == "gloo"
+        return run_on_mesh(n, _rank_run, args, seed, sampler,
+                           backend=backend, device="cpu" if cpu else None,
+                           timeout=RANK_TIMEOUT_S,
+                           threads=max(1, (os.cpu_count() or 1) // n)
+                           if cpu else None)
 
-    # the package's log (INFO) on stderr, or with -l only in that file
+
+# a mesh run's deadline, and the longest a rank waits in a collective
+RANK_TIMEOUT_S = 7 * 24 * 3600.0
+
+
+@contextlib.contextmanager
+def _logging(args, quiet: bool = False):
+    """The package's log (INFO) on stderr, or with -l only in that file;
+    `quiet` (a rank other than 0) logs errors alone."""
     fmt = "%(levelname)s %(module)s - %(message)s"
     log = logging.getLogger("rustlight_tpu_torch")
-    log.setLevel(logging.INFO)
+    log.setLevel(logging.ERROR if quiet else logging.INFO)
     if not args.log:
         logging.basicConfig(stream=sys.stderr, format=fmt)
-        return _run(args, seed, sampler, log)
+        yield log
+        return
     handler = logging.FileHandler(args.log)
     handler.setFormatter(logging.Formatter(fmt))
     log.addHandler(handler)
     log.propagate = False
     try:
-        return _run(args, seed, sampler, log)
+        yield log
     finally:
         log.removeHandler(handler)
         log.propagate = True
         handler.close()
 
 
-def _run(args, seed, sampler, log) -> int:
-    """Load, render and write the run of `args`."""
+def _mesh_size(args, log):
+    """-t: (ranks, backend). On the card min(-t, cards) NCCL ranks, on the
+    CPU min(-t, CPU cores) gloo ranks; 1 without -t or with one device."""
+    if args.threads is None or args.threads <= 1:
+        return 1, None
+    import torch
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    n = min(args.threads,
+            torch.cuda.device_count() if cuda else (os.cpu_count() or 1))
+    if n <= 1:
+        log.info("-t %d: one %s device, rendering without a mesh",
+                 args.threads, dev.type)
+    return n, "nccl" if cuda else "gloo"
+
+
+def _rank_run(mesh, args, seed, sampler) -> int:
+    """One rank of a -t run (run_on_mesh's function)."""
+    with _logging(args, quiet=mesh.rank != 0) as log:
+        return _run(args, seed, sampler, log, mesh)
+
+
+def _run(args, seed, sampler, log, mesh=None) -> int:
+    """Load, render and write the run of `args` (over `mesh`, on its
+    device, if given: rank 0 writes)."""
     t0 = time.time()
     scene = load_scene_arg(args)
-    sd = scene.compile(device=args.device, use_shading_normals=(
+    device = args.device if mesh is None else mesh.device
+    sd = scene.compile(device=device, use_shading_normals=(
         "no-shading" not in args.xtra_options),
         use_ats="ats" in args.xtra_options)
     t_compile = time.time() - t0
     log.info("Scene compiled: %d triangles", sd.geom.n_tris)
     integ = build_integrator(args)
     t1 = time.time()
-    film = _render_film(args, sd, integ, seed, sampler, log)
+    film = _render_film(args, sd, integ, seed, sampler, log, mesh)
     t_render = time.time() - t1
     log.info("Elapsed Integrator: %.3fs", t_render)
+    if mesh is not None and mesh.rank != 0:
+        return 0
     if args.feature_aovs:
         from .integrators.common import render_feature_aovs
         film.buffers.update(render_feature_aovs(sd, spp=8, seed=seed))

@@ -52,14 +52,6 @@ def mis_balance(pdf_a, pdf_b):
     return torch.where(pdf_a > 0.0, w, 0.0)
 
 
-def no_mesh(mesh) -> None:
-    """The self-driving integrators' `render(mesh=...)`: rendering over a
-    device mesh is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "rendering over a device mesh is not ported yet")
-
-
 def _pixel_grid(width, height):
     ys, xs = np.mgrid[0:height, 0:width]
     return np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int32)
@@ -193,17 +185,27 @@ def render_adaptive(scene, integrator, spp: int, seed: int = 0,
     make_stream(seed + 7919), k); padding lanes point past the film and
     are dropped. Unbiased: each pixel's estimate is the mean of its own
     samples, whose count depends on the pilot alone. The film holds the
-    `spp` AOV (each pixel's sample count). Rendering over a device mesh is
-    not ported yet (`mesh` raises NotImplementedError)."""
-    no_mesh(mesh)
+    `spp` AOV (each pixel's sample count).
+
+    `mesh` (parallel/mesh.py; every rank calls this) shards both phases as
+    the JAX package does: the pilot through render_variance_sharded, then
+    passes of w * h lanes rounded up to a multiple of the rank count, each
+    through adaptive_step_sharded (shard d drawing from stream_fold(
+    stream_fold(base, d), k), the ranks' films summed). The allocation
+    runs on every rank's host, the same on each."""
     cam = scene.camera
     w, h = cam.width, cam.height
     n_pix = w * h
     # below a pilot of 8 the variance estimates misallocate against
     # fireflies; spp_per_pass=pilot renders exactly `pilot` samples
     pilot = max(8, min(int(round(spp * pilot_frac)), spp))
-    film = render(scene, integrator, pilot, seed=seed, variance=True,
-                  persistent=False, spp_per_pass=pilot)
+    if mesh is not None:
+        from ..parallel import render_variance_sharded
+        film = render_variance_sharded(scene, integrator, pilot, mesh=mesh,
+                                       seed=seed, spp_per_pass=pilot)
+    else:
+        film = render(scene, integrator, pilot, seed=seed, variance=True,
+                      persistent=False, spp_per_pass=pilot)
     extra_budget = (spp - pilot) * n_pix
     if extra_budget <= 0:
         return film
@@ -224,26 +226,37 @@ def render_adaptive(scene, integrator, spp: int, seed: int = 0,
     pix_list = np.repeat(pix, counts, axis=0)               # [extra_budget, 2]
     pids = (pix_list[:, 1].astype(np.int64) * w + pix_list[:, 0]).astype(
         np.int32)
+    # passes of the base resolution's lane count, rounded up to a multiple
+    # of the ranks on a mesh
+    lanes = n_pix if mesh is None else n_pix + (-n_pix) % mesh.size
     n_total = pix_list.shape[0]
-    pad = (-n_total) % n_pix
+    pad = (-n_total) % lanes
     if pad:
         # padding lanes resample pixel 0 and splat past the film
         pix_list = np.concatenate([pix_list, np.tile(pix_list[:1], (pad, 1))])
         pids = np.concatenate([pids, np.full(pad, n_pix, np.int32)])
-    n_passes = pix_list.shape[0] // n_pix
+    n_passes = pix_list.shape[0] // lanes
     device = scene.device
-    pix_d = torch.as_tensor(pix_list.reshape(n_passes, n_pix, 2),
+    pix_d = torch.as_tensor(pix_list.reshape(n_passes, lanes, 2),
                             device=device)
-    pid_d = torch.as_tensor(pids.reshape(n_passes, n_pix), device=device)
+    pid_d = torch.as_tensor(pids.reshape(n_passes, lanes), device=device)
     base = make_stream(seed + 7919, device)
+    if mesh is None:
+        def extra_pass(k):
+            li = accumulate_safe(integrator.compute_pixel(
+                scene, pix_d[k], stream_fold(base, k)))
+            return splat_add(torch.zeros((n_pix + 1, 3), dtype=torch.float32,
+                                         device=device), pid_d[k], li)[:n_pix]
+    else:
+        from ..parallel import adaptive_step_sharded
+
+        def extra_pass(k):
+            return adaptive_step_sharded(scene, integrator, mesh, n_pix,
+                                         pix_d[k], pid_d[k], base, k)
     extra_sum = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
     t0 = time.time()
     for k in range(n_passes):
-        li = accumulate_safe(integrator.compute_pixel(
-            scene, pix_d[k], stream_fold(base, k)))
-        part = splat_add(torch.zeros((n_pix + 1, 3), dtype=torch.float32,
-                                     device=device), pid_d[k], li)
-        extra_sum = extra_sum + part[:n_pix]
+        extra_sum = extra_sum + extra_pass(k)
     extra = extra_sum.cpu().numpy().reshape(h, w, 3)
     if verbose:
         print(f"render_adaptive: pilot {pilot} spp + {n_total} adaptive "

@@ -15,6 +15,13 @@ scatter-at-(p + o) is a roll by o. `_render_gradient_film`, shared with the
 reconnection shift, sums the passes into `nb_buffers` buffers on the host
 (pass s into buffer s % nb, float32 numpy) and reconstructs them on the
 scene's device.
+
+On a device mesh (parallel/mesh.py) each rank traces the lanes of its row
+band (np.array_split of the rows) with a lane window on its stream, so that
+its draws are its lanes' slice of the single-device draws; a pass's
+per-lane results are gathered, and the film assembly and the
+reconstruction run whole on every rank (`_mesh_pass`). The JAX package's
+GSPMD lowers the film shifts to halo exchanges instead.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 from ...utils.film import Film
 from ...utils.rng import ArrayStream, make_stream, stream_fold, stream_next
 from ...utils.vec import luminance
-from ..common import _pixel_grid, no_mesh
+from ..common import _pixel_grid
 from ..path import IntegratorPathTracing
 from .recons import (_sum0, bagging_poisson_reconstruction,
                      uniform_poisson_reconstruction,
@@ -76,38 +83,64 @@ class IntegratorGradientPath:
                            li, 0.0)
 
     def render(self, scene, spp: int, seed: int = 0, mesh=None) -> Film:
-        no_mesh(mesh)
         w, h = scene.camera.width, scene.camera.height
         base = make_stream(seed, scene.device)
-        return _render_gradient_film(
-            scene, spp, lambda s: self.one_pass(scene, stream_fold(base, s)),
-            self.nb_buffers, self.recons, self.iterations, w, h)
+        if mesh is None:
+            def one_pass(s):
+                return self.one_pass(scene, stream_fold(base, s))
+        else:
+            def one_pass(s):
+                return _mesh_pass(mesh, scene, stream_fold(base, s),
+                                  self.lanes, self.assemble)
+        return _render_gradient_film(scene, spp, one_pass, self.nb_buffers,
+                                     self.recons, self.iterations, w, h)
 
     def one_pass(self, scene, stream):
         """One sample of every pixel: (primal, gradient_x, gradient_y),
         each [n, 3]."""
         w, h = scene.camera.width, scene.camera.height
-        n = w * h
         pix = torch.as_tensor(_pixel_grid(w, h), device=scene.device)
+        return self.assemble(scene, self.lanes(scene, pix, stream))
+
+    def lanes(self, scene, pix, stream):
+        """The per-lane results of the lanes `pix` [m, 2]: [m, 6, 3], the
+        base path's radiance, the four offsets' and the survival weight
+        (in all three channels)."""
+        m = pix.shape[0]
+        w, h = scene.camera.width, scene.camera.height
         px, py = pix[:, 0], pix[:, 1]
-        u, stream = stream_next(stream, (n, self.pss_dims))
+        u, stream = stream_next(stream, (m, self.pss_dims))
         lb = self._eval(scene, pix, u)
         if self.min_survival is not None:
-            u_s, stream = stream_next(stream, (n,))
+            u_s, stream = stream_next(stream, (m,))
             prob = torch.clamp(luminance(lb) / 0.1, self.min_survival, 1.0)
             keep = (prob >= 1.0) | (u_s < prob)
             w_surv = torch.where(keep, 1.0 / prob, 0.0)
         else:
-            w_surv = torch.ones(n, dtype=torch.float32, device=scene.device)
-        ws = w_surv[:, None]
+            w_surv = torch.ones(m, dtype=torch.float32, device=scene.device)
+        out = [lb]
+        for dy, dx, _, _ in _OFFSETS:
+            opix = torch.stack([torch.clamp(px + dx, 0, w - 1),
+                                torch.clamp(py + dy, 0, h - 1)], -1)
+            out.append(self._eval(scene, opix, u))
+        out.append(w_surv[:, None].expand(m, 3))
+        return torch.stack(out, dim=1)
+
+    def assemble(self, scene, res):
+        """The film of one pass from every lane's `lanes` results [n, 6,
+        3]: (primal, gradient_x, gradient_y), each [n, 3]."""
+        w, h = scene.camera.width, scene.camera.height
+        n = w * h
+        pix = torch.as_tensor(_pixel_grid(w, h), device=scene.device)
+        px, py = pix[:, 0], pix[:, 1]
+        lb = res[:, 0]
+        ws = res[:, 5, :1]
         primal = torch.zeros((h, w, 3), dtype=torch.float32,
                              device=scene.device)
         grads = {"x": torch.zeros_like(primal), "y": torch.zeros_like(primal)}
-        for dy, dx, axis, sign in _OFFSETS:
+        for i, (dy, dx, axis, sign) in enumerate(_OFFSETS):
             inside = _offset_inside(px, py, dx, dy, w, h)
-            opix = torch.stack([torch.clamp(px + dx, 0, w - 1),
-                                torch.clamp(py + dy, 0, h - 1)], -1)
-            lo = self._eval(scene, opix, u)
+            lo = res[:, 1 + i]
             main = (0.5 * lb * ws).reshape(h, w, 3)
             offv = (0.5 * lo * ws).reshape(h, w, 3)
             grad = (0.5 * (lo - lb) * ws).reshape(h, w, 3)
@@ -120,6 +153,22 @@ class IntegratorGradientPath:
                 grads[axis] = grads[axis] - _shift2d(g, dy, dx)
         return (primal.reshape(n, 3) * 0.25, grads["x"].reshape(n, 3),
                 grads["y"].reshape(n, 3))
+
+
+def _mesh_pass(mesh, scene, stream, lanes, assemble):
+    """One pass over a mesh: this rank's row band traced through `lanes`
+    with its lane window on `stream`, every band's results gathered, the
+    pass assembled whole by `assemble`."""
+    from ...parallel.mesh import gather_rows
+    from ...utils.rng import with_window
+    w, h = scene.camera.width, scene.camera.height
+    bands = mesh.bands(h)
+    r0, r1 = bands[mesh.rank]
+    pix = torch.as_tensor(_pixel_grid(w, h)[r0 * w:r1 * w],
+                          device=scene.device)
+    res = lanes(scene, pix, with_window(stream, r0 * w, r1 * w))
+    return assemble(scene, gather_rows(
+        mesh, res, counts=[(b - a) * w for a, b in bands]))
 
 
 def _render_gradient_film(scene, spp, one_pass, nb, recons, iterations, w, h):

@@ -46,9 +46,9 @@ from ...scene.scene import offset_ray_origin
 from ...utils.frame import to_local, to_world
 from ...utils.rng import make_stream, stream_fold, stream_next, stream_next2d
 from ...utils.vec import channel_max, dot, length, length2
-from ..common import _pixel_grid, no_mesh
+from ..common import _pixel_grid
 from ..path import CHECK_EVERY
-from .path import (_NB_BUFFERS, _OFFSETS, _offset_inside,
+from .path import (_NB_BUFFERS, _OFFSETS, _mesh_pass, _offset_inside,
                    _render_gradient_film, _shift2d)
 
 _DEAD, _NC, _RC, _CN = 0, 1, 2, 3
@@ -413,14 +413,23 @@ class IntegratorGradientPathReconnect:
             l_grad=l_grad, vdirect=vdirect)
 
     def render(self, scene, spp: int, seed: int = 0, mesh=None):
-        no_mesh(mesh)
+        """`mesh`: each rank traces its row band, and the passes are
+        assembled and reconstructed whole on every rank (gradient/path.py:
+        _mesh_pass)."""
         w, h = scene.camera.width, scene.camera.height
         base = make_stream(seed, scene.device)
         has_delta = self.has_delta(scene)
-        return _render_gradient_film(
-            scene, spp,
-            lambda s: self.one_pass(scene, stream_fold(base, s), has_delta),
-            self.nb_buffers, self.recons, self.iterations, w, h)
+        if mesh is None:
+            def one_pass(s):
+                return self.one_pass(scene, stream_fold(base, s), has_delta)
+        else:
+            def one_pass(s):
+                return _mesh_pass(
+                    mesh, scene, stream_fold(base, s),
+                    lambda sc, pix, st: self.lanes(sc, pix, st, has_delta),
+                    self.assemble)
+        return _render_gradient_film(scene, spp, one_pass, self.nb_buffers,
+                                     self.recons, self.iterations, w, h)
 
     @staticmethod
     def has_delta(scene) -> bool:
@@ -434,11 +443,28 @@ class IntegratorGradientPathReconnect:
         """One sample of every pixel: (primal, gradient_x, gradient_y,
         very_direct), each [n, 3]."""
         w, h = scene.camera.width, scene.camera.height
+        pix = torch.as_tensor(_pixel_grid(w, h), device=scene.device)
+        return self.assemble(scene, self.lanes(scene, pix, stream,
+                                               has_delta))
+
+    def lanes(self, scene, pix, stream, has_delta: bool = True):
+        """The per-lane results of the lanes `pix` [m, 2]: [m, 10, 3], the
+        main path's radiance, the four offsets', the four gradients and
+        the very direct light."""
+        l_main, l_off, l_grad, vdir = self.compute_pixel_gradient(
+            scene, pix, stream, has_delta)
+        return torch.stack([l_main, *l_off, *l_grad, vdir], dim=1)
+
+    def assemble(self, scene, res):
+        """The film of one pass from every lane's `lanes` results [n, 10,
+        3]: (primal, gradient_x, gradient_y, very_direct), each [n, 3]."""
+        w, h = scene.camera.width, scene.camera.height
         n = w * h
         pix = torch.as_tensor(_pixel_grid(w, h), device=scene.device)
         px, py = pix[:, 0], pix[:, 1]
-        l_main, l_off, l_grad, vdir = self.compute_pixel_gradient(
-            scene, pix, stream, has_delta)
+        l_main, vdir = res[:, 0], res[:, 9]
+        l_off = [res[:, 1 + i] for i in range(4)]
+        l_grad = [res[:, 5 + i] for i in range(4)]
         # the main path contributes at its pixel for each of the four
         # strategies; the offsets land at their displaced pixel
         primal = l_main.reshape(h, w, 3)

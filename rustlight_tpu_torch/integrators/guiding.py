@@ -39,7 +39,7 @@ import torch
 
 from ..utils.film import Film
 from ..utils.rng import make_stream, stream_fold
-from .common import _pixel_grid, no_mesh
+from .common import _pixel_grid
 
 _PI = math.pi
 N_THETA = 8          # cos-theta slabs (equal solid angle)
@@ -183,13 +183,24 @@ def guided_pass(scene, integrator, grid: GuideGrid, pix, stream,
     """One 1-spp guided pass over `pix`: (radiance [n, 3] with non-finite
     or negative lanes zeroed, the grid trained on the pass's deposits:
     table * decay + deposits)."""
+    rad, dep = _guided_lanes(scene, integrator, grid, pix, stream)
+    return rad, _trained(grid, dep, decay)
+
+
+def _guided_lanes(scene, integrator, grid: GuideGrid, pix, stream):
+    """One guided sample of the lanes `pix`: (radiance with non-finite or
+    negative lanes zeroed, the flat deposits)."""
     rad, dep = integrator.compute_pixel(scene, pix, stream, guide=grid,
                                         collect=True)
     ok = torch.all(torch.isfinite(rad), dim=-1) & torch.all(rad >= 0.0,
                                                             dim=-1)
-    rad = torch.where(ok[:, None], rad, 0.0)
-    return rad, replace(grid, table=grid.table * decay
-                        + dep.reshape(grid.table.shape))
+    return torch.where(ok[:, None], rad, 0.0), dep
+
+
+def _trained(grid: GuideGrid, dep, decay: float) -> GuideGrid:
+    """The grid after a pass's deposits: table * decay + deposits."""
+    return replace(grid, table=grid.table * decay
+                   + dep.reshape(grid.table.shape))
 
 
 def render_guided(scene, integrator, spp: int, seed: int = 0, g: int = 16,
@@ -203,22 +214,42 @@ def render_guided(scene, integrator, spp: int, seed: int = 0, g: int = 16,
     accumulate with equal weight.
 
     `grid` continues training an existing table (IntegratorGuidedPath);
-    `return_grid` also returns the trained grid. Rendering over a device
-    mesh is not ported yet (`mesh` raises NotImplementedError)."""
-    no_mesh(mesh)
+    `return_grid` also returns the trained grid.
+
+    `mesh` (parallel/mesh.py; every rank calls this) shards each pass as
+    the JAX package does: the pixels padded with copies of the last one to
+    a multiple of the rank count, shard d drawing from stream_fold(
+    stream_fold(base, j), d); the radiance gathered, and each rank's
+    deposits (its lanes', padding lanes included, in the fixed order of
+    `deposit`) summed over the ranks in rank order, so that the table is
+    the same on every rank."""
     cam = scene.camera
     w, h = cam.width, cam.height
+    n = w * h
     dev = scene.device
-    pix = torch.as_tensor(_pixel_grid(w, h), device=dev)
     if grid is None:
         grid = make_guide_grid(scene, g)
     integrator.guide_alpha = alpha
     base = make_stream(seed, dev)
-    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     t0 = time.time()
+    if mesh is None:
+        pix = torch.as_tensor(_pixel_grid(w, h), device=dev)
+    else:
+        from ..parallel.mesh import gather_rows, sum_over_ranks
+        from ..parallel.render import _local, _padded_grid
+        pix = torch.as_tensor(_local(mesh, _padded_grid(w, h, mesh.size)),
+                              device=dev)
     for j in range(spp):
-        rad, grid = guided_pass(scene, integrator, grid, pix,
-                                stream_fold(base, j), decay)
+        if mesh is None:
+            rad, grid = guided_pass(scene, integrator, grid, pix,
+                                    stream_fold(base, j), decay)
+        else:
+            rad, dep = _guided_lanes(scene, integrator, grid, pix,
+                                     stream_fold(stream_fold(base, j),
+                                                 mesh.rank))
+            rad = gather_rows(mesh, rad)[:n]
+            grid = _trained(grid, sum_over_ranks(mesh, dep), decay)
         acc = acc + rad
     img = acc.cpu().numpy().reshape(h, w, 3) / spp
     if verbose:

@@ -14,6 +14,11 @@ are remapped onto the lane's own pixel.
 Round r draws on stream_fold(base, r): u (n, d), then for each slot
 u_spawn (n,) and, a chain step, um (n, d) and ua (n,). The normalization
 takes nb_samples_norm // (w h) batches on stream_fold(base, 900 + i).
+On a device mesh (parallel/mesh.py) the lanes are padded to a multiple of
+the ranks with lanes that never spawn (`live` False), rank d runs lanes
+[d L / n, (d + 1) L / n) on stream_fold(stream_fold(base, d), r), and each
+round's films are summed over the ranks, as the JAX package's shard_map
+and psum; the normalization runs on every rank alike.
 With `record_accepts`, `render` keeps on the host every lane's acceptance
 masks, `self.accepts` ([nb_mc * poisson_slots, chain_samples, w h] bool: a
 lane's decisions whether or not its chain was spawned, which only gates its
@@ -32,7 +37,6 @@ import torch
 from ...samplers.pss import kelemen_mutate
 from ...utils.film import Film, splat_add
 from ...utils.rng import make_stream, stream_fold, stream_next
-from ..common import no_mesh
 from .pssmlt import flush, metropolis_step, sample_fn
 
 
@@ -68,7 +72,6 @@ class IntegratorERPT:
         return b
 
     def render(self, scene, spp: int, seed: int = 0, mesh=None) -> Film:
-        no_mesh(mesh)
         w, h = scene.camera.width, scene.camera.height
         n, d = w * h, self.pss_dims
         dev = scene.device
@@ -78,22 +81,42 @@ class IntegratorERPT:
         lane = torch.arange(n, device=dev)
         px = torch.remainder(lane, w).to(torch.float32)
         py = (lane // w).to(torch.float32)
+        live = None
+        if mesh is not None:
+            # dead padding lanes never spawn chains nor deposit energy
+            pad = (-n) % mesh.size
+            z = torch.zeros(pad, dtype=torch.float32, device=dev)
+            lo, hi = mesh.shard(n + pad)
+            px, py = torch.cat([px, z])[lo:hi], torch.cat([py, z])[lo:hi]
+            live = (torch.arange(n + pad, device=dev) < n)[lo:hi]
+            base = stream_fold(base, mesh.rank)
+            from ...parallel.mesh import gather_axis, sum_over_ranks
         record = ([], [], []) if self.record_accepts else None
         acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         for r in range(self.nb_mc):
-            acc = acc + self._round(scene, stream_fold(base, r), px, py, b,
-                                    chains_per_pixel, record)
+            film = self._round(scene, stream_fold(base, r), px, py, b,
+                               chains_per_pixel, record, live)
+            acc = acc + (film if mesh is None else sum_over_ranks(mesh, film))
         if record is not None:
             self.accepts, self.visits, self.tfs = (
-                torch.stack([torch.stack(c) for c in x]).cpu().numpy()
+                torch.stack([torch.stack(c) for c in x]).cpu()
                 for x in record)
+            if mesh is not None:
+                self.accepts, self.visits, self.tfs = (
+                    gather_axis(mesh, x, 2)
+                    for x in (self.accepts, self.visits, self.tfs))
+            self.accepts, self.visits, self.tfs = (
+                x.numpy() for x in (self.accepts, self.visits, self.tfs))
         film = Film(w, h)
         film.buffers["primal"] = acc.reshape(h, w, 3).cpu().numpy()
         return film
 
-    def _round(self, scene, stream, px, py, b, chains_per_pixel, record):
-        """One exploration round: its film. `record` (or None) collects
-        each slot's acceptance masks, splatted pixels and tf."""
+    def _round(self, scene, stream, px, py, b, chains_per_pixel, record,
+               live=None):
+        """One exploration round over the lanes at pixels (px, py): its
+        film. `record` (or None) collects each slot's acceptance masks,
+        splatted pixels and tf; lanes where `live` is False spawn no
+        chain."""
         w, h = scene.camera.width, scene.camera.height
         nl, d = px.shape[0], self.pss_dims
         u, stream = stream_next(stream, (nl, d))
@@ -119,6 +142,8 @@ class IntegratorERPT:
                 w0 = w_base * torch.where(
                     p_s > 0, rest / torch.clamp(p_s, min=1e-20), 0.0)
             spawn = (u_spawn < p_s) & (tf0 > 0.0)
+            if live is not None:
+                spawn = spawn & live
             # one chain a spawned lane, small steps only
             state = (u, pid0, col0, tf0, torch.zeros_like(tf0))
             accepts, visits, tfs = [], [], [tf0]

@@ -12,7 +12,12 @@ otherwise, waste recycling (the discarded state splats with its weight,
 b / its mean.
 
 Each chain step draws, in order, ul (c,), uf (c, d), um (c, d) and ua (c,)
-on stream_fold(base, 77). With `record_accepts`, `render` keeps on the host
+on stream_fold(base, 77). On a device mesh (parallel/mesh.py) the chain
+count is rounded down to a multiple of the ranks, the seeds are drawn and
+picked on every rank alike, rank d evolves chains [d c / n, (d + 1) c / n)
+on stream_fold(stream_fold(base, d), 77) into a film of its own, and the
+films are summed over the ranks before the rescale, as the JAX package's
+shard_map and psum. With `record_accepts`, `render` keeps on the host
 the chains' acceptance masks, `self.accepts` ([1, steps, c] bool), the
 pixels they splatted, `self.visits` ([1, steps + 1, c]: a step's discarded
 state, then the flush), and their tf, `self.tfs` ([1, steps + 1, c]: the
@@ -29,7 +34,6 @@ from ...samplers.pss import kelemen_mutate
 from ...utils.distribution import build_distribution_1d
 from ...utils.film import Film, splat_add
 from ...utils.rng import ArrayStream, make_stream, stream_fold, stream_next
-from ..common import no_mesh
 
 
 def sample_fn(integrator, scene, u):
@@ -103,12 +107,13 @@ class IntegratorPSSMLT:
     def _sample_fn(self, scene, u):
         return sample_fn(self.integrator, scene, u)
 
-    def seed_chains(self, scene, base):
-        """The normalization b and the chains' initial states: batches of c
-        samples on stream_fold(base, 1000 + i), seeds picked by
-        searchsorted(cdf, (i + 0.5) / c, right) - 1 over the pool's
-        build_distribution_1d. Returns (b, u0, tf0, seed indices)."""
-        c, d = self.nb_chains, self.pss_dims
+    def seed_chains(self, scene, base, c: Optional[int] = None):
+        """The normalization b and the initial states of c chains (by
+        default nb_chains): batches of c samples on stream_fold(base, 1000 +
+        i), seeds picked by searchsorted(cdf, (i + 0.5) / c, right) - 1 over
+        the pool's build_distribution_1d. Returns (b, u0, tf0, seed
+        indices)."""
+        c, d = c or self.nb_chains, self.pss_dims
         n_batches = max(1, (self.nb_samples_norm + c - 1) // c)
         seeds_u, seeds_tf = [], []
         for i in range(n_batches):
@@ -128,17 +133,45 @@ class IntegratorPSSMLT:
         return b, seeds_u[sidx], seeds_tf[sidx], sidx
 
     def render(self, scene, spp: int, seed: int = 0, mesh=None) -> Film:
-        no_mesh(mesh)
         w, h = scene.camera.width, scene.camera.height
-        c, d = self.nb_chains, self.pss_dims
+        c = self.nb_chains
+        if mesh is not None:
+            c = max(1, c // mesh.size) * mesh.size    # even chain shards
         steps = max(1, spp * w * h // c)
         base = make_stream(seed, scene.device)
-        b, u0, tf0, _ = self.seed_chains(scene, base)
+        b, u0, tf0, _ = self.seed_chains(scene, base, c)
+        stream = stream_fold(base, 77)
+        if mesh is not None:
+            lo, hi = mesh.shard(c)
+            u0, tf0 = u0[lo:hi], tf0[lo:hi]
+            stream = stream_fold(stream_fold(base, mesh.rank), 77)
+        film = self.evolve(scene, u0, tf0, stream, steps)
+        if mesh is not None:
+            from ...parallel.mesh import gather_axis, sum_over_ranks
+            film = sum_over_ranks(mesh, film)
+            if self.record_accepts:
+                self.accepts, self.visits, self.tfs = (
+                    gather_axis(mesh, torch.as_tensor(x), 2).numpy()
+                    for x in (self.accepts, self.visits, self.tfs))
+        img = film.reshape(h, w, 3).cpu().numpy()
+        # the final rescale to absolute units
+        avg_lum = img.mean()
+        if avg_lum > 0:
+            img = img * (b / avg_lum)
+        out = Film(w, h)
+        out.buffers["primal"] = img
+        return out
+
+    def evolve(self, scene, u0, tf0, stream, steps: int):
+        """`steps` steps of the chains seeded at u0 [c, d] (tf0 their tf)
+        drawing from `stream`, then the flush: the [h * w, 3] film of their
+        splats."""
+        w, h = scene.camera.width, scene.camera.height
+        c, d = u0.shape
         pid0, col0, _ = self._sample_fn(scene, u0)
         film = torch.zeros((h * w, 3), dtype=torch.float32,
                            device=scene.device)
         state = (u0, pid0, col0, tf0, torch.zeros_like(tf0))
-        stream = stream_fold(base, 77)
         accepts, visits, tfs = [], [], [tf0]
         for _ in range(steps):
             ul, stream = stream_next(stream, (c,))
@@ -159,11 +192,4 @@ class IntegratorPSSMLT:
             self.accepts, self.visits, self.tfs = (
                 torch.stack(x)[None].cpu().numpy()
                 for x in (accepts, visits + [state[1]], tfs))
-        img = film.reshape(h, w, 3).cpu().numpy()
-        # the final rescale to absolute units
-        avg_lum = img.mean()
-        if avg_lum > 0:
-            img = img * (b / avg_lum)
-        out = Film(w, h)
-        out.buffers["primal"] = img
-        return out
+        return film

@@ -44,10 +44,21 @@ device), so that their reconstructions can be compared apart.
 `keep_chains` carries the whole chain state across render() calls (each
 call then returns the cumulative reconstruction); `state_dict` /
 `load_state_dict` dump and restore it.
+
+On a device mesh (parallel/mesh.py) the tile chains split into row bands
+(np.array_split of the rows, so bands may be uneven). Each rank steps its
+band with a lane window on the stream, so that its draws are its lanes'
+slice of the single-device draws; the vertical replica exchange takes its
+partner rows through `halo_rows` (one boundary row each way), the
+horizontal one stays local. The mcmc init (whose roaming chains deposit
+anywhere) runs whole on every rank and each keeps its band; the
+independent init runs on the band. The flushed accumulators are gathered
+and reconstructed whole on every rank (the IRLS solve included);
+`exchange_moved` counts the elements the steps' collectives sent.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,8 +66,8 @@ import torch
 from ...samplers.pss import kelemen_mutate
 from ...utils.distribution import _prefix_sum
 from ...utils.film import Film
-from ...utils.rng import ArrayStream, make_stream, stream_fold, stream_next
-from ..common import no_mesh
+from ...utils.rng import (ArrayStream, make_stream, stream_fold, stream_next,
+                          with_window)
 
 # cross offsets; slot 0 is the tile centre (the reference's Tile::pixels)
 _CROSS = [(0, 0), (-1, 0), (0, -1), (1, 0), (0, 1)]
@@ -77,7 +88,8 @@ class Carry(NamedTuple):
 
 
 class Layout(NamedTuple):
-    """The image's tile geometry on the render's device."""
+    """The image's tile geometry on the render's device: every tile, or on
+    a mesh the tiles of this rank's rows."""
     w: int
     h: int
     px: torch.Tensor            # [n] int64
@@ -85,6 +97,7 @@ class Layout(NamedTuple):
     cross_valid: torch.Tensor   # [n, 5] bool
     cross_pid: torch.Tensor     # [n, 5] int64, clipped to the image
     cross_all: torch.Tensor     # [5 n, 2] int32 pixel coordinates
+    mesh: Any = None            # the mesh whose row band this is
 
 
 def _cross(px, py, w, h):
@@ -99,13 +112,16 @@ def _cross(px, py, w, h):
     return torch.stack(pix), torch.stack(valid, 1)
 
 
-def make_layout(w, h, device) -> Layout:
-    lane = torch.arange(w * h, device=device)
+def make_layout(w, h, device, rows=None, mesh=None) -> Layout:
+    """The layout of every tile, or of the tiles of `rows` [r0, r1) (the
+    band of `mesh`)."""
+    r0, r1 = (0, h) if rows is None else rows
+    lane = torch.arange(r0 * w, r1 * w, device=device)
     px, py = torch.remainder(lane, w), lane // w
     pix, valid = _cross(px, py, w, h)
     return Layout(w=w, h=h, px=px, py=py, cross_valid=valid,
                   cross_pid=(pix[..., 1] * w + pix[..., 0]).T,
-                  cross_all=pix.reshape(-1, 2).to(torch.int32))
+                  cross_all=pix.reshape(-1, 2).to(torch.int32), mesh=mesh)
 
 
 def _sum5(x):
@@ -303,11 +319,16 @@ class IntegratorSMCMC:
 
         def nb(arr):
             """`arr` at the partner lane (the wrapped rows are masked out by
-            pvalid)."""
-            a2 = arr.reshape((lay.h, lay.w) + tuple(arr.shape[1:]))
-            nxt = torch.roll(a2, -1, dims=roll_ax)
-            prv = torch.roll(a2, 1, dims=roll_ax)
-            e2 = even.reshape((lay.h, lay.w) + (1,) * (arr.dim() - 1))
+            pvalid); on a mesh the vertical partner rows come by halo."""
+            a2 = arr.reshape((-1, lay.w) + tuple(arr.shape[1:]))
+            if roll_ax == 0 and lay.mesh is not None:
+                from ...parallel.mesh import halo_rows
+                nxt = halo_rows(lay.mesh, a2, -1)
+                prv = halo_rows(lay.mesh, a2, 1)
+            else:
+                nxt = torch.roll(a2, -1, dims=roll_ax)
+                prv = torch.roll(a2, 1, dims=roll_ax)
+            e2 = even.reshape((-1, lay.w) + (1,) * (arr.dim() - 1))
             return torch.where(e2, nxt, prv).reshape(arr.shape)
 
         u_sw = torch.where(pvalid[:, None], nb(u), u)
@@ -348,7 +369,7 @@ class IntegratorSMCMC:
     def init_states(self, scene, lay: Layout, stream):
         """The tiles' starting states and normalization accumulators:
         (u0, tf0, col0, b_acc, nb_u, acc_mc, stream)."""
-        n, d = lay.w * lay.h, self.pss_dims
+        n, d = lay.px.shape[0], self.pss_dims
         dev = lay.px.device
         u0, stream = stream_next(stream, (n, d))
         col0, tf0 = self.generate_state(scene, lay, u0)
@@ -459,10 +480,13 @@ class IntegratorSMCMC:
     # ---- render
 
     def render(self, scene, spp: int, seed: int = 0, mesh=None) -> Film:
-        no_mesh(mesh)
         w, h = scene.camera.width, scene.camera.height
         lay = make_layout(w, h, scene.device)
         base = make_stream(seed, scene.device)
+        if mesh is not None:
+            if self.record_accepts:
+                raise ValueError("record_accepts is single-device")
+            return self._render_mesh(scene, lay, base, spp, mesh)
         st = self._chain_state
         # chains persist on the scene object (a collected scene's id can be
         # reused)
@@ -482,7 +506,47 @@ class IntegratorSMCMC:
         flushed = flush(carry)
         if self.record_accepts:
             self.flushed = flushed
+        return self._film(lay, flushed)
+
+    def _render_mesh(self, scene, lay: Layout, base, spp: int, mesh):
+        """render() on a mesh: this rank's band of tile chains (see the
+        module's note)."""
+        from ...parallel.mesh import gather_rows
+        w, h = lay.w, lay.h
+        bands = mesh.bands(h)
+        r0, r1 = bands[mesh.rank]
+        lo, hi = r0 * w, r1 * w
+        counts = [(b - a) * w for a, b in bands]
+        band = make_layout(w, h, scene.device, (r0, r1), mesh)
+        stream0 = stream_fold(base, 31337)
+        st = self._chain_state
+        if self.keep_chains and st is not None and st[0] is scene:
+            carry0 = Carry(*(x[lo:hi] for x in st[1]))
+        elif self.init == "mcmc":
+            # the roaming chains deposit into any tile: the init runs whole
+            carry0, stream0 = self.init_carry(scene, lay, stream0)
+            carry0 = Carry(*(x[lo:hi] for x in carry0))
+        else:
+            carry0, stream0 = self.init_carry(
+                scene, band, with_window(stream0, lo, hi))
+        moved = mesh.moved
+        carry = self.evolve(scene, band, carry0,
+                            with_window(stream0, lo, hi), spp)
+        self.exchange_moved = mesh.moved - moved
+        if self.keep_chains:
+            full = Carry(*(gather_rows(mesh, x, counts) for x in carry))
+            self._chain_state = (scene, full)
+            flushed = flush(full)
+        else:
+            # the reconstructions read the accumulators alone
+            flushed = Carry(carry.u.new_empty((w * h, 0)),
+                            *(gather_rows(mesh, x, counts)
+                              for x in flush(carry)[1:]))
+        return self._film(lay, flushed)
+
+    def _film(self, lay: Layout, flushed: Carry) -> Film:
         img = self.reconstruct(lay, flushed)
+        w, h = lay.w, lay.h
         film = Film(w, h)
         film.buffers["primal"] = img.reshape(h, w, 3).cpu().numpy()
         return film

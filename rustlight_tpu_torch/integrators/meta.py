@@ -9,6 +9,7 @@ its dumps (`resume=True`) reproduces the uninterrupted run bit for bit.
 """
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import re
@@ -21,7 +22,7 @@ import numpy as np
 
 from ..utils import image as _image
 from ..utils.film import Film
-from .common import SplattingIntegrator, no_mesh, render, render_splat
+from .common import SplattingIntegrator, render, render_splat
 
 log = logging.getLogger(__name__)
 
@@ -30,15 +31,53 @@ def _render_once(scene, integrator, spp, seed, sampler="independent",
                  mesh=None):
     """One render pass: a splatting integrator through render_splat, a
     self-driving one (gradient domain, MCMC, guiding) through its own
-    render, any other through render with the sampler. Rendering over a
-    device mesh (the reference's -t) is not ported yet: `mesh` raises
-    NotImplementedError."""
-    no_mesh(mesh)
+    render, any other through render with the sampler. `mesh` (the
+    reference's -t; every rank calls this) routes to render_splat_sharded
+    (spp * w * h paths), to the integrator's render(mesh=...), or to
+    render_sharded; a self-driving integrator whose render takes no mesh
+    logs a warning and renders on this rank's device alone, as the JAX
+    package does."""
     if isinstance(integrator, SplattingIntegrator):
+        if mesh is not None:
+            from ..parallel import render_splat_sharded
+            cam = scene.camera
+            return render_splat_sharded(
+                scene, integrator, n_paths=spp * cam.width * cam.height,
+                mesh=mesh, seed=seed)
         return render_splat(scene, integrator, spp, seed=seed)
     if hasattr(integrator, "render"):
-        return integrator.render(scene, spp, seed=seed)
+        kw = {}
+        if mesh is not None:
+            if "mesh" in inspect.signature(integrator.render).parameters:
+                kw["mesh"] = mesh
+            else:
+                # a requested mesh is never dropped silently
+                log.warning(
+                    "%s.render() does not support a device mesh; the -t "
+                    "request is ignored and this pass runs single-device",
+                    type(integrator).__name__)
+        return integrator.render(scene, spp, seed=seed, **kw)
+    if mesh is not None:
+        from ..parallel import render_sharded
+        return render_sharded(scene, integrator, spp, mesh=mesh, seed=seed,
+                              sampler=sampler)
     return render(scene, integrator, spp, seed=seed, sampler=sampler)
+
+
+def _lead(mesh) -> bool:
+    """Whether this process writes the run's files: rank 0 of a mesh, or
+    the only process."""
+    return mesh is None or mesh.rank == 0
+
+
+def _decide(mesh, stop: bool) -> bool:
+    """Rank 0's stop decision on every rank: ranks that decided from their
+    own clocks would run different numbers of passes and deadlock in the
+    next pass's collectives."""
+    if mesh is None:
+        return stop
+    from ..parallel import agree
+    return bool(agree(mesh, bool(stop)))
 
 
 def _print_progress(it: int, nb_passes, timeout_s, elapsed: float,
@@ -82,7 +121,12 @@ class IntegratorAverage:
     state (if it has `state_dict`) atomically to `{dump_base}_state.npz`
     beside it, and `{dump_base}_time.csv` (seconds, passes) at the end.
     `resume` continues from the newest dump; a non-averaging integrator
-    (SMCMC with kept chains) continues from its state alone."""
+    (SMCMC with kept chains) continues from its state alone.
+
+    With `mesh` every rank runs the loop: each pass renders over the mesh,
+    rank 0 alone writes the dumps, the state and the timeline, and rank
+    0's clock decides when a timed or equal-time run stops (broadcast to
+    every rank each pass)."""
 
     def __init__(self, integrator, spp_per_pass: int = 1,
                  nb_passes: Optional[int] = None,
@@ -165,6 +209,8 @@ class IntegratorAverage:
         return avg, it
 
     def _dump(self, avg: Film, it: int) -> None:
+        if not _lead(self.mesh):
+            return
         avg.save(f"{self.dump_base}_{it}.pfm")
         if hasattr(self.integrator, "state_dict"):
             sd = self.integrator.state_dict()
@@ -206,7 +252,7 @@ class IntegratorAverage:
                 avg.average_with(film, it)
             it += 1
             timeline.append((time.time() - t0, it))
-            if self.progress:
+            if self.progress and _lead(self.mesh):
                 _print_progress(it, self.nb_passes, self.timeout_s,
                                 time.time() - t0, self.spp_per_pass)
             if self.dump_base:
@@ -216,18 +262,18 @@ class IntegratorAverage:
             if self.infinite:
                 continue
             if self.timeout_s is not None:
-                if time.time() - t0 >= self.timeout_s:
+                if _decide(self.mesh, time.time() - t0 >= self.timeout_s):
                     break
             elif it >= self.nb_passes:
                 break
-        if self.progress:
+        if self.progress and _lead(self.mesh):
             sys.stderr.write("\n")
-        if self.dump_base:
+        if self.dump_base and _lead(self.mesh):
             # the per-pass cumulative time (avg.rs:97-106)
             with open(f"{self.dump_base}_time.csv", "w") as f:
                 for t, i in timeline:
                     f.write(f"{t},{i}\n")
-        if verbose:
+        if verbose and _lead(self.mesh):
             print(f"avg: {it} passes in {time.time() - t0:.2f}s")
         return avg
 
@@ -253,7 +299,8 @@ class IntegratorEqualTime:
         t0 = time.time()
         acc: Optional[Film] = None
         passes = 0
-        while time.time() - t0 < self.target_s or passes == 0:
+        while passes == 0 or not _decide(
+                self.mesh, time.time() - t0 >= self.target_s):
             film = _render_once(scene, self.integrator, self.spp_per_pass,
                                 seed + passes, mesh=self.mesh)
             if acc is None:
@@ -261,13 +308,13 @@ class IntegratorEqualTime:
             else:
                 acc.average_with(film, passes)
             passes += 1
-            if self.progress:
+            if self.progress and _lead(self.mesh):
                 _print_progress(passes, None, self.target_s,
                                 time.time() - t0, self.spp_per_pass)
         self.achieved_spp = passes * self.spp_per_pass
-        if self.progress:
+        if self.progress and _lead(self.mesh):
             sys.stderr.write("\n")
-        if verbose:
+        if verbose and _lead(self.mesh):
             print(f"equal_time: achieved {self.achieved_spp} spp "
                   f"in {time.time() - t0:.2f}s")
         return acc

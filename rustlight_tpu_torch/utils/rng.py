@@ -25,10 +25,16 @@ which dispatch on the stream's type:
     and first NB_DIM 2D draws are stratified over the sample passes
     (samplers/stratified.py); `base_key` is the pass-independent key of the
     stratum permutations, `d1` / `d2` count the 1D / 2D draws made.
+
+A threefry stream may carry a lane window (`with_window`): the rank of a
+device mesh that holds lanes [lo, hi) of an [n, ...] wavefront draws the
+counters lo * k ... hi * k - 1 of it (k the product of the trailing dims),
+the slice of the global iota that the JAX package's partitioned draw gives
+that device. Every draw of a windowed stream must then have hi - lo lanes.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +47,7 @@ class RngStream(NamedTuple):
     key: Tuple[int, int]   # raw threefry key, two uint32 as Python ints
     counter: int           # dimension counter
     device: torch.device   # where the uniforms are drawn
+    window: Optional[Tuple[int, int]] = None   # lanes [lo, hi) of the draws
 
 
 def _threefry2x32(k0, k1, x0, x1, mask):
@@ -84,18 +91,25 @@ def make_stream(seed_or_key, device) -> RngStream:
 
 
 def stream_fold(stream: RngStream, data: int) -> RngStream:
-    """Derive an independent sub-stream (e.g. per sample-pass)."""
+    """Derive an independent sub-stream (e.g. per sample-pass); it keeps
+    the stream's lane window."""
     return RngStream(key=_fold_in(stream.key, data), counter=0,
-                     device=stream.device)
+                     device=stream.device, window=stream.window)
 
 
-def random_bits(key: Tuple[int, int], n: int, device) -> torch.Tensor:
-    """jax.random.bits(key, (n,)) for 32-bit words (partitionable
-    threefry): threefry2x32 over the flat iota, y0 ^ y1, as int64 in
-    [0, 2^32)."""
+def with_window(stream: RngStream, lo: int, hi: int) -> RngStream:
+    """The stream whose draws are lanes [lo, hi) of the global draws."""
+    return stream._replace(window=(int(lo), int(hi)))
+
+
+def random_bits(key: Tuple[int, int], n: int, device,
+                start: int = 0) -> torch.Tensor:
+    """jax.random.bits(key, (N,))[start:start + n] for 32-bit words
+    (partitionable threefry): threefry2x32 over the flat iota, y0 ^ y1, as
+    int64 in [0, 2^32)."""
     # the flat iota's high words are zero below 2^32 lanes
-    assert n < 2 ** 32, n
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    assert start + n < 2 ** 32, (start, n)
+    lo = torch.arange(start, start + n, dtype=torch.int64, device=device)
     y0, y1 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo,
                            _mask_tensor)
     return torch.bitwise_xor(y0, y1)
@@ -106,11 +120,19 @@ def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
     return _fold_in(key, data)
 
 
-def _uniform(key: Tuple[int, int], shape, device) -> torch.Tensor:
+def _uniform(key: Tuple[int, int], shape, device,
+             window=None) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= int(s)
-    bits = random_bits(key, n, device)
+    start = 0
+    if window is not None:
+        lo, hi = window
+        if not shape or int(shape[0]) != hi - lo:
+            raise ValueError(f"a draw of shape {tuple(shape)} from a stream "
+                             f"windowed to lanes [{lo}, {hi})")
+        start = lo * (n // max(hi - lo, 1))
+    bits = random_bits(key, n, device, start)
     fbits = torch.bitwise_or(torch.bitwise_right_shift(bits, 9), 0x3F800000)
     u = fbits.to(torch.int32).view(torch.float32) - 1.0
     return u.reshape(tuple(shape))
@@ -123,13 +145,13 @@ def uniform(key: Tuple[int, int], shape, device) -> torch.Tensor:
 
 def _threefry_next(stream: RngStream, shape=()):
     u = _uniform(_fold_in(stream.key, stream.counter), tuple(shape),
-                 stream.device)
+                 stream.device, stream.window)
     return u, stream._replace(counter=stream.counter + 1)
 
 
 def _threefry_next2d(stream: RngStream, shape=()):
     u = _uniform(_fold_in(stream.key, stream.counter), tuple(shape) + (2,),
-                 stream.device)
+                 stream.device, stream.window)
     return u, stream._replace(counter=stream.counter + 1)
 
 

@@ -104,11 +104,19 @@ def test_adaptive_pilot_only_returns_the_pilot():
     assert sorted(film.buffers) == ["mean", "primal", "variance"]
 
 
-def test_adaptive_mesh_is_not_ported():
+def test_adaptive_over_a_mesh_of_one():
+    """A mesh of one takes the sharded route: its pilot and passes draw
+    from streams folded with the rank, so the image is not the
+    single-device one, while the budget stays exact."""
+    from rustlight_tpu_torch.parallel import Mesh
     sd = cornell_box(4, 4).compile(device="cpu")
-    with pytest.raises(NotImplementedError):
-        render_adaptive(sd, IntegratorPathTracing(max_depth=2), 16,
-                        mesh=object())
+    integ = IntegratorPathTracing(max_depth=2)
+    film = render_adaptive(sd, integ, 16, mesh=Mesh())
+    assert sorted(film.buffers) == ["primal", "spp"]
+    assert film["spp"].sum() == 16 * 16 and film["spp"].min() >= 8
+    assert np.all(np.isfinite(film["primal"]))
+    assert not np.array_equal(film["primal"],
+                              render_adaptive(sd, integ, 16)["primal"])
 
 
 @pytest.mark.parametrize("name", ["albedo", "normal", "depth"])

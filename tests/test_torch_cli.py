@@ -5,9 +5,9 @@
     common.py:144-145 does (a stub integrator on each route);
   - every global flag of rustlight_tpu/cli.py's parser is declared by the
     port's under the same name and with the same default: left at its
-    default it parses, and a flag the port has not ported (-t/--threads
-    alone) exits with code 1 and "<flag> is not ported yet" for any other
-    value; the flags ported with the meta integrators (-a, -e, -l,
+    default it parses; -t 2 on the CPU renders over two gloo ranks, the
+    image the shards' single-process renders concatenated; the flags
+    ported with the meta integrators (-a, -e, -l,
     --progress, --resume, --adaptive, --guiding, --feature-aovs, --profile)
     render cbox 8x8 on the CPU, -e counts milliseconds, --profile writes
     the JAX CLI's keys, `-a N smcmc` keeps the chains, and --guiding and
@@ -132,8 +132,9 @@ def test_every_reference_global_flag_is_declared(dest):
 def test_unported_flag_exits_not_ported(dest, tmp_path):
     """-x/--xtra-options was refused for its first value, ats, until the
     ATS light tree was ported: now it renders a tiny image instead. So do
-    the flags of the meta integrators (META_FLAGS), each leaving its files;
-    -t/--threads is still refused."""
+    the flags of the meta integrators (META_FLAGS), each leaving its files,
+    and -t/--threads, whose two gloo ranks render the persistent route's
+    shards, each on stream_fold(stream_fold(base, d), 0)."""
     _, names, _, action = next(f for f in FLAGS if f[0] == dest)
     argv = ["cbox", names[-1], *_other_value(action), "--device", "cpu",
             "path", "-m", "2"]
@@ -144,6 +145,28 @@ def test_unported_flag_exits_not_ported(dest, tmp_path):
                          "-m", "2"]) == 0
         assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
             files + ["x.pfm"])
+        return
+    if dest == "threads":
+        from rustlight_tpu_torch.parallel.render import _padded_grid
+        from rustlight_tpu_torch.utils.film import accumulate_safe
+        from rustlight_tpu_torch.utils.image import read_pfm
+        from rustlight_tpu_torch.utils.rng import make_stream, stream_fold
+        out = tmp_path / "x.pfm"
+        assert cli.main(argv[:3] + ["-s", "0.015625", "-n", "2", "-o",
+                                    str(out)] + argv[3:]) == 0
+        assert sorted(p.name for p in tmp_path.iterdir()) == ["x.pfm"]
+        sd = cli.load_scene_arg(cli.build_parser().parse_args(
+            ["cbox", "-s", "0.015625", "path"])).compile(device="cpu")
+        integ = cli.build_integrator(cli.build_parser().parse_args(
+            ["cbox", "path", "-m", "2"]))
+        pix = torch.as_tensor(_padded_grid(8, 8, 2))
+        base = make_stream(0, "cpu")
+        acc = torch.cat([accumulate_safe(integ.compute_block(
+            sd, pix[32 * d:32 * (d + 1)], stream_fold(stream_fold(base, d),
+                                                      0), 2))
+            for d in range(2)])
+        np.testing.assert_array_equal(
+            read_pfm(str(out)), (acc.reshape(8, 8, 3) / 2).numpy())
         return
     if dest == "xtra_options":
         assert argv[2] == "ats"
@@ -454,13 +477,11 @@ SLICE_COMMANDS = ("gradient-path", "gradient-path-explicit", "pssmlt", "erpt",
 
 
 def test_only_smcmc_is_refused():
-    """SMCMC and -x ats were the last refused subcommand and -x value:
-    every one is ported now, and of the global flags only -t/--threads is
-    left."""
+    """SMCMC and -x ats were the last refused subcommand and -x value, and
+    -t/--threads the last refused global flag: every one is ported now."""
     assert cli._NOT_PORTED == ()
     assert cli._NOT_PORTED_XTRA == ()
-    assert [names for names, _ in cli._NOT_PORTED_FLAGS] == [
-        ("-t", "--threads")]
+    assert not hasattr(cli, "_NOT_PORTED_FLAGS")
 
 
 @pytest.mark.parametrize("command", SLICE_COMMANDS)

@@ -258,10 +258,17 @@ def test_reconnect_loop_shape_does_not_change_the_result(monkeypatch,
 
 @pytest.mark.parametrize("cls", [IntegratorGradientPath,
                                  IntegratorGradientPathReconnect])
-def test_mesh_is_not_ported(cls):
+def test_mesh_of_one_renders_the_single_device_film(cls):
+    """Each rank traces its row band with the single-device draws of its
+    lanes: a mesh of one renders the single-device film bit for bit
+    (tests/test_torch_parallel.py holds 2 and 3 ranks to it)."""
+    from rustlight_tpu_torch.parallel import Mesh
     sd = cornell_box(4, 4).compile(device="cpu")
-    with pytest.raises(NotImplementedError):
-        cls(max_depth=2).render(sd, 1, mesh=object())
+    ref = cls(max_depth=2).render(sd, 1)
+    got = cls(max_depth=2).render(sd, 1, mesh=Mesh())
+    assert sorted(got.buffers) == sorted(ref.buffers)
+    for k in ref.buffers:
+        np.testing.assert_array_equal(got[k], ref[k])
 
 
 @pytest.mark.parametrize("cls, recons", [

@@ -277,13 +277,30 @@ def test_state_g_mismatch_refused():
         other.load_state_dict(g.state_dict(), sd)
 
 
-def test_mesh_is_not_ported():
+def test_mesh_of_one_folds_the_rank_into_each_pass():
+    """On a mesh, pass j of rank d draws from stream_fold(stream_fold(
+    base, j), d): a mesh of one renders the passes of that stream and
+    trains the same table, through render_guided and the self-driving
+    IntegratorGuidedPath alike."""
+    from rustlight_tpu_torch.parallel import Mesh
     sd = cornell_box(4, 4).compile(device="cpu")
     integ = IntegratorPathTracing(max_depth=2)
-    with pytest.raises(NotImplementedError):
-        render_guided(sd, integ, 1, mesh=object())
-    with pytest.raises(NotImplementedError):
-        IntegratorGuidedPath(integ).render(sd, 1, mesh=object())
+    grid = G.make_guide_grid(sd, 4)
+    base = trng.make_stream(1, "cpu")
+    pix = torch.as_tensor(_pixel_grid(4, 4))
+    acc = 0.0
+    for j in range(2):
+        rad, grid = G.guided_pass(sd, integ, grid, pix, trng.stream_fold(
+            trng.stream_fold(base, j), 0), 0.8)
+        acc = acc + rad
+    film, got = render_guided(sd, integ, 2, seed=1, g=4, mesh=Mesh(),
+                              return_grid=True)
+    np.testing.assert_array_equal(film["primal"],
+                                  (acc.numpy() / 2).reshape(4, 4, 3))
+    np.testing.assert_array_equal(got.table.numpy(), grid.table.numpy())
+    gp = IntegratorGuidedPath(integ, g=4)
+    np.testing.assert_array_equal(gp.render(sd, 2, seed=1, mesh=Mesh())[
+        "primal"], film["primal"])
 
 
 @pytest.mark.slow

@@ -244,10 +244,32 @@ def test_zero_normalization_raises(cls):
 
 
 @pytest.mark.parametrize("cls", [IntegratorPSSMLT, IntegratorERPT])
-def test_mesh_is_not_ported(cls):
+def test_mesh_of_one_draws_from_the_rank_stream(cls):
+    """On a mesh, rank d's chains draw from stream_fold(stream_fold(base,
+    d), 77) (PSSMLT) or stream_fold(stream_fold(base, d), round) (ERPT):
+    a mesh of one renders the single-device film of that stream, with the
+    seeds and the normalization drawn as on one device."""
+    from rustlight_tpu_torch.parallel import Mesh
     sd = cornell_box(4, 4).compile(device="cpu")
-    with pytest.raises(NotImplementedError):
-        cls(IntegratorPathTracing(max_depth=2)).render(sd, 1, mesh=object())
+    base = trng.make_stream(2, "cpu")
+    d_base = trng.stream_fold(base, 0)
+    if cls is IntegratorPSSMLT:
+        m = cls(IntegratorPathTracing(max_depth=2), nb_chains=8,
+                nb_samples_norm=16)
+        b, u0, tf0, _ = m.seed_chains(sd, base)
+        img = m.evolve(sd, u0, tf0, trng.stream_fold(d_base, 77),
+                       2 * 16 // 8).reshape(4, 4, 3).numpy()
+        want = img * (b / img.mean())
+    else:
+        m = cls(IntegratorPathTracing(max_depth=2), chain_samples=2,
+                nb_samples_norm=16)
+        b = m.normalization(sd, base)
+        lane = torch.arange(16)
+        want = m._round(sd, trng.stream_fold(d_base, 0),
+                        (lane % 4).float(), (lane // 4).float(), b,
+                        1 / 2, None).reshape(4, 4, 3).numpy()
+    np.testing.assert_array_equal(m.render(sd, 2, seed=2, mesh=Mesh())[
+        "primal"], want)
 
 
 @pytest.mark.slow

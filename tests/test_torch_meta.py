@@ -296,14 +296,33 @@ def test_time_budgets(tmp_path):
         assert film["primal"].shape == (H, W, 3)
 
 
-def test_mesh_is_not_ported():
+def test_mesh_warning_and_rank_zero_stop_decisions(caplog, tmp_path,
+                                                    monkeypatch):
+    """A self-driving render without a `mesh` argument warns and renders
+    on one device, as the JAX package's; on a mesh, every stop decision is
+    rank 0's (here scripted: continue, continue, stop), whatever this
+    rank's clock says, and a rank other than 0 writes no file."""
+    from rustlight_tpu_torch import parallel
+    from rustlight_tpu_torch.parallel import Mesh
     stub = _Stub(tfilm.Film)
-    with pytest.raises(NotImplementedError):
-        tmeta._render_once(SCENE, stub, 1, 0, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tmeta.IntegratorAverage(stub, nb_passes=1, mesh=object()).render(
-            SCENE)
-    assert stub.seeds == []
+    with caplog.at_level(logging.WARNING):
+        film = tmeta._render_once(SCENE, stub, 1, 0, mesh=Mesh())
+    assert "does not support a device mesh" in caplog.text
+    assert stub.seeds == [0] and film["primal"].shape == (H, W, 3)
+
+    for make in (
+            lambda s, m: tmeta.IntegratorEqualTime(s, target_s=0.0,
+                                                   mesh=m),
+            lambda s, m: tmeta.IntegratorAverage(
+                s, timeout_s=0.0, mesh=m,
+                dump_base=str(tmp_path / "r1"))):
+        said = iter([False, False, True])
+        monkeypatch.setattr(parallel, "agree", lambda mesh, v: next(said))
+        stub = _Stub(tfilm.Film)
+        make(stub, Mesh(1, 2)).render(SCENE, seed=5)
+        # the set-up pass, then three passes
+        assert stub.seeds == [4, 5, 6, 7]
+    assert list(tmp_path.iterdir()) == []
 
 
 def _path():

@@ -160,14 +160,12 @@ def test_cli_renders_a_pfm(tmp_path):
 
 @pytest.mark.parametrize("argv", [["cbox", "-a", "2", "path"],
                                   ["cbox", "--guiding", "path"],
-                                  ["cbox", "-t", "2", "path"]])
+                                  ["cbox", "-t", "1", "path"]])
 def test_cli_refuses_what_is_not_ported(argv, tmp_path):
-    """-a and --guiding were refused until the meta integrators and guiding
-    were ported: they now render cbox 8x8 on the CPU. -t is refused."""
-    if "-t" in argv:
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(argv)
-        return
+    """-a, --guiding and -t were refused until the meta integrators,
+    guiding and the mesh were ported: they now render cbox 8x8 on the CPU
+    (-t 1 on one device; tests/test_torch_cli.py renders -t 2 over two
+    gloo ranks)."""
     out = tmp_path / "x.pfm"
     assert cli.main(argv[:-1] + ["-s", "0.015625", "-o", str(out), "--device",
                                  "cpu", "path", "-m", "2"]) == 0

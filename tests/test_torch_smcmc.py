@@ -380,8 +380,12 @@ def test_state_dict_round_trip(jax_side, port_side):
 
 
 def test_refusals(port_side):
-    with pytest.raises(NotImplementedError):
-        _port().render(port_side["sd"], 1, mesh=object())
+    from rustlight_tpu_torch.parallel import Mesh
+    # the chain-by-chain record is single-device
+    rec = _port()
+    rec.record_accepts = True
+    with pytest.raises(ValueError):
+        rec.render(port_side["sd"], 1, mesh=Mesh())
     with pytest.raises(ValueError):
         _port(init="warm")
     with pytest.raises(ValueError):
