@@ -364,6 +364,26 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      costs, not a scaling figure, both ranks on one card); (d) the CLI's
      `-t 2` on the card: one device and the info log, the film bit for bit
      the run's without -t, and `-a 2 -t 2` the same.
+ 28. the user tools (rustlight_tpu_torch/tools/): (a) the viewer's server
+     on 127.0.0.1, port 0, cbox 512x512, the CLI's `path -m 6`: once 8
+     passes are in, paused, /img.png fetched over HTTP and decoded by the
+     port's PNG reader must equal tonemap_gamma of the running average on
+     every pixel, with `uploads` 1; an orbit posted while paused, then
+     resumed: the first frame after it is a new accumulation (spp drops,
+     then climbs to 8 again), `uploads` still 1, and its first pass equals
+     one compute_pixel pass on the card with the orbit camera and pass
+     index 0 within 1e-6 on every pixel; /api/scene.json equal to the
+     CPU's scene_to_web_json; 16 passes timed with the counts reset and
+     rays counted (ops/native.py:counting_rays) while paused: passes/s
+     and Mrays/s of served frames, K1/K2 launches a pass, only K1/K2
+     launched; then the server and the render thread stopped, both
+     checked ended, and no error in the state; (b) `python -m
+     rustlight_tpu_torch.tools.regression --check -s cbox_ao cbox_direct
+     --out build/regress_phase28` in a subprocess: exit 0, every metric
+     equal to phases 20-21's renders of the two rows, its wall; (c)
+     smoke_scenes.smoke over examples/ at 128x128, 4 spp: every scene
+     finite and not black, only K3 launched on the walk scenes (caustic,
+     envglass, fog_box), only K1/K2 on the dense ones.
 
 Every line ends with the seconds since the run started. Before the last
 line: a JSON line with each kernel's tables and wavefronts
@@ -373,8 +393,9 @@ from nvidia-smi and a JSON line with each kernel's launches, error, times
 and bound. The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
 The K1/K2 launches of phases 20, 21, 23, 24 and 25's full-width renders,
-and the K1/K2/K3 launches of phases 22, 25, 26 and 27's (every rank's), are
-added to K1/K2's and K3's in the kernels line.
+and the K1/K2/K3 launches of phases 22, 25, 26 and 27's (every rank's) and
+of phase 28's timed viewer passes and smoke renders, are added to K1/K2's
+and K3's in the kernels line.
 """
 from __future__ import annotations
 
@@ -590,6 +611,18 @@ MESH_RES, MESH_SPP, MESH_LIGHT_SPP = 512, 8, 1
 MESH_SMALL, MESH_SMALL_SPP = 32, 4
 MESH_TIMEOUT = 600.0
 MESH_GRAD_MEAN, MESH_MEAN_RTOL = 1e-4, 0.01
+# phase 28: the user tools. (a) the viewer on cbox VIEWER_RES (the CLI's
+# path -m VIEWER_DEPTH), frames checked once VIEWER_SPP passes are in, then
+# VIEWER_TIMED passes timed; every wait ends by TOOLS_WAIT_S; (b) the
+# regression harness's --check on TOOLS_ROWS; (c) smoke_scenes at
+# SMOKE_SIZE, SMOKE_SPP
+VIEWER_RES, VIEWER_DEPTH, VIEWER_SPP, VIEWER_TIMED = 512, 6, 8, 16
+VIEWER_FIRST_ATOL = 1e-6
+TOOLS_WAIT_S = 60.0
+TOOLS_ROWS = ("cbox_ao", "cbox_direct")
+SMOKE_SIZE, SMOKE_SPP = 128, 4
+# each phase-20/21 row's metrics, by row, for phase 28's harness run
+_GATE_GOT = {}
 
 
 _T0 = time.time()
@@ -3124,6 +3157,7 @@ def _gate_row(row: _Row, dev):
         raise AssertionError(f"gate {label}: bad image {img.shape}")
     ref = read_exr(os.path.join(regress, "refs", f"{row.name}.exr"))
     got = {m: metric_scalar(ref, img, m) for m in GATE_METRICS}
+    _GATE_GOT.setdefault(f"{row.name}/{row.tech}", got)
     limit = {m: row_rec[m] * GATE_STORED + GATE_FLOOR * floor[m]
              for m in GATE_METRICS}
     phase("gate", f"{label} {row.res[0]}x{row.res[1]} {row.spp} spp seed 0"
@@ -4725,6 +4759,261 @@ def mesh_phase(dev, card):
 
 
 
+# ---- phase 28: the user tools
+
+
+def _viewer_wait(viewer, pred, what):
+    """Poll `pred` until it holds; fail on a render-loop error or after
+    TOOLS_WAIT_S."""
+    t0 = time.time()
+    while time.time() - t0 < TOOLS_WAIT_S:
+        if viewer._STATE["error"]:
+            raise AssertionError(f"tools (a) viewer: the render loop "
+                                 f"failed:\n{viewer._STATE['error']}")
+        if pred():
+            return time.time() - t0
+        time.sleep(0.005)
+    raise AssertionError(f"tools (a) viewer: {what} not within "
+                         f"{TOOLS_WAIT_S}s (state "
+                         f"{ {k: v for k, v in viewer._STATE.items() if k != 'png'} })")
+
+
+def _http(port, path, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="GET" if body is None
+        else "POST", data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.read()
+
+
+def _viewer_pause(viewer, port):
+    """Pause the viewer and wait until no pass is in flight."""
+    _http(port, "/api/pause", {"paused": True})
+    _viewer_wait(viewer, lambda: viewer._STATE["paused"]
+                 and not viewer._STATE["busy"], "the pause")
+
+
+def viewer_check(dev, card):
+    """Phase 28 (a): the viewer's server at full width on the card. Returns
+    the K1/K2 launches of its timed passes."""
+    import torch
+    from rustlight_tpu_torch import cli
+    from rustlight_tpu_torch.ops.native import counting_rays
+    from rustlight_tpu_torch.tools import viewer
+    from rustlight_tpu_torch.utils.image import decode_png, tonemap_gamma
+    rest = ["path", "-m", str(VIEWER_DEPTH)]
+    t0 = time.time()
+    srv = viewer.main(["cbox", "--port", "0", "--host", "127.0.0.1", "--res",
+                       str(VIEWER_RES / 512), "--device", str(dev), "--"]
+                      + rest, block=False)
+    port = srv.server_address[1]
+    t_up = time.time() - t0
+    try:
+        first = _viewer_wait(viewer, lambda: viewer._STATE["spp"] >= 1,
+                             "a first frame")
+        _viewer_wait(viewer, lambda: viewer._STATE["spp"] >= VIEWER_SPP,
+                     f"{VIEWER_SPP} passes")
+        _viewer_pause(viewer, port)
+        png = _http(port, "/img.png")
+        st = json.loads(_http(port, "/api/state"))
+        px = decode_png(png)
+        want = tonemap_gamma(viewer._FRAME["avg"])
+        if px.shape != (VIEWER_RES, VIEWER_RES, 3) or not np.array_equal(
+                px, want) or st["uploads"] != 1 or st["backend"] != "cuda":
+            raise AssertionError(f"tools (a) viewer: frame {px.shape} equal "
+                                 f"{np.array_equal(px, want)}, state {st}")
+        phase("tools", f"(a) viewer cbox {VIEWER_RES}x{VIEWER_RES} path -m "
+              f"{VIEWER_DEPTH} on 127.0.0.1:{port}: server up (scene uploaded) "
+              f"{t_up:.2f}s after the call, the first frame {first:.2f}s "
+              f"later, paused at spp {st['spp']} after "
+              f"{time.time() - t0:.2f}s; /img.png ({len(png)} bytes) decodes to "
+              f"tonemap_gamma of the running average, every pixel; uploads "
+              f"{st['uploads']}, backend {st['backend']}")
+
+        # the orbit: accumulation restarts, the scene is not uploaded again
+        # the orbit is posted while paused (the loop takes it at once), so
+        # the first frame after the resume is the first pass at the new pose
+        old_cam, spp0, seq0 = (viewer._FRAME["first_cam"], st["spp"],
+                               st["seq"])
+        _http(port, "/api/orbit", {"dtheta": 0.6, "dphi": 0.2, "dzoom": 0.9})
+        _viewer_wait(viewer, lambda: not viewer._ORBIT["dirty"],
+                     "the orbit taken while paused")
+        _http(port, "/api/pause", {"paused": False})
+        _viewer_wait(viewer, lambda: viewer._STATE["seq"] > seq0,
+                     "the orbit's first frame")
+        with viewer._LOCK:
+            low = viewer._STATE["spp"]
+        if viewer._FRAME["first_cam"] is old_cam:
+            raise AssertionError("tools (a) viewer: the orbit did not move "
+                                 "the camera")
+        _viewer_wait(viewer, lambda: viewer._STATE["spp"] >= VIEWER_SPP,
+                     f"{VIEWER_SPP} passes after the orbit")
+        _viewer_pause(viewer, port)
+        st = json.loads(_http(port, "/api/state"))
+        cam = viewer._FRAME["first_cam"]
+        if not (viewer._FRAME["first_pass"] == 0 and low < spp0
+                and st["uploads"] == 1):
+            raise AssertionError(f"tools (a) viewer: orbit: spp {spp0} -> "
+                                 f"{low} -> {st['spp']}, uploads "
+                                 f"{st['uploads']}")
+        # the first pass at the new pose against one compute_pixel pass on
+        # the card, with the orbit camera and pass index 0
+        args = cli.build_parser().parse_args(
+            ["cbox", "-s", str(VIEWER_RES / 512), "--device", str(dev)] + rest)
+        scene = cli.load_scene_arg(args)
+        sd = scene.compile(device=dev)
+        integ = cli.build_integrator(args)
+        step, _ = viewer.make_interactive_step(sd, integ)
+        ref_cam = viewer._orbit_camera(sd.camera)
+        if not (torch.equal(ref_cam.to_world, cam.to_world)
+                and torch.equal(ref_cam.to_local, cam.to_local)):
+            raise AssertionError("tools (a) viewer: the orbit camera")
+        ref = step(ref_cam, 0).cpu().numpy()
+        err = float(np.abs(viewer._FRAME["first"] - ref).max())
+        export = viewer.scene_to_web_json(scene, integ)
+        served = json.loads(_http(port, "/api/scene.json"))
+        same_export = served == json.loads(json.dumps(export))
+        phase("tools", f"(a) orbit: spp {spp0} -> {low} -> {st['spp']}, "
+              f"uploads {st['uploads']}; the first pass at the new pose "
+              f"against compute_pixel on the card (pass 0, the orbit "
+              f"camera): max abs error {err:.3g} over {ref.shape[0]} pixels "
+              f"(limit {VIEWER_FIRST_ATOL}), mean {ref.mean():.6f}; "
+              f"/api/scene.json equal to the CPU export: {same_export} "
+              f"({len(served['v0'])} triangles)")
+        if not err <= VIEWER_FIRST_ATOL or not np.isfinite(ref).all():
+            raise AssertionError("tools (a) viewer: the first pass after the "
+                                 "orbit differs from compute_pixel")
+        if not same_export:
+            raise AssertionError("tools (a) viewer: /api/scene.json differs "
+                                 "from the CPU export")
+        del sd, step
+
+        # the timed passes: counts reset while paused, read once paused again
+        spp0 = viewer._STATE["spp"]
+        _reset_launches()
+        with counting_rays(dev) as rays:
+            t1 = time.time()
+            _http(port, "/api/pause", {"paused": False})
+            _viewer_wait(viewer, lambda: viewer._STATE["spp"]
+                         >= spp0 + VIEWER_TIMED, f"{VIEWER_TIMED} passes")
+            _viewer_pause(viewer, port)
+            torch.cuda.synchronize()
+            n_rays = int(rays)
+        wall = viewer._STATE["frame_at"] - t1
+        passes = viewer._STATE["spp"] - spp0
+        launches = _launches()
+        _only("tools (a) viewer", launches, ("dense_closest", "dense_anyhit"))
+        st = json.loads(_http(port, "/api/state"))
+        phase("tools", f"(a) {passes} timed passes (frames served): "
+              f"{wall:.3f}s, {passes / wall:.3f} passes/s, {n_rays} rays, "
+              f"{n_rays / wall / 1e6:.3f} Mrays/s (PNG encoding included; "
+              f"the loop's own pass rate {st['pass_s']:.3f}/s); launches a "
+              f"pass: dense_closest {launches['dense_closest'] / passes:.2f}, "
+              f"dense_anyhit {launches['dense_anyhit'] / passes:.2f}; uploads "
+              f"{st['uploads']} | {card}")
+        if st["uploads"] != 1:
+            raise AssertionError(f"tools (a) viewer: uploads {st['uploads']}")
+    finally:
+        ended = viewer.stop(srv)
+    if not ended or viewer._STATE["error"]:
+        raise AssertionError(f"tools (a) viewer: threads ended {ended}, "
+                             f"error {viewer._STATE['error']}")
+    phase("tools", "(a) server and render thread stopped: "
+          f"render alive {srv.render_thread.is_alive()}, serve alive "
+          f"{srv.serve_thread.is_alive()}")
+    return {k: launches[k] for k in ("dense_closest", "dense_anyhit")}
+
+
+def regression_check(card):
+    """Phase 28 (b): the harness's --check on TOOLS_ROWS in a subprocess; its
+    metrics against phases 20-21's renders of the same rows."""
+    import ast
+    import shutil
+    out = os.path.join(ROOT, "build", "regress_phase28")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "rustlight_tpu_torch.tools.regression",
+           "--check", "-s", *TOOLS_ROWS, "--out", out]
+    t0 = time.time()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.time() - t0
+    if res.returncode != 0 or "regression gate OK" not in res.stdout:
+        raise AssertionError(f"tools (b) regression --check: exit "
+                             f"{res.returncode}\n{res.stdout}\n{res.stderr}")
+    rows = {}
+    for line in res.stdout.splitlines():
+        if line.startswith("[") and "] {" in line and "/" in line.split("]")[0]:
+            key = line[1:line.index("]")]
+            rows[key] = ast.literal_eval(line[line.index("{"):
+                                              line.index("}") + 1])
+    diffs = {}
+    for key, got in _GATE_GOT.items():
+        if key.split("/")[0] not in TOOLS_ROWS:
+            continue
+        if key not in rows:
+            raise AssertionError(f"tools (b): no row {key} in\n{res.stdout}")
+        diffs[key] = max(abs(rows[key][m] - got[m]) / abs(got[m])
+                         for m in GATE_METRICS)
+        if any(rows[key][m] != got[m] for m in GATE_METRICS):
+            raise AssertionError(f"tools (b) {key}: harness {rows[key]} vs "
+                                 f"phases 20-21 {got}")
+    if len(diffs) != len(TOOLS_ROWS):
+        raise AssertionError(f"tools (b): rows {sorted(diffs)}")
+    phase("tools", f"(b) `{' '.join(cmd[2:-2])} --out build/"
+          f"regress_phase28`: exit 0, {wall:.2f}s wall (the process's start "
+          "included), rows " + "; ".join(
+              f"{k} " + ", ".join(f"{m} {rows[k][m]:.6g}" for m in GATE_METRICS)
+              + f" ({rows[k]['time_s']}s, backend {rows[k]['backend']}), equal "
+              f"to phases 20-21's (largest relative difference {d:.3g})"
+              for k, d in sorted(diffs.items())) + f" | {card}")
+
+
+def smoke_check(dev, card):
+    """Phase 28 (c): smoke_scenes over examples/ on the card. Returns the
+    K1/K2/K3 launches of its renders."""
+    from rustlight_tpu_torch.tools import smoke_scenes
+    paths = sorted(p for p in smoke_scenes.EXAMPLES.iterdir()
+                   if p.suffix in smoke_scenes.SUFFIXES)
+    t0 = time.time()
+    recs = smoke_scenes.smoke(paths, SMOKE_SIZE, SMOKE_SPP, dev,
+                              log=lambda line: phase("tools", f"(c) {line}"))
+    counts = {"dense_closest": 0, "dense_anyhit": 0, "walk_closest": 0,
+              "walk_anyhit": 0}
+    for r in recs:
+        kern = (("walk_closest", "walk_anyhit") if r["tier"] == "walk"
+                else ("dense_closest", "dense_anyhit"))
+        if not r["ok"]:
+            raise AssertionError(f"tools (c) {r['name']}: {r['status']}")
+        _only(f"tools (c) {r['name']}", {**dict.fromkeys(counts, 0),
+                                         **r["launches"]}, kern)
+        for k, v in r["launches"].items():
+            counts[k] += v
+    walk = [r["name"] for r in recs if r["tier"] == "walk"]
+    phase("tools", f"(c) smoke_scenes {SMOKE_SIZE}x{SMOKE_SIZE} {SMOKE_SPP} "
+          f"spp: all {len(recs)} scenes finite and not black in "
+          f"{time.time() - t0:.2f}s; K3 launched on every walk scene "
+          f"({', '.join(walk)}), K1/K2 on the others; launches {counts}")
+    if not walk:
+        raise AssertionError("tools (c): no walk scene among the examples")
+    return counts
+
+
+def tools_phase(dev, card):
+    """Phase 28: the viewer, the regression harness and smoke_scenes on the
+    card. Returns the launches of (a)'s timed passes and (c)'s renders."""
+    t0 = time.time()
+    counts = {"dense_closest": 0, "dense_anyhit": 0, "walk_closest": 0,
+              "walk_anyhit": 0}
+    for k, v in viewer_check(dev, card).items():
+        counts[k] += v
+    regression_check(card)
+    for k, v in smoke_check(dev, card).items():
+        counts[k] += v
+    phase("tools", f"phase 28 in {time.time() - t0:.1f}s")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4883,6 +5172,8 @@ def main() -> int:
     for k, v in guiding_meta_phase(dev, card, cbox_mean).items():
         (gate_launches if k.startswith("dense") else walk_launches)[k] += v
     for k, v in mesh_phase(dev, card).items():
+        (gate_launches if k.startswith("dense") else walk_launches)[k] += v
+    for k, v in tools_phase(dev, card).items():
         (gate_launches if k.startswith("dense") else walk_launches)[k] += v
     for k in ("walk_closest", "walk_anyhit"):
         walk_launches[k] += ex_launches[k]

@@ -1,8 +1,11 @@
 """One step of each decomposition over n ranks on tiny shapes: the port's
 counterpart of `__graft_entry__.dryrun_multichip`.
 
-    python -m rustlight_tpu_torch.parallel.dryrun 4 [--device cpu|cuda]
-        [--backend gloo|nccl]
+    python -m rustlight_tpu_torch.parallel.dryrun 4 [--device cuda|cpu]
+        [--backend nccl|gloo]
+
+The card (NCCL, a rank a card) by default; `--device cpu` runs gloo ranks
+on the CPU, and without a card nothing else runs.
 
 P1 (one sharded step of the path tracer on cbox 16x16), P2/P6 (the sharded
 light tracer), P3 (PSSMLT's chains split over the ranks) and P4 (SMCMC's
@@ -17,6 +20,7 @@ import argparse
 import sys
 
 import numpy as np
+import torch
 
 
 def _dryrun_rank(mesh, device):
@@ -66,17 +70,20 @@ def _dryrun_rank(mesh, device):
         k: float(np.mean(v)) for k, v in out.items()}}
 
 
-def dryrun_multichip(n: int, backend=None, device=None) -> dict:
-    """The dryrun over n ranks (`device` for every gloo rank, the CPU by
-    default; NCCL ranks take a card each). Returns rank 0's summary: the
-    films' means and the elements P4's exchange sent."""
-    from .mesh import default_backend, run_on_mesh
-    backend = backend or default_backend(device)
-    if backend == "gloo" and device is None:
-        device = "cpu"
-    return run_on_mesh(n, _dryrun_rank_main, device, backend=backend,
-                       device=device if backend == "gloo" else None,
-                       timeout=600.0, threads=1 if device == "cpu" else None)
+def dryrun_multichip(n: int, backend=None, device="cuda") -> dict:
+    """The dryrun over n ranks: NCCL ranks a card each on "cuda" (the
+    default), gloo ranks on "cpu" (or every gloo rank on one named card).
+    Without a card only device="cpu" runs; the card raises. Returns rank
+    0's summary: the films' means and the elements P4's exchange sent."""
+    from .mesh import _card_or_raise, run_on_mesh
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        _card_or_raise("dryrun_multichip")
+    backend = backend or ("nccl" if cuda else "gloo")
+    gloo = backend == "gloo"
+    return run_on_mesh(n, _dryrun_rank_main, device if gloo else None,
+                       backend=backend, device=device if gloo else None,
+                       timeout=600.0, threads=None if cuda else 1)
 
 
 def _dryrun_rank_main(mesh, device):
@@ -86,7 +93,7 @@ def _dryrun_rank_main(mesh, device):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", type=int)
-    ap.add_argument("--device", default=None)
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None, choices=["gloo", "nccl"])
     a = ap.parse_args(argv)
     print(dryrun_multichip(a.n, a.backend, a.device))

@@ -98,9 +98,18 @@ class Mesh:
                 f"device={self.device}, backend={self.backend})")
 
 
-def make_device_mesh(n_devices: Optional[int] = None) -> Mesh:
+def _card_or_raise(what: str) -> None:
+    """No silent fall back to the CPU: a card asked for must be there."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: torch.cuda.is_available() is false; "
+                           "name the CPU (device='cpu') to run there")
+
+
+def make_device_mesh(n_devices: Optional[int] = None,
+                     device="cuda") -> Mesh:
     """The calling rank's mesh inside run_on_mesh; elsewhere a mesh of one
-    device without a process group."""
+    device (`device`, the card by default) without a process group. A card
+    asked for that is not there raises."""
     if _CURRENT is not None:
         if n_devices not in (None, _CURRENT.size):
             raise ValueError(f"a mesh of {n_devices} asked inside a mesh of "
@@ -108,7 +117,9 @@ def make_device_mesh(n_devices: Optional[int] = None) -> Mesh:
         return _CURRENT
     if n_devices not in (None, 1):
         raise ValueError("a mesh of more than one device needs run_on_mesh")
-    return Mesh(device="cuda" if torch.cuda.is_available() else "cpu")
+    if torch.device(device).type == "cuda":
+        _card_or_raise("make_device_mesh")
+    return Mesh(device=device)
 
 
 # ---- the collectives
@@ -303,10 +314,12 @@ def _rank_main(rank, n, init, backend, device, timeout_s, threads, fn, args,
 
 
 def default_backend(device=None) -> str:
-    """NCCL where the ranks take a card each (no device named and a card
-    present), else gloo."""
+    """NCCL where the ranks take a card each (no device named), gloo where
+    every rank shares the named device. With no device named and no card
+    present it raises: the CPU is used only where it is named."""
     if device is None:
-        return "nccl" if torch.cuda.is_available() else "gloo"
+        _card_or_raise("default_backend")
+        return "nccl"
     return "gloo"
 
 

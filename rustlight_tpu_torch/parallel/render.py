@@ -121,7 +121,7 @@ def render_splat_sharded(scene, integrator, n_paths: int,
     split evenly over the ranks, passes of ceil(per_pass / n_dev) paths a
     rank (per_pass = paths_per_pass or min(n_paths, n_dev * w * h)), the
     films merged a pass, the sum scaled by w * h / paths traced."""
-    mesh = make_device_mesh() if mesh is None else mesh
+    mesh = make_device_mesh(device=scene.device) if mesh is None else mesh
     n_dev = mesh.size
     cam = scene.camera
     w, h = cam.width, cam.height
@@ -178,7 +178,7 @@ def render_sharded(scene, integrator, spp: int, mesh: Optional[Mesh] = None,
     compute_block. `persistent=None` takes the persistent route wherever
     compute_block exists and the sampler is independent (the port's rule
     for render, on every device)."""
-    mesh = make_device_mesh() if mesh is None else mesh
+    mesh = make_device_mesh(device=scene.device) if mesh is None else mesh
     w, h = scene.camera.width, scene.camera.height
     n = w * h
     pix = _padded_grid(w, h, mesh.size)
@@ -210,7 +210,7 @@ def render_variance_sharded(scene, integrator, spp: int,
     """The sharded chunked render with per-sample second moments: the mesh
     form of render(variance=True), with the `mean` and `variance` AOVs
     (render_adaptive's pilot on a mesh)."""
-    mesh = make_device_mesh() if mesh is None else mesh
+    mesh = make_device_mesh(device=scene.device) if mesh is None else mesh
     w, h = scene.camera.width, scene.camera.height
     n = w * h
     pix = _padded_grid(w, h, mesh.size)

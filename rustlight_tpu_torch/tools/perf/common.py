@@ -17,6 +17,7 @@ from ...models.presets import sphere_grid_mesh
 from ...ops.walk_lab import walk_closest_counted
 from ...ops.walk_trace import RAY_TILE
 from ...scene.geometry import build_geometry_tables
+from ..device import pick_device  # noqa: F401 (the tools' import)
 
 TIMING_RUNS = 5
 # records go under build/, which git ignores; never over regress/*.json, the
@@ -40,17 +41,6 @@ def parser(doc: str, out_name: str) -> argparse.ArgumentParser:
                    help="the tensor-core form of the triangle test")
     p.add_argument("--out", default=str(OUT_DIR / out_name))
     return p
-
-
-def pick_device(name: str) -> torch.device:
-    """The device asked for; a card that is not there raises. No process-wide
-    flag is set here: the plain mxu test itself raises where
-    torch.backends.cuda.matmul.allow_tf32 is on."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: torch.cuda.is_available() is "
-                           "false; pass --device cpu for the plain versions")
-    return dev
 
 
 def device_record(dev: torch.device) -> dict:

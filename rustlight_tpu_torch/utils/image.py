@@ -1,5 +1,5 @@
-"""HDR/LDR image I/O: PFM, EXR, PNG/JPG via PIL; the port's own copy of
-rustlight_tpu/utils/image.py.
+"""HDR/LDR image I/O: PFM, EXR, PNG (zlib, no PIL), JPG via PIL; the
+port's own copy of rustlight_tpu/utils/image.py.
 
 Host-side (numpy) equivalents of the reference's Bitmap I/O
 (src/structure.rs:467-683): PFM read/write, EXR via OpenEXR, LDR with gamma 2.2.
@@ -1384,15 +1384,140 @@ def tonemap_gamma(img: np.ndarray, gamma: float = 2.2) -> np.ndarray:
     return (np.clip(img ** (1.0 / gamma), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# PNG color type by channel count: gray, RGB, RGBA
+_PNG_COLOR = {1: 0, 3: 2, 4: 6}
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (_struct.pack(">I", len(data)) + tag + data
+            + _struct.pack(">I", _zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(pixels: np.ndarray, level: int = 6) -> bytes:
+    """An 8-bit PNG of a uint8 [h, w] (gray), [h, w, 3] (RGB) or [h, w, 4]
+    (RGBA) array: IHDR, one IDAT of rows under filter 0 (none), IEND,
+    with zlib's deflate at `level` and CRCs from zlib.crc32. No PIL."""
+    px = np.asarray(pixels)
+    if px.dtype != np.uint8:
+        raise ValueError(f"PNG: uint8 pixels expected, got {px.dtype}")
+    if px.ndim == 2:
+        px = px[..., None]
+    if px.ndim != 3 or px.shape[2] not in _PNG_COLOR:
+        raise ValueError(f"PNG: [h, w], [h, w, 3] or [h, w, 4] expected, "
+                         f"got {px.shape}")
+    h, w, c = px.shape
+    rows = np.empty((h, 1 + w * c), np.uint8)
+    rows[:, 0] = 0
+    rows[:, 1:] = px.reshape(h, w * c)
+    ihdr = _struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR[c], 0, 0, 0)
+    return (_PNG_SIG + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", _zlib.compress(rows.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+
+
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the five PNG filters row by row ([h, 1 + stride] uint8)."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.zeros((h + 1, stride + bpp), np.int32)   # a zero row and pad
+    for y in range(h):
+        ft, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        up = out[y, bpp:]
+        if ft == 0:
+            out[y + 1, bpp:] = line
+        elif ft == 2:
+            out[y + 1, bpp:] = (line + up) & 0xFF
+        elif ft in (1, 3, 4):
+            cur = out[y + 1]
+            prev = out[y]
+            for x in range(stride):
+                a, b, c = cur[x], prev[x + bpp], prev[x]
+                if ft == 1:
+                    pred = a
+                elif ft == 3:
+                    pred = (a + b) >> 1
+                else:
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                cur[x + bpp] = (line[x] + pred) & 0xFF
+        else:
+            raise ValueError(f"PNG: unknown filter type {ft}")
+    return out[1:, bpp:].astype(np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The uint8 pixels of an 8-bit, non-interlaced gray, RGB or RGBA PNG
+    ([h, w] or [h, w, c]): the files encode_png writes, and any such PNG
+    under any filter. Other PNGs raise ValueError (read them with PIL)."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("PNG: bad signature")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, = _struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        crc, = _struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if crc != _zlib.crc32(tag + body) & 0xFFFFFFFF:
+            raise ValueError(f"PNG: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            hdr = _struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    if hdr is None:
+        raise ValueError("PNG: no IHDR")
+    w, h, depth, color, _, _, interlace = hdr
+    chans = {v: k for k, v in _PNG_COLOR.items()}.get(color)
+    if depth != 8 or chans is None or interlace:
+        raise ValueError(f"PNG: 8-bit non-interlaced gray/RGB/RGBA only "
+                         f"(depth {depth}, color type {color}, interlace "
+                         f"{interlace})")
+    raw = np.frombuffer(_zlib.decompress(b"".join(idat)), np.uint8)
+    px = _unfilter(raw.reshape(h, 1 + w * chans), chans).reshape(h, w, chans)
+    return px[..., 0] if chans == 1 else px
+
+
+def write_png(path, pixels: np.ndarray, level: int = 6) -> None:
+    Path(path).write_bytes(encode_png(pixels, level))
+
+
+def _pil_image(what: str):
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError(f"{what} needs PIL (Pillow), which is not "
+                          "installed; PNG is written and read without "
+                          "it") from None
+    return Image
+
+
 def write_ldr(path, img: np.ndarray, gamma: float = 2.2) -> None:
-    from PIL import Image
-    Image.fromarray(tonemap_gamma(img, gamma)).save(path)
+    """Gamma-tonemapped 8-bit image: PNG by the encoder above; JPG/BMP
+    through PIL."""
+    px = tonemap_gamma(img, gamma)
+    if Path(path).suffix.lower() == ".png":
+        write_png(path, px)
+    else:
+        _pil_image(f"writing {Path(path).suffix} files").fromarray(px).save(
+            path)
 
 
 def read_ldr(path) -> np.ndarray:
-    """Read PNG/JPG to linear float32 (inverse gamma 2.2), [h, w, 3]."""
-    from PIL import Image
-    arr = np.asarray(Image.open(path).convert("RGB"), dtype=np.float32) / 255.0
+    """Read PNG/JPG to linear float32 (inverse gamma 2.2), [h, w, 3]:
+    through PIL where it is installed, else a PNG by decode_png."""
+    try:
+        from PIL import Image
+    except ImportError:
+        if Path(path).suffix.lower() != ".png":
+            _pil_image(f"reading {Path(path).suffix} files")
+        px = decode_png(Path(path).read_bytes())
+        px = np.repeat(px[..., None], 3, -1) if px.ndim == 2 else px[..., :3]
+        arr = px.astype(np.float32) / 255.0
+    else:
+        arr = np.asarray(Image.open(path).convert("RGB"),
+                         dtype=np.float32) / 255.0
     return arr ** 2.2
 
 

@@ -209,8 +209,8 @@ def _spawn():
 
     def run():
         try:
-            box["out"] = run_on_mesh(3, _three_ranks, timeout=300.0,
-                                     threads=1)
+            box["out"] = run_on_mesh(3, _three_ranks, device="cpu",
+                                     timeout=300.0, threads=1)
         except BaseException as e:   # noqa: BLE001 (raised by `ranks`)
             box["err"] = e
     thread = threading.Thread(target=run)
@@ -333,10 +333,31 @@ def _boom(mesh):
     gather_rows(mesh, torch.zeros(2))
 
 
+def test_no_card_raises_unless_the_cpu_is_named(monkeypatch):
+    """make_device_mesh, default_backend and dryrun_multichip never fall
+    back to the CPU: without a card they raise, and they run where the CPU
+    is named."""
+    from rustlight_tpu_torch.parallel.dryrun import dryrun_multichip
+    from rustlight_tpu_torch.parallel.mesh import (default_backend,
+                                                   make_device_mesh)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (make_device_mesh, default_backend,
+                 lambda: dryrun_multichip(1),
+                 lambda: run_on_mesh(1, _boom)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert make_device_mesh(device="cpu").device == torch.device("cpu")
+    assert make_device_mesh(1, device="cpu").size == 1
+    assert default_backend("cpu") == "gloo"
+    got = dryrun_multichip(1, device="cpu")
+    assert got["moved"] == 0 and all(np.isfinite(v) and v > 0
+                                     for v in got["means"].values())
+
+
 def test_a_failing_rank_fails_the_call():
     t0 = time.time()
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
-        run_on_mesh(2, _boom, timeout=120.0, threads=1)
+        run_on_mesh(2, _boom, device="cpu", timeout=120.0, threads=1)
     assert time.time() - t0 < 60.0
 
 
