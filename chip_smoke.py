@@ -8,9 +8,11 @@ checkout; imports nothing of JAX. Phases, one line each or more:
   0. device: require CUDA; print the card's name and power limit; turn
      TF32 off for matmuls and cuDNN;
   1. build: compile the port's CUDA kernels from csrc/ (sm_90a, one nvcc
-     per source, all at once), and beside them, in a thread, the
+     per source, all at once), and beside them, in threads, the
      RL_LAB_FORMS library of K7's, K3w's and K8's candidate and laboratory
-     forms (tools/perf/split_forms.py); ptxas's registers, shared memory and
+     forms (tools/perf/split_forms.py) and the libraries of the walk
+     sources at K = 128 and 768 (-DRL_KC=<k>, phase 29; their ptxas
+     report held to the tables at their K as the production one); ptxas's registers, shared memory and
      spills of every kernel (`ptxas` lines), and launch_geometry's static
      shared memory held to ptxas's for every walk kernel in both its forms
      (K7 and K3w included), K3/K4's, K3w's and K5's split tensor-core
@@ -384,6 +386,23 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      smoke_scenes.smoke over examples/ at 128x128, 4 spp: every scene
      finite and not black, only K3 launched on the walk scenes (caustic,
      envglass, fog_box), only K1/K2 on the dense ones.
+ 29. the walk at other cluster sizes and the labs: (a) at K = 128 and 768,
+     on grid122k's mesh (sphere_grid_mesh(122_000, n_theta=10), tables
+     built at that K) and 32,768 of the lab's divergent rays with inert,
+     empty and bounded lanes, sorted by the walk: K3/K4 closest and any,
+     K3w, K5 and the counted walk (K9a), each in its production and its
+     one-thread form, against its plain version at that K bit for bit (0
+     lanes may differ); K6 at sub 2, K7 and K8 at km 8 the same on tables
+     of at most 640 clusters (at K = 128 the same family's 38,880-triangle
+     grid); the tensor-core forms of K3, K3w, K5, K6 at sub 2 and K8 under
+     _check_mma's rules; the whole walk of the same rays against K = 384's:
+     hit masks and occlusion equal, ids equal but on near ties, t bit for
+     bit where the triangle is the same; (b) each of the eight labs of
+     rustlight_tpu_torch/tools/perf/ (sortkey_lab, grouping_lab,
+     greedy_onchip, k_sweep, k_sweep_bench, prim_gather_scale, e2e_131k,
+     e2e_4p9M) once through its main at LAB_RUNS' sizes, with the launches
+     at other K (ops/native.py:K_LAUNCHES) reset before and read after:
+     the kernels line's `walk_closest@K128` and kin take them.
 
 Every line ends with the seconds since the run started. Before the last
 line: a JSON line with each kernel's tables and wavefronts
@@ -738,31 +757,38 @@ def _sub_symbol(name, sub, form, mma) -> str:
     return f"{name}_kernelILi{sub}ELi{p}ELb{stage}ELb{int(mma)}EE"
 
 
-def _static_of(sym) -> int:
-    hits = [v for k, v in _PTXAS.items() if sym in k]
+def _static_of(sym, usage=None) -> int:
+    hits = [v for k, v in (usage or _PTXAS).items() if sym in k]
     if len(hits) != 1:
         raise AssertionError(f"ptxas: {len(hits)} kernels match {sym}")
     return hits[0][1]
 
 
-def check_static_smem():
+def check_static_smem(usage=None, k=384):
     """launch_geometry's static shared memory of every walk kernel in both
     its forms (ops/walk_trace.py:static_smem), K3/K4's, K3w's and K5's
     split form with the tensor-core test too, of K6 in every form built
     (ops/walk_sub.py:static_smem), of K7 in both (ops/walk_sparse.py:
     static_smem) and of K8's split form with both tests
-    (ops/pair_trace.py:SPLIT_STATIC), against ptxas's report."""
+    (ops/pair_trace.py:SPLIT_STATIC), at K = k, against ptxas's report
+    `usage` (the production library's by default)."""
+    from rustlight_tpu_torch.ops import native
     from rustlight_tpu_torch.ops import walk_sparse as ws
     from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
+    if usage is None:
+        if not _PTXAS:
+            _PTXAS.update(native.ptxas_usage())
+        usage = _PTXAS
     checked = 0
     for name, split in ws.PRODUCTION_FORMS.items():
         for form in (wk.ONE_THREAD_FORM, split):
             sym = _symbol(name, form)
-            if _static_of(sym) != ws.static_smem(form):
+            if _static_of(sym, usage) != ws.static_smem(form, k):
                 raise AssertionError(
-                    f"{sym}: ptxas {_static_of(sym)} B of static shared "
-                    f"memory, launch_geometry {ws.static_smem(form)} B")
+                    f"{sym} at K = {k}: ptxas {_static_of(sym, usage)} B of "
+                    f"static shared memory, launch_geometry "
+                    f"{ws.static_smem(form, k)} B")
             checked += 1
     for kernel in (*wk.PRODUCTION_FORMS, "walk_floor"):
         split = wk.PRODUCTION_FORMS.get(kernel,
@@ -773,21 +799,24 @@ def check_static_smem():
                 for mma in ((False, True) if kernel in wk._MMA_SPLIT
                             and not count else (False,)):
                     sym = _symbol(kernel, form, count, mma)
-                    if _static_of(sym) != wk.static_smem(kernel, form):
+                    if _static_of(sym, usage) != wk.static_smem(kernel, form,
+                                                               k):
                         raise AssertionError(
-                            f"{sym}: ptxas {_static_of(sym)} B of static "
-                            f"shared memory, launch_geometry "
-                            f"{wk.static_smem(kernel, form)} B")
+                            f"{sym} at K = {k}: ptxas "
+                            f"{_static_of(sym, usage)} B of static shared "
+                            f"memory, launch_geometry "
+                            f"{wk.static_smem(kernel, form, k)} B")
                     checked += 1
     from rustlight_tpu_torch.ops import pair_trace as pt
     for any_hit in (False, True):
         for mma in (False, True):
             sym = _pair_symbol(any_hit, mma,
                                pt.MMA_FORM if mma else pt.PRODUCTION_FORM)
-            if _static_of(sym) != pt.SPLIT_STATIC:
+            if _static_of(sym, usage) != pt.SPLIT_STATIC:
                 raise AssertionError(
-                    f"{sym}: ptxas {_static_of(sym)} B of static shared "
-                    f"memory, ops/pair_trace.py {pt.SPLIT_STATIC} B")
+                    f"{sym} at K = {k}: ptxas {_static_of(sym, usage)} B of "
+                    f"static shared memory, ops/pair_trace.py "
+                    f"{pt.SPLIT_STATIC} B")
             checked += 1
     for name in wsub.PRODUCTION_FORMS:
         for sub in wsub.SUBS:
@@ -795,14 +824,15 @@ def check_static_smem():
                                (True, wsub.MMA_FORMS)):
                 for form in {wk.ONE_THREAD_FORM, table[name][sub]}:
                     sym = _sub_symbol(name, sub, form, mma)
-                    if _static_of(sym) != wsub.static_smem(sub, form):
+                    if _static_of(sym, usage) != wsub.static_smem(sub, form):
                         raise AssertionError(
-                            f"{sym}: ptxas {_static_of(sym)} B of static "
-                            f"shared memory, launch_geometry "
+                            f"{sym} at K = {k}: ptxas "
+                            f"{_static_of(sym, usage)} B of static shared "
+                            f"memory, launch_geometry "
                             f"{wsub.static_smem(sub, form)} B")
                     checked += 1
-    phase("ptxas", "launch_geometry's static shared memory = ptxas's on "
-          f"{checked} kernels: both forms of every walk kernel, K3/K4's, "
+    phase("ptxas", f"K = {k}: launch_geometry's static shared memory = "
+          f"ptxas's on {checked} kernels: both forms of every walk kernel, K3/K4's, "
           "K3w's and K5's split tensor-core forms, K6's forms at every sub "
           "with both tests, K7's forms, K8's split form with both tests")
 
@@ -2571,10 +2601,11 @@ def _check_mma(tag, rows, wt, rays, variants, resident, add, in_bytes=None,
                 (cname, closest, out_c, pms_c, base[0], 16),
                 (aname, anyhit, out_a, pms_a, base[1], 1)):
             count = out[-1]             # this run's visits or live pairs
-            tests = count * per * wk.K
+            tests = count * per * wt.k
             bound, by, routes = _mma_bound_ms(
                 tests, n * (in_bytes + out_b)
-                + (table if resident else count * HIER_VISIT_BYTES))
+                + (table if resident else count * HIER_VISIT_BYTES
+                   * wt.k // wk.K))
             timing = turns.get(kname) or {
                 "ms": _median_ms(lambda: fn(mxu=True))}
             add(kname, max_abs_err=max(err_p, err_k), dot4_ms=b_ms,
@@ -5014,6 +5045,314 @@ def tools_phase(dev, card):
     return counts
 
 
+# ---- phase 29: the walk at other cluster sizes, and the laboratory's labs
+
+# the K of the libraries phase 1 builds beside the production one
+# (ops/native.py:build_k: the walk sources with -DRL_KC=<k>), and phase 29
+# (a)'s wavefront: grid122k's mesh and the laboratory's divergent rays
+K_OTHER = (128, 768)
+K_RAYS = 32_768
+K_SCENE = (122_000, 10)
+# K6, K7 and K8 take tables of at most ops/walk_sub.py:MAX_VMEM_CLUSTERS
+# (640, the reference's resident bound, the same at every K); where
+# grid122k's tables at a K are larger, they walk the tables of this grid of
+# the same family
+K_RESIDENT_TRIS = 30_000
+_KLIB = {}
+
+
+def start_k_build():
+    """Phase 1: nvcc builds the K_OTHER libraries (ops/native.py:build_k)
+    in threads beside the production one; none is loaded before phase 29."""
+    import threading
+    from rustlight_tpu_torch.ops import native
+    t0 = time.time()
+
+    def build(k):
+        try:
+            _KLIB[k] = {"path": native.build_k(k),
+                        "seconds": time.time() - t0}
+        except Exception as e:  # raised again by wait_k_build
+            _KLIB[k] = {"error": e}
+
+    _KLIB["threads"] = [threading.Thread(target=build, args=(k,))
+                        for k in K_OTHER]
+    for t in _KLIB["threads"]:
+        t.start()
+
+
+def wait_k_build():
+    """Waits for start_k_build's nvcc, raising its error; then holds each
+    library's static shared memory to ops/walk_trace.py's tables at its K
+    (check_static_smem)."""
+    from rustlight_tpu_torch.ops import native
+    for t in _KLIB.pop("threads"):
+        t.join()
+    for k in K_OTHER:
+        if "error" in _KLIB[k]:
+            raise _KLIB[k]["error"]
+        phase("build", f"K = {k}: {_KLIB[k]['path'].name} ("
+              f"{', '.join(native.WALK_SOURCES)}, -DRL_KC={k}) in "
+              f"{_KLIB[k]['seconds']:.2f}s (from the start of the build)")
+        check_static_smem(native.ptxas_usage(_KLIB[k]["path"]), k)
+
+
+def _as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _k_bitwise(tag, name, fn, plain, one=True):
+    """Kernel form(s) of `fn` (its production form, and with `one` its
+    one-thread form) against `plain` (the plain version's outputs, then
+    any counts) bit for bit: 0 lanes may differ. Returns (the plain
+    version's tuple, its ms)."""
+    import torch
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    ref, pms = _timed(plain)
+    ref = _as_tuple(ref)
+    forms = [("production", fn())]
+    if one:
+        forms.append(("P1", fn(_form=wk.ONE_THREAD_FORM)))
+    torch.cuda.synchronize()
+    for form, got in forms:
+        got = _as_tuple(got)
+        diff = _lanes_differ(got, ref[:len(got)])
+        if diff.numel():
+            raise AssertionError(f"{tag} {name} ({form}): {diff.numel()} "
+                                 "lanes differ from the plain version")
+    return ref, pms
+
+
+def _flat(walk_ref):
+    """wk._walk_ref's ((outputs), visits per tile) as (*outputs, visits)."""
+    return (*walk_ref[0], walk_ref[1])
+
+
+def _k_tables(geom, bvh, k, dev):
+    from rustlight_tpu_torch.accel.walk import (build_walk_tables,
+                                                walk_tables_to)
+    return walk_tables_to(build_walk_tables(geom, bvh=bvh, k=k), dev)
+
+
+def _k_scene(n_tris, theta):
+    """The laboratory's scene at (n_tris, theta): (numpy geometry tables,
+    their BVH, the grid's extent)."""
+    from rustlight_tpu_torch.accel.bvh import build_bvh
+    from rustlight_tpu_torch.tools.perf import common
+    geom, ext = common.lab_scene(n_tris, theta)
+    return geom, build_bvh(geom, max_leaf=8), ext
+
+
+def _k_rays(dev, ext, n, seed):
+    """The laboratory's divergent rays with inert, empty and bounded lanes
+    (tools/perf/common.py:inert_lanes)."""
+    import torch
+    from rustlight_tpu_torch.tools.perf import common
+    rng = np.random.default_rng(seed)
+    o, d = common.divergent_rays(rng, n, ext)
+    tnear = np.full(n, 1e-4, np.float32)
+    tfar = np.full(n, np.inf, np.float32)
+    common.inert_lanes(rng, tnear, tfar, ext * 3 ** 0.5)
+    return [torch.as_tensor(x, device=dev) for x in (o, d, tnear, tfar)]
+
+
+def check_k_forms(dev):
+    """Phase 29 (a): at each K of K_OTHER, every walk kernel form that the
+    production dispatch or the labs launch against its plain version at
+    that K (bit for bit; the tensor-core forms under _check_mma's rules),
+    and the whole walk against K = 384's on the same rays. Returns
+    {"walk_closest@K<k>": record, ...} for the kernels line."""
+    import torch
+    from rustlight_tpu_torch.accel import pair_walk as pw
+    from rustlight_tpu_torch.accel import walk
+    from rustlight_tpu_torch.ops import pair_trace as pt
+    from rustlight_tpu_torch.ops import walk_hier as wh
+    from rustlight_tpu_torch.ops import walk_lab as wl
+    from rustlight_tpu_torch.ops import walk_sparse as ws
+    from rustlight_tpu_torch.ops import walk_sub as wsub
+    from rustlight_tpu_torch.ops import walk_trace as wk
+    t0 = time.time()
+    geom, bvh, ext = _k_scene(*K_SCENE)
+    rows = torch.as_tensor(np.ascontiguousarray(geom.inter_rows[:geom.n_tris]),
+                           device=dev)
+    rays = _k_rays(dev, ext, K_RAYS, 29)
+    base = _k_tables(geom, bvh, wk.K, dev)
+    ref = (walk._walk_impl(base, *rays, False), walk._walk_impl(base, *rays,
+                                                                True))
+    small = None
+    out = {}
+    for k in K_OTHER:
+        wt = _k_tables(geom, bvh, k, dev)
+        srt = walk._prepare(wt, *rays)[:4]
+        tag = f"K{k} grid122k"
+        n = srt[0].shape[0]
+        table = (wt.rows.numel() + wt.ids.numel() + wt.lo.numel()
+                 + wt.hi.numel()) * 4
+        recs = {}
+        for name, fn, plain in (
+                ("walk_closest", lambda **kw: wk.walk_closest(wt, *srt, **kw),
+                 lambda: _flat(wk._walk_ref(wt, *srt, False))),
+                ("walk_anyhit", lambda **kw: wk.walk_anyhit(wt, *srt, **kw),
+                 lambda: _flat(wk._walk_ref(wt, *srt, True))),
+                ("walk_closest_wide",
+                 lambda **kw: wk.walk_closest(wt, *srt, wide=True, **kw),
+                 lambda: _flat(wk._walk_ref(wt, *srt, False, True))),
+                ("walk_anyhit_wide",
+                 lambda **kw: wk.walk_anyhit(wt, *srt, wide=True, **kw),
+                 lambda: _flat(wk._walk_ref(wt, *srt, True, True)))):
+            plain_out, pms = _k_bitwise(tag, name, fn, plain)
+            visits = int(plain_out[-1].sum())
+            any_hit = "anyhit" in name
+            bound, by = _bound_ms(visits * wk.RAY_TILE * k,
+                                  n * (RAY_IN_BYTES + (1 if any_hit else 16))
+                                  + table)
+            recs[name] = {"ms": _median_ms(fn), "plain_ms": pms,
+                          "bound_ms": bound, "bound_by": by,
+                          "max_abs_err": 0.0, "visits": visits}
+        for name, fn, plain in (
+                ("walk_hier_closest",
+                 lambda **kw: wh.walk_hier_closest(wt, *srt, **kw),
+                 lambda: wh.walk_hier_closest_ref(wt, *srt)[:4]),
+                ("walk_hier_anyhit",
+                 lambda **kw: wh.walk_hier_anyhit(wt, *srt, **kw),
+                 lambda: wh.walk_hier_anyhit_ref(wt, *srt)[0])):
+            _k_bitwise(tag, name, fn, plain)
+        (counted, pms) = _k_bitwise(
+            tag, "walk_closest_counted",
+            lambda **kw: wl.walk_closest_counted(wt, *srt, **kw),
+            lambda: wl.walk_closest_counted_ref(wt, *srt))
+        nv = int(counted[4].view(-1, wk.RAY_TILE)[:, 0].long().sum())
+        if nv != recs["walk_closest"]["visits"]:
+            raise AssertionError(f"{tag}: the counted kernel's {nv} visits, "
+                                 "the plain walk's "
+                                 f"{recs['walk_closest']['visits']}")
+        recs["walk_closest_counted"] = {
+            **recs["walk_closest"], "plain_ms": pms,
+            "ms": _median_ms(lambda: wl.walk_closest_counted(wt, *srt))}
+        # K6, K7 and K8 on resident tables
+        rwt, rsrt, rrows, rtag = wt, srt, rows, tag
+        if int(wt.n_clusters) > wsub.MAX_VMEM_CLUSTERS:
+            if small is None:
+                sgeom, sbvh, sext = _k_scene(K_RESIDENT_TRIS, K_SCENE[1])
+                small = (sgeom, sbvh, _k_rays(dev, sext, K_RAYS // 2, 30),
+                         torch.as_tensor(np.ascontiguousarray(
+                             sgeom.inter_rows[:sgeom.n_tris]), device=dev))
+            rwt = _k_tables(small[0], small[1], k, dev)
+            rsrt = walk._prepare(rwt, *small[2])[:4]
+            rrows = small[3]
+            rtag = f"K{k} sphere_grid_mesh({K_RESIDENT_TRIS})"
+        for name, fn, plain in (
+                ("walk_sub_closest",
+                 lambda **kw: wsub.walk_sub_closest(rwt, *rsrt, 2, **kw),
+                 lambda: wsub.walk_sub_closest_ref(rwt, *rsrt, 2)[:4]),
+                ("walk_sub_anyhit",
+                 lambda **kw: wsub.walk_sub_anyhit(rwt, *rsrt, 2, **kw),
+                 lambda: wsub.walk_sub_anyhit_ref(rwt, *rsrt, 2)[0]),
+                ("walk_sparse_closest",
+                 lambda **kw: ws.walk_sparse_closest(rwt, *rsrt, **kw),
+                 lambda: ws.walk_sparse_closest_ref(rwt, *rsrt)[:4]),
+                ("walk_sparse_anyhit",
+                 lambda **kw: ws.walk_sparse_anyhit(rwt, *rsrt, **kw),
+                 lambda: ws.walk_sparse_anyhit_ref(rwt, *rsrt)[0])):
+            _k_bitwise(rtag, name, fn, plain)
+        msrt = walk._prepare(rwt, *(small[2] if rwt is not wt else rays),
+                             inc_sort=False)[:4]
+        pairs, _ = pw._make_pairs(rwt, *msrt, PAIR_KMS[0])
+        for name, fn, plain in (
+                ("pair_closest", lambda **kw: pt.pair_closest(rwt, *pairs,
+                                                              **kw),
+                 lambda: pt.pair_closest_ref(rwt, *pairs)[:4]),
+                ("pair_anyhit", lambda **kw: pt.pair_anyhit(rwt, *pairs,
+                                                            **kw),
+                 lambda: pt.pair_anyhit_ref(rwt, *pairs)[0])):
+            _k_bitwise(f"{rtag} km={PAIR_KMS[0]}", name, fn, plain)
+        phase("k", f"{tag} (Cp {wt.n_clusters}, {wt.n_real} real, "
+              f"{wt.n_sup} supers; {n} rays): K3/K4, K3w, K5 and K9a, both "
+              f"forms, = their plain versions bit for bit; K6 at sub 2, K7 "
+              f"and K8 at km {PAIR_KMS[0]} on {rtag} (Cp {rwt.n_clusters}) "
+              "too; " + "; ".join(
+                  f"{nm}: {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"{r['visits'] / (n // wk.RAY_TILE):.2f} visits/tile"
+                  for nm, r in recs.items()))
+        # the tensor-core forms under _check_mma's rules
+        mrec = _Records()
+        _check_mma(tag, rows, wt, srt,
+                   _walk_variants(wt, srt, ("walk", "walk_wide",
+                                            "walk_hier")),
+                   True, mrec, forms=False)
+        _check_mma(rtag, rrows, rwt, rsrt, _walk_variants(rwt, rsrt,
+                                                          ("sub2",)),
+                   True, mrec, forms=False)
+        _check_mma(f"{rtag} km={PAIR_KMS[0]}", rrows, rwt, pairs[:4],
+                   _pair_variants(rwt, pairs, PAIR_KMS[0]), True, mrec,
+                   in_bytes=PAIR_IN_BYTES, forms=False)
+        # the same rays against K = 384, the whole walk in lane order
+        got = (walk._walk_impl(wt, *rays, False),
+               walk._walk_impl(wt, *rays, True))
+        torch.cuda.synchronize()
+        if not torch.equal(got[0].hit, ref[0].hit):
+            raise AssertionError(f"{tag}: hit masks differ from K = 384's on "
+                                 f"{int((got[0].hit != ref[0].hit).sum())} "
+                                 "lanes")
+        diff = torch.nonzero(got[0].tri != ref[0].tri)[:, 0]
+        if diff.numel() and not _near_tie(rows, *rays, diff):
+            raise AssertionError(f"{tag}: {diff.numel()} triangle ids differ "
+                                 "from K = 384's outside near ties")
+        same = got[0].hit & (got[0].tri == ref[0].tri)
+        if not torch.equal(got[0].t[same].view(torch.int32),
+                           ref[0].t[same].view(torch.int32)):
+            raise AssertionError(f"{tag}: t differs from K = 384's on the "
+                                 "same triangle")
+        if not torch.equal(got[1], ref[1]):
+            raise AssertionError(f"{tag}: occlusion differs from K = 384's")
+        phase("k", f"{tag} vs K = 384 on the same {K_RAYS} rays: hit masks "
+              f"and occlusion equal, {diff.numel()} ids differ (near ties), t"
+              " bit for bit on the others")
+        for name in ("walk_closest", "walk_closest_counted"):
+            out[f"{name}@K{k}"] = recs[name]
+    phase("k", f"phase 29 (a) in {time.time() - t0:.1f}s")
+    return out
+
+
+# phase 29 (b): each lab's main at sizes that keep it short
+LAB_RUNS = (
+    ("sortkey_lab", ["--rays", "16384"]),
+    ("grouping_lab", ["--rays", "4096"]),
+    ("greedy_onchip", ["--rays", "8192", "--runs", "3"]),
+    ("k_sweep", ["--ks", "384,128", "--rays", "16384", "--runs", "3"]),
+    ("k_sweep_bench", ["--ks", "128,384,768", "--rays", "65536",
+                       "--runs", "3"]),
+    ("prim_gather_scale", ["--nb", "1024,16384", "--runs", "1"]),
+    ("e2e_131k", ["--spp", "2"]),
+    ("e2e_4p9M", ["--ao-spp", "1"]))
+
+
+def labs_phase(dev):
+    """Phase 29 (b): each lab of rustlight_tpu_torch/tools/perf/ once on the
+    card at LAB_RUNS' sizes, its record under build/lab/phase29/, with the
+    per-K launch counts (ops/native.py:K_LAUNCHES) reset just before and
+    read just after. Returns them."""
+    import importlib
+    from rustlight_tpu_torch.ops import native
+    t0 = time.time()
+    native.K_LAUNCHES.clear()
+    out_dir = os.path.join(ROOT, "build", "lab", "phase29")
+    for name, argv in LAB_RUNS:
+        t1 = time.time()
+        mod = importlib.import_module(
+            f"rustlight_tpu_torch.tools.perf.{name}")
+        extra = (["--png", os.path.join(out_dir, "bigscene_4p9M.png")]
+                 if name == "e2e_4p9M" else [])
+        mod.main(["--device", str(dev), *argv, *extra,
+                  "--out", os.path.join(out_dir, f"{name}.json")])
+        phase("labs", f"{name} {' '.join(argv)} in {time.time() - t1:.1f}s")
+    launches = dict(native.K_LAUNCHES)
+    phase("labs", f"phase 29 (b) in {time.time() - t0:.1f}s; launches at "
+          f"other K: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5034,6 +5373,7 @@ def main() -> int:
     from rustlight_tpu_torch.ops import native
     t0 = time.time()
     start_lab_build()
+    start_k_build()
     lib = native.build(verbose=True)
     phase("build", f"{lib.name} in {time.time() - t0:.2f}s")
     ptxas_table()
@@ -5041,6 +5381,7 @@ def main() -> int:
     wait_lab_build()
     phase("build", f"RL_LAB_FORMS library of K7's, K3w's and K8's forms in "
           f"{_LAB['seconds']:.2f}s (from the start of the build)")
+    wait_k_build()
 
     from rustlight_tpu_torch.integrators import IntegratorPathTracing
     from rustlight_tpu_torch.models import cornell_box, sphere_grid
@@ -5177,6 +5518,8 @@ def main() -> int:
         (gate_launches if k.startswith("dense") else walk_launches)[k] += v
     for k in ("walk_closest", "walk_anyhit"):
         walk_launches[k] += ex_launches[k]
+    k_recs = check_k_forms(dev)
+    k_launches = labs_phase(dev)
 
     def pick(kind):
         """The K3-size spread wavefront stands for a walk kernel; every
@@ -5361,6 +5704,20 @@ def main() -> int:
             name, source, f"{PW}:591 (MXU_TRITEST in {what})",
             sched_launches[name], cases=mma_recs[name], wave="spread",
             sched=sched))
+    # the walk at other K: K3 and the counted kernel (K9a), which phase
+    # 29's labs launch at K_OTHER; their numbers from phase 29 (a)
+    for key, rec in k_recs.items():
+        name, k = key.split("@K")
+        counted = name == "walk_closest_counted"
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": KERNEL_SOURCES["lab" if counted else "walk"],
+            "replaces": (f"{ROOFLINE}:58" if counted else
+                         WALK_REPLACES.format(636, 1139)) + f", K = {k}",
+            "launches": k_launches.get(key, 0),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on a "

@@ -2,9 +2,13 @@
 rustlight_tpu/accel/pallas_walk.py.
 
 Host build: the SAH BVH's preorder primitive array is cut into treelets of
-at most K = 384 triangles (`_treelet_cut`), neighbours are re-packed greedily
+at most K triangles (`_treelet_cut`), neighbours are re-packed greedily
 up to K per cluster, and each cluster gets the tight bounds of its
-triangles (`build_walk_tables`). The port keeps one table layout for every
+triangles (`build_walk_tables`). K is the tables' own (`WalkTables.k`, 384
+by default; `build_walk_tables(geom, k=...)` takes any K that
+ops/walk_trace.py:check_k allows), and every walk reads it from the
+tables: the plain versions, and the kernels, which launch the library
+built for that K. The port keeps one table layout for every
 cluster count: rows [Cp*K, 3, 4] f32 (cluster-major, each triangle as the
 dense kernels' rows), ids [Cp*K] int32 (-1 in pad slots), bounds lo/hi
 [3, Cp] f32, with Cp the real count padded to a multiple of 128. The
@@ -59,8 +63,8 @@ from ..ops.walk_hier import (MAX_CLUSTERS, SUP, walk_hier_anyhit,
 from ..ops.walk_sparse import walk_sparse_anyhit, walk_sparse_closest
 from ..ops.walk_sub import (MAX_VMEM_CLUSTERS, SUBS, walk_sub_anyhit,
                             walk_sub_closest)
-from ..ops.walk_trace import (K, RAY_TILE, _ID_BITS, _slab_inv, walk_anyhit,
-                              walk_closest)
+from ..ops.walk_trace import (K, RAY_TILE, _ID_BITS, _slab_inv, check_k,
+                              walk_anyhit, walk_closest)
 from .bvh import build_bvh
 from .dense import RayHit
 
@@ -102,6 +106,7 @@ class WalkTables(NamedTuple):
     world_lo: Any     # [3] f32 scene bounds (the morton grid of the sort key)
     world_hi: Any     # [3] f32
     options: WalkOptions = WalkOptions()
+    k: int = K        # triangles per cluster
 
 
 def _check_clusters(cp: int) -> None:
@@ -112,20 +117,20 @@ def _check_clusters(cp: int) -> None:
 
 
 def _super_tables(lo, hi, c: int):
-    """Super tables of cluster bounds lo/hi [3, Cp] with c real clusters, as
-    the reference builds them (pallas_walk.py:274-285): (n_sup, Sp, slo,
-    shi), each super the union of its real children; pad supers stay
-    _BIG."""
+    """Super tables of cluster bounds lo/hi [3, Cp] with c real clusters in
+    groups of SUP (a divisor of 128), as the reference builds them
+    (pallas_walk.py:274-285): (n_sup, Sp, slo, shi), each super the union
+    of its real children; pad supers stay _BIG."""
     cp = lo.shape[1]
-    # Cp pads c to a multiple of 128 = SUP, so every one of its Cp / SUP
-    # supers holds a real cluster: they are the n_sup real ones
-    ns = cp // SUP
-    sp = ((ns + 127) // 128) * 128
+    ns = -(-c // SUP)                                    # real supers
+    ncol = cp // SUP
+    sp = ((ncol + 127) // 128) * 128
     slo = np.full((3, sp), _BIG, np.float32)
     shi = np.full((3, sp), _BIG, np.float32)
-    slo[:, :ns] = lo.reshape(3, ns, SUP).min(2)          # _BIG pads inert
+    slo[:, :ncol] = lo.reshape(3, ncol, SUP).min(2)      # _BIG pads inert
     hi_m = np.where(np.arange(cp)[None, :] < c, hi, -_BIG)
-    shi[:, :ns] = hi_m.reshape(3, ns, SUP).max(2)
+    shi_v = hi_m.reshape(3, ncol, SUP).max(2)
+    shi[:, :ncol] = np.where(shi_v <= -_BIG, _BIG, shi_v)  # all-pad supers
     return ns, sp, slo, shi
 
 
@@ -168,16 +173,18 @@ def _box_area(lo_v, hi_v):
 
 
 def build_walk_tables(geom, bvh=None, builder: str = None,
-                      repack_alpha: float = None) -> WalkTables:
+                      repack_alpha: float = None, k: int = K) -> WalkTables:
     """Host build over numpy geometry tables: the treelets of a SAH BVH
-    (max_leaf = 8) greedily re-packed up to K per cluster, with tight
-    per-cluster bounds.
+    (max_leaf = 8) greedily re-packed up to k per cluster, with tight
+    per-cluster bounds. k (the tables' K, triangles per cluster) must pass
+    ops/walk_trace.py:check_k.
 
     bvh: a caller's max_leaf = 8 build to share; else one is built with
     `builder`, "binned" (the default) or "sweep" (accel/bvh.py).
     repack_alpha: if set, the re-pack is tightness-aware: neighbours merge
     only when SA(merged) <= alpha * (SA(a) + SA(b)), so spatially disjoint
     treelets stay separate clusters at the price of a lower fill."""
+    k = check_k(k)
     if bvh is None:
         bvh = build_bvh(geom, max_leaf=8, builder=builder or "binned")
     order = np.asarray(bvh.prim_index)                   # SAH preorder
@@ -186,7 +193,7 @@ def build_walk_tables(geom, bvh=None, builder: str = None,
     ints = np.stack([bvh.skip, bvh.prim_start, bvh.prim_count], axis=1)
     nodes = np.concatenate([nodes.astype(np.float32),
                             ints.astype(np.int32).view(np.float32)], axis=1)
-    segs = _treelet_cut(nodes, K)
+    segs = _treelet_cut(nodes, k)
     all_rows = np.asarray(geom.inter_rows[: geom.n_tris])[order]
     v0 = np.asarray(geom.v0[: geom.n_tris])[order]
     p1 = v0 + np.asarray(geom.e1[: geom.n_tris])[order]
@@ -206,7 +213,7 @@ def build_walk_tables(geom, bvh=None, builder: str = None,
     cuts = []
     cs, cn = segs[0]
     for i, (s, n) in enumerate(segs[1:], start=1):
-        ok = cn + n <= K
+        ok = cn + n <= k
         if ok and sa_aware:
             mlo = np.minimum(clo, seg_lo[i])
             mhi = np.maximum(chi, seg_hi[i])
@@ -229,11 +236,11 @@ def build_walk_tables(geom, bvh=None, builder: str = None,
     starts = np.fromiter((s for s, _ in cuts), np.int64, c)
     counts = np.fromiter((n for _, n in cuts), np.int64, c)
     cluster_of = np.repeat(np.arange(c, dtype=np.int64), counts)
-    dest = cluster_of * K + (np.arange(t, dtype=np.int64)
+    dest = cluster_of * k + (np.arange(t, dtype=np.int64)
                              - np.repeat(starts, counts))
-    rows = np.zeros((cp * K, 3, 4), np.float32)
+    rows = np.zeros((cp * k, 3, 4), np.float32)
     rows[dest] = all_rows
-    ids = np.full(cp * K, -1, np.int32)
+    ids = np.full(cp * k, -1, np.int32)
     ids[dest] = order
     lo = np.full((3, cp), _BIG, np.float32)
     hi = np.full((3, cp), _BIG, np.float32)
@@ -244,40 +251,42 @@ def build_walk_tables(geom, bvh=None, builder: str = None,
                       n_sup_pad=sp, rows=rows, ids=ids, lo=lo, hi=hi,
                       slo=slo, shi=shi,
                       world_lo=tri_lo.min(0).astype(np.float32),
-                      world_hi=tri_hi.max(0).astype(np.float32))
+                      world_hi=tri_hi.max(0).astype(np.float32), k=k)
 
 
 def walk_tables_from_numpy(wt) -> WalkTables:
     """This package's numpy WalkTables from the JAX package's (read by
     attribute): its resident layout, rows [4, C, 3K] + ids [C, K], or its
-    HBM layout, rows [C, 8, 3K] with the ids bitcast into component row 4.
-    This package's own tables pass through."""
+    HBM layout, rows [C, 8, 3K] with the ids bitcast into component row 4;
+    K is read off the rows' width. This package's own tables pass
+    through."""
     if isinstance(wt, WalkTables):
         return wt
     cp = int(wt.n_clusters)
     _check_clusters(cp)
+    k = check_k(np.shape(wt.rows)[-1] // 3)
     if wt.resident:
         packed = np.asarray(wt.rows)                     # [4, C, 3K]
         ids = np.asarray(wt.ids, np.int32).reshape(-1)
     else:
         blk = np.asarray(wt.rows)                        # [C, 8, 3K]
         packed = blk[:, 0:4, :].transpose(1, 0, 2)
-        ids = np.ascontiguousarray(blk[:, 4, :K]).view(np.int32).reshape(-1)
-    # packed[j, c, b*K + k] is component j of row b of triangle k of c
-    rows = packed.reshape(4, cp, 3, K).transpose(1, 3, 2, 0)
-    rows = np.ascontiguousarray(rows.reshape(cp * K, 3, 4), np.float32)
+        ids = np.ascontiguousarray(blk[:, 4, :k]).view(np.int32).reshape(-1)
+    # packed[j, c, b*K + i] is component j of row b of triangle i of c
+    rows = packed.reshape(4, cp, 3, k).transpose(1, 3, 2, 0)
+    rows = np.ascontiguousarray(rows.reshape(cp * k, 3, 4), np.float32)
     return WalkTables(
         n_tris=int(wt.n_tris), n_clusters=cp, n_real=int(wt.n_real),
         n_sup=int(wt.n_sup), n_sup_pad=int(wt.n_sup_pad), rows=rows, ids=ids,
         lo=np.asarray(wt.lo, np.float32), hi=np.asarray(wt.hi, np.float32),
         slo=np.asarray(wt.slo, np.float32), shi=np.asarray(wt.shi, np.float32),
         world_lo=np.asarray(wt.world_lo, np.float32),
-        world_hi=np.asarray(wt.world_hi, np.float32))
+        world_hi=np.asarray(wt.world_hi, np.float32), k=k)
 
 
 def walk_tables_to(wt, device, walk_options: WalkOptions = None) -> WalkTables:
-    """Upload numpy walk tables (this package's or the JAX package's);
-    `walk_options` replaces the tables' schedule options."""
+    """Upload numpy walk tables (this package's or the JAX package's), their
+    K with them; `walk_options` replaces the tables' schedule options."""
     wt = walk_tables_from_numpy(wt)
     if walk_options is None:
         walk_options = wt.options
@@ -288,7 +297,8 @@ def walk_tables_to(wt, device, walk_options: WalkOptions = None) -> WalkTables:
     return WalkTables(n_tris=int(wt.n_tris), n_clusters=int(wt.n_clusters),
                       n_real=int(wt.n_real), n_sup=int(wt.n_sup),
                       n_sup_pad=int(wt.n_sup_pad),
-                      options=WalkOptions(*walk_options), **arrays)
+                      options=WalkOptions(*walk_options), k=int(wt.k),
+                      **arrays)
 
 
 # ------------------------------------------------------------- coherence keys

@@ -63,7 +63,15 @@ namespace walk {
 
 constexpr int TILE = 64;          // rays per tile, one thread per ray
 constexpr int WARPS = TILE / 32;
-constexpr int KC = 384;           // triangles per cluster
+// triangles per cluster: the walk tables' K, 384 unless the library is
+// built with -DRL_KC=<k> (ops/native.py:load_cuda(k)); a multiple of 128,
+// so that NB, each split form's columns a thread (KC / P, P <= 8) and each
+// warp's column blocks of a tensor-core visit (NB / W, W <= 8) stay whole
+#ifndef RL_KC
+#define RL_KC 384
+#endif
+constexpr int KC = RL_KC;
+static_assert(KC > 0 && KC % 128 == 0, "RL_KC: a multiple of 128");
 constexpr int NB = KC / 8;        // n8 column blocks of a cluster
 constexpr int PARTS = 3;          // TF32 parts of an operand
 

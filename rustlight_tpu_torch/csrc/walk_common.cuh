@@ -534,7 +534,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// Thread 0's half of a bulk copy of cluster c's 3 x KC float4 (18,432 B)
+// Thread 0's half of a bulk copy of cluster c's 3 x KC float4 (48 x KC B)
 // into `slot`, completing on the mbarrier `bar` (one arrival, the issuer's
 // expect_tx, and the bytes). The caller has ended every read of the slot
 // (a barrier) and the slot's last copy has completed; the fence orders
@@ -570,7 +570,7 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int n) {
 // A two-slot ring of cluster rows in shared memory, filled one visit ahead
 // by Hopper's bulk asynchronous copy: thread 0 issues one
 // cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes for the
-// cluster's contiguous 3 x KC float4 (18,432 B), and the copy's completion
+// cluster's contiguous 3 x KC float4 (48 x KC B), and the copy's completion
 // arrives on the slot's mbarrier (one arrival, the issuer's expect_tx, and
 // the bytes). Copy k goes to slot k & 1 and completes phase k >> 1 of its
 // barrier, so every thread knows the parity to wait on from the count n of

@@ -36,8 +36,8 @@
 // different times and a group must never wait on another. A popped entry
 // is cleared by the thread that scans it, so a pop needs no barrier after
 // it. The rows of a visit are read through L1 from the table, or, with
-// STAGE, copied into a slot of 18,432 B per group (behind the group's
-// barrier) when one of its rays wants them.
+// STAGE, copied into a slot of 48 x KC B (18,432 at K = 384) per group
+// (behind the group's barrier) when one of its rays wants them.
 //
 // With MMA a visit takes the tensor-core form of the triangle test
 // (tri_test_mma.cuh, not bit-identical to the _dot4 form). One thread a ray:

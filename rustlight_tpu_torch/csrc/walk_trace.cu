@@ -661,6 +661,10 @@ AnyhitKernel anyhit_kernel(int mma, int p, int ring) {
 
 }  // namespace
 
+// The triangles per cluster this library was built for (RL_KC): the
+// wrappers refuse walk tables of another K (ops/native.py:check_lib_k).
+extern "C" int rl_kc() { return KC; }
+
 // n must be a multiple of 64 (the wrapper pads). mma != 0 takes the
 // tensor-core form of the triangle test. p threads a ray and ring name the
 // form: (1, 0) the one-thread-a-ray kernel, else the split form this

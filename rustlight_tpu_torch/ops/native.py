@@ -6,6 +6,12 @@ plain C interface, loaded with ctypes. Host C++ (the BVH builder) is
 compiled with g++. Both land in build/kernels/ under the checkout, keyed by
 the hash of their sources and flags, at first use; a failed compile raises.
 
+The walk's kernels are built for one cluster size K (triangles per
+cluster, csrc/tri_test_mma.cuh: RL_KC): the production library at 384, and
+`load_cuda(k)` at any other K a library of the walk sources alone
+(WALK_SOURCES) built with -DRL_KC=<k>, keyed by those flags beside it.
+`check_lib_k` holds a library's K (its `rl_kc()`) to the tables'.
+
 `counting_rays()` sums, on the device, the lanes with tfar > 0 handed to any
 trace kernel of ops/ (the rays actually traced). The build keeps ptxas's
 report (registers, shared memory, spills per kernel) beside the library;
@@ -30,7 +36,16 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 _GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
-_CUDA_LIB = None
+# the production K (ops/walk_trace.py:K, RL_KC's default in csrc/)
+PRODUCTION_K = 384
+# the sources of a library built at another K: every walk kernel's
+WALK_SOURCES = ("walk_trace.cu", "walk_hier.cu", "walk_sub.cu",
+                "walk_sparse.cu", "pair_trace.cu", "walk_lab.cu")
+_CUDA_LIBS = {}
+# launches of walk kernels over tables of another K than the production
+# one, by "<LAUNCHES name>@K<k>" (the wrappers count them in their own
+# LAUNCHES too)
+K_LAUNCHES = {}
 _RAY_COUNTERS: List[torch.Tensor] = []
 
 
@@ -145,11 +160,41 @@ def ptxas_usage(lib: Path = None) -> dict:
     return usage
 
 
-def load_cuda() -> ctypes.CDLL:
-    global _CUDA_LIB
-    if _CUDA_LIB is None:
-        _CUDA_LIB = ctypes.CDLL(str(build()))
-    return _CUDA_LIB
+def build_k(k: int, verbose: bool = False) -> Path:
+    """The library whose walk kernels take K = k: the production one at 384,
+    else WALK_SOURCES built with -DRL_KC=<k> (ValueError for a K that
+    ops/walk_trace.py:check_k refuses)."""
+    from .walk_trace import check_k
+    check_k(k)
+    if int(k) == PRODUCTION_K:
+        return build(verbose)
+    return build(verbose, defines=(f"RL_KC={int(k)}",), sources=WALK_SOURCES)
+
+
+def load_cuda(k: int = PRODUCTION_K) -> ctypes.CDLL:
+    """The loaded library for walk tables of K = k (build_k), one a K."""
+    k = int(k)
+    if k not in _CUDA_LIBS:
+        lib = ctypes.CDLL(str(build_k(k)))
+        lib.rl_kc.argtypes, lib.rl_kc.restype = [], ctypes.c_int
+        _CUDA_LIBS[k] = lib
+    return _CUDA_LIBS[k]
+
+
+def count_k(name: str, k: int) -> None:
+    """One launch of kernel `name` over tables of K = k (K_LAUNCHES)."""
+    if int(k) != PRODUCTION_K:
+        key = f"{name}@K{int(k)}"
+        K_LAUNCHES[key] = K_LAUNCHES.get(key, 0) + 1
+
+
+def check_lib_k(lib, k: int, what: str) -> None:
+    """Raises ValueError unless library `lib` was built for K = k: a kernel
+    never walks tables of another K than its own."""
+    built = int(lib.rl_kc())
+    if built != int(k):
+        raise ValueError(f"{what}: walk tables of K = {int(k)} handed to a "
+                         f"library built for K = {built}")
 
 
 def build_host(src: Path) -> Path:

@@ -7,7 +7,7 @@ rustlight_tpu/accel/pair_walk.py:_pair_closest_kernel and
 ctypes on PyTorch's current stream.
 
 A pair is one ray and one cluster id: the kernels give each pair the ray's
-closest hit (or whether it has any hit) among that cluster's K = 384
+closest hit (or whether it has any hit) among that cluster's K (wt.k)
 triangles, with t in (tnear, tcap); the lowest column wins among equal t.
 Pairs whose id lies outside [0, n_real) are inert and report a miss. The
 shortlist that makes the pairs, the per-ray reduce and the re-trace of
@@ -49,11 +49,11 @@ from typing import Tuple
 
 import torch
 
-from .native import load_cuda
+from .native import check_lib_k, count_k, load_cuda
 from .walk_sub import check_resident
-from .walk_trace import (K, ONE_THREAD_FORM, _SLOT_BYTES, _test_clusters,
-                         _visit_anyhit_split, _visit_closest_split,
-                         mma_scratch_bytes)
+from .walk_trace import (K, ONE_THREAD_FORM, _test_clusters,
+                         _visit_anyhit_split, _visit_closest_split, load_for,
+                         mma_scratch_bytes, slot_bytes, table_k)
 
 PAIR_TILE = 64
 _PAIR_CHUNK = 4096     # live pairs per [chunk, K, 3, 4] gather of rows
@@ -78,7 +78,7 @@ LAB_MMA_FORMS = tuple((p, 1, False) for p in (8, 4, 2, 1)
 # ptxas's static shared memory of every split form: two mbarriers
 SPLIT_STATIC = 16
 
-_LIB = None
+_LIBS = {}
 
 
 def reset_launches() -> None:
@@ -104,17 +104,18 @@ def bind(lib):
     return lib
 
 
-def _load():
-    global _LIB
-    if _LIB is None:
-        _LIB = bind(load_cuda())
-    return _LIB
+def _load(k: int = K):
+    if k not in _LIBS:
+        _LIBS[k] = bind(load_cuda(k))
+    return _LIBS[k]
 
 
-def launch_geometry(form, mxu: bool = False, *, lab: bool = False):
+def launch_geometry(form, mxu: bool = False, *, lab: bool = False,
+                    k: int = K):
     """(threads a block, dynamic shared-memory bytes) of the split form
     `form` (threads a pair, runs a block, ring): the rows' slots (two with
-    the ring), with `mxu` the split tensor-core visit's scratch. Raises
+    the ring) at K = k, with `mxu` the split tensor-core visit's scratch.
+    Raises
     ValueError for a form not built: PRODUCTION_FORM, or MMA_FORM with
     `mxu`, and with `lab` the LAB_FORMS (or LAB_MMA_FORMS) that a library
     built with RL_LAB_FORMS holds."""
@@ -126,7 +127,7 @@ def launch_geometry(form, mxu: bool = False, *, lab: bool = False):
                          f"{' with mxu' if mxu else ''} are not built "
                          f"(built: {', '.join(map(str, built))})")
     p, _, ring = form
-    return p * RUN, ((2 if ring else 1) * _SLOT_BYTES
+    return p * RUN, ((2 if ring else 1) * slot_bytes(k)
                      + (mma_scratch_bytes(p) if mxu else 0))
 
 
@@ -143,15 +144,15 @@ def _resolve_form(form, mxu: bool = False):
 
 def _check(wt, o, d, tnear, tcap, cid) -> None:
     check_resident(wt, "the pair walk")
-    cp = int(wt.n_clusters)
+    cp, k = int(wt.n_clusters), table_k(wt)
     m = o.shape[0]
     if m % PAIR_TILE:
         raise ValueError(f"{m} pairs: the kernels take whole {PAIR_TILE}-pair "
                          "tiles")
     dev = o.device
     for name, x, shape, dtype in (
-            ("rows", wt.rows, (cp * K, 3, 4), torch.float32),
-            ("ids", wt.ids, (cp * K,), torch.int32),
+            ("rows", wt.rows, (cp * k, 3, 4), torch.float32),
+            ("ids", wt.ids, (cp * k,), torch.int32),
             ("o", o, (m, 3), torch.float32), ("d", d, (m, 3), torch.float32),
             ("tnear", tnear, (m,), torch.float32),
             ("tcap", tcap, (m,), torch.float32),
@@ -175,7 +176,7 @@ def _check(wt, o, d, tnear, tcap, cid) -> None:
 def _pair_chunks(wt, o, d, tnear, tcap, cid, mxu=False):
     """Yields (pair indices, (t, u, v, valid) [A, K]) over the live pairs
     in chunks."""
-    rows = wt.rows.view(int(wt.n_clusters), K, 3, 4)
+    rows = wt.rows.view(int(wt.n_clusters), table_k(wt), 3, 4)
     live = torch.nonzero((cid >= 0) & (cid < int(wt.n_real)))[:, 0]
     for s in range(0, live.numel(), _PAIR_CHUNK):
         k = live[s:s + _PAIR_CHUNK]
@@ -193,15 +194,16 @@ def pair_closest_ref(wt, o, d, tnear, tcap, cid, mxu: bool = False):
     bi = torch.full((m,), -1, dtype=torch.int32, device=o.device)
     bu = torch.zeros(m, device=o.device)
     bv = torch.zeros(m, device=o.device)
-    ids = wt.ids.view(int(wt.n_clusters), K)
-    kiota = torch.arange(K, device=o.device)
+    nk = table_k(wt)
+    ids = wt.ids.view(int(wt.n_clusters), nk)
+    kiota = torch.arange(nk, device=o.device)
     n_live = 0
     for k, (t, u, v, valid) in _pair_chunks(wt, o, d, tnear, tcap, cid, mxu):
         n_live += k.numel()
         tm = torch.where(valid, t, float("inf"))
         ct = tm.amin(dim=1)
-        j = torch.clamp(torch.where(tm == ct[:, None], kiota, K).amin(dim=1),
-                        max=K - 1)
+        j = torch.clamp(torch.where(tm == ct[:, None], kiota, nk).amin(dim=1),
+                        max=nk - 1)
         hit = ct < tcap[k]
         bt[k] = torch.where(hit, ct, float("inf"))
         bi[k] = torch.where(hit, ids[cid[k].long(), j], -1)
@@ -269,7 +271,8 @@ def _raise(err, name, form):
 def launch_split(lib, any_hit: bool, wt, o, d, tnear, tcap, cid, form,
                  mxu: bool = False, lab: bool = False, perm=None):
     """The split kernels in `form` on checked CUDA tensors through library
-    `lib` (bound by `bind`): (t, tri, u, v) or occ. `lab`: a form only a
+    `lib` (bound by `bind`, built for the tables' K): (t, tri, u, v) or
+    occ. `lab`: a form only a
     library built with RL_LAB_FORMS holds (tools/perf/split_forms.py), not
     counted; `perm`: the layout in runs of RUN, if made already (the lab's
     timing of the kernel alone)."""
@@ -277,7 +280,8 @@ def launch_split(lib, any_hit: bool, wt, o, d, tnear, tcap, cid, form,
     (t, tri, u, v), occ = _miss(m, dev)
     name = ("pair_anyhit" if any_hit else "pair_closest") + (
         "_mma" if mxu else "")
-    _, smem = launch_geometry(form, mxu, lab=lab)
+    check_lib_k(lib, table_k(wt), name)
+    _, smem = launch_geometry(form, mxu, lab=lab, k=table_k(wt))
     if m:
         with torch.cuda.device(dev):
             if perm is None:
@@ -293,6 +297,7 @@ def launch_split(lib, any_hit: bool, wt, o, d, tnear, tcap, cid, form,
         _raise(err, name, form)
         if not lab:
             LAUNCHES[name] += 1
+            count_k(name, table_k(wt))
     return occ if any_hit else (t, tri, u, v)
 
 
@@ -307,7 +312,7 @@ def _pair_mma_parent(wt, o, d, tnear, tcap, cid, any_hit: bool, perm=None):
     with torch.cuda.device(dev):
         if perm is None:
             perm = _cluster_runs(int(wt.n_real), cid)
-        err = _load().rl_pair_mma(
+        err = load_for(wt, name, _load).rl_pair_mma(
             int(any_hit), wt.rows.data_ptr(), wt.ids.data_ptr(), o.data_ptr(),
             d.data_ptr(), tnear.data_ptr(), tcap.data_ptr(), cid.data_ptr(),
             perm.data_ptr(), perm.shape[0], t.data_ptr(), tri.data_ptr(),
@@ -316,6 +321,7 @@ def _pair_mma_parent(wt, o, d, tnear, tcap, cid, any_hit: bool, perm=None):
     _raise(err, name, ONE_THREAD_FORM)
     LAUNCHES[name] += 1
     P1_LAUNCHES[name] += 1
+    count_k(name, table_k(wt))
     return occ if any_hit else (t, tri, u, v)
 
 
@@ -331,15 +337,16 @@ def _pair_dot4_parent(wt, o, d, tnear, tcap, cid, any_hit: bool):
                 torch.empty(m, dtype=torch.int32, device=dev),
                 torch.empty(m, device=dev), torch.empty(m, device=dev))
     if m:
+        lib = load_for(wt, name, _load)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             if any_hit:
-                err = _load().rl_pair_anyhit(
+                err = lib.rl_pair_anyhit(
                     int(wt.n_real), wt.rows.data_ptr(), o.data_ptr(),
                     d.data_ptr(), tnear.data_ptr(), tcap.data_ptr(),
                     cid.data_ptr(), m, outs[0].data_ptr(), stream)
             else:
-                err = _load().rl_pair_closest(
+                err = lib.rl_pair_closest(
                     int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
                     o.data_ptr(), d.data_ptr(), tnear.data_ptr(),
                     tcap.data_ptr(), cid.data_ptr(), m,
@@ -347,6 +354,7 @@ def _pair_dot4_parent(wt, o, d, tnear, tcap, cid, any_hit: bool):
         _raise(err, name, ONE_THREAD_FORM)
         LAUNCHES[name] += 1
         P1_LAUNCHES[name] += 1
+        count_k(name, table_k(wt))
     return outs[0] if any_hit else outs
 
 
@@ -354,8 +362,8 @@ def _pair_launch(wt, o, d, tnear, tcap, cid, any_hit, mxu, form):
     if form == ONE_THREAD_FORM:
         parent = _pair_mma_parent if mxu else _pair_dot4_parent
         return parent(wt, o, d, tnear, tcap, cid, any_hit)
-    return launch_split(_load(), any_hit, wt, o, d, tnear, tcap, cid, form,
-                        mxu)
+    return launch_split(_load(table_k(wt)), any_hit, wt, o, d, tnear, tcap,
+                        cid, form, mxu)
 
 
 def pair_closest(wt, o, d, tnear, tcap, cid, mxu: bool = False, *,
@@ -393,7 +401,7 @@ def pair_split_model(wt, o, d, tnear, tcap, cid, p: int, any_hit: bool):
     pair_closest / pair_anyhit."""
     m, dev = o.shape[0], o.device
     (t, tri, u, v), occ = _miss(m, dev)
-    cp = int(wt.n_clusters)
+    cp, nk = int(wt.n_clusters), table_k(wt)
     runs = _cluster_runs(int(wt.n_real), cid, RUN).view(-1, RUN)
     runs = runs[runs[:, 0] >= 0].long()
     lead = runs[:, :1]
@@ -401,7 +409,7 @@ def pair_split_model(wt, o, d, tnear, tcap, cid, p: int, any_hit: bool):
     csel = cid[lead[:, 0]].long()
     ro, rd, rn = o[slot], d[slot], tnear[slot]
     cap = torch.where(runs >= 0, tcap[slot], float("-inf"))
-    rows = wt.rows.view(cp, K, 3, 4)
+    rows = wt.rows.view(cp, nk, 3, 4)
     real = runs >= 0
     if any_hit:
         hit = _visit_anyhit_split(rows, csel, ro, rd, rn, cap,
@@ -410,8 +418,8 @@ def pair_split_model(wt, o, d, tnear, tcap, cid, p: int, any_hit: bool):
         return occ
     best = (cap, torch.full(cap.shape, -1, dtype=torch.int32, device=dev),
             torch.zeros_like(cap), torch.zeros_like(cap))
-    bt, bi, bu, bv = _visit_closest_split(rows, wt.ids.view(cp, K), csel, ro,
-                                          rd, rn, best, p)
+    bt, bi, bu, bv = _visit_closest_split(rows, wt.ids.view(cp, nk), csel,
+                                          ro, rd, rn, best, p)
     k = runs[real]
     hit = bi[real] >= 0
     t[k] = torch.where(hit, bt[real], float("inf"))

@@ -38,12 +38,12 @@ from typing import Tuple
 
 import torch
 
-from .native import count_rays, load_cuda
+from .native import count_k, count_rays, load_cuda
 from .walk_trace import (K, _ID_BITS, _ID_MASK, _check_arrays, _min_entry,
                          _pack_entries, _pop_min, _resolve_form, _slab_inv,
                          _sortable_max, _tile_entries, _tiled, _visit_anyhit,
                          _visit_closest, ONE_THREAD_FORM, form_args,
-                         launch_geometry)
+                         launch_geometry, load_for, table_k)
 
 # clusters per super and the child-id bits of a packed child entry: the
 # reference's SUP and _CHILD_BITS (pallas_walk.py:74-75)
@@ -56,7 +56,7 @@ LAUNCHES = {"walk_hier_closest": 0, "walk_hier_anyhit": 0,
             "walk_hier_closest_mma": 0, "walk_hier_anyhit_mma": 0}
 P1_LAUNCHES = dict(LAUNCHES)
 
-_LIB = None
+_LIBS = {}
 
 
 def reset_launches() -> None:
@@ -65,16 +65,16 @@ def reset_launches() -> None:
         P1_LAUNCHES[k] = 0
 
 
-def _count(name: str, form) -> None:
+def _count(name: str, form, wt) -> None:
     LAUNCHES[name] += 1
+    count_k(name, table_k(wt))
     if tuple(form) == ONE_THREAD_FORM:
         P1_LAUNCHES[name] += 1
 
 
-def _load():
-    global _LIB
-    if _LIB is None:
-        lib = load_cuda()
+def _load(k: int = K):
+    if k not in _LIBS:
+        lib = load_cuda(k)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rl_walk_hier_closest.argtypes = [p, p, i, i, p, p, i, i, p, p, p,
                                              p, p, p, i, i, i, i, i, p, p, p,
@@ -83,8 +83,8 @@ def _load():
         lib.rl_walk_hier_anyhit.argtypes = [p, p, i, i, p, p, i, i, p, p, p,
                                             p, p, i, i, i, i, i, p, p]
         lib.rl_walk_hier_anyhit.restype = i
-        _LIB = lib
-    return _LIB
+        _LIBS[k] = lib
+    return _LIBS[k]
 
 
 def _check(wt, o, d, tnear, tfar) -> None:
@@ -198,11 +198,11 @@ def _walk_hier_ref(wt, o, d, tnear, tfar, any_hit: bool, mxu: bool = False):
     """The two-level walk of the kernels for every tile at once, chunked
     over tiles. Returns ((t, tri, u, v) or (occ,), supers opened per tile,
     cluster visits per tile)."""
-    cp = int(wt.n_clusters)
-    rows = wt.rows.view(cp, K, 3, 4)
-    ids = wt.ids.view(cp, K)
+    cp, k = int(wt.n_clusters), table_k(wt)
+    rows = wt.rows.view(cp, k, 3, 4)
+    ids = wt.ids.view(cp, k)
     return _tiled(lambda *r: _walk_hier_chunk(wt, rows, ids, *r, any_hit, mxu),
-                  max(int(wt.n_sup_pad), K), o, d, tnear, tfar)
+                  max(int(wt.n_sup_pad), k), o, d, tnear, tfar)
 
 
 def walk_hier_closest_ref(wt, o, d, tnear, tfar, mxu: bool = False):
@@ -225,7 +225,8 @@ def walk_hier_anyhit_ref(wt, o, d, tnear, tfar, mxu: bool = False):
 
 def _form_geometry(name: str, wt, form, mxu: bool):
     form = _resolve_form(name, form, mxu)
-    return form, launch_geometry(name, form, wt.n_sup_pad, mxu)[1]
+    return form, launch_geometry(name, form, wt.n_sup_pad, mxu,
+                                 k=table_k(wt))[1]
 
 
 def walk_hier_closest(wt, o, d, tnear, tfar, mxu: bool = False, *,
@@ -244,8 +245,9 @@ def walk_hier_closest(wt, o, d, tnear, tfar, mxu: bool = False, *,
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     if n:
+        lib = load_for(wt, "walk_hier_closest", _load)
         with torch.cuda.device(o.device):
-            err = _load().rl_walk_hier_closest(
+            err = lib.rl_walk_hier_closest(
                 wt.slo.data_ptr(), wt.shi.data_ptr(), int(wt.n_sup_pad),
                 int(wt.n_sup), wt.lo.data_ptr(), wt.hi.data_ptr(),
                 int(wt.n_clusters), int(wt.n_real), wt.rows.data_ptr(),
@@ -257,7 +259,7 @@ def walk_hier_closest(wt, o, d, tnear, tfar, mxu: bool = False, *,
         if err:
             raise RuntimeError(
                 f"walk_hier_closest launch failed: CUDA error {err}")
-        _count("walk_hier_closest" + ("_mma" if mxu else ""), form)
+        _count("walk_hier_closest" + ("_mma" if mxu else ""), form, wt)
     return t, tri, u, v
 
 
@@ -273,8 +275,9 @@ def walk_hier_anyhit(wt, o, d, tnear, tfar, mxu: bool = False, *,
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if n:
+        lib = load_for(wt, "walk_hier_anyhit", _load)
         with torch.cuda.device(o.device):
-            err = _load().rl_walk_hier_anyhit(
+            err = lib.rl_walk_hier_anyhit(
                 wt.slo.data_ptr(), wt.shi.data_ptr(), int(wt.n_sup_pad),
                 int(wt.n_sup), wt.lo.data_ptr(), wt.hi.data_ptr(),
                 int(wt.n_clusters), int(wt.n_real), wt.rows.data_ptr(),
@@ -285,5 +288,5 @@ def walk_hier_anyhit(wt, o, d, tnear, tfar, mxu: bool = False, *,
         if err:
             raise RuntimeError(
                 f"walk_hier_anyhit launch failed: CUDA error {err}")
-        _count("walk_hier_anyhit" + ("_mma" if mxu else ""), form)
+        _count("walk_hier_anyhit" + ("_mma" if mxu else ""), form, wt)
     return occ

@@ -49,11 +49,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .native import load_cuda
+from .native import count_k, load_cuda
 from .walk_trace import (K, ONE_THREAD_FORM, RAY_TILE, _check,
                          _matmul_products, _resolve_form, _tiled,
                          _visit_closest, _walk_ref, form_args,
-                         launch_geometry)
+                         launch_geometry, load_for, table_k)
 
 # the fused step's constants, as f32 (roofline.py:169-170)
 _FMA_A = (float(np.float32(1.000001)), 0.5)
@@ -73,7 +73,7 @@ MMA_FORMS = ("TF32 3 passes (lo.hi + hi.lo + hi.hi)",
              "FP64 1 pass")
 PRODUCTION_FORM = 4
 
-_LIB = None
+_LIBS = {}
 
 
 def reset_launches() -> None:
@@ -81,10 +81,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _load():
-    global _LIB
-    if _LIB is None:
-        lib = load_cuda()
+def _load(k: int = K):
+    if k not in _LIBS:
+        lib = load_cuda(k)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rl_walk_closest_counted.argtypes = [p, p, i, i, p, p, p, p, p, p,
                                                 i, i, i, i, i, p, p, p, p, p,
@@ -99,8 +98,8 @@ def _load():
                    lib.rl_fma_peak, lib.rl_mma_products,
                    lib.rl_mma_form_lanes, lib.rl_mma_form_visits):
             fn.restype = i
-        _LIB = lib
-    return _LIB
+        _LIBS[k] = lib
+    return _LIBS[k]
 
 
 # ------------------------------------------------------------ plain versions
@@ -128,11 +127,11 @@ def _floor_chunk(rows, ids, nv_total, mxu, o, d, tnear, tfar):
 
 def walk_floor_ref(wt, o, d, tnear, tfar, nv_total: int, mxu: bool = False):
     """Plain version of the floor walk: (t, tri, u, v)."""
-    cp = int(wt.n_clusters)
-    rows = wt.rows.view(cp, K, 3, 4)
-    ids = wt.ids.view(cp, K)
+    cp, k = int(wt.n_clusters), table_k(wt)
+    rows = wt.rows.view(cp, k, 3, 4)
+    ids = wt.ids.view(cp, k)
     return _tiled(lambda *r: _floor_chunk(rows, ids, nv_total, mxu, *r),
-                  K, o, d, tnear, tfar)[0]
+                  k, o, d, tnear, tfar)[0]
 
 
 def fma_peak_ref(x, iters: int):
@@ -189,8 +188,8 @@ def mma_form_visits_ref(wt, o, d, nvis: int):
     """Plain version of mma_form_visits: per 32 rays, the f32 sum of their
     products over visits k = 0 .. nvis - 1 of cluster (tile + k) % Cp (not
     in the kernel's order of summation)."""
-    cp = int(wt.n_clusters)
-    rows = wt.rows.view(cp, K, 3, 4).permute(0, 3, 2, 1).reshape(cp, 4, 3 * K)
+    cp, k = int(wt.n_clusters), table_k(wt)
+    rows = wt.rows.view(cp, k, 3, 4).permute(0, 3, 2, 1).reshape(cp, 4, 3 * k)
     o4, d4 = _o4_d4(o, d)
     tile = torch.arange(o.shape[0], device=o.device) // RAY_TILE
     out = torch.zeros(o.shape[0], device=o.device)
@@ -212,7 +211,8 @@ def walk_closest_counted(wt, o, d, tnear, tfar, mxu: bool = False, *,
     form = _resolve_form("walk_closest", _form)
     if mxu:
         form = ONE_THREAD_FORM
-    smem = launch_geometry("walk_closest", form, wt.n_clusters)[1]
+    smem = launch_geometry("walk_closest", form, wt.n_clusters,
+                           k=table_k(wt))[1]
     if o.device.type == "cpu":
         return walk_closest_counted_ref(wt, o, d, tnear, tfar, mxu)
     n = o.shape[0]
@@ -223,7 +223,8 @@ def walk_closest_counted(wt, o, d, tnear, tfar, mxu: bool = False, *,
     nv = torch.empty_like(tri)
     if n:
         with torch.cuda.device(o.device):
-            err = _load().rl_walk_closest_counted(
+            err = load_for(wt, "walk_closest_counted",
+                           _load).rl_walk_closest_counted(
                 wt.lo.data_ptr(), wt.hi.data_ptr(), int(wt.n_clusters),
                 int(wt.n_real), wt.rows.data_ptr(), wt.ids.data_ptr(),
                 o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(),
@@ -234,7 +235,9 @@ def walk_closest_counted(wt, o, d, tnear, tfar, mxu: bool = False, *,
         if err:
             raise RuntimeError(
                 f"walk_closest_counted launch failed: CUDA error {err}")
-        LAUNCHES["walk_closest_counted" + ("_mma" if mxu else "")] += 1
+        name = "walk_closest_counted" + ("_mma" if mxu else "")
+        LAUNCHES[name] += 1
+        count_k(name, table_k(wt))
     return t, tri, u, v, nv
 
 
@@ -248,7 +251,7 @@ def walk_floor(wt, o, d, tnear, tfar, nv_total: int, mxu: bool = False, *,
     form = _resolve_form("walk_closest", _form)
     if mxu:
         form = ONE_THREAD_FORM
-    smem = launch_geometry("walk_floor", form, 0)[1]
+    smem = launch_geometry("walk_floor", form, 0, k=table_k(wt))[1]
     if o.device.type == "cpu":
         return walk_floor_ref(wt, o, d, tnear, tfar, nv_total, mxu)
     n = o.shape[0]
@@ -258,7 +261,7 @@ def walk_floor(wt, o, d, tnear, tfar, nv_total: int, mxu: bool = False, *,
     v = torch.empty_like(t)
     if n:
         with torch.cuda.device(o.device):
-            err = _load().rl_walk_floor(
+            err = load_for(wt, "walk_floor", _load).rl_walk_floor(
                 int(wt.n_clusters), int(nv_total), wt.rows.data_ptr(),
                 wt.ids.data_ptr(), o.data_ptr(), d.data_ptr(),
                 tnear.data_ptr(), tfar.data_ptr(), n, int(mxu),
@@ -267,7 +270,9 @@ def walk_floor(wt, o, d, tnear, tfar, nv_total: int, mxu: bool = False, *,
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"walk_floor launch failed: CUDA error {err}")
-        LAUNCHES["walk_floor" + ("_mma" if mxu else "")] += 1
+        name = "walk_floor" + ("_mma" if mxu else "")
+        LAUNCHES[name] += 1
+        count_k(name, table_k(wt))
     return t, tri, u, v
 
 
@@ -378,7 +383,8 @@ def mma_form_visits(form: int, wt, o, d, nvis: int) -> torch.Tensor:
     out = torch.empty(n // 32, dtype=torch.float32, device=o.device)
     if n:
         with torch.cuda.device(o.device):
-            err = _load().rl_mma_form_visits(
+            err = load_for(wt, "mma_form_visits",
+                           _load).rl_mma_form_visits(
                 int(form), wt.rows.data_ptr(), int(wt.n_clusters), int(nvis),
                 o.data_ptr(), d.data_ptr(), n, out.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
@@ -386,4 +392,5 @@ def mma_form_visits(form: int, wt, o, d, nvis: int) -> torch.Tensor:
             raise RuntimeError(
                 f"mma_form_visits launch failed: CUDA error {err}")
         LAUNCHES["mma_form_visits"] += 1
+        count_k("mma_form_visits", table_k(wt))
     return out

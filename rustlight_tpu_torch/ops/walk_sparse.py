@@ -46,11 +46,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .native import count_rays, load_cuda
+from .native import check_lib_k, count_k, count_rays, load_cuda
 from .walk_sub import PlantedTables, check_resident
-from .walk_trace import (_MAX_SMEM, _SLOT_BYTES, K, ONE_THREAD_FORM,
+from .walk_trace import (_MAX_SMEM, _ROWS_STATIC_OTHERS, K, ONE_THREAD_FORM,
                          RAY_TILE, _check_arrays, _split_scan, _test_clusters,
-                         _walk_ref, form_args)
+                         _walk_ref, form_args, slot_bytes, table_k)
 
 # a visit with at most this many flagged rays tests only those: the
 # reference's SPARSE_CAP (pallas_walk.py:106); a sparse visit's slots
@@ -64,15 +64,14 @@ SPARSE_CAP = SLOTS = 16
 PRODUCTION_FORMS = {"walk_sparse_closest": (8, False),
                     "walk_sparse_anyhit": (8, True)}
 # static shared memory as ptxas reports it: one thread a ray, the staged
-# rows, the tile's rays, directions, caps, the slots' results and the
-# partials; split, the same without the rows, with the ring's mbarriers
-# and P x 2 partials
-_ONE_THREAD_STATIC = 21776
+# rows (walk_trace.slot_bytes(k)), the tile's rays, directions, caps, the
+# slots' results and the partials (walk_trace._ROWS_STATIC_OTHERS); split,
+# the same without the rows, with the ring's mbarriers and P x 2 partials
 _SPLIT_STATIC_BASE = 3344
 
 LAUNCHES = {"walk_sparse_closest": 0, "walk_sparse_anyhit": 0}
 
-_LIB = None
+_LIBS = {}
 
 
 def reset_launches() -> None:
@@ -92,28 +91,27 @@ def bind(lib):
     return lib
 
 
-def _load():
-    global _LIB
-    if _LIB is None:
-        _LIB = bind(load_cuda())
-    return _LIB
+def _load(k: int = K):
+    if k not in _LIBS:
+        _LIBS[k] = bind(load_cuda(k))
+    return _LIBS[k]
 
 
-def static_smem(form) -> int:
-    """ptxas's static shared memory of K7 in `form`, bytes."""
+def static_smem(form, k: int = K) -> int:
+    """ptxas's static shared memory of K7 in `form` at K = k, bytes."""
     p = int(form[0])
-    return (_ONE_THREAD_STATIC if tuple(form) == ONE_THREAD_FORM
-            else _SPLIT_STATIC_BASE + 8 * p)
+    return (slot_bytes(k) + _ROWS_STATIC_OTHERS["walk_sparse_closest"]
+            if tuple(form) == ONE_THREAD_FORM else _SPLIT_STATIC_BASE + 8 * p)
 
 
-def launch_geometry(name: str, form, cp: int, *,
-                    lab: bool = False) -> Tuple[int, int]:
+def launch_geometry(name: str, form, cp: int, *, lab: bool = False,
+                    k: int = K) -> Tuple[int, int]:
     """(threads a block, dynamic shared-memory bytes) of K7's kernel `name`
     in `form` (threads a ray, ring) over tables of cp clusters: the slots
     (one staged, two for the ring; none one thread a ray), then a 64-bit ray
-    mask and a 4-byte entry a cluster. Raises ValueError for a form not
-    built (`lab`: any a library built with RL_LAB_FORMS holds, P = 4 or 8)
-    or past the card's 232,448 B a block."""
+    mask and a 4-byte entry a cluster, at K = k. Raises ValueError for a
+    form not built (`lab`: any a library built with RL_LAB_FORMS holds, P =
+    4 or 8) or past the card's 232,448 B a block."""
     form = (int(form[0]), bool(form[1]))
     if form not in (ONE_THREAD_FORM, PRODUCTION_FORMS[name]) and not (
             lab and form[0] in (4, 8)):
@@ -121,10 +119,11 @@ def launch_geometry(name: str, form, cp: int, *,
                          f"{ONE_THREAD_FORM}, {PRODUCTION_FORMS[name]})")
     p, ring = form
     dyn = (0 if form == ONE_THREAD_FORM else (2 if ring else 1)
-           * _SLOT_BYTES) + 12 * int(cp)
-    if static_smem(form) + dyn > _MAX_SMEM:
-        raise ValueError(f"{name} in form {form} needs {static_smem(form)} + "
-                         f"{dyn} B of shared memory, past {_MAX_SMEM}")
+           * slot_bytes(k)) + 12 * int(cp)
+    if static_smem(form, k) + dyn > _MAX_SMEM:
+        raise ValueError(f"{name} in form {form} needs "
+                         f"{static_smem(form, k)} + {dyn} B of shared "
+                         f"memory, past {_MAX_SMEM}")
     return p * RAY_TILE, dyn
 
 
@@ -180,8 +179,9 @@ def _visit_closest_sparse_split(rows, ids, csel, o, d, tnear, best, tested,
     j = torch.where(sparse[:, None], _split_scan(t, valid, bt,
                                                  _slot_lanes(p))[1],
                     _split_scan(t, valid, bt, p)[1])
-    better = (j < K) & tested
-    jc = torch.clamp(j, max=K - 1)
+    k = rows.shape[1]
+    better = (j < k) & tested
+    jc = torch.clamp(j, max=k - 1)
     tri = ids[csel[:, None], jc]
     tj = t.gather(-1, jc[..., None])[..., 0]
     uj = u.gather(-1, jc[..., None])[..., 0] + 0.0
@@ -269,9 +269,10 @@ def planted_tiles(device="cpu", tiles: int = 4, seed: int = 0):
 def launch_closest(lib, wt, o, d, tnear, tfar, form, lab: bool = False):
     """Launches K7's closest hit on checked CUDA tensors in `form` through
     library `lib` (bound by `bind`; `lab` a form only a library built with
-    RL_LAB_FORMS holds): (t, tri, u, v)."""
+    RL_LAB_FORMS holds; built for the tables' K): (t, tri, u, v)."""
+    check_lib_k(lib, table_k(wt), "walk_sparse_closest")
     smem = launch_geometry("walk_sparse_closest", form, wt.n_clusters,
-                           lab=lab)[1]
+                           lab=lab, k=table_k(wt))[1]
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -291,13 +292,15 @@ def launch_closest(lib, wt, o, d, tnear, tfar, form, lab: bool = False):
                                f"launch failed: CUDA error {err}")
         if not lab:
             LAUNCHES["walk_sparse_closest"] += 1
+            count_k("walk_sparse_closest", table_k(wt))
     return t, tri, u, v
 
 
 def launch_anyhit(lib, wt, o, d, tnear, tfar, form, lab: bool = False):
     """The same for K7's any hit: occ."""
+    check_lib_k(lib, table_k(wt), "walk_sparse_anyhit")
     smem = launch_geometry("walk_sparse_anyhit", form, wt.n_clusters,
-                           lab=lab)[1]
+                           lab=lab, k=table_k(wt))[1]
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if n:
@@ -313,6 +316,7 @@ def launch_anyhit(lib, wt, o, d, tnear, tfar, form, lab: bool = False):
                                f"launch failed: CUDA error {err}")
         if not lab:
             LAUNCHES["walk_sparse_anyhit"] += 1
+            count_k("walk_sparse_anyhit", table_k(wt))
     return occ
 
 
@@ -322,11 +326,12 @@ def walk_sparse_closest(wt, o, d, tnear, tfar, *,
     walk tables `wt`, sparse visits: (t, tri, u, v), each [n]."""
     _check(wt, o, d, tnear, tfar)
     form = _resolve_form("walk_sparse_closest", _form)
-    launch_geometry("walk_sparse_closest", form, wt.n_clusters)
+    launch_geometry("walk_sparse_closest", form, wt.n_clusters,
+                    k=table_k(wt))
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_sparse_closest_ref(wt, o, d, tnear, tfar)[:4]
-    return launch_closest(_load(), wt, o, d, tnear, tfar, form)
+    return launch_closest(_load(table_k(wt)), wt, o, d, tnear, tfar, form)
 
 
 def walk_sparse_anyhit(wt, o, d, tnear, tfar, *, _form=None) -> torch.Tensor:
@@ -334,8 +339,9 @@ def walk_sparse_anyhit(wt, o, d, tnear, tfar, *, _form=None) -> torch.Tensor:
     occluded."""
     _check(wt, o, d, tnear, tfar)
     form = _resolve_form("walk_sparse_anyhit", _form)
-    launch_geometry("walk_sparse_anyhit", form, wt.n_clusters)
+    launch_geometry("walk_sparse_anyhit", form, wt.n_clusters,
+                    k=table_k(wt))
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_sparse_anyhit_ref(wt, o, d, tnear, tfar)[0]
-    return launch_anyhit(_load(), wt, o, d, tnear, tfar, form)
+    return launch_anyhit(_load(table_k(wt)), wt, o, d, tnear, tfar, form)

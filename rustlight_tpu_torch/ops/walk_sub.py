@@ -45,10 +45,10 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .native import count_rays, load_cuda
-from .walk_trace import (_MAX_SMEM, _SLOT_BYTES, K, ONE_THREAD_FORM,
-                         RAY_TILE, _check_arrays, _walk_ref, form_args,
-                         mma_scratch_bytes)
+from .native import check_lib_k, count_k, count_rays, load_cuda
+from .walk_trace import (_MAX_SMEM, K, ONE_THREAD_FORM, RAY_TILE,
+                         _check_arrays, _walk_ref, form_args,
+                         mma_scratch_bytes, slot_bytes, table_k)
 
 # the largest table these schedules take: the reference's bound on tables
 # resident in VMEM (pallas_walk.py:70), kept with its value
@@ -75,7 +75,7 @@ _RAYS_BYTES = 2048
 LAUNCHES = {"walk_sub_closest": 0, "walk_sub_anyhit": 0,
             "walk_sub_closest_mma": 0, "walk_sub_anyhit_mma": 0}
 
-_LIB = None
+_LIBS = {}
 
 
 def reset_launches() -> None:
@@ -95,11 +95,10 @@ def bind(lib):
     return lib
 
 
-def _load():
-    global _LIB
-    if _LIB is None:
-        _LIB = bind(load_cuda())
-    return _LIB
+def _load(k: int = K):
+    if k not in _LIBS:
+        _LIBS[k] = bind(load_cuda(k))
+    return _LIBS[k]
 
 
 def static_smem(sub: int, form) -> int:
@@ -108,20 +107,20 @@ def static_smem(sub: int, form) -> int:
     return _RAYS_BYTES + 4 * 2 * sub * max(1, RAY_TILE // sub * p // 32)
 
 
-def launch_geometry(sub: int, form, cp: int,
-                    mxu: bool = False) -> Tuple[int, int]:
+def launch_geometry(sub: int, form, cp: int, mxu: bool = False, *,
+                    k: int = K) -> Tuple[int, int]:
     """(threads a block, dynamic shared-memory bytes) of K6 at `sub` in
     `form` (threads a ray, staged) over tables of cp clusters, with the
     tensor-core test if `mxu`: the slots when staged, the split tensor-core
-    visit's scratch, the heaps. Raises ValueError for a form that is no
-    form of this kernel (the split tensor-core visit needs a warp to lie in
-    one group) or past the card's 232,448 B a block."""
+    visit's scratch, the heaps, at K = k. Raises ValueError for a form that
+    is no form of this kernel (the split tensor-core visit needs a warp to
+    lie in one group) or past the card's 232,448 B a block."""
     p, stage = int(form[0]), bool(form[1])
     if (p, stage) != ONE_THREAD_FORM and (
             p not in SPLIT_PS or (mxu and RAY_TILE // sub * p < 32)):
         raise ValueError(f"K6 at sub {sub} has no form {tuple(form)}"
                          f"{' with mxu' if mxu else ''}")
-    dyn = ((sub * _SLOT_BYTES if stage else 0)
+    dyn = ((sub * slot_bytes(k) if stage else 0)
            + (mma_scratch_bytes(p) if mxu and p > 1 else 0) + 4 * sub * cp)
     if static_smem(sub, form) + dyn > _MAX_SMEM:
         raise ValueError(f"K6 at sub {sub} in form {tuple(form)} needs "
@@ -233,8 +232,10 @@ def planted_tiles(device="cpu", tiles: int = 4, seed: int = 0):
 
 def launch_closest(lib, wt, o, d, tnear, tfar, sub: int, mxu: bool, form):
     """Launches K6's closest hit on checked CUDA tensors in `form` through
-    library `lib` (bound by `bind`): (t, tri, u, v)."""
-    smem = launch_geometry(sub, form, wt.n_clusters, mxu)[1]
+    library `lib` (bound by `bind`, built for the tables' K): (t, tri, u,
+    v)."""
+    check_lib_k(lib, table_k(wt), "walk_sub_closest")
+    smem = launch_geometry(sub, form, wt.n_clusters, mxu, k=table_k(wt))[1]
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -254,12 +255,14 @@ def launch_closest(lib, wt, o, d, tnear, tfar, sub: int, mxu: bool, form):
             raise RuntimeError(f"{name} in form {tuple(form)} launch failed: "
                                f"CUDA error {err}")
         LAUNCHES[name] += 1
+        count_k(name, table_k(wt))
     return t, tri, u, v
 
 
 def launch_anyhit(lib, wt, o, d, tnear, tfar, sub: int, mxu: bool, form):
     """The same for K6's any hit: occ."""
-    smem = launch_geometry(sub, form, wt.n_clusters, mxu)[1]
+    check_lib_k(lib, table_k(wt), "walk_sub_anyhit")
+    smem = launch_geometry(sub, form, wt.n_clusters, mxu, k=table_k(wt))[1]
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if n:
@@ -275,6 +278,7 @@ def launch_anyhit(lib, wt, o, d, tnear, tfar, sub: int, mxu: bool, form):
             raise RuntimeError(f"{name} in form {tuple(form)} launch failed: "
                                f"CUDA error {err}")
         LAUNCHES[name] += 1
+        count_k(name, table_k(wt))
     return occ
 
 
@@ -285,11 +289,12 @@ def walk_sub_closest(wt, o, d, tnear, tfar, sub: int, mxu: bool = False, *,
     `mxu` takes the tensor-core form of the triangle test."""
     _check(wt, o, d, tnear, tfar, sub)
     form = _resolve_form("walk_sub_closest", sub, _form, mxu)
-    launch_geometry(sub, form, wt.n_clusters, mxu)
+    launch_geometry(sub, form, wt.n_clusters, mxu, k=table_k(wt))
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_sub_closest_ref(wt, o, d, tnear, tfar, sub, mxu)[:4]
-    return launch_closest(_load(), wt, o, d, tnear, tfar, sub, mxu, form)
+    return launch_closest(_load(table_k(wt)), wt, o, d, tnear, tfar, sub,
+                         mxu, form)
 
 
 def walk_sub_anyhit(wt, o, d, tnear, tfar, sub: int, mxu: bool = False, *,
@@ -298,8 +303,9 @@ def walk_sub_anyhit(wt, o, d, tnear, tfar, sub: int, mxu: bool = False, *,
     occluded. `mxu` as in walk_sub_closest."""
     _check(wt, o, d, tnear, tfar, sub)
     form = _resolve_form("walk_sub_anyhit", sub, _form, mxu)
-    launch_geometry(sub, form, wt.n_clusters, mxu)
+    launch_geometry(sub, form, wt.n_clusters, mxu, k=table_k(wt))
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_sub_anyhit_ref(wt, o, d, tnear, tfar, sub, mxu)[0]
-    return launch_anyhit(_load(), wt, o, d, tnear, tfar, sub, mxu, form)
+    return launch_anyhit(_load(table_k(wt)), wt, o, d, tnear, tfar, sub,
+                         mxu, form)

@@ -52,6 +52,13 @@ the package passes it.
 
 Each wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 adds the lanes it was handed with tfar > 0 to `counting_rays()`.
+
+The cluster size K (triangles per cluster) is a property of the walk
+tables (`wt.k`, 384 by default): the plain versions take it from the
+tables, and the wrappers launch the library built for it
+(native.load_cuda(k)), which refuses tables of another K. `check_k` says
+which K the kernels can take: a multiple of 128 whose static shared memory
+stays within 48 KB in every walk kernel (`static_smem(kernel, form, k)`).
 """
 from __future__ import annotations
 
@@ -60,10 +67,11 @@ from typing import Tuple
 
 import torch
 
-from .native import count_rays, load_cuda
+from .native import check_lib_k, count_k, count_rays, load_cuda
 
-# triangles per cluster, rays per tile, and cluster-id bits of a packed
-# entry: the reference's K, RAY_TILE and _ID_BITS (pallas_walk.py)
+# triangles per cluster (the default; the tables' own K rules a walk), rays
+# per tile, and cluster-id bits of a packed entry: the reference's K,
+# RAY_TILE and _ID_BITS (pallas_walk.py)
 K = 384
 RAY_TILE = 64
 _ID_BITS = 14
@@ -75,8 +83,9 @@ _INF_BITS = 0x7F800000
 # device memory stay at _WIDE_BLOCKS x Cp x 4 B
 MAX_WIDE_CLUSTERS = 1 << 17
 _WIDE_BLOCKS = 1024
-# a block's shared memory past the heap, and the card's opt-in limit
-_STATIC_SMEM, _MAX_SMEM = 20496, 227 * 1024
+# the card's opt-in limit of shared memory a block, and the limit of its
+# static shared memory
+_MAX_SMEM, _STATIC_MAX = 227 * 1024, 48 * 1024
 # the largest heap a wide launch keeps in shared memory unless told to (16
 # KB): in the one-thread form a larger heap left too few tiles in flight (at
 # 18,816 clusters 1.4-1.65x as long as with the heaps in device memory); the
@@ -102,20 +111,24 @@ PRODUCTION_FORMS = {"walk_closest": (8, False), "walk_anyhit": (8, True),
 _MMA_SPLIT = ("walk_closest", "walk_anyhit", "walk_closest_wide",
               "walk_anyhit_wide", "walk_hier_closest", "walk_hier_anyhit")
 _WIDE = ("walk_closest_wide", "walk_anyhit_wide")
-# a visit's rows: KC triangles of three float4
-_SLOT_BYTES = K * 3 * 16
 # the split tensor-core visit's shared memory: a cap a ray and a partial
 # (t, u, v, column) a thread (csrc/walk_common.cuh: mma_scratch_f4)
 _MMA_CAP_BYTES, _MMA_PART_BYTES = RAY_TILE * 4, 16
 # static shared memory, bytes, as ptxas reports it (chip_smoke.py holds the
-# two to each other), of each kernel (a PRODUCTION_FORMS name, or the
-# floor) in its one-thread form: the staged rows, the tile's rays, the
-# partials (K5 also the caps and the children), padded to 16 B ...
-_ONE_THREAD_STATIC = {"walk_closest": _STATIC_SMEM,
-                      "walk_anyhit": _STATIC_SMEM, "walk_hier_closest": 21264,
-                      "walk_hier_anyhit": 21264, "walk_floor": _SLOT_BYTES,
-                      "walk_closest_wide": _STATIC_SMEM,
-                      "walk_anyhit_wide": _STATIC_SMEM}
+# two to each other at every K it builds), of each kernel (a
+# PRODUCTION_FORMS name, or the floor) in its one-thread form: the staged
+# rows (slot_bytes(k)), then the tile's rays and the partials (K5 also the
+# caps and the children), padded to 16 B, given here ...
+_ONE_THREAD_STATIC = {"walk_closest": 2064, "walk_anyhit": 2064,
+                      "walk_hier_closest": 2832, "walk_hier_anyhit": 2832,
+                      "walk_floor": 0, "walk_closest_wide": 2064,
+                      "walk_anyhit_wide": 2064}
+# ... as of the other kernels that stage a cluster's rows in static shared
+# memory: K7's one-thread form (ops/walk_sparse.py) and the laboratory's
+# tensor-core probes (ops/walk_lab.py; built at every K, launched at 384)
+_ROWS_STATIC_OTHERS = {"walk_sparse_closest": 3344,
+                       "walk_sparse_anyhit": 3344, "mma_products": 0,
+                       "mma_form_visits": 0}
 # ... and in its split form: the tile's rays, the ring's two mbarriers and
 # the partials of P x 2 warps (K5 the caps and the children, no
 # mbarriers; K3w 64-bit partials); the floor's slots are all dynamic
@@ -125,12 +138,36 @@ _SPLIT_STATIC = {"walk_closest": 2128, "walk_anyhit": 2128,
                  "walk_anyhit_wide": 2192}
 
 
-def static_smem(kernel: str, form) -> int:
+def slot_bytes(k: int = K) -> int:
+    """A visit's rows at K = k: k triangles of three float4, bytes."""
+    return int(k) * 3 * 16
+
+
+def static_smem(kernel: str, form, k: int = K) -> int:
     """ptxas's static shared memory of `kernel` (as in launch_geometry) in
-    `form`, bytes."""
-    table = (_ONE_THREAD_STATIC if tuple(form) == ONE_THREAD_FORM
-             else _SPLIT_STATIC)
-    return table[kernel]
+    `form` at K = k, bytes."""
+    if tuple(form) == ONE_THREAD_FORM:
+        return slot_bytes(k) + _ONE_THREAD_STATIC[kernel]
+    return _SPLIT_STATIC[kernel]
+
+
+def check_k(k) -> int:
+    """k if the walk kernels can be built for clusters of k triangles, else
+    ValueError: k must be a positive multiple of 128 (the reference's rule,
+    pallas_walk.py:57-58; it keeps whole the split forms' columns a thread
+    and the tensor-core visit's column blocks a warp), and every kernel
+    that stages a cluster's rows in static shared memory must stay within
+    its 48 KB (the message names the one that needs the most)."""
+    if isinstance(k, bool) or int(k) != k or k <= 0 or k % 128:
+        raise ValueError(f"K = {k}: the walk takes a positive multiple of "
+                         "128 triangles per cluster")
+    k = int(k)
+    kernel, rest = max({**_ONE_THREAD_STATIC, **_ROWS_STATIC_OTHERS}.items(),
+                       key=lambda kv: kv[1])
+    if slot_bytes(k) + rest > _STATIC_MAX:
+        raise ValueError(f"K = {k}: {kernel} needs {slot_bytes(k) + rest} B "
+                         f"of static shared memory, past {_STATIC_MAX}")
+    return k
 
 
 def mma_scratch_bytes(p: int) -> int:
@@ -140,16 +177,16 @@ def mma_scratch_bytes(p: int) -> int:
 
 
 def launch_geometry(kernel: str, form, n_heap: int, mxu: bool = False, *,
-                    lab: bool = False) -> Tuple[int, int]:
+                    lab: bool = False, k: int = K) -> Tuple[int, int]:
     """(threads a block, dynamic shared-memory bytes) of `kernel` (a
     PRODUCTION_FORMS name, the counted walk taking "walk_closest", or
     "walk_floor") in `form` (threads a ray, ring) over a heap of n_heap
     4-byte entries in shared memory (Cp, or Sp for K5; the floor has none;
     K3w's heaps in device memory take 0), with
     the tensor-core test if `mxu` (the split visit's scratch before the
-    heap); raises ValueError for a form not built or past the card's
-    232,448 B a block. `lab` takes any split form a library built with
-    RL_LAB_FORMS may hold (tools/perf/)."""
+    heap), at K = k; raises ValueError for a form not built or past the
+    card's 232,448 B a block. `lab` takes any split form a library built
+    with RL_LAB_FORMS may hold (tools/perf/)."""
     if kernel not in _ONE_THREAD_STATIC:
         raise ValueError(f"unknown kernel {kernel!r}")
     form = tuple(form)
@@ -164,9 +201,9 @@ def launch_geometry(kernel: str, form, n_heap: int, mxu: bool = False, *,
     p, ring = form
     heap = 0 if kernel == "walk_floor" else 4 * int(n_heap)
     dyn = heap if form == ONE_THREAD_FORM else (
-        (2 if ring else 1) * _SLOT_BYTES
+        (2 if ring else 1) * slot_bytes(k)
         + (mma_scratch_bytes(p) if mxu else 0) + heap)
-    static = static_smem(kernel, form)
+    static = static_smem(kernel, form, k)
     if static + dyn > _MAX_SMEM:
         raise ValueError(f"{kernel} in form {form} needs {static} + {dyn} B "
                          f"of shared memory, past {_MAX_SMEM}")
@@ -196,7 +233,7 @@ LAUNCHES = {"walk_closest": 0, "walk_anyhit": 0,
             "walk_closest_mma": 0, "walk_anyhit_mma": 0,
             "walk_closest_wide_mma": 0, "walk_anyhit_wide_mma": 0}
 
-_LIB = None
+_LIBS = {}
 # elements per [tiles, 64, max(Cp, K)] tensor of a plain version, on the
 # CPU and on a card (whose plain runs are bound by launches, not memory)
 _REF_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 27}
@@ -226,11 +263,26 @@ def bind(lib):
     return lib
 
 
-def _load():
-    global _LIB
-    if _LIB is None:
-        _LIB = bind(load_cuda())
-    return _LIB
+def _load(k: int = K):
+    """The library of the walk kernels at K = k, bound (one a K)."""
+    if k not in _LIBS:
+        _LIBS[k] = bind(load_cuda(k))
+    return _LIBS[k]
+
+
+def table_k(wt) -> int:
+    """The walk tables' K (triangles per cluster); tables read by
+    attribute without a `k` are of the default K."""
+    return int(getattr(wt, "k", K))
+
+
+def load_for(wt, what: str, load=None):
+    """The library of the tables' K (`load(k)`, this module's `_load` by
+    default), held to it: a launch never walks tables of another K than
+    its library's (native.check_lib_k raises ValueError)."""
+    lib = (load or _load)(table_k(wt))
+    check_lib_k(lib, table_k(wt), what)
+    return lib
 
 
 def _check(wt, o, d, tnear, tfar, wide: bool = False, heap=None) -> None:
@@ -252,7 +304,7 @@ def _check(wt, o, d, tnear, tfar, wide: bool = False, heap=None) -> None:
 def _check_arrays(wt, o, d, tnear, tfar, extra=()) -> None:
     """Shapes, types, devices and layout of the walk's tables and rays, and
     of `extra` (name, tensor, shape, dtype) entries."""
-    cp = int(wt.n_clusters)
+    cp, k = int(wt.n_clusters), table_k(wt)
     n = o.shape[0]
     if n % RAY_TILE:
         raise ValueError(f"{n} rays: the walk takes whole {RAY_TILE}-ray tiles")
@@ -260,8 +312,8 @@ def _check_arrays(wt, o, d, tnear, tfar, extra=()) -> None:
     for name, x, shape, dtype in (
             ("lo", wt.lo, (3, cp), torch.float32),
             ("hi", wt.hi, (3, cp), torch.float32),
-            ("rows", wt.rows, (cp * K, 3, 4), torch.float32),
-            ("ids", wt.ids, (cp * K,), torch.int32),
+            ("rows", wt.rows, (cp * k, 3, 4), torch.float32),
+            ("ids", wt.ids, (cp * k,), torch.int32),
             ("o", o, (n, 3), torch.float32), ("d", d, (n, 3), torch.float32),
             ("tnear", tnear, (n,), torch.float32),
             ("tfar", tfar, (n,), torch.float32), *extra):
@@ -429,11 +481,12 @@ def _visit_closest(rows, ids, csel, o, d, tnear, best, tested=None,
     cluster."""
     bt, bi, bu, bv = best
     t, u, v, valid = _test_clusters(rows[csel], o, d, tnear, bt, mxu)
+    k = rows.shape[1]
     tm = torch.where(valid, t, float("inf"))
     ct = tm.amin(dim=-1)
-    kiota = torch.arange(K, device=o.device)
-    j = torch.where(tm == ct[..., None], kiota, K).amin(dim=-1)
-    j = torch.clamp(j, max=K - 1)
+    kiota = torch.arange(k, device=o.device)
+    j = torch.where(tm == ct[..., None], kiota, k).amin(dim=-1)
+    j = torch.clamp(j, max=k - 1)
     better = ct < bt
     if tested is not None:
         better = better & tested
@@ -512,8 +565,9 @@ def _visit_closest_split(rows, ids, csel, o, d, tnear, best, p: int):
     t, u, v, valid = _test_clusters(rows[csel], o, d, tnear,
                                     torch.full_like(bt, float("inf")))
     _, j = _split_scan(t, valid, bt, p)
-    better = j < K
-    jc = torch.clamp(j, max=K - 1)
+    k = rows.shape[1]
+    better = j < k
+    jc = torch.clamp(j, max=k - 1)
     tri = ids[csel[:, None], jc]
     tj = t.gather(-1, jc[..., None])[..., 0]
     uj = u.gather(-1, jc[..., None])[..., 0] + 0.0
@@ -554,12 +608,12 @@ def _walk_ref(wt, o, d, tnear, tfar, any_hit: bool, wide: bool = False,
     tiles of `tile` rays. Returns ((t, tri, u, v) or (occ,), cluster visits
     per tile), and with `sparse_cap` also the visits that tested only the
     flagged rays, the rays tested and the rays flagged, per tile."""
-    cp = int(wt.n_clusters)
-    rows = wt.rows.view(cp, K, 3, 4)
-    ids = wt.ids.view(cp, K)
+    cp, k = int(wt.n_clusters), table_k(wt)
+    rows = wt.rows.view(cp, k, 3, 4)
+    ids = wt.ids.view(cp, k)
     return _tiled(lambda *r: _walk_chunk(wt, rows, ids, *r, any_hit, wide,
                                          sparse_cap, mxu),
-                  max(cp, K), o, d, tnear, tfar, tile)
+                  max(cp, k), o, d, tnear, tfar, tile)
 
 
 def _sortable_max(x):
@@ -659,7 +713,7 @@ def walk_anyhit_ref(wt, o, d, tnear, tfar, wide: bool = False,
 # ------------------------------------------------------------------ wrappers
 
 def _wide_heap(name: str, form, mxu: bool, cp: int, n: int, heap,
-               lab: bool = False):
+               lab: bool = False, k: int = K):
     """Where a wide launch keeps its per-tile heaps of Cp x 4 B: (blocks,
     whether in a device buffer, dynamic shared-memory bytes). In shared
     memory up to _WIDE_SHARED_MAX entries, or with heap = "shared"
@@ -670,7 +724,7 @@ def _wide_heap(name: str, form, mxu: bool, cp: int, n: int, heap,
     blocks = min(n // RAY_TILE, _WIDE_BLOCKS)
     shared = heap == "shared" or (heap is None and cp <= _WIDE_SHARED_MAX)
     smem = launch_geometry(name, form, cp if shared else 0, mxu,
-                           lab=lab)[1]
+                           lab=lab, k=k)[1]
     return blocks, not shared, smem
 
 
@@ -683,10 +737,13 @@ def launch_wide(lib, any_hit: bool, wt, o, d, tnear, tfar, form,
     """Launches the wide pop's closest hit (t, tri, u, v) or any hit (occ)
     on checked CUDA tensors in `form` through library `lib` (bound by
     `bind`); `lab`: a form only a library built with RL_LAB_FORMS holds
-    (tools/perf/split_forms.py), not counted."""
+    (tools/perf/split_forms.py), not counted. ValueError where `lib` was
+    built for another K than the tables'."""
     name = "walk_anyhit_wide" if any_hit else "walk_closest_wide"
+    check_lib_k(lib, table_k(wt), name)
     cp, n = int(wt.n_clusters), o.shape[0]
-    blocks, glob, smem = _wide_heap(name, form, mxu, cp, n, heap, lab=lab)
+    blocks, glob, smem = _wide_heap(name, form, mxu, cp, n, heap, lab=lab,
+                                    k=table_k(wt))
     if any_hit:
         outs = (torch.empty(n, dtype=torch.bool, device=o.device),)
     else:
@@ -717,6 +774,7 @@ def launch_wide(lib, any_hit: bool, wt, o, d, tnear, tfar, form,
                            f"error {err}")
     if not lab:
         LAUNCHES[name] += 1
+        count_k(name, table_k(wt))
     return outs[0] if any_hit else outs
 
 
@@ -731,15 +789,17 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
     _check(wt, o, d, tnear, tfar, wide, heap)
     name = _kernel_name("walk_closest", wide, False)
     form = _resolve_form(name, _form, mxu)
+    k = table_k(wt)
     if wide:
-        _wide_heap(name, form, mxu, int(wt.n_clusters), o.shape[0], heap)
+        _wide_heap(name, form, mxu, int(wt.n_clusters), o.shape[0], heap,
+                   k=k)
     else:
-        smem = launch_geometry(name, form, wt.n_clusters, mxu)[1]
+        smem = launch_geometry(name, form, wt.n_clusters, mxu, k=k)[1]
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_closest_ref(wt, o, d, tnear, tfar, wide, mxu)[:4]
     if wide:
-        return launch_wide(_load(), False, wt, o, d, tnear, tfar, form, mxu,
+        return launch_wide(_load(k), False, wt, o, d, tnear, tfar, form, mxu,
                            heap)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
@@ -756,11 +816,12 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
     outs = (t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr())
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _load().rl_walk_closest(*tables, *form_args(form, smem), *outs,
-                                      stream)
+        err = load_for(wt, name).rl_walk_closest(
+            *tables, *form_args(form, smem), *outs, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    count_k(name, k)
     return t, tri, u, v
 
 
@@ -772,15 +833,17 @@ def walk_anyhit(wt, o, d, tnear, tfar, wide: bool = False,
     _check(wt, o, d, tnear, tfar, wide, heap)
     name = _kernel_name("walk_anyhit", wide, False)
     form = _resolve_form(name, _form, mxu)
+    k = table_k(wt)
     if wide:
-        _wide_heap(name, form, mxu, int(wt.n_clusters), o.shape[0], heap)
+        _wide_heap(name, form, mxu, int(wt.n_clusters), o.shape[0], heap,
+                   k=k)
     else:
-        smem = launch_geometry(name, form, wt.n_clusters, mxu)[1]
+        smem = launch_geometry(name, form, wt.n_clusters, mxu, k=k)[1]
     count_rays(tfar)
     if o.device.type == "cpu":
         return walk_anyhit_ref(wt, o, d, tnear, tfar, wide, mxu)[0]
     if wide:
-        return launch_wide(_load(), True, wt, o, d, tnear, tfar, form, mxu,
+        return launch_wide(_load(k), True, wt, o, d, tnear, tfar, form, mxu,
                            heap)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
@@ -792,9 +855,10 @@ def walk_anyhit(wt, o, d, tnear, tfar, wide: bool = False,
               tnear.data_ptr(), tfar.data_ptr(), n, int(mxu))
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _load().rl_walk_anyhit(*tables, *form_args(form, smem),
-                                     occ.data_ptr(), stream)
+        err = load_for(wt, name).rl_walk_anyhit(
+            *tables, *form_args(form, smem), occ.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    count_k(name, k)
     return occ

@@ -20,26 +20,38 @@ from ...scene.geometry import build_geometry_tables
 from ..device import pick_device  # noqa: F401 (the tools' import)
 
 TIMING_RUNS = 5
+# the bound of chip_smoke.py: an H100 SXM's peak f32 rate outside the tensor
+# cores and its HBM rate (NVIDIA's data sheet), the f32 operations of one
+# ray-triangle test, a ray's bytes in (o, d, tnear, tfar) and out (t, tri,
+# u, v)
+PEAK_F32_OPS, PEAK_BYTES_S = 67e12, 3.35e12
+OPS_PER_TEST = 25
+RAY_BYTES = 32 + 16
 # records go under build/, which git ignores; never over regress/*.json, the
 # JAX package's records of another machine
 OUT_DIR = Path("build") / "lab"
 
 
-def parser(doc: str, out_name: str) -> argparse.ArgumentParser:
+def parser(doc: str, out_name: str, walk: bool = True,
+           runs: int = TIMING_RUNS) -> argparse.ArgumentParser:
+    """The tools' arguments: --device, --runs and --out, and with `walk`
+    the laboratory scene's and wavefront's sizes and --mxu."""
     p = argparse.ArgumentParser(description=doc)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu (plain versions, no "
                         "device times)")
+    p.add_argument("--runs", type=int, default=runs,
+                   help="timed runs per number")
+    p.add_argument("--out", default=str(OUT_DIR / out_name))
+    if not walk:
+        return p
     p.add_argument("--rays", type=int, default=262_144)
     p.add_argument("--tris", type=int, default=110_000,
                    help="target triangle count of the sphere grid")
     p.add_argument("--theta", type=int, default=18,
                    help="n_theta = n_phi of each UV sphere")
-    p.add_argument("--runs", type=int, default=TIMING_RUNS,
-                   help="timed runs per number; the median is reported")
     p.add_argument("--mxu", action="store_true",
                    help="the tensor-core form of the triangle test")
-    p.add_argument("--out", default=str(OUT_DIR / out_name))
     return p
 
 
@@ -160,6 +172,20 @@ def tile_visits(wt, srt, mxu: bool = False):
     the counted kernel: [tiles] int64 on the host."""
     nv = walk_closest_counted(wt, *srt, mxu=mxu)[4]
     return nv.view(-1, RAY_TILE)[:, 0].long().cpu()
+
+
+def walk_bound_ms(wt, visits_total: int, n_rays: int):
+    """The least time of a closest-hit walk of n_rays rays that visits
+    `visits_total` clusters in all over tables `wt`: the larger of its
+    triangle tests (64 rays x K a visit) at the peak f32 rate and its bytes
+    (each ray in and out once, the tables read once) at the HBM rate:
+    (ms, "operations" or "bytes")."""
+    k, cp = int(wt.k), int(wt.n_clusters)
+    ops_ms = visits_total * RAY_TILE * k * OPS_PER_TEST / PEAK_F32_OPS * 1e3
+    n_bytes = n_rays * RAY_BYTES + cp * k * (48 + 4) + cp * 24
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
 
 
 def checksum(t) -> float:

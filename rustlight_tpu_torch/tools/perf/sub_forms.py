@@ -69,7 +69,7 @@ def _k3_launch(lib, kind: str, wt, srt, form):
     n, cp = o.shape[0], int(wt.n_clusters)
     p, ring = form
     smem = 4 * cp + (0 if form == ONE_THREAD_FORM else (
-        (2 if ring else 1) * wk._SLOT_BYTES + wk.mma_scratch_bytes(p)))
+        (2 if ring else 1) * wk.slot_bytes() + wk.mma_scratch_bytes(p)))
     head = (wt.lo.data_ptr(), wt.hi.data_ptr(), cp, int(wt.n_real),
             wt.rows.data_ptr())
     rays = (o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(), n,
@@ -182,7 +182,7 @@ def main(argv=None) -> dict:
                        **_turns(run, one, form, args.runs, dev), "regs": regs,
                        "static_smem": static, "spill": spill,
                        "dyn_smem": 4 * int(wt.n_clusters)
-                       + (2 if ring else 1) * wk._SLOT_BYTES
+                       + (2 if ring else 1) * wk.slot_bytes()
                        + wk.mma_scratch_bytes(q)}
                 out["forms"].append(rec)
                 print(f"{wname} K3 {kind} mma P{q}{' ring' if ring else ''}: "

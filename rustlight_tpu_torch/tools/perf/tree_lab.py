@@ -23,7 +23,6 @@ import numpy as np
 
 from ...accel.bvh import build_bvh
 from ...accel.walk import build_walk_tables, intersect_walk, walk_tables_to
-from ...ops.walk_trace import K
 from . import common
 
 VARIANTS = (("binned", None), ("sweep", None), ("binned", 1.0),
@@ -68,7 +67,7 @@ def main(argv=None) -> list:
         tag = _tag(builder, alpha)
         bvh = build_bvh(geom, max_leaf=8, builder=builder)
         host = build_walk_tables(geom, bvh=bvh, repack_alpha=alpha)
-        fill = geom.n_tris / (host.n_real * K)
+        fill = geom.n_tris / (host.n_real * host.k)
         sa = cluster_sa(host)
         wt = walk_tables_to(host, dev)
         row = {"variant": tag, "clusters": int(wt.n_real),
