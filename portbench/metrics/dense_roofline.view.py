@@ -1,0 +1,4 @@
+"""dense_roofline in the progressive-view cell, where it moves frame_ms_p95."""
+from portbench.metrics import load
+
+read = load("dense_roofline")
