@@ -1,0 +1,10 @@
+"""driver.device_wait_pct: the share of the traced stretch's wall time in
+which the device idled while the renderer's innermost open span was
+`render` or `render.*` (its set-up, its bookkeeping between the
+integrator's calls, the film's readback), in percent. The four
+`*.device_wait_pct` add up to device.idle_pct (portbench/spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.wait_pct(ctx, "driver")

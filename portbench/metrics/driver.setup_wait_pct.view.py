@@ -1,0 +1,4 @@
+"""driver.setup_wait_pct in the progressive-view cell, where it moves frame_ms_p95."""
+from portbench.metrics import load
+
+read = load("driver.setup_wait_pct")

@@ -1,0 +1,4 @@
+"""rng.device_pct in the progressive-view cell, where it moves frame_ms_p95."""
+from portbench.metrics import load
+
+read = load("rng.device_pct")

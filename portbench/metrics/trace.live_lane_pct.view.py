@@ -1,0 +1,4 @@
+"""trace.live_lane_pct in the progressive-view cell, where it moves frame_ms_p95."""
+from portbench.metrics import load
+
+read = load("trace.live_lane_pct")

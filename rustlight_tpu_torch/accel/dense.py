@@ -6,7 +6,8 @@ ops/dense_trace.py (hand-written CUDA on the card, their plain versions on
 the CPU); this module only shapes the calls. Scenes above the dense tier's
 1024 triangles carry walk tables (`geom.walk`), and their rays go to the
 tile walk of accel/walk.py instead, or, for tables whose option is `pair`,
-to the pair walk of accel/pair_walk.py.
+to the pair walk of accel/pair_walk.py. Under a profiler a dense call is
+one `dense.trace` span (utils/tracing.py).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from .. import EPSILON
 from ..ops.dense_trace import dense_anyhit, dense_closest
+from ..utils.tracing import span
 from ..utils.vec import length
 
 
@@ -41,9 +43,10 @@ def intersect_rays(geom, o, d, tnear=None, tfar=None) -> RayHit:
             return _pairs_impl(geom.walk, o, d, tnear, tfar, False)
         from .walk import _walk_impl
         return _walk_impl(geom.walk, o, d, tnear, tfar, False)
-    t, idx, u, v = dense_closest(geom.inter_rows, o.contiguous(),
-                                 d.contiguous(), tnear, tfar)
-    return RayHit(t=t, tri=idx, u=u, v=v, hit=torch.isfinite(t))
+    with span("dense.trace"):
+        t, idx, u, v = dense_closest(geom.inter_rows, o.contiguous(),
+                                     d.contiguous(), tnear, tfar)
+        return RayHit(t=t, tri=idx, u=u, v=v, hit=torch.isfinite(t))
 
 
 def occluded_rays(geom, o, d, tnear, tfar):
@@ -54,8 +57,9 @@ def occluded_rays(geom, o, d, tnear, tfar):
             return _pairs_impl(geom.walk, o, d, tnear, tfar, True)
         from .walk import _walk_impl
         return _walk_impl(geom.walk, o, d, tnear, tfar, True)
-    return dense_anyhit(geom.inter_rows, o.contiguous(), d.contiguous(),
-                        tnear, tfar)
+    with span("dense.trace"):
+        return dense_anyhit(geom.inter_rows, o.contiguous(), d.contiguous(),
+                            tnear, tfar)
 
 
 def visible(geom, p0, p1, mask=None):

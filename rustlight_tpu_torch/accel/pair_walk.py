@@ -19,7 +19,10 @@ of its rays enters. Here each ray is paired with its own nearest clusters:
 Rays are sorted by the morton key first, so that neighbouring pairs share
 clusters. Taken for tables whose option is `pair` (accel/dense.py); it
 takes tables of at most MAX_VMEM_CLUSTERS clusters, as the reference takes
-resident tables only.
+resident tables only. Under a profiler (utils/tracing.py) a call is the
+tile walk's three device spans: `walk.prepare` (sort and shortlist),
+`walk.kernel` (the pair kernels, the reduction and the fallback, whose own
+spans nest in it) and `walk.unsort`.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..ops.pair_trace import PAIR_TILE, pair_anyhit, pair_closest
 from ..ops.native import count_rays
 from ..ops.walk_sub import check_resident
 from ..ops.walk_trace import _ray_entries, _slab_inv
+from ..utils.tracing import span
 from .dense import RayHit
 from .walk import _default_range, _sort_key, _unsort, _walk_impl
 
@@ -94,50 +98,58 @@ def _pairs_impl(wt, o, d, tnear, tfar, any_hit: bool, km: int = None, *,
         raise ValueError(f"km must lie in [1, {int(wt.n_clusters) - 1}], "
                          f"got {km}")
     n = o.shape[0]
-    # sanitize as the tile walk does
-    tfar = torch.where(tfar > 0.0, tfar, 0.0)
-    tnear = torch.where(tnear >= 0.0, tnear, float("inf"))
-    kmaj, kmin = _sort_key(wt, torch.where(torch.isfinite(o), o, 0.0),
-                           torch.where(torch.isfinite(d), d, 0.0))
-    order = torch.sort((kmaj.long() << 32) | kmin.long(), stable=True).indices
-    o, d = o[order].contiguous(), d[order].contiguous()
-    tnear, tfar = tnear[order].contiguous(), tfar[order].contiguous()
-    count_rays(tfar)
-    pairs, cutoff = _make_pairs(wt, o, d, tnear, tfar, km)
+    dev = o.device
+    with span("walk.prepare", dev):
+        # sanitize as the tile walk does
+        tfar = torch.where(tfar > 0.0, tfar, 0.0)
+        tnear = torch.where(tnear >= 0.0, tnear, float("inf"))
+        kmaj, kmin = _sort_key(wt, torch.where(torch.isfinite(o), o, 0.0),
+                               torch.where(torch.isfinite(d), d, 0.0))
+        order = torch.sort((kmaj.long() << 32) | kmin.long(),
+                           stable=True).indices
+        o, d = o[order].contiguous(), d[order].contiguous()
+        tnear, tfar = tnear[order].contiguous(), tfar[order].contiguous()
+        count_rays(tfar, "anyhit" if any_hit else "closest")
+        pairs, cutoff = _make_pairs(wt, o, d, tnear, tfar, km)
+        overflow = torch.isfinite(cutoff)
     m = n * km
-    overflow = torch.isfinite(cutoff)
     # the fallback's tile walk runs with the tables' other options
     retrace = wt._replace(options=wt.options._replace(pair=False))
 
     mxu = bool(wt.options.mxu_tritest)
     if any_hit:
-        occ = pair_anyhit(wt, *pairs, mxu=mxu, _form=_form)[:m].reshape(
-            n, km).any(dim=1)
-        # an overflowing ray not yet occluded may be blocked by a cluster
-        # off its shortlist
-        fb = ~occ & overflow
-        occ_fb = _walk_impl(retrace, o, d, tnear, torch.where(fb, tfar, 0.0),
-                            True, sort_rays=False)
-        return _unsort(occ | (fb & occ_fb), order, n)
+        with span("walk.kernel", dev):
+            occ = pair_anyhit(wt, *pairs, mxu=mxu, _form=_form)[:m].reshape(
+                n, km).any(dim=1)
+            # an overflowing ray not yet occluded may be blocked by a
+            # cluster off its shortlist
+            fb = ~occ & overflow
+            occ_fb = _walk_impl(retrace, o, d, tnear,
+                                torch.where(fb, tfar, 0.0), True,
+                                sort_rays=False)
+        with span("walk.unsort", dev):
+            return _unsort(occ | (fb & occ_fb), order, n)
 
-    t, tri, u, v = (x[:m].reshape(n, km)
-                    for x in pair_closest(wt, *pairs, mxu=mxu, _form=_form))
-    tm = torch.where(tri >= 0, t, float("inf"))
-    bt = tm.amin(dim=1)
-    first = tm == bt[:, None]
-    btri = torch.where(first, tri, _INT_MAX).amin(dim=1)
-    sel = first & (tri == btri[:, None])
-    bu = torch.where(sel, u, 0.0).sum(dim=1)
-    bv = torch.where(sel, v, 0.0).sum(dim=1)
-    hit = torch.isfinite(bt)
-    fb = overflow & (bt >= cutoff)
-    rh = _walk_impl(retrace, o, d, tnear, torch.where(fb, tfar, 0.0), False,
-                    sort_rays=False)
-    bt = torch.where(fb, rh.t, bt)
-    btri = torch.where(fb, rh.tri, torch.where(hit, btri, -1))
-    bu, bv = torch.where(fb, rh.u, bu), torch.where(fb, rh.v, bv)
-    bt, btri, bu, bv = (_unsort(x, order, n) for x in (bt, btri, bu, bv))
-    return RayHit(t=bt, tri=btri, u=bu, v=bv, hit=btri >= 0)
+    with span("walk.kernel", dev):
+        t, tri, u, v = (x[:m].reshape(n, km) for x in pair_closest(
+            wt, *pairs, mxu=mxu, _form=_form))
+        tm = torch.where(tri >= 0, t, float("inf"))
+        bt = tm.amin(dim=1)
+        first = tm == bt[:, None]
+        btri = torch.where(first, tri, _INT_MAX).amin(dim=1)
+        sel = first & (tri == btri[:, None])
+        bu = torch.where(sel, u, 0.0).sum(dim=1)
+        bv = torch.where(sel, v, 0.0).sum(dim=1)
+        hit = torch.isfinite(bt)
+        fb = overflow & (bt >= cutoff)
+        rh = _walk_impl(retrace, o, d, tnear, torch.where(fb, tfar, 0.0),
+                        False, sort_rays=False)
+        bt = torch.where(fb, rh.t, bt)
+        btri = torch.where(fb, rh.tri, torch.where(hit, btri, -1))
+        bu, bv = torch.where(fb, rh.u, bu), torch.where(fb, rh.v, bv)
+    with span("walk.unsort", dev):
+        bt, btri, bu, bv = (_unsort(x, order, n) for x in (bt, btri, bu, bv))
+        return RayHit(t=bt, tri=btri, u=bu, v=bv, hit=btri >= 0)
 
 
 def intersect_pairs(wt, o, d, tnear=None, tfar=None, km: int = None) -> RayHit:

@@ -25,7 +25,9 @@ per wavefront as the reference does: the incidence key for spread-origin
 wavefronts, the morton key for point-origin ones; in eager torch that
 choice costs one host read per call. Past _INC_SORT_MAX_C clusters every
 wavefront takes the morton key (the incidence key's slab pass is linear in
-the cluster count), with no host read.
+the cluster count), with no host read. Under a profiler (utils/tracing.py)
+a call is three device spans, `walk.prepare` (its host read a `walk.sync`
+span), `walk.kernel` and `walk.unsort`.
 
 Tables of up to 2^14 clusters take the one-level walk (K3/K4,
 ops/walk_trace.py); larger ones, up to MAX_CLUSTERS = 2^17, the two-level
@@ -65,6 +67,7 @@ from ..ops.walk_sub import (MAX_VMEM_CLUSTERS, SUBS, walk_sub_anyhit,
                             walk_sub_closest)
 from ..ops.walk_trace import (K, RAY_TILE, _ID_BITS, _slab_inv, check_k,
                               walk_anyhit, walk_closest)
+from ..utils.tracing import span
 from .bvh import build_bvh
 from .dense import RayHit
 
@@ -402,9 +405,12 @@ def _prepare(wt, o, d, tnear, tfar, sort_rays: bool = True,
         o_safe = torch.where(torch.isfinite(o), o, 0.0)
         d_safe = torch.where(torch.isfinite(d), d, 0.0)
         # point-origin wavefronts (camera rays) take the morton key
-        if (inc_sort and int(wt.n_clusters) <= _INC_SORT_MAX_C
-                and bool(_origin_spread(o_safe, tfar)
-                         > 1e-5 * torch.amax(wt.world_hi - wt.world_lo))):
+        spread = False
+        if inc_sort and int(wt.n_clusters) <= _INC_SORT_MAX_C:
+            with span("walk.sync"):
+                spread = bool(_origin_spread(o_safe, tfar) > 1e-5
+                              * torch.amax(wt.world_hi - wt.world_lo))
+        if spread:
             kmaj, kmin = _incidence_key(wt, o_safe, d_safe, tnear, tfar)
         else:
             kmaj, kmin = _sort_key(wt, o_safe, d_safe,
@@ -505,15 +511,19 @@ def _walk_impl(wt, o, d, tnear, tfar, any_hit: bool, sort_rays: bool = True,
     else:
         closest = lambda *a: walk_closest(*a, wide=wide, mxu=mxu)
         anyhit = lambda *a: walk_anyhit(*a, wide=wide, mxu=mxu)
-    o, d, tnear, tfar, order = _prepare(
-        wt, o, d, tnear, tfar, sort_rays,
-        opt.compact_inert if compact_inert is None else compact_inert,
-        opt.inc_sort if inc_sort is None else inc_sort)
-    if any_hit:
-        return _unsort(anyhit(wt, o, d, tnear, tfar), order, n)
-    t, tri, u, v = (_unsort(x, order, n)
-                    for x in closest(wt, o, d, tnear, tfar))
-    return RayHit(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
+    dev = o.device
+    with span("walk.prepare", dev):
+        o, d, tnear, tfar, order = _prepare(
+            wt, o, d, tnear, tfar, sort_rays,
+            opt.compact_inert if compact_inert is None else compact_inert,
+            opt.inc_sort if inc_sort is None else inc_sort)
+    with span("walk.kernel", dev):
+        res = (anyhit if any_hit else closest)(wt, o, d, tnear, tfar)
+    with span("walk.unsort", dev):
+        if any_hit:
+            return _unsort(res, order, n)
+        t, tri, u, v = (_unsort(x, order, n) for x in res)
+        return RayHit(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
 
 
 def _default_range(o, tnear, tfar):

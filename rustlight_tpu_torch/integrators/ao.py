@@ -20,6 +20,7 @@ from ..scene import fill_hit, generate_rays
 from ..scene.scene import offset_ray_origin
 from ..utils.frame import to_world
 from ..utils.rng import stream_next2d
+from ..utils.tracing import spanned
 from ..utils.warps import cosine_sample_hemisphere
 
 
@@ -29,6 +30,7 @@ class IntegratorAO:
         self.max_distance = max_distance
         self.normal_correction = normal_correction
 
+    @spanned("loop.sample")
     def compute_pixel(self, scene, pix, stream):
         """One AO sample of every pixel in pix [n, 2]: [n, 3] in {0, 1}."""
         n = pix.shape[0]

@@ -23,6 +23,7 @@ import torch
 
 from ..utils.film import Film, accumulate_safe, splat_add
 from ..utils.rng import StratifiedStream, make_stream, stream_fold
+from ..utils.tracing import root, span
 
 SAMPLERS = ("independent", "stratified")
 
@@ -79,7 +80,11 @@ def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
     laid over the passes): sample s of every pixel draws through
     StratifiedStream(inner=stream_fold(base, s), pixel_ids=y*w+x,
     pass_idx=s, spp=spp, base_key=base.key). It cannot take the
-    persistent route: `persistent=True` with it raises ValueError."""
+    persistent route: `persistent=True` with it raises ValueError.
+
+    Under a profiler (utils/tracing.py) the call is one `render` span, with
+    `render.setup` (up to the integrator's first call) and
+    `render.readback` (the film's copy to the host) inside it."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}")
     if sampler == "stratified":
@@ -89,53 +94,59 @@ def render(scene, integrator, spp: int, seed: int = 0, spp_per_pass: int = 8,
         persistent = False
     if variance:
         persistent = False
-    if hasattr(integrator, "prepare"):
-        integrator.prepare(scene)
-    cam = scene.camera
-    w, h = cam.width, cam.height
-    device = scene.device
-    pix = torch.as_tensor(_pixel_grid(w, h), device=device)
-    base = make_stream(seed, device)
-    pid = pix[:, 1] * w + pix[:, 0]
+    with root("render"):
+        with span("render.setup"):
+            if hasattr(integrator, "prepare"):
+                integrator.prepare(scene)
+            cam = scene.camera
+            w, h = cam.width, cam.height
+            device = scene.device
+            pix = torch.as_tensor(_pixel_grid(w, h), device=device)
+            base = make_stream(seed, device)
+            pid = pix[:, 1] * w + pix[:, 0]
 
-    def pass_stream(s):
-        stream = stream_fold(base, s)
-        if sampler == "stratified":
-            return StratifiedStream(inner=stream, pixel_ids=pid, pass_idx=s,
-                                    spp=spp, base_key=base.key)
-        return stream
-    if hasattr(integrator, "compute_block") and persistent is not False:
-        acc = accumulate_safe(integrator.compute_block(
-            scene, pix, stream_fold(base, 0), spp))
-        n_samples = spp
-    elif hasattr(integrator, "compute_pixel"):
-        chunk = max(1, min(spp_per_pass, spp))
-        acc = torch.zeros((h * w, 3), dtype=torch.float32, device=device)
-        acc2 = acc if variance else None
-        n_samples = 0
-        while n_samples < spp:
-            part = torch.zeros_like(acc)
-            part2 = part
-            for k in range(chunk):
-                li = accumulate_safe(integrator.compute_pixel(
-                    scene, pix, pass_stream(n_samples + k)))
+        def pass_stream(s):
+            stream = stream_fold(base, s)
+            if sampler == "stratified":
+                return StratifiedStream(inner=stream, pixel_ids=pid,
+                                        pass_idx=s, spp=spp,
+                                        base_key=base.key)
+            return stream
+        if hasattr(integrator, "compute_block") and persistent is not False:
+            acc = accumulate_safe(integrator.compute_block(
+                scene, pix, stream_fold(base, 0), spp))
+            n_samples = spp
+        elif hasattr(integrator, "compute_pixel"):
+            chunk = max(1, min(spp_per_pass, spp))
+            acc = torch.zeros((h * w, 3), dtype=torch.float32, device=device)
+            acc2 = acc if variance else None
+            n_samples = 0
+            while n_samples < spp:
+                part = torch.zeros_like(acc)
+                part2 = part
+                for k in range(chunk):
+                    li = accumulate_safe(integrator.compute_pixel(
+                        scene, pix, pass_stream(n_samples + k)))
+                    if variance:
+                        part2 = part2 + li * li
+                    part = part + li
+                acc = acc + part
                 if variance:
-                    part2 = part2 + li * li
-                part = part + li
-            acc = acc + part
+                    acc2 = acc2 + part2
+                n_samples += chunk
+        else:
+            raise NotImplementedError(
+                f"{type(integrator).__name__} has no ported render route")
+        with span("render.readback"):
+            img = (acc.reshape(h, w, 3) / n_samples).cpu().numpy()
+            film = Film(w, h)
+            film.buffers["primal"] = img
             if variance:
-                acc2 = acc2 + part2
-            n_samples += chunk
-    else:
-        raise NotImplementedError(
-            f"{type(integrator).__name__} has no ported render route")
-    img = (acc.reshape(h, w, 3) / n_samples).cpu().numpy()
-    film = Film(w, h)
-    film.buffers["primal"] = img
-    if variance:
-        m2 = acc2.reshape(h, w, 3).cpu().numpy() - n_samples * img * img
-        film.buffers["mean"] = img
-        film.buffers["variance"] = np.maximum(m2 / max(n_samples - 1, 1), 0.0)
+                m2 = (acc2.reshape(h, w, 3).cpu().numpy()
+                      - n_samples * img * img)
+                film.buffers["mean"] = img
+                film.buffers["variance"] = np.maximum(
+                    m2 / max(n_samples - 1, 1), 0.0)
     return film
 
 

@@ -60,6 +60,7 @@ from ..scene.volume import (phase_eval, phase_sample, transmittance,
                             volume_sample_distance)
 from ..utils.frame import to_world, to_local
 from ..utils.rng import stream_next, stream_next2d
+from ..utils.tracing import count, span, spanned
 from ..utils.vec import channel_max
 from ..utils.warps import cosine_sample_hemisphere
 from . import guiding as _gd
@@ -156,6 +157,7 @@ class IntegratorPathTracing:
             return 0.25 if scene.geom.walk is not None else None
         return self.nee_rr
 
+    @spanned("loop.sample")
     def compute_pixel(self, scene, pix, stream, guide=None, collect=False):
         """One sample of every pixel: the radiance of one path a lane,
         [n, 3]. The loop runs at most hard_cap iterations.
@@ -191,9 +193,12 @@ class IntegratorPathTracing:
                            device=dev) if collect else None)
         k = 0
         while k < self.hard_cap:
-            if not bool(torch.any(s.alive)):
-                break
-            for _ in range(min(CHECK_EVERY, self.hard_cap - k)):
+            with span("loop.sync"):
+                if not bool(torch.any(s.alive)):
+                    break
+            m = min(CHECK_EVERY, self.hard_cap - k)
+            count("loop.iterations", m)
+            for _ in range(m):
                 v = self._vertex(scene, s.o, s.d, s.throughput, s.radiance,
                                  s.alive, s.depth, s.prev_pdf, s.prev_delta,
                                  s.prev_nee, s.prev_occ, s.stream, nee_rr,
@@ -211,11 +216,12 @@ class IntegratorPathTracing:
                     prev_nee=torch.where(v.alive, v.nee_possible, s.prev_nee),
                     prev_occ=v.prev_occ,
                 )
-            k += min(CHECK_EVERY, self.hard_cap - k)
+            k += m
         if collect:
             return s.radiance, dep
         return s.radiance
 
+    @spanned("loop.block")
     def compute_block(self, scene, pix, stream, spp: int):
         """All `spp` samples of every pixel in one persistent wavefront.
         Returns the per-pixel SUM over spp samples, [n, 3]."""
@@ -239,11 +245,14 @@ class IntegratorPathTracing:
         it_cap = spp * self.hard_cap + 4
         it = 0
         while it < it_cap:
-            if not bool(torch.any(s.alive | (s.done < spp))):
-                break
-            for _ in range(min(CHECK_EVERY, it_cap - it)):
+            with span("loop.sync"):
+                if not bool(torch.any(s.alive | (s.done < spp))):
+                    break
+            m = min(CHECK_EVERY, it_cap - it)
+            count("loop.iterations", m)
+            for _ in range(m):
                 s = self._step(scene, pixf, s, spp, nee_rr)
-            it += min(CHECK_EVERY, it_cap - it)
+            it += m
         return s.accum
 
     def _step(self, scene, pixf, s: _PersistentState, spp: int, nee_rr):

@@ -420,7 +420,7 @@ def dense_closest(rows, o, d, tnear, tfar):
     """Closest hit of rays (o, d) [n, 3] within (tnear, tfar) [n] against
     Baldwin-Weber rows [T, 3, 4]: returns (t, idx, u, v), each [n]."""
     _check(rows, o, d, tnear, tfar)
-    count_rays(tfar)
+    count_rays(tfar, "closest")
     dev = o.device
     if dev.type == "cpu":
         return dense_closest_ref(rows, o, d, tnear, tfar)
@@ -438,7 +438,7 @@ def dense_closest(rows, o, d, tnear, tfar):
 def dense_anyhit(rows, o, d, tnear, tfar) -> torch.Tensor:
     """Any hit of rays (o, d) within (tnear, tfar): True = occluded."""
     _check(rows, o, d, tnear, tfar)
-    count_rays(tfar)
+    count_rays(tfar, "anyhit")
     dev = o.device
     if dev.type == "cpu":
         return dense_anyhit_ref(rows, o, d, tnear, tfar)

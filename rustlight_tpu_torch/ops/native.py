@@ -13,13 +13,13 @@ cluster, csrc/tri_test_mma.cuh: RL_KC): the production library at 384, and
 `check_lib_k` holds a library's K (its `rl_kc()`) to the tables'.
 
 `counting_rays()` sums, on the device, the lanes with tfar > 0 handed to any
-trace kernel of ops/ (the rays actually traced). The build keeps ptxas's
+trace kernel of ops/ (the rays actually traced); it and `count_rays`, which
+the wrappers call, are the recorder's (utils/tracing.py). The build keeps ptxas's
 report (registers, shared memory, spills per kernel) beside the library;
 `ptxas_usage()` reads it.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,9 +27,11 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Sequence
+from typing import Sequence
 
 import torch
+
+from ..utils.tracing import count_rays, counting_rays  # noqa: F401
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -46,26 +48,6 @@ _CUDA_LIBS = {}
 # one, by "<LAUNCHES name>@K<k>" (the wrappers count them in their own
 # LAUNCHES too)
 K_LAUNCHES = {}
-_RAY_COUNTERS: List[torch.Tensor] = []
-
-
-@contextlib.contextmanager
-def counting_rays(device):
-    """Yield an int64 device scalar that sums, while the context is open,
-    the lanes with tfar > 0 handed to any trace kernel."""
-    acc = torch.zeros((), dtype=torch.int64, device=device)
-    _RAY_COUNTERS.append(acc)
-    try:
-        yield acc
-    finally:
-        _RAY_COUNTERS.remove(acc)
-
-
-def count_rays(tfar) -> None:
-    for acc in _RAY_COUNTERS:
-        acc += (tfar > 0.0).sum()
-
-
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     cands = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []

@@ -236,7 +236,7 @@ def walk_hier_closest(wt, o, d, tnear, tfar, mxu: bool = False, *,
     takes the tensor-core form of the triangle test."""
     _check(wt, o, d, tnear, tfar)
     form, smem = _form_geometry("walk_hier_closest", wt, _form, mxu)
-    count_rays(tfar)
+    count_rays(tfar, "closest")
     if o.device.type == "cpu":
         return walk_hier_closest_ref(wt, o, d, tnear, tfar, mxu)[:4]
     n = o.shape[0]
@@ -269,7 +269,7 @@ def walk_hier_anyhit(wt, o, d, tnear, tfar, mxu: bool = False, *,
     True = occluded. `mxu` as in walk_hier_closest."""
     _check(wt, o, d, tnear, tfar)
     form, smem = _form_geometry("walk_hier_anyhit", wt, _form, mxu)
-    count_rays(tfar)
+    count_rays(tfar, "anyhit")
     if o.device.type == "cpu":
         return walk_hier_anyhit_ref(wt, o, d, tnear, tfar, mxu)[0]
     n = o.shape[0]

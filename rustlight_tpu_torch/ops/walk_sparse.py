@@ -328,7 +328,7 @@ def walk_sparse_closest(wt, o, d, tnear, tfar, *,
     form = _resolve_form("walk_sparse_closest", _form)
     launch_geometry("walk_sparse_closest", form, wt.n_clusters,
                     k=table_k(wt))
-    count_rays(tfar)
+    count_rays(tfar, "closest")
     if o.device.type == "cpu":
         return walk_sparse_closest_ref(wt, o, d, tnear, tfar)[:4]
     return launch_closest(_load(table_k(wt)), wt, o, d, tnear, tfar, form)
@@ -341,7 +341,7 @@ def walk_sparse_anyhit(wt, o, d, tnear, tfar, *, _form=None) -> torch.Tensor:
     form = _resolve_form("walk_sparse_anyhit", _form)
     launch_geometry("walk_sparse_anyhit", form, wt.n_clusters,
                     k=table_k(wt))
-    count_rays(tfar)
+    count_rays(tfar, "anyhit")
     if o.device.type == "cpu":
         return walk_sparse_anyhit_ref(wt, o, d, tnear, tfar)[0]
     return launch_anyhit(_load(table_k(wt)), wt, o, d, tnear, tfar, form)

@@ -290,7 +290,7 @@ def walk_sub_closest(wt, o, d, tnear, tfar, sub: int, mxu: bool = False, *,
     _check(wt, o, d, tnear, tfar, sub)
     form = _resolve_form("walk_sub_closest", sub, _form, mxu)
     launch_geometry(sub, form, wt.n_clusters, mxu, k=table_k(wt))
-    count_rays(tfar)
+    count_rays(tfar, "closest")
     if o.device.type == "cpu":
         return walk_sub_closest_ref(wt, o, d, tnear, tfar, sub, mxu)[:4]
     return launch_closest(_load(table_k(wt)), wt, o, d, tnear, tfar, sub,
@@ -304,7 +304,7 @@ def walk_sub_anyhit(wt, o, d, tnear, tfar, sub: int, mxu: bool = False, *,
     _check(wt, o, d, tnear, tfar, sub)
     form = _resolve_form("walk_sub_anyhit", sub, _form, mxu)
     launch_geometry(sub, form, wt.n_clusters, mxu, k=table_k(wt))
-    count_rays(tfar)
+    count_rays(tfar, "anyhit")
     if o.device.type == "cpu":
         return walk_sub_anyhit_ref(wt, o, d, tnear, tfar, sub, mxu)[0]
     return launch_anyhit(_load(table_k(wt)), wt, o, d, tnear, tfar, sub,

@@ -795,7 +795,7 @@ def walk_closest(wt, o, d, tnear, tfar, wide: bool = False,
                    k=k)
     else:
         smem = launch_geometry(name, form, wt.n_clusters, mxu, k=k)[1]
-    count_rays(tfar)
+    count_rays(tfar, "closest")
     if o.device.type == "cpu":
         return walk_closest_ref(wt, o, d, tnear, tfar, wide, mxu)[:4]
     if wide:
@@ -839,7 +839,7 @@ def walk_anyhit(wt, o, d, tnear, tfar, wide: bool = False,
                    k=k)
     else:
         smem = launch_geometry(name, form, wt.n_clusters, mxu, k=k)[1]
-    count_rays(tfar)
+    count_rays(tfar, "anyhit")
     if o.device.type == "cpu":
         return walk_anyhit_ref(wt, o, d, tnear, tfar, wide, mxu)[0]
     if wide:

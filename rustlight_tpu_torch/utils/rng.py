@@ -38,6 +38,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .tracing import span
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -106,13 +108,15 @@ def random_bits(key: Tuple[int, int], n: int, device,
                 start: int = 0) -> torch.Tensor:
     """jax.random.bits(key, (N,))[start:start + n] for 32-bit words
     (partitionable threefry): threefry2x32 over the flat iota, y0 ^ y1, as
-    int64 in [0, 2^32)."""
+    int64 in [0, 2^32). Under a profiler, one `rng.draw` span on the
+    device (utils/tracing.py)."""
     # the flat iota's high words are zero below 2^32 lanes
     assert start + n < 2 ** 32, (start, n)
-    lo = torch.arange(start, start + n, dtype=torch.int64, device=device)
-    y0, y1 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo,
-                           _mask_tensor)
-    return torch.bitwise_xor(y0, y1)
+    with span("rng.draw", device):
+        lo = torch.arange(start, start + n, dtype=torch.int64, device=device)
+        y0, y1 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo,
+                               _mask_tensor)
+        return torch.bitwise_xor(y0, y1)
 
 
 def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
