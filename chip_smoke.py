@@ -55,7 +55,8 @@ checkout; imports nothing of JAX. Phases, one line each or more:
   6. main path, grids: render(sphere_grid(n, 256, 256), path tracer depth
      5, 8 spp) for n = 122,000 and 516,000 (bench.py:132-139), warm-up
      then timed with launch counts reset just before; the image must be
-     finite, the walk kernels must have launched and the dense ones not;
+     finite, the walk kernels and the incidence key must have launched
+     and the dense ones not;
   7. oracle: sphere_grid(122_000, 64, 64) at 2 spp, seed 0, nee_rr = 0.25,
      once through the walk and once through the dense kernels over all
      131k triangles: 99.9% of pixels within 1e-3 (relative), means within
@@ -403,13 +404,29 @@ checkout; imports nothing of JAX. Phases, one line each or more:
      e2e_4p9M) once through its main at LAB_RUNS' sizes, with the launches
      at other K (ops/native.py:K_LAUNCHES) reset before and read after:
      the kernels line's `walk_closest@K128` and kin take them.
+ 30. the walk's incidence key (csrc/coherence_key.cu): on grid122k's
+     bounce wavefront as the path cell hands it (sphere_grid(122_000) at
+     KEY_RES, the path tracer at depth GRID_DEPTH: the first wavefront
+     the walk keys by incidence, captured in a 1 spp render; its dead
+     lanes replaced by live ones drawn from a seeded generator, so that
+     all 2,073,600 lanes are live), the kernel against its plain version
+     (counts equal on every lane, the major key on at least KEY_FRAC),
+     two launches identical; the wrapper's ms (median of 10 between CUDA
+     events), a launch's device us (torch.profiler), the plain version's
+     ms on the card, and the bound: KEY_OPS FP32 instructions a lane and
+     real cluster over 132 SMs x 128 lanes x clocks.max.sm. Its entry in
+     the kernels line gives the measured share of equal major keys and
+     the count of lanes whose counts differ (0), in place of an error,
+     and the key's launches in the timed renders of phase 6's grids and
+     of the AO rows (phases 10-16).
 
 Every line ends with the seconds since the run started. Before the last
 line: a JSON line with each kernel's tables and wavefronts
 (kernel_cases), the candidate forms' table (a1_forms) and the split forms'
 records of K7, K3w and K8 (split_forms), the card line
 from nvidia-smi and a JSON line with each kernel's launches, error, times
-and bound. The last line is the JSON status {"ok": true, "device": {...}};
+and bound (the walk's incidence key, a kernel of its preparation, may
+launch beside any walk kernel in a launch check). The last line is the JSON status {"ok": true, "device": {...}};
 a failed phase raises and prints no status. The run prints its seconds.
 The K1/K2 launches of phases 20, 21, 23, 24 and 25's full-width renders,
 and the K1/K2/K3 launches of phases 22, 25, 26 and 27's (every rank's) and
@@ -477,7 +494,8 @@ KERNEL_SOURCES = {"dense": "rustlight_tpu_torch/csrc/dense_trace.cu",
                   "walk_sparse": "rustlight_tpu_torch/csrc/walk_sparse.cu",
                   "pair": "rustlight_tpu_torch/csrc/pair_trace.cu",
                   "lab": "rustlight_tpu_torch/csrc/walk_lab.cu",
-                  "mma": "rustlight_tpu_torch/csrc/tri_test_mma.cuh"}
+                  "mma": "rustlight_tpu_torch/csrc/tri_test_mma.cuh",
+                  "key": "rustlight_tpu_torch/csrc/coherence_key.cu"}
 # phase 17: the lab scene, and the tensor-core form's tolerance. It is not
 # bit-identical to the _dot4 form: both round products of magnitudes that
 # cancel (coordinates near 20 down to a t or u near 0), in another order.
@@ -640,6 +658,12 @@ VIEWER_FIRST_ATOL = 1e-6
 TOOLS_WAIT_S = 60.0
 TOOLS_ROWS = ("cbox_ao", "cbox_direct")
 SMOKE_SIZE, SMOKE_SPP = 128, 4
+# phase 30: the incidence key on grid122k's bounce wavefront at the path
+# cell's size; its FP32 instructions a lane-cluster pair (6 subtractions, 6
+# products, 6 min/max, the comparisons and 3 adds), and the share of lanes
+# whose major key must equal the plain version's (tests/test_torch_walk.py:
+# INC_KEY_FRAC)
+KEY_RES, KEY_OPS, KEY_FRAC, KEY_SEED = (1920, 1080), 22, 0.999, 30
 # each phase-20/21 row's metrics, by row, for phase 28's harness run
 _GATE_GOT = {}
 
@@ -1215,6 +1239,7 @@ def profile_render(label, sd, integ, spp, names, top=12):
 
 
 def _launch_modules():
+    from rustlight_tpu_torch.ops import coherence_key as ck
     from rustlight_tpu_torch.ops import dense_trace as dt
     from rustlight_tpu_torch.ops import pair_trace as pt
     from rustlight_tpu_torch.ops import walk_hier as wh
@@ -1222,7 +1247,7 @@ def _launch_modules():
     from rustlight_tpu_torch.ops import walk_sparse as ws
     from rustlight_tpu_torch.ops import walk_sub as wsub
     from rustlight_tpu_torch.ops import walk_trace as wk
-    return dt, wk, wh, wsub, ws, pt, wl
+    return dt, wk, wh, wsub, ws, pt, wl, ck
 
 
 def _reset_launches():
@@ -1937,10 +1962,19 @@ def _images_agree(label, img, ref, pix_frac, pix_rtol, mean_rtol):
         raise AssertionError(f"{label}: image differs from the default's")
 
 
+def _beside(kernels):
+    """`kernels` and the kernels that may launch beside them: the walk's
+    incidence key (a kernel of the walk's preparation) beside any walk."""
+    walks = any(k.startswith(("walk_", "pair_")) for k in kernels)
+    return set(kernels) | ({"incidence_key"} if walks else set())
+
+
 def _only(label, launches, kernels):
-    """Fails unless exactly `kernels` launched."""
+    """Fails unless `kernels` launched, and nothing else but what may launch
+    beside them (`_beside`)."""
+    allowed = _beside(kernels)
     if min(launches[k] for k in kernels) <= 0 or any(
-            v for k, v in launches.items() if k not in kernels):
+            v for k, v in launches.items() if k not in allowed):
         raise AssertionError(f"{label}: launches {launches}")
 
 
@@ -2033,7 +2067,7 @@ def oracle_check(label, sd, integ, spp, walk_kernels, pix_frac, pix_rtol,
         imgs[name] = render(scene, integ, spp=spp, seed=0)["primal"]
         secs = time.time() - t0
         launched = {k: v for k, v in _launches().items() if v}
-        if set(launched) != set(kernels):
+        if not set(kernels) <= set(launched) <= _beside(kernels):
             raise AssertionError(f"oracle: the {name} render launched "
                                  f"{launched}")
         phase("oracle", f"{label} {name}: {secs:.3f}s, launches {launched}")
@@ -5353,6 +5387,78 @@ def labs_phase(dev):
     return launches
 
 
+def bounce_wavefront(sd, integ):
+    """The first wavefront that `integ`'s 1 spp render on `sd` keys by
+    incidence (accel/walk.py:_incidence_key's arguments, cloned)."""
+    from rustlight_tpu_torch.accel import walk as tw
+    got, key = [], tw._incidence_key
+
+    def capture(wt, *rays):
+        if not got:
+            got.append([x.clone() for x in rays])
+        return key(wt, *rays)
+
+    tw._incidence_key = capture
+    try:
+        _render(sd, integ, 1)
+    finally:
+        tw._incidence_key = key
+    return got[0]
+
+
+def coherence_key_phase(dev, clock_hz):
+    """Phase 30: the incidence key's kernel against its plain version on
+    grid122k's bounce wavefront at KEY_RES, every lane live; its times and
+    bound. Returns the record."""
+    import torch
+    from rustlight_tpu_torch.integrators import IntegratorPathTracing
+    from rustlight_tpu_torch.models import sphere_grid
+    from rustlight_tpu_torch.ops import coherence_key as ck
+    sd = sphere_grid(122_000, *KEY_RES).compile(device=dev)
+    wt = sd.geom.walk
+    o, d, tnear, tfar = bounce_wavefront(
+        sd, IntegratorPathTracing(max_depth=GRID_DEPTH))
+    live = torch.nonzero(tfar > 0.0)[:, 0]
+    n_live = live.numel()
+    gen = torch.Generator(device=dev).manual_seed(KEY_SEED)
+    lane = torch.where(tfar > 0.0, torch.arange(tfar.numel(), device=dev),
+                       live[torch.randint(n_live, tfar.shape, device=dev,
+                                          generator=gen)])
+    rays = [x[lane].contiguous() for x in (o, d, tnear, tfar)]
+    n, c = rays[0].shape[0], int(wt.n_real)
+    got = ck.incidence_key(wt, *rays)
+    again = ck.incidence_key(wt, *rays)
+    ref = ck.incidence_key_ref(wt, *rays)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("incidence key: two launches differ")
+    diff = int((got[1] != ref[1]).sum())
+    if diff:
+        raise AssertionError(f"incidence key: {diff} counts differ from the "
+                             "plain version")
+    same = float((got[0] == ref[0]).float().mean())
+    if same < KEY_FRAC:
+        raise AssertionError(f"incidence key: major key equal on {same:.6f} "
+                             f"of the lanes, under {KEY_FRAC}")
+    bound = n * c * KEY_OPS / (132 * 128 * clock_hz) * 1e3
+    rec = {"table": "grid122k", "wavefront": "bounce", "rays": n,
+           "live_before": n_live, "clusters": c, "major_equal": same,
+           "counts_differ": diff,
+           "ms": _median_ms(lambda: ck.incidence_key(wt, *rays)),
+           "device_us": _device_us(lambda: ck.incidence_key(wt, *rays),
+                                   "incidence_key_kernel"),
+           "plain_ms": _median_ms(lambda: ck.incidence_key_ref(wt, *rays),
+                                  runs=3),
+           "bound_ms": bound, "bound_by": "operations"}
+    phase("key", f"grid122k bounce {n} lanes ({n_live} live as handed, the "
+          f"rest drawn from them) x {c} clusters: counts equal, major key "
+          f"equal on {100 * same:.4f}%, two launches identical; wrapper "
+          f"{rec['ms']:.4f} ms, device {rec['device_us']:.2f} us, plain "
+          f"{rec['plain_ms']:.3f} ms, bound {bound:.4f} ms ({KEY_OPS} FP32 "
+          f"a pair at {clock_hz / 1e6:.0f} MHz)")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5441,6 +5547,8 @@ def main() -> int:
         grids[label] += (waves,)
         walk_recs += recs
     walk_launches = {"walk_closest": 0, "walk_anyhit": 0}
+    # the incidence key's launches in the grid and AO rows' timed renders
+    key_launches = 0
     grid_renders = {}
     integ = IntegratorPathTracing(max_depth=GRID_DEPTH)
     for label, (gsd, n_tris, build_s, _) in grids.items():
@@ -5451,8 +5559,11 @@ def main() -> int:
             raise AssertionError(f"{label}: the walk kernels never launched")
         if launches["dense_closest"] or launches["dense_anyhit"]:
             raise AssertionError(f"{label}: a dense kernel launched")
+        if launches["incidence_key"] <= 0:
+            raise AssertionError(f"{label}: the incidence key never launched")
         for k in walk_launches:
             walk_launches[k] += launches[k]
+        key_launches += launches["incidence_key"]
         w = gsd.geom.walk
         phase("main", f"{label} sphere_grid({n_tris}) "
               f"{gsd.geom.n_tris} triangles, Cp {w.n_clusters} ({w.n_real} "
@@ -5494,6 +5605,7 @@ def main() -> int:
     for k in walk_launches:
         # the pair renders' fallback launches the tile walk too
         walk_launches[k] += ao_launches[k] + sched_launches[k]
+    key_launches += ao_launches["incidence_key"]
     lab_recs = check_lab(dev)
     a1 = a1_summary(mma_recs["mma_forms"] + lab_recs["mma_forms"],
                     lab_recs["mma_form_visits"])
@@ -5520,6 +5632,7 @@ def main() -> int:
         walk_launches[k] += ex_launches[k]
     k_recs = check_k_forms(dev)
     k_launches = labs_phase(dev)
+    key_rec = coherence_key_phase(dev, float(clock[0]) * 1e6)
 
     def pick(kind):
         """The K3-size spread wavefront stands for a walk kernel; every
@@ -5718,6 +5831,16 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "incidence_key", "route": "cuda",
+        "source": KERNEL_SOURCES["key"],
+        "replaces": "none: rustlight_tpu/accel/pallas_walk.py:379 "
+                    "_incidence_key is XLA",
+        "launches": key_launches,
+        **{k: key_rec[k] for k in ("major_equal", "counts_differ", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "device_us")},
+        "library_ms": None})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on a "

@@ -23,11 +23,13 @@ tiles, walked by the kernels of ops/walk_trace.py (CUDA on the card, their
 plain versions on the CPU), and put back in lane order. The key is chosen
 per wavefront as the reference does: the incidence key for spread-origin
 wavefronts, the morton key for point-origin ones; in eager torch that
-choice costs one host read per call. Past _INC_SORT_MAX_C clusters every
+choice costs one host read per call. The incidence key is one CUDA kernel
+on the card (ops/coherence_key.py). Past _INC_SORT_MAX_C clusters every
 wavefront takes the morton key (the incidence key's slab pass is linear in
 the cluster count), with no host read. Under a profiler (utils/tracing.py)
 a call is three device spans, `walk.prepare` (its host read a `walk.sync`
-span), `walk.kernel` and `walk.unsort`.
+span), `walk.kernel` and `walk.unsort`, and a sorted call counts its key
+in `walk.key.incidence` or `walk.key.morton`.
 
 Tables of up to 2^14 clusters take the one-level walk (K3/K4,
 ops/walk_trace.py); larger ones, up to MAX_CLUSTERS = 2^17, the two-level
@@ -60,14 +62,15 @@ import numpy as np
 import torch
 
 from .. import EPSILON
+from ..ops.coherence_key import _morton, _octant, _quantize, incidence_key
 from ..ops.walk_hier import (MAX_CLUSTERS, SUP, walk_hier_anyhit,
                              walk_hier_closest)
 from ..ops.walk_sparse import walk_sparse_anyhit, walk_sparse_closest
 from ..ops.walk_sub import (MAX_VMEM_CLUSTERS, SUBS, walk_sub_anyhit,
                             walk_sub_closest)
-from ..ops.walk_trace import (K, RAY_TILE, _ID_BITS, _slab_inv, check_k,
-                              walk_anyhit, walk_closest)
-from ..utils.tracing import span
+from ..ops.walk_trace import (K, RAY_TILE, _ID_BITS, check_k, walk_anyhit,
+                              walk_closest)
+from ..utils.tracing import count, span
 from .bvh import build_bvh
 from .dense import RayHit
 
@@ -306,25 +309,6 @@ def walk_tables_to(wt, device, walk_options: WalkOptions = None) -> WalkTables:
 
 # ------------------------------------------------------------- coherence keys
 
-def _octant(d):
-    return ((d[:, 0] > 0).int() * 4 + (d[:, 1] > 0).int() * 2
-            + (d[:, 2] > 0).int())
-
-
-def _morton(q, bits: int):
-    """Interleave the low `bits` bits of q [n, 3] int32, x lowest."""
-    m = torch.zeros_like(q[:, 0])
-    for b in range(bits):
-        for ax in range(3):
-            m = m | (((q[:, ax] >> b) & 1) << (3 * b + ax))
-    return m
-
-
-def _quantize(x, cells: int):
-    """Truncate x [n, 3] to a cell index in [0, cells - 1]."""
-    return torch.clamp(x, 0.0, cells - 1.0).int()
-
-
 def _sort_key(wt, o, d, tfar=None):
     """Morton coherence key as a (major, minor) int32 pair: major = direction
     octant | 5-bit/axis origin morton, minor = 5-bit/axis |d| morton. With
@@ -343,34 +327,12 @@ def _incidence_key(wt, o, d, tnear, tfar):
     """Incidence coherence key as a (major, minor) int32 pair: a slab pass
     gives each ray its overlapped real clusters; major = direction octant |
     6-bit/axis morton of the centroid of their centres, minor = their count
-    (capped at 63). Rays are chunked so the [chunk, C] slab stays near
-    64 MB."""
-    c = int(wt.n_real)
-    lo, hi = wt.lo[:, :c], wt.hi[:, :c]
-    ctr = 0.5 * (lo + hi)                                # [3, C]
-    wlo = lo.amin(dim=1)
-    span = torch.clamp(hi.amax(dim=1) - wlo, min=1e-9)
-    n = o.shape[0]
-    chunk = max(512, min(65536, (1 << 26) // max(4 * c, 1)))
-    cms, cnts = [], []
-    for s in range(0, n, chunk):
-        o_c, tn_c, tf_c = o[s:s + chunk], tnear[s:s + chunk], tfar[s:s + chunk]
-        inv = _slab_inv(d[s:s + chunk])
-        tmin = tmax = None
-        for ax in range(3):
-            t0 = (lo[ax] - o_c[:, ax:ax + 1]) * inv[:, ax:ax + 1]
-            t1 = (hi[ax] - o_c[:, ax:ax + 1]) * inv[:, ax:ax + 1]
-            lo_t, hi_t = torch.minimum(t0, t1), torch.maximum(t0, t1)
-            tmin = lo_t if tmin is None else torch.maximum(tmin, lo_t)
-            tmax = hi_t if tmax is None else torch.minimum(tmax, hi_t)
-        ov = ((tmax >= torch.maximum(tmin, torch.clamp(tn_c, min=0.0)[:, None]))
-              & (tmin <= tf_c[:, None]) & (tf_c > 0.0)[:, None])
-        ovf = ov.float()
-        cnt = ovf.sum(dim=1)
-        cen = (ovf @ ctr.T) / torch.clamp(cnt, min=1.0)[:, None]
-        cms.append(_morton(_quantize((cen - wlo) / span * 64.0, 64), 6))
-        cnts.append(torch.clamp(cnt, max=63.0).int())
-    return (_octant(d) << 18) | torch.cat(cms), torch.cat(cnts)
+    (capped at 63). One CUDA kernel on the card, its plain version on the
+    CPU (ops/coherence_key.py:incidence_key). Kept under this name for the
+    labs (tools/perf/sortkey_lab.py, grouping_lab.py), which call it
+    directly, and for chip_smoke.py, which wraps it to capture a
+    wavefront."""
+    return incidence_key(wt, o, d, tnear, tfar)
 
 
 # ----------------------------------------------------------------- the walk
@@ -411,8 +373,10 @@ def _prepare(wt, o, d, tnear, tfar, sort_rays: bool = True,
                 spread = bool(_origin_spread(o_safe, tfar) > 1e-5
                               * torch.amax(wt.world_hi - wt.world_lo))
         if spread:
+            count("walk.key.incidence")
             kmaj, kmin = _incidence_key(wt, o_safe, d_safe, tnear, tfar)
         else:
+            count("walk.key.morton")
             kmaj, kmin = _sort_key(wt, o_safe, d_safe,
                                    tfar if compact_inert else None)
         key = (kmaj.long() << 32) | kmin.long()
